@@ -1,0 +1,72 @@
+"""float32 arithmetic that rounds where the reference rounds.
+
+XLA compiles the JAX package's fused elementwise code with fused
+multiply-add contraction: ``a*b + c`` is rounded once, not twice.  PyTorch
+rounds after each operation.  The helpers here compute the product and
+the sum in float64 and round once to float32.  The product of two float32
+values is exact in float64, so the result is the correctly rounded fused
+multiply-add except when the float64 sum lands exactly on a float32 tie
+(about one operation in 2**29).
+
+A sum of products ``p0 + p1 + ... `` is contracted by XLA with the LEFT
+product of the first addition fused: ``fma(a0, b0, a1*b1)``, then
+``fma(ai, bi, acc)`` for each further term.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+Operand = Union[torch.Tensor, float]
+
+
+def f32(value: float) -> float:
+    """A Python float rounded to the nearest float32 (a weak-typed constant)."""
+    return float(np.float32(value))
+
+
+def log10(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.log10``: the natural log times float32(1/ln 10)."""
+    return torch.log(x) * f32(1.0 / np.log(10.0))
+
+
+def _wide(x: Operand):
+    return x.double() if isinstance(x, torch.Tensor) else float(x)
+
+
+def fma(a: Operand, b: Operand, c: Operand) -> torch.Tensor:
+    """``a*b + c`` rounded once to float32."""
+    out = _wide(a) * _wide(b) + _wide(c)
+    return out.float()
+
+
+def sum_of_products(pairs: Sequence[Tuple[Operand, Operand]]) -> torch.Tensor:
+    """``a0*b0 + a1*b1 + ...`` with XLA's contraction order."""
+    (a0, b0), rest = pairs[0], pairs[1:]
+    if not rest:
+        return a0 * b0
+    (a1, b1), rest = rest[0], rest[1:]
+    acc = fma(a0, b0, a1 * b1)
+    for a, b in rest:
+        acc = fma(a, b, acc)
+    return acc
+
+
+def reduce_sum_of_squares(diff: torch.Tensor) -> torch.Tensor:
+    """``sum(diff * diff, axis=-1)`` as XLA's reduction loop rounds it: the
+    accumulator starts at ``x0*x0`` and takes ``fma(xk, xk, acc)``."""
+    acc = diff[..., 0] * diff[..., 0]
+    for k in range(1, diff.shape[-1]):
+        acc = fma(diff[..., k], diff[..., k], acc)
+    return acc
+
+
+def row_sum_of_squares(x: torch.Tensor) -> torch.Tensor:
+    """``sum(x * x, axis=-1)`` over a short minor axis of a 2-D array as XLA
+    rounds it there: every square rounded, then added left to right."""
+    acc = x[..., 0] * x[..., 0]
+    for k in range(1, x.shape[-1]):
+        acc = acc + x[..., k] * x[..., k]
+    return acc

@@ -1,0 +1,55 @@
+"""Gradients and Hessian stencils with physical spacing.
+
+Port of ``nellie_tpu/kernels/hessian.py``: ``np.gradient`` semantics
+(central differences inside, one-sided at the edges) divided by the voxel
+spacing, giving the unique Hessian components and the Frobenius norm
+normalised by the largest absolute component.
+"""
+from __future__ import annotations
+
+from typing import Dict, Sequence, Tuple
+
+import torch
+
+from nellie_tpu_torch.kernels._fp import f32, sum_of_products
+
+
+def gradient(f: torch.Tensor, spacing: float, axis: int) -> torch.Tensor:
+    n = f.shape[axis]
+    if n < 2:
+        return torch.zeros_like(f)
+    inv = 1.0 / float(spacing)
+    interior = (f.narrow(axis, 2, n - 2) - f.narrow(axis, 0, n - 2)) * f32(0.5 * inv)
+    first = (f.narrow(axis, 1, 1) - f.narrow(axis, 0, 1)) * f32(inv)
+    last = (f.narrow(axis, n - 1, 1) - f.narrow(axis, n - 2, 1)) * f32(inv)
+    return torch.cat([first, interior, last], dim=axis)
+
+
+def hessian_components(
+    image: torch.Tensor, spacing: Sequence[float]
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Unique second derivatives (3D: hxx, hxy, hxz, hyy, hyz, hzz with
+    axis 0 = 'x') and the Frobenius norm over the largest |component|."""
+    if image.ndim != 3:
+        raise ValueError(f"the port supports 3D frames, got {image.ndim}D")
+    spacing = tuple(float(s) for s in spacing)
+    g0 = gradient(image, spacing[0], 0)
+    g1 = gradient(image, spacing[1], 1)
+    g2 = gradient(image, spacing[2], 2)
+    h = {
+        "hxx": gradient(g0, spacing[0], 0),
+        "hxy": gradient(g0, spacing[1], 1),
+        "hxz": gradient(g0, spacing[2], 2),
+        "hyy": gradient(g1, spacing[1], 1),
+        "hyz": gradient(g1, spacing[2], 2),
+        "hzz": gradient(g2, spacing[2], 2),
+    }
+    off = sum_of_products([(h["hxy"], h["hxy"]), (h["hxz"], h["hxz"]), (h["hyz"], h["hyz"])])
+    diag = sum_of_products([(h["hxx"], h["hxx"]), (h["hyy"], h["hyy"]), (h["hzz"], h["hzz"])])
+    frob_sq = diag + 2.0 * off
+
+    max_abs = torch.zeros((), dtype=image.dtype, device=image.device)
+    for comp in h.values():
+        max_abs = torch.maximum(max_abs, comp.abs().max())
+    max_abs = torch.where(max_abs > 0, max_abs, torch.ones_like(max_abs))
+    return h, torch.sqrt(frob_sq) / max_abs

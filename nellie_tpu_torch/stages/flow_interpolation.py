@@ -1,0 +1,115 @@
+"""Flow vector interpolation (forward/backward) at arbitrary coordinates.
+
+Port of ``nellie_tpu/stages/flow_interpolation.py``: ``_interp_tile_body``
+and ``_interp_all_kernel`` (``:29-77``) and ``FlowInterpolator``.  Each
+query is scored against every flow vector of its frame inside the radius:
+
+  w = (−cost) · (1/dist)          (indicator(dist==0) if any zero dist)
+  w := w − min(w) + 1; w /= Σw    (shift-normalise over the radius set)
+  v = Σ w · vec                   (NaN where the radius set is empty)
+
+Not ported: the module-level track functions used by the GUI
+(``interpolate_all_forward``/``interpolate_all_backward``).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from nellie_tpu_torch.io import ImInfo
+from nellie_tpu_torch.device import resolve_device
+from nellie_tpu_torch.kernels._fp import reduce_sum_of_squares
+
+_INTERP_TILE = 8192
+
+
+def _interp_tile_body(query_scaled, flow_scaled, vectors, costs, max_distance):
+    """(Q, d) interpolated vectors, NaN rows where no flow vector lies
+    within ``max_distance``."""
+    diff = query_scaled[:, None, :] - flow_scaled[None, :, :]
+    dist = torch.sqrt(reduce_sum_of_squares(diff))
+    mask = dist <= max_distance
+    cost_w = -costs[None, :]
+    zero = dist == 0
+    has_zero = (mask & zero).any(dim=1, keepdim=True)
+    pos = dist > 0
+    inv = torch.where(pos, 1.0 / torch.where(pos, dist, torch.ones_like(dist)),
+                      torch.zeros_like(dist))
+    w = cost_w * torch.where(has_zero, zero.float(), inv)
+    w_min = torch.where(mask, w, torch.full_like(w, float("inf"))).amin(dim=1, keepdim=True)
+    w = torch.where(mask, w - w_min + 1.0, torch.zeros_like(w))
+    w_sum = w.sum(dim=1, keepdim=True)
+    any_nb = mask.any(dim=1, keepdim=True)
+    w = w / torch.where(w_sum > 0, w_sum, torch.ones_like(w_sum))
+    out = w @ vectors
+    return torch.where(any_nb, out, torch.full_like(out, float("nan")))
+
+
+def _interp_all_kernel(query_scaled, flow_scaled, vectors, costs, max_distance):
+    """All queries, one tile of ``_INTERP_TILE`` rows at a time."""
+    return torch.cat([
+        _interp_tile_body(query_scaled[s:s + _INTERP_TILE], flow_scaled, vectors,
+                          costs, max_distance)
+        for s in range(0, query_scaled.shape[0], _INTERP_TILE)
+    ], dim=0)
+
+
+class FlowInterpolator:
+    """Inverse-distance + cost weighted flow interpolation, fwd or bwd."""
+
+    def __init__(self, im_info: ImInfo, num_t=None, max_distance_um=0.5, forward=True,
+                 device="cuda"):
+        self.im_info = im_info
+        self.device = resolve_device(device)
+        if im_info.no_t:
+            return
+        self.num_t = num_t
+        if num_t is None:
+            self.num_t = im_info.shape[im_info.axes.index("T")]
+        res = im_info.dim_res
+        self.scaling = (res["Z"], res["Y"], res["X"])
+        self.max_distance_um = max(max_distance_um * (res["T"] or 1.0), 0.5)
+        self.forward = forward
+        self.flow_vector_array = np.load(im_info.pipeline_paths["flow_vector_array"])
+        self.current_t = None
+
+    def _select_rows(self, t):
+        """Flow rows and their anchors for timepoint t (fwd: origins; bwd:
+        origins + vectors)."""
+        d = 3
+        if self.forward:
+            rows = self.flow_vector_array[self.flow_vector_array[:, 0] == t]
+            coords = rows[:, 1:1 + d]
+        else:
+            rows = self.flow_vector_array[self.flow_vector_array[:, 0] == t - 1]
+            coords = rows[:, 1:1 + d] + rows[:, 1 + d:1 + 2 * d]
+        self.check_rows = rows
+        self.check_coords = coords
+        self.current_t = t
+
+    def interpolate_coord(self, coords, t):
+        """Interpolated flow vectors (voxel units, float32 numpy) at
+        ``coords``; NaN rows where no flow vector is within the radius."""
+        coords = np.asarray(coords, float)
+        if coords.size == 0:
+            return np.zeros((0, coords.shape[1] if coords.ndim == 2 else 0))
+        if self.current_t != t:
+            self._select_rows(t)
+        if self.check_coords.shape[0] == 0:
+            return np.full(coords.shape, np.nan)
+        d = coords.shape[1]
+        scaling = np.asarray(self.scaling, float)
+        dev = self.device
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+        finite = ~np.isnan(coords).any(axis=1)
+        query = np.where(finite[:, None], coords * scaling, 0.0)
+        res = _interp_all_kernel(
+            put(query), put(self.check_coords * scaling),
+            put(self.check_rows[:, 1 + d:1 + 2 * d]), put(self.check_rows[:, -1]),
+            float(np.float32(self.max_distance_um)))
+        res = res.cpu().numpy()
+        res[~finite] = np.nan
+        return res
