@@ -9,20 +9,26 @@ Phases, each printing its own lines; any failure exits non-zero:
 3. checks the kernel against its plain PyTorch version on the card (ragged
    shapes, exact ties on a grid, 150,000 voxels each way) and times both;
 4. drives ``nellie_tpu_torch.pipeline.run.run`` on a 3x64x256x256 uint16
-   confocal-like time series (Filter -> ... -> VoxelReassigner), prints each
-   stage's seconds and the output counts, and checks that the main path
-   launched the kernel; then checks and times the kernel again at the
-   shapes the main path gave it;
+   confocal-like time series (Filter -> ... -> VoxelReassigner ->
+   Hierarchy), prints each stage's seconds, the Hierarchy's host share,
+   the rows of every feature CSV, the peak device memory and the kernel's
+   launches by stage, and checks the outputs and that both the reassigner
+   and the Hierarchy launched the kernel; then checks and times the
+   kernel again at the shapes each of them gave it;
 5. runs the same pipeline on a small input on the card and on the CPU and
-   holds the two against each other.
+   holds the two against each other, the feature CSVs and the adjacency
+   pickle included.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits non-zero before printing any result.  It imports no JAX.
 """
 from __future__ import annotations
 
+import csv
 import json
+import math
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -36,6 +42,12 @@ MAIN_SHAPE = (3, 64, 256, 256)
 DIM_RES = {"X": 0.2, "Y": 0.2, "Z": 0.5, "T": 2.0}
 SMALL_SHAPE = (3, 12, 48, 48)
 NN_MAIN_ROWS = 150_000
+FEATURE_RTOL = FEATURE_ATOL = 1e-4  # the reference's features bar
+REL_COLUMNS = ("rel_linear_vel", "rel_angular_vel", "rel_linear_acc", "rel_angular_acc",
+               "rel_directionality")
+HIERARCHY_INPUTS = ("im_preprocessed", "im_instance_label", "im_skel", "im_pixel_class",
+                    "im_skel_relabelled", "im_distance", "im_border",
+                    "im_branch_label_reassigned", "im_obj_label_reassigned", "flow_vector_array")
 TIE_REL = 1e-6   # an index may differ only where the two candidates' float64
                  # squared distances differ by <= TIE_REL * (|q|^2 + |r|^2)
 
@@ -137,21 +149,37 @@ def phase_kernel(nn, gpu):
     return max_abs
 
 
-def phase_kernel_main_shapes(nn, gpu, im_info):
-    """The kernel at the shapes the main path gave it: the voxels of frame
-    0's objects (in microns) against those of frame 1, as the reassigner
-    matches them.  Returns (max |d2 error|, kernel ms, plain ms)."""
-    labels = artifact(im_info, "im_instance_label")
-    branches = artifact(im_info, "im_skel_relabelled")
-    scale = torch.tensor([DIM_RES["Z"], DIM_RES["Y"], DIM_RES["X"]], device="cuda")
-    q, r = [torch.from_numpy(np.argwhere((labels[t] > 0) | (branches[t] > 0)).astype(np.float32))
-            .to("cuda") * scale for t in (0, 1)]
-    max_abs = check_case("main-path frames 0->1", q, r, nn)
+def time_kernel_at(nn, gpu, name, q, r):
+    """Check and time the kernel against its plain version on (q, r).
+    Returns (max |d2 error|, kernel ms, plain ms)."""
+    max_abs = check_case(name, q, r, nn)
     ms = time_ms(lambda: nn.NN_KERNEL(q, r), 10)
     plain_ms = time_ms(lambda: nn.nn_argmin_plain(q, r), 5)
-    print(f"nn time at the main path's {q.shape[0]}x{r.shape[0]}x3: kernel {ms:.3f} ms, "
+    print(f"nn time at {name} {q.shape[0]}x{r.shape[0]}x3: kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms [{gpu}]", flush=True)
     return max_abs, ms, plain_ms
+
+
+def phase_kernel_main_shapes(nn, gpu, im_info):
+    """The kernel at the shapes the main path gave it.  The reassigner
+    matches the voxels of frame 0's objects (in microns) against those of
+    frame 1; the Hierarchy measures the border distance of frame 0's
+    skeleton and node voxels against its border voxels."""
+    labels = artifact(im_info, "im_instance_label")
+    branches = artifact(im_info, "im_skel_relabelled")
+    skel = artifact(im_info, "im_skel")
+    pixel_class = artifact(im_info, "im_pixel_class")
+    border = artifact(im_info, "im_border")
+    scale = torch.tensor([DIM_RES["Z"], DIM_RES["Y"], DIM_RES["X"]], device="cuda")
+
+    def microns(mask):
+        return torch.from_numpy(np.argwhere(mask).astype(np.float32)).to("cuda") * scale
+
+    reassign = time_kernel_at(nn, gpu, "the reassigner's frames 0->1",
+                              *[microns((labels[t] > 0) | (branches[t] > 0)) for t in (0, 1)])
+    hierarchy = time_kernel_at(nn, gpu, "the Hierarchy's frame 0 border",
+                               microns((skel[0] > 0) | (pixel_class[0] > 0)), microns(border[0] > 0))
+    return reassign, hierarchy
 
 
 # ---------------------------------------------------------------------------
@@ -195,35 +223,147 @@ def artifact(im_info, name):
     return np.array(im_info.get_memmap(path, read_mode="r"))
 
 
+class StageWatch:
+    """Counts the kernel's launches in each watched stage's ``run`` and
+    keeps the stage objects, for the duration of a ``with`` block."""
+
+    def __init__(self, nn, classes):
+        self.nn = nn
+        self.classes = classes
+        self.launches = {}
+        self.stages = {}
+        self._saved = {}
+
+    def __enter__(self):
+        for cls in self.classes:
+            original = cls.run
+            self._saved[cls] = original
+
+            def watched(stage, _original=original, _name=cls.__name__):
+                before = self.nn.NN_KERNEL.launches
+                try:
+                    return _original(stage)
+                finally:
+                    self.launches[_name] = self.nn.NN_KERNEL.launches - before
+                    self.stages[_name] = stage
+
+            cls.run = watched
+        return self
+
+    def __exit__(self, *exc):
+        for cls, original in self._saved.items():
+            cls.run = original
+
+
+def expected_headers(skip_nodes):
+    """The feature CSVs' columns, in the reference's order."""
+    from nellie_tpu_torch.kernels.segstats import STAT_KEYS
+    from nellie_tpu_torch.stages import hierarchical as h
+
+    def agg(names):
+        return [f"{n}_{k}" for n in names for k in STAT_KEYS]
+
+    def raw(names):
+        return [f"{n}_raw" for n in names]
+
+    xyz = ["x_raw", "y_raw", "z_raw"]
+    nodes = [] if skip_nodes else agg(h.NODE_STATS)
+    heads = {
+        "voxels": raw(h.VOXEL_STATS) + xyz,
+        "branches": nodes + agg(h.VOXEL_STATS) + raw(h.BRANCH_STATS)
+        + ["reassigned_label_raw"] + xyz,
+        "organelles": nodes + agg(h.VOXEL_STATS) + agg(h.BRANCH_STATS)
+        + raw(h.ORGANELLE_STATS) + ["reassigned_label_raw"] + xyz,
+        "image": nodes + agg(h.VOXEL_STATS) + agg(h.BRANCH_STATS) + agg(h.ORGANELLE_STATS),
+    }
+    if not skip_nodes:
+        heads["nodes"] = agg(h.VOXEL_STATS) + raw(h.NODE_STATS) + xyz
+    return {k: ["t", "label"] + v for k, v in heads.items()}
+
+
+def read_table(path):
+    """(header, rows as lists of strings) of a feature CSV."""
+    if not os.path.exists(path):
+        fail(f"{path} was not written")
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    if not rows:
+        fail(f"{path} is empty")
+    return rows[0], rows[1:]
+
+
+def check_tables(im_info, skip_nodes):
+    """Every feature CSV exists with the reference's header; returns the
+    rows of each."""
+    tables = {}
+    for name, header in expected_headers(skip_nodes).items():
+        got, rows = read_table(im_info.pipeline_paths[f"features_{name}"])
+        if got != header:
+            fail(f"features_{name}: header {got[:4]}... ({len(got)} columns) is not the "
+                 f"reference's ({len(header)} columns)")
+        tables[name] = rows
+    return tables
+
+
 def phase_main_path(nn, gpu, root):
     from nellie_tpu_torch.pipeline.run import run
+    from nellie_tpu_torch.stages.hierarchical import Hierarchy
+    from nellie_tpu_torch.stages.voxel_reassignment import VoxelReassigner
 
     fi = write_series(os.path.join(root, "main"), MAIN_SHAPE)
+    torch.cuda.reset_peak_memory_stats()
     nn.NN_KERNEL.launches = 0
-    im_info, timings = run(fi, device="cuda", return_timings=True)
+    with StageWatch(nn, (VoxelReassigner, Hierarchy)) as watch:
+        im_info, timings = run(fi, device="cuda", return_timings=True)
     launches = nn.NN_KERNEL.launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     for stage, seconds in timings.items():
         print(f"stage {stage}: {seconds:.3f} s [{gpu}]", flush=True)
+    host = watch.stages["Hierarchy"].host_seconds
+    print(f"hierarchy: {timings['hierarchy']:.3f} s, of which CSV formatting and writing "
+          f"{host['csv']:.3f} s on the writer thread (waited for at the end: {host['drain']:.3f} s), "
+          f"region morphology {host['regionprops']:.3f} s on the host [{gpu}]", flush=True)
+    print(f"peak device memory: {peak_gib:.3f} GiB [{gpu}]", flush=True)
     labels = artifact(im_info, "im_instance_label")
     flow = artifact(im_info, "flow_vector_array")
     reassigned = artifact(im_info, "im_obj_label_reassigned")
     matches = artifact(im_info, "voxel_matches")
     pre = artifact(im_info, "im_preprocessed")
+    pixel_class = artifact(im_info, "im_pixel_class")
     fg = [int((labels[t] > 0).sum()) for t in range(labels.shape[0])]
     n_matches = sum(len(m[1]) for m in matches)
     print(f"main path: foreground voxels per frame {fg}, objects per frame "
           f"{[int(labels[t].max()) for t in range(labels.shape[0])]}, flow rows {len(flow)}, "
           f"reassigned voxels {int((reassigned[1:] > 0).sum())}, voxel matches {n_matches}, "
-          f"nn launches {launches}", flush=True)
+          f"nn launches {launches} (reassigner {watch.launches['VoxelReassigner']}, "
+          f"hierarchy {watch.launches['Hierarchy']})", flush=True)
     if not np.isfinite(pre).all() or pre.shape != MAIN_SHAPE:
         fail("im_preprocessed is not finite or has the wrong shape")
     if min(fg) == 0:
         fail("a frame came out with no labels")
     if len(flow) == 0 or n_matches == 0:
         fail("no flow rows or no voxel matches")
-    if launches == 0:
-        fail("the main path never launched the nn kernel")
-    return launches, im_info
+    if watch.launches["VoxelReassigner"] == 0 or watch.launches["Hierarchy"] == 0:
+        fail("the reassigner or the Hierarchy never launched the nn kernel")
+
+    tables = check_tables(im_info, skip_nodes=False)
+    print("feature rows: " + ", ".join(f"{k} {len(v)}" for k, v in tables.items()), flush=True)
+    if len(tables["voxels"]) != sum(fg):
+        fail(f"features_voxels has {len(tables['voxels'])} rows for {sum(fg)} foreground voxels")
+    if len(tables["nodes"]) != int((pixel_class > 0).sum()):
+        fail("features_nodes does not have one row per skeleton voxel")
+    if len(tables["image"]) != MAIN_SHAPE[0] or min(len(v) for v in tables.values()) == 0:
+        fail("a feature table has no rows, or the image table not one row per frame")
+    for name, rows in tables.items():
+        coords = [float(r[i]) for r in rows for i in (-3, -2, -1) if name != "image" and r[i]]
+        if not all(math.isfinite(c) for c in coords):
+            fail(f"features_{name} has non-finite coordinates")
+    with open(im_info.pipeline_paths["adjacency_maps"], "rb") as f:
+        adjacency = pickle.load(f)
+    if sorted(adjacency) != ["b_o", "n_b", "n_o", "v_b", "v_n", "v_o"] or any(
+            len(v) != MAIN_SHAPE[0] for v in adjacency.values()):
+        fail("adjacency_maps.pkl lacks a key or a frame")
+    return launches, watch.launches, im_info
 
 
 # ---------------------------------------------------------------------------
@@ -278,7 +418,67 @@ def phase_small_parity(root):
     if fa.shape != fb.shape or fa.shape[0] == 0:
         fail(f"flow_vector_array shapes differ or are empty: {fa.shape} vs {fb.shape}")
     worst["flow_vector_array"] = float(np.abs(fa - fb).max())
+
+    # the whole runs' feature tables, all but the branch-relative columns:
+    # a branch's reference voxel (its member of minimum |flow|) is a tie
+    # broken by single ulps on fields of equal unit steps, so it may move
+    # with the flow costs' last-bit differences above
+    want = check_tables(infos["cpu"], skip_nodes=False)
+    got = check_tables(infos["cuda"], skip_nodes=False)
+    worst["features, whole runs (rel_* aside)"] = compare_tables(
+        got, want, expected_headers(False), skip=REL_COLUMNS)
+
+    # the Hierarchy alone on the CPU run's artifacts: every column, and the
+    # adjacency edges exactly
+    from nellie_tpu_torch.io import ImInfo
+    from nellie_tpu_torch.stages.hierarchical import Hierarchy
+
+    d = os.path.join(root, "small_hierarchy")
+    os.makedirs(d)
+    path = os.path.join(d, "small.ome.tif")
+    shutil.copyfile(infos["cpu"].im_path, path)
+    fi = FileInfo(path)
+    fi.find_metadata()
+    fi.load_metadata()
+    alone = ImInfo(fi)
+    for name in HIERARCHY_INPUTS:
+        shutil.copyfile(infos["cpu"].pipeline_paths[name], alone.pipeline_paths[name])
+    Hierarchy(alone, skip_nodes=False, device="cuda").run()
+    worst["features, Hierarchy on the same artifacts"] = compare_tables(
+        check_tables(alone, skip_nodes=False), want, expected_headers(False), skip=())
+    with open(alone.pipeline_paths["adjacency_maps"], "rb") as f:
+        adj_card = pickle.load(f)
+    with open(infos["cpu"].pipeline_paths["adjacency_maps"], "rb") as f:
+        adj_cpu = pickle.load(f)
+    if list(adj_card) != list(adj_cpu) or any(
+            len(adj_card[k]) != len(adj_cpu[k])
+            or not all(np.array_equal(a, b) for a, b in zip(adj_card[k], adj_cpu[k]))
+            for k in adj_cpu):
+        fail("adjacency_maps.pkl differs between card and CPU")
+    worst["adjacency edges"] = sum(len(a) for v in adj_cpu.values() for a in v)
     print(f"small input {SMALL_SHAPE}, card vs CPU: {json.dumps(worst)}", flush=True)
+
+
+def compare_tables(got, want, headers, skip):
+    """Largest |card - CPU| / (1e-4 + 1e-4 |CPU|) over the feature tables
+    (fails above 1, or on another row count or NaN pattern); columns whose
+    names start with ``skip`` are left out."""
+    worst = 0.0
+    for name, header in headers.items():
+        if len(got[name]) != len(want[name]):
+            fail(f"features_{name}: {len(got[name])} rows on the card, {len(want[name])} on the CPU")
+        cols = [i for i, c in enumerate(header) if not c.startswith(skip)]
+        for row_g, row_w in zip(got[name], want[name]):
+            for i in cols:
+                a, b = row_g[i], row_w[i]
+                if (a == "") != (b == ""):
+                    fail(f"features_{name} {header[i]}: NaN on one side only ({a!r} vs {b!r})")
+                if a:
+                    ratio = abs(float(a) - float(b)) / (FEATURE_ATOL + FEATURE_RTOL * abs(float(b)))
+                    worst = max(worst, ratio)
+                    if ratio > 1:
+                        fail(f"features_{name} {header[i]}: card {a} vs CPU {b}")
+    return worst
 
 
 def main() -> None:
@@ -301,9 +501,9 @@ def main() -> None:
     max_abs = phase_kernel(nn, gpu)
     root = tempfile.mkdtemp(prefix="nellie_port_smoke_")
     try:
-        launches, im_info = phase_main_path(nn, gpu, root)
-        err, ms, plain_ms = phase_kernel_main_shapes(nn, gpu, im_info)
-        max_abs = max(max_abs, err)
+        launches, by_stage, im_info = phase_main_path(nn, gpu, root)
+        (err_r, ms, plain_ms), (err_h, h_ms, h_plain_ms) = phase_kernel_main_shapes(nn, gpu, im_info)
+        max_abs = max(max_abs, err_r, err_h)
         phase_small_parity(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -312,8 +512,11 @@ def main() -> None:
         "name": "nn_argmin", "route": "cuda",
         "source": "nellie_tpu_torch/kernels/csrc/nn_argmin.cu",
         "replaces": "nellie_tpu/kernels/pallas_nn.py:34",
-        "launches": launches, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}]}),
-        flush=True)
+        "launches": launches, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+        "paths": {
+            "reassign": {"launches": by_stage["VoxelReassigner"], "ms": ms, "plain_ms": plain_ms},
+            "hierarchy": {"launches": by_stage["Hierarchy"], "ms": h_ms, "plain_ms": h_plain_ms},
+        }}]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

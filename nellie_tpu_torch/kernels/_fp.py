@@ -32,6 +32,13 @@ def log10(x: torch.Tensor) -> torch.Tensor:
     return torch.log(x) * f32(1.0 / np.log(10.0))
 
 
+def sqrt(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root, as XLA computes ``jnp.sqrt``
+    on the CPU; PyTorch's vectorised CPU ``sqrt`` is off by one ulp on
+    about one input in 150.  The float64 root rounds correctly to float32."""
+    return torch.sqrt(x.double()).float()
+
+
 def _wide(x: Operand):
     return x.double() if isinstance(x, torch.Tensor) else float(x)
 
@@ -69,4 +76,43 @@ def row_sum_of_squares(x: torch.Tensor) -> torch.Tensor:
     acc = x[..., 0] * x[..., 0]
     for k in range(1, x.shape[-1]):
         acc = acc + x[..., k] * x[..., k]
+    return acc
+
+
+def contract(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("...k,kp->...p", x, w)`` rounded as XLA's CPU dot rounds it:
+    four partial sums over k mod 4, each the first product followed by
+    fused multiply-adds in k order, combined as (s0 + s1) + (s2 + s3).
+    The four lanes run side by side; zero padding of k to a multiple of 4
+    leaves every lane's sum unchanged."""
+    k = x.shape[-1]
+    pad = -k % 4
+    x4 = torch.nn.functional.pad(x, (0, pad)).reshape(*x.shape[:-1], -1, 4)
+    w4 = torch.nn.functional.pad(w, (0, 0, 0, pad)).reshape(-1, 4, w.shape[-1])
+    acc = x4[..., 0, :, None] * w4[0]
+    for i in range(1, w4.shape[0]):
+        acc = fma(x4[..., i, :, None], w4[i], acc)
+    return (acc[..., 0, :] + acc[..., 1, :]) + (acc[..., 2, :] + acc[..., 3, :])
+
+
+_REDUCE_WINDOW = 32  # XLA's CPU tree-reduction window
+
+
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """``sum(x, axis=-1)`` as XLA's CPU code rounds a long reduction: it
+    sums windows of 32 consecutive elements left to right, then reduces
+    the window sums the same way until at most 32 remain, which it adds
+    left to right."""
+    m = x.shape[-1]
+    if m > _REDUCE_WINDOW:
+        n_win = -(-m // _REDUCE_WINDOW)
+        padded = torch.nn.functional.pad(x, (0, n_win * _REDUCE_WINDOW - m))
+        x = padded.reshape(*x.shape[:-1], n_win, _REDUCE_WINDOW)
+        acc = x[..., 0]
+        for k in range(1, _REDUCE_WINDOW):
+            acc = acc + x[..., k]
+        return tree_sum(acc)
+    acc = x[..., 0]
+    for k in range(1, m):
+        acc = acc + x[..., k]
     return acc

@@ -16,24 +16,7 @@ from math import comb
 
 import torch
 
-from nellie_tpu_torch.kernels._fp import fma, log10
-
-
-def _contract(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("...k,kp->...p", x, w)`` rounded as XLA's CPU dot rounds it:
-    four partial sums over k mod 4, each the first product followed by
-    fused multiply-adds in k order, combined as (s0 + s1) + (s2 + s3)."""
-    lanes = []
-    for j in range(4):
-        ks = range(j, x.shape[-1], 4)
-        if not ks:
-            lanes.append(torch.zeros(x.shape[:-1] + w.shape[1:], device=x.device))
-            continue
-        acc = x[..., j, None] * w[j]
-        for k in ks[1:]:
-            acc = fma(x[..., k, None], w[k], acc)
-        lanes.append(acc)
-    return (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+from nellie_tpu_torch.kernels._fp import contract, fma, log10
 
 
 def raw_moments(images: torch.Tensor, order: int = 3) -> torch.Tensor:
@@ -43,8 +26,8 @@ def raw_moments(images: torch.Tensor, order: int = 3) -> torch.Tensor:
     powers = torch.arange(k, dtype=torch.float32, device=images.device)
     row_pow = torch.arange(h, dtype=torch.float32, device=images.device)[:, None] ** powers[None, :]
     col_pow = torch.arange(w, dtype=torch.float32, device=images.device)[:, None] ** powers[None, :]
-    tmp = _contract(images, col_pow)                   # (N, H, K)
-    return _contract(tmp.transpose(1, 2), row_pow)     # (N, K, K)
+    tmp = contract(images, col_pow)                   # (N, H, K)
+    return contract(tmp.transpose(1, 2), row_pow)     # (N, K, K)
 
 
 _VOXEL_BLOCK = 4096  # voxels per block of widened terms in masked_mean_variance

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from nellie_tpu_torch.device import resolve_device
-from nellie_tpu_torch.kernels._fp import row_sum_of_squares
+from nellie_tpu_torch.kernels._fp import row_sum_of_squares, sqrt
 
 _CSRC = os.path.join(os.path.dirname(__file__), "csrc", "nn_argmin.cu")
 _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
@@ -173,5 +173,5 @@ def nearest_neighbors(queries: np.ndarray, refs: np.ndarray, m_chunk: int = 1 <<
         better = d2 < best_d
         best_d = torch.where(better, d2, best_d)
         best_i = torch.where(better, idx.long() + start, best_i)
-    dist = torch.sqrt(torch.clamp(best_d, min=0.0)).cpu().numpy()
+    dist = sqrt(torch.clamp(best_d, min=0.0)).cpu().numpy()
     return dist, best_i.cpu().numpy()

@@ -1,11 +1,10 @@
 """Main entry point of the port.
 
 ``run`` drives Filter -> Label -> Network -> Markers -> HuMomentTracking
--> VoxelReassigner through the on-disk artifact store, in the order of
-the JAX package's per-stage branch (``nellie_tpu/pipeline/run.py:202-228``),
-so artifacts have the reference's names, dtypes and OME metadata.
-Hierarchy (feature extraction) joins in the next slice of the port and will
-reuse the same nearest-neighbour kernel.
+-> VoxelReassigner -> Hierarchy through the on-disk artifact store, in the
+order of the JAX package's per-stage branch
+(``nellie_tpu/pipeline/run.py:202-229``), so artifacts, the feature CSVs
+and ``adjacency_maps.pkl`` have the reference's names, dtypes and layout.
 
 Not ported: the fused segmentation chain and its fallback
 (``run.py:184-201``), the compile warmer and the XLA compile cache, the
@@ -21,6 +20,7 @@ from nellie_tpu_torch.io import ImInfo
 from nellie_tpu.plugin import config as cfg_mod
 from nellie_tpu_torch.device import resolve_device
 from nellie_tpu_torch.stages.filtering import Filter
+from nellie_tpu_torch.stages.hierarchical import Hierarchy
 from nellie_tpu_torch.stages.hu_tracking import HuMomentTracking
 from nellie_tpu_torch.stages.labelling import Label
 from nellie_tpu_torch.stages.mocap_marking import Markers
@@ -45,13 +45,20 @@ def _port_kwargs(stage: str, params: dict) -> dict:
 def params_from_config(cfg) -> dict:
     """Per-stage constructor kwargs of the port from a
     :class:`nellie_tpu.plugin.config.SettingsConfig` (or its dict or JSON
-    path), plus the ``remove_edges`` and ``voxel_reassign`` toggles."""
+    path), plus the ``remove_edges``, ``voxel_reassign`` and
+    ``remove_intermediates`` toggles."""
     if isinstance(cfg, str):
         cfg = cfg_mod.SettingsConfig.load(cfg)
     elif isinstance(cfg, dict):
         cfg = cfg_mod.SettingsConfig.from_dict(cfg)
     f_kw = cfg_mod.preprocessing_params(cfg)
     f_kw["remove_edges"] = cfg.remove_edges
+    h_kw = _port_kwargs("Hierarchy", cfg_mod.feature_params(cfg))
+    h_kw.pop("use_gpu")
+    # feature_params names skip_nodes only when the config asks for node
+    # analysis; otherwise the Hierarchy's own default (True) applies, as in
+    # the JAX package's run()
+    h_kw.setdefault("skip_nodes", True)
     return {
         "filter": _port_kwargs("Filter", f_kw),
         "label": _port_kwargs("Label", cfg_mod.segmentation_label_params(cfg)),
@@ -59,13 +66,15 @@ def params_from_config(cfg) -> dict:
         "markers": _port_kwargs("Markers", cfg_mod.mocap_params(cfg)),
         "tracking": _port_kwargs("HuMomentTracking", cfg_mod.tracking_params(cfg)),
         "reassign": _port_kwargs("VoxelReassigner", cfg_mod.reassign_params(cfg)),
+        "hierarchy": h_kw,
         "voxel_reassign": cfg.voxel_reassign,
+        "remove_intermediates": cfg.remove_intermediates,
     }
 
 
 def run(file_info, remove_edges=False, otsu_thresh_intensity=False, threshold=None,
-        timeit=False, device="cuda", return_timings=False, config=None):
-    """Run the six ported stages on a prepared :class:`FileInfo`.
+        timeit=False, device="cuda", skip_nodes=False, return_timings=False, config=None):
+    """Run the seven stages on a prepared :class:`FileInfo`.
 
     ``device`` is ``"cuda"`` (raises without a GPU) or ``"cpu"``; nothing
     falls back from one to the other.  ``config``: a ``SettingsConfig``
@@ -82,7 +91,8 @@ def run(file_info, remove_edges=False, otsu_thresh_intensity=False, threshold=No
             "filter": {"remove_edges": remove_edges},
             "label": {"otsu_thresh_intensity": otsu_thresh_intensity, "threshold": threshold},
             "network": {}, "markers": {}, "tracking": {}, "reassign": {},
-            "voxel_reassign": True,
+            "hierarchy": {"skip_nodes": skip_nodes},
+            "voxel_reassign": True, "remove_intermediates": False,
         }
     timings = {}
 
@@ -102,6 +112,9 @@ def run(file_info, remove_edges=False, otsu_thresh_intensity=False, threshold=No
     timed("tracking", HuMomentTracking(im_info, device=dev, **kw["tracking"]))
     if kw["voxel_reassign"]:
         timed("reassign", VoxelReassigner(im_info, device=dev, **kw["reassign"]))
+    timed("hierarchy", Hierarchy(im_info, device=dev, **kw["hierarchy"]))
+    if kw["remove_intermediates"]:
+        im_info.remove_intermediates()
     timings["total"] = sum(timings.values())
     if timeit:
         for name, seconds in timings.items():

@@ -8,6 +8,9 @@ query is scored against every flow vector of its frame inside the radius:
   w := w − min(w) + 1; w /= Σw    (shift-normalise over the radius set)
   v = Σ w · vec                   (NaN where the radius set is empty)
 
+``interpolate_coord_dev`` leaves the vectors on the interpolator's device
+for the Hierarchy; ``interpolate_coord`` is its host copy.
+
 Not ported: the module-level track functions used by the GUI
 (``interpolate_all_forward``/``interpolate_all_backward``).
 """
@@ -18,16 +21,23 @@ import torch
 
 from nellie_tpu_torch.io import ImInfo
 from nellie_tpu_torch.device import resolve_device
-from nellie_tpu_torch.kernels._fp import reduce_sum_of_squares
+from nellie_tpu_torch.kernels._fp import contract, fma, reduce_sum_of_squares, sqrt, tree_sum
 
 _INTERP_TILE = 8192
 
 
 def _interp_tile_body(query_scaled, flow_scaled, vectors, costs, max_distance):
     """(Q, d) interpolated vectors, NaN rows where no flow vector lies
-    within ``max_distance``."""
+    within ``max_distance``.
+
+    Rounds as XLA rounds the reference on the CPU, so that the vectors
+    are equal bit for bit (the Hierarchy's branch reference voxel is an
+    argmin over their lengths): a correctly rounded square root, the
+    shift ``w - min(w)`` fused into the product that makes ``w``, the
+    weight sum in XLA's windowed order and the product with the vectors
+    in its four-lane order."""
     diff = query_scaled[:, None, :] - flow_scaled[None, :, :]
-    dist = torch.sqrt(reduce_sum_of_squares(diff))
+    dist = sqrt(reduce_sum_of_squares(diff))
     mask = dist <= max_distance
     cost_w = -costs[None, :]
     zero = dist == 0
@@ -35,13 +45,13 @@ def _interp_tile_body(query_scaled, flow_scaled, vectors, costs, max_distance):
     pos = dist > 0
     inv = torch.where(pos, 1.0 / torch.where(pos, dist, torch.ones_like(dist)),
                       torch.zeros_like(dist))
-    w = cost_w * torch.where(has_zero, zero.float(), inv)
-    w_min = torch.where(mask, w, torch.full_like(w, float("inf"))).amin(dim=1, keepdim=True)
-    w = torch.where(mask, w - w_min + 1.0, torch.zeros_like(w))
-    w_sum = w.sum(dim=1, keepdim=True)
+    dist_w = torch.where(has_zero, zero.float(), inv)
+    w_min = torch.where(mask, cost_w * dist_w, float("inf")).amin(dim=1, keepdim=True)
+    w = torch.where(mask, fma(cost_w, dist_w, -w_min) + 1.0, 0.0)
+    w_sum = tree_sum(w)[:, None]
     any_nb = mask.any(dim=1, keepdim=True)
     w = w / torch.where(w_sum > 0, w_sum, torch.ones_like(w_sum))
-    out = w @ vectors
+    out = contract(w, vectors)
     return torch.where(any_nb, out, torch.full_like(out, float("nan")))
 
 
@@ -87,16 +97,16 @@ class FlowInterpolator:
         self.check_coords = coords
         self.current_t = t
 
-    def interpolate_coord(self, coords, t):
-        """Interpolated flow vectors (voxel units, float32 numpy) at
-        ``coords``; NaN rows where no flow vector is within the radius."""
+    def interpolate_coord_dev(self, coords, t):
+        """Interpolated flow vectors at ``coords`` as an (n, d) float32
+        tensor on the interpolator's device (voxel units, NaN rows where
+        no flow vector is within the radius), or None when frame t has no
+        flow rows or there are no coordinates."""
         coords = np.asarray(coords, float)
-        if coords.size == 0:
-            return np.zeros((0, coords.shape[1] if coords.ndim == 2 else 0))
         if self.current_t != t:
             self._select_rows(t)
-        if self.check_coords.shape[0] == 0:
-            return np.full(coords.shape, np.nan)
+        if coords.size == 0 or self.check_coords.shape[0] == 0:
+            return None
         d = coords.shape[1]
         scaling = np.asarray(self.scaling, float)
         dev = self.device
@@ -110,6 +120,15 @@ class FlowInterpolator:
             put(query), put(self.check_coords * scaling),
             put(self.check_rows[:, 1 + d:1 + 2 * d]), put(self.check_rows[:, -1]),
             float(np.float32(self.max_distance_um)))
-        res = res.cpu().numpy()
-        res[~finite] = np.nan
-        return res
+        return torch.where(torch.from_numpy(finite).to(dev)[:, None], res, float("nan"))
+
+    def interpolate_coord(self, coords, t):
+        """Interpolated flow vectors (voxel units, float32 numpy) at
+        ``coords``; NaN rows where no flow vector is within the radius."""
+        coords = np.asarray(coords, float)
+        if coords.size == 0:
+            return np.zeros((0, coords.shape[1] if coords.ndim == 2 else 0))
+        res = self.interpolate_coord_dev(coords, t)
+        if res is None:
+            return np.full(coords.shape, np.nan)
+        return res.cpu().numpy()

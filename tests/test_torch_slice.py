@@ -1,11 +1,12 @@
-"""The whole ported slice (Filter -> VoxelReassigner) against the JAX package.
+"""The whole port (Filter -> Hierarchy) against the JAX package.
 
 The port's ``run(..., device="cpu")`` and the JAX stage classes, run one
 after the other, each on its own copy of the same input.  Every artifact
-of the six stages is held to the bars of the per-stage tests.  One
-exception is allowed and counted: reassigned-label voxels may differ on at
-most 0.1% of the foreground, where a float near-tie in the nearest
-neighbour or the vote falls the other way (none do on this input today).
+of the seven stages is held to the bars of the per-stage tests, the
+feature CSVs and ``adjacency_maps.pkl`` included.  One exception is
+allowed and counted: reassigned-label voxels may differ on at most 0.1% of
+the foreground, where a float near-tie in the nearest neighbour or the
+vote falls the other way (none do on this input today).
 """
 import dataclasses
 import os
@@ -21,6 +22,7 @@ from nellie_tpu.kernels import frangi as j_frangi
 from nellie_tpu.plugin.config import SettingsConfig
 from nellie_tpu.stages import mocap_marking as j_markers
 from nellie_tpu.stages.filtering import Filter as JFilter
+from nellie_tpu.stages.hierarchical import Hierarchy as JHierarchy
 from nellie_tpu.stages.hu_tracking import HuMomentTracking as JTracking
 from nellie_tpu.stages.labelling import Label as JLabel
 from nellie_tpu.stages.mocap_marking import Markers as JMarkers
@@ -29,7 +31,10 @@ from nellie_tpu.stages.voxel_reassignment import VoxelReassigner as JReassigner
 from nellie_tpu_torch.kernels import frangi
 from nellie_tpu_torch.pipeline.run import params_from_config, run
 from nellie_tpu_torch.stages import mocap_marking
+from nellie_tpu_torch.stages import hierarchical as hier
 from nellie_tpu_torch.stages.filtering import Filter
+from nellie_tpu_torch.stages.flow_interpolation import FlowInterpolator
+from nellie_tpu_torch.kernels._fp import reduce_sum_of_squares, sqrt
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEAR_TIE_SHARE = 1e-3  # reassigned-label voxels allowed to differ (share of foreground)
@@ -37,6 +42,9 @@ NEAR_TIE_SHARE = 1e-3  # reassigned-label voxels allowed to differ (share of for
 # last-bit differences of im_preprocessed (XLA's CPU exp, acos, cos and
 # sqrt are not PyTorch's); the largest difference on this input is 9.8e-5.
 FLOW_COST_ATOL = 1e-4
+REL_COLUMNS = ("rel_linear_vel", "rel_angular_vel", "rel_linear_acc", "rel_angular_acc",
+               "rel_directionality")
+NEAR_TIE_FLOW = 1e-5  # relative |flow| gap of two reference-voxel candidates
 
 
 @pytest.fixture(scope="module")
@@ -45,15 +53,86 @@ def slice_runs(tmp_path_factory):
     ref = D.open_im_info(D.write_input(tmp_path_factory.mktemp("jax"), data))
     for stage in (JFilter, JLabel, JNetwork, JMarkers, JTracking, JReassigner):
         stage(ref, device="cpu").run()
+    JHierarchy(ref, skip_nodes=False, device="cpu").run()
     fi = D.file_info(D.write_input(tmp_path_factory.mktemp("port"), data))
     port, timings = run(fi, device="cpu", return_timings=True)
     return ref, port, timings
 
 
 def test_slice_runs_all_six_stages(slice_runs):
+    """All seven stages run, in order, Hierarchy last."""
     _, _, timings = slice_runs
     assert list(timings) == ["filter", "label", "network", "markers", "tracking",
-                             "reassign", "total"]
+                             "reassign", "hierarchy", "total"]
+
+
+@pytest.fixture(scope="module")
+def near_tie_branches(slice_runs):
+    """{t: branch labels} whose reference voxel differs between the runs,
+    each checked to be a near-tie."""
+    ref, port, _ = slice_runs
+    labels, branches = D.read(ref, "im_instance_label"), D.read(ref, "im_skel_relabelled")
+    spacing = torch.tensor([D.DIM_RES["Z"], D.DIM_RES["Y"], D.DIM_RES["X"]])
+    flipped = {t: set() for t in range(labels.shape[0])}
+    for forward in (True, False):
+        interps = [FlowInterpolator(im_info, forward=forward, device="cpu") for im_info in (ref, port)]
+        for t in range(labels.shape[0]):
+            coords = np.argwhere(labels[t] > 0).astype(np.float32)
+            lbl = torch.from_numpy(branches[t][labels[t] > 0].astype(np.int64))
+            vecs = [interp.interpolate_coord_dev(coords, t) for interp in interps]
+            if vecs[0] is None:
+                continue
+            euc = [sqrt(reduce_sum_of_squares(v * spacing[None])) for v in vecs]
+            idx = [hier._segment_argmin(e, lbl, int(lbl.max()) + 1) for e in euc]
+            for b in torch.nonzero(idx[0] != idx[1]).flatten().tolist():
+                a, c = euc[1][idx[0][b]], euc[1][idx[1][b]]
+                assert abs(float(a - c)) <= NEAR_TIE_FLOW * float(c), (t, b, float(a), float(c))
+                flipped[t].add(b)
+    return flipped
+
+
+def _near_tie_rows(table, frame, flipped, labels, branches):
+    """Rows of ``frame`` (a features table) whose rel_* columns depend on a
+    near-tie branch's reference voxel."""
+    rows = np.zeros(len(frame), bool)
+    for t, found in flipped.items():
+        if not found:
+            continue
+        at_t = (frame["t"] == t).to_numpy()
+        fg = labels[t] > 0
+        if table == "voxels":
+            hit = np.isin(branches[t][fg], list(found))
+            rows[at_t] = hit[frame["label"].to_numpy()[at_t]]
+        elif table == "branches":
+            rows |= at_t & frame["label"].isin(found).to_numpy()
+        elif table == "organelles":
+            organelles = np.unique(labels[t][np.isin(branches[t], list(found)) & fg])
+            rows |= at_t & frame["label"].isin(organelles).to_numpy()
+        else:
+            rows |= at_t
+    return rows
+
+
+@pytest.mark.parametrize("table", D.FEATURE_TABLES)
+def test_slice_feature_tables(slice_runs, near_tie_branches, table):
+    ref, port, _ = slice_runs
+    path = f"features_{table}"
+    want = D.read_features(ref.pipeline_paths[path])
+    got = D.read_features(port.pipeline_paths[path])
+    assert len(want) > 0
+    rows = _near_tie_rows(table, want, near_tie_branches, D.read(ref, "im_instance_label"),
+                          D.read(ref, "im_skel_relabelled"))
+    assert len(got) == len(want)
+    D.assert_features_equal(want[~rows], got[~rows], table)
+    others = [c for c in want.columns if not c.startswith(REL_COLUMNS)]
+    D.assert_features_equal(want[rows][others], got[rows][others], table)
+
+
+def test_slice_adjacency(slice_runs):
+    ref, port, _ = slice_runs
+    want = D.read_adjacency(ref.pipeline_paths["adjacency_maps"])
+    assert len(want["v_n"]) == 3
+    D.assert_adjacency_equal(want, D.read_adjacency(port.pipeline_paths["adjacency_maps"]))
 
 
 @pytest.mark.parametrize("name", sorted(D.SEGMENTATION_ARTIFACTS))
@@ -91,20 +170,29 @@ def test_slice_voxel_matches(slice_runs):
 
 
 def test_port_imports_without_jax():
-    """The card's machine has no JAX: every submodule of the port, and
-    chip_smoke.py, import with ``jax`` blocked, and the plain NN runs."""
+    """The card's machine has no JAX, pandas or pyarrow: every submodule of
+    the port, and chip_smoke.py, import with them blocked, the plain NN
+    runs and the Hierarchy's writer writes a one-frame CSV."""
     code = (
-        "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
+        "import sys, pkgutil, importlib, tempfile, os\n"
+        "for name in ('jax', 'pandas', 'pyarrow'):\n"
+        "    sys.modules[name] = None\n"
         "import nellie_tpu_torch\n"
         "for m in pkgutil.walk_packages(nellie_tpu_torch.__path__, 'nellie_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "import torch\n"
+        "import numpy as np, torch\n"
         "from nellie_tpu_torch.kernels.nn import nn_argmin_plain\n"
+        "from nellie_tpu_torch.stages.hierarchical import _CsvStream, _AsyncWorker\n"
         "d2, idx = nn_argmin_plain(torch.rand(50, 3), torch.rand(70, 3))\n"
         "assert idx.shape == (50,)\n"
-        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v)\n"
+        "path = os.path.join(tempfile.mkdtemp(), 'features.csv')\n"
+        "worker, seconds = _AsyncWorker(), {'csv': 0.0}\n"
+        "_CsvStream(path, worker, seconds).write(0, np.arange(3), {'x_raw': np.array([0.5, np.nan, 2.0])})\n"
+        "worker.close()\n"
+        "assert open(path).read() == 't,label,x_raw\\n0,0,0.5\\n0,1,\\n0,2,2.0\\n'\n"
+        "blocked = ('jax', 'pandas', 'pyarrow')\n"
+        "assert not any(k.split('.')[0] in blocked for k, v in sys.modules.items() if v)\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -121,6 +209,7 @@ def test_cuda_request_without_cuda_raises(tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         run(fi, device="cuda")
     assert not list(tmp_path.rglob("*im_preprocessed*")), "a stage ran after all"
+    assert not list(tmp_path.rglob("*.csv")) and not list(tmp_path.rglob("*.pkl"))
 
 
 def test_params_round_trip_from_jax_dataclasses():
@@ -148,3 +237,38 @@ def test_params_from_config(tmp_path):
             SettingsConfig(preprocessing_carry_dtype="float16"))["filter"])
     with pytest.raises(NotImplementedError):
         params_from_config(SettingsConfig(segmentation_label_low_memory=True))
+
+
+def test_params_from_config_hierarchy(tmp_path):
+    kw = params_from_config(SettingsConfig(feature_max_node_mask_elems=1234))
+    assert kw["hierarchy"] == {"enable_motility": True, "enable_adjacency": True,
+                               "max_node_mask_elems": 1234, "skip_nodes": True}
+    assert kw["remove_intermediates"] is False
+    assert params_from_config(SettingsConfig(analyze_node_level=True))["hierarchy"]["skip_nodes"] is False
+    assert params_from_config(SettingsConfig(feature_skip_nodes=False,
+                                             feature_node_chunk_size=512))["hierarchy"] == {
+        "enable_motility": True, "enable_adjacency": True, "max_node_mask_elems": int(5e7),
+        "skip_nodes": False, "node_chunk_size": 512}
+    with pytest.raises(NotImplementedError):
+        params_from_config(SettingsConfig(feature_low_memory=True))
+    im_info = D.open_im_info(D.write_input(tmp_path, D.tube_series()))
+    hier.Hierarchy(im_info, device="cpu", **kw["hierarchy"])
+
+
+def test_run_default_and_config_toggles(tmp_path):
+    """``run()`` analyses nodes by default, as the JAX package's run()
+    does, and a config's ``remove_intermediates`` deletes every artifact
+    but the feature CSVs."""
+    data = D.tube_series(shape=(2, 10, 32, 32))
+    default = run(D.file_info(D.write_input(tmp_path / "default", data)), device="cpu")
+    assert os.path.exists(default.pipeline_paths["features_nodes"])
+    cfg = SettingsConfig(remove_intermediates=True, voxel_reassign=False)
+    im_info, timings = run(D.file_info(D.write_input(tmp_path / "cfg", data)), device="cpu",
+                           config=cfg, return_timings=True)
+    assert "reassign" not in timings and "hierarchy" in timings
+    pp = im_info.pipeline_paths
+    assert not os.path.exists(pp["features_nodes"])
+    for table in ("voxels", "branches", "organelles", "image"):
+        assert os.path.exists(pp[f"features_{table}"])
+    for name in ("im_preprocessed", "im_instance_label", "flow_vector_array", "adjacency_maps"):
+        assert not os.path.exists(pp[name]), name

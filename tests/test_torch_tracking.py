@@ -93,6 +93,22 @@ def test_flow_interpolator(reference, port, forward):
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
 
 
+def test_interpolate_coord_dev(reference, port):
+    """The device variant gives the host variant's vectors as a float32
+    tensor, and None for a frame without flow rows."""
+    D.copy_artifacts(reference, port, ["flow_vector_array"])
+    interp = FlowInterpolator(port, forward=True, device="cpu")
+    coords = np.argwhere(D.read(reference, "im_instance_label")[1] > 0).astype(float)[:300]
+    coords[:3] = np.nan
+    vec = interp.interpolate_coord_dev(coords, 1)
+    assert vec.dtype == torch.float32 and tuple(vec.shape) == coords.shape
+    np.testing.assert_array_equal(vec.numpy(), interp.interpolate_coord(coords, 1))
+    assert np.isnan(vec.numpy()[:3]).all() and not np.isnan(vec.numpy()).all()
+    last = D.tube_series().shape[0] - 1  # forward flow rows end one frame early
+    assert interp.interpolate_coord_dev(coords, last) is None
+    assert np.isnan(interp.interpolate_coord(coords, last)).all()
+
+
 @pytest.mark.parametrize("seed", range(3))
 def test_vote_kernel(seed):
     """Many candidates per (target, label), exact weight ties included."""

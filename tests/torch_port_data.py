@@ -105,3 +105,46 @@ def assert_artifact_equal(ref: ImInfo, port: ImInfo, name: str, bar) -> None:
         scale = max(float(np.abs(a[t]).max()), 1e-30)
         err = float(np.abs(a[t].astype(np.float64) - b[t]).max()) / scale
         assert err <= bar, f"{name}[t={t}]: max error {err:.3g} of the frame max > {bar}"
+
+
+# the Hierarchy's outputs: feature tables by level, and the adjacency pickle
+FEATURE_TABLES = ("voxels", "nodes", "branches", "organelles", "image")
+# every artifact the Hierarchy reads, besides the input image
+HIERARCHY_INPUTS = list(SEGMENTATION_ARTIFACTS) + [
+    "im_branch_label_reassigned", "im_obj_label_reassigned", "flow_vector_array"]
+FEATURE_RTOL = FEATURE_ATOL = 1e-4  # tests/oracle/test_features_parity.py
+
+
+def read_features(path):
+    import pandas as pd
+
+    return pd.read_csv(path)
+
+
+def read_adjacency(path):
+    import pickle
+
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def assert_features_equal(ref, got, context=""):
+    """Same columns in the same order, the same rows, values within the
+    features bar, NaN where the reference has NaN."""
+    assert list(got.columns) == list(ref.columns), context
+    assert len(got) == len(ref), (context, len(ref), len(got))
+    for col in ref.columns:
+        a = ref[col].to_numpy(float)
+        b = got[col].to_numpy(float)
+        np.testing.assert_array_equal(np.isnan(b), np.isnan(a), err_msg=f"{context} {col} NaN")
+        ok = ~np.isnan(a)
+        np.testing.assert_allclose(b[ok], a[ok], rtol=FEATURE_RTOL, atol=FEATURE_ATOL,
+                                   err_msg=f"{context} {col}")
+
+
+def assert_adjacency_equal(ref, got):
+    assert list(got) == list(ref)
+    for key in ref:
+        assert len(got[key]) == len(ref[key]), key
+        for a, b in zip(ref[key], got[key]):
+            np.testing.assert_array_equal(np.asarray(b), np.asarray(a), err_msg=key)
