@@ -5,16 +5,24 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. the device: name, ``nvidia-smi`` name and power limit, torch/CUDA versions;
-2. builds the nearest-neighbour CUDA kernel from the checkout and times it;
+2. builds the nearest-neighbour CUDA kernel from the checkout, times the
+   build and prints its registers, spills and resident warps per SM;
 3. checks the kernel against its plain PyTorch version on the card (ragged
    shapes, exact ties on a grid, 150,000 voxels each way) and times both;
+   then holds its d2 bit for bit, and its indices, to the plain version on
+   CPU copies at the split edges: 20,000 voxels each way, duplicates in
+   other reference splits, d2 cancelling to <= 0, one query against 10**6
+   references, every width d from 1 to 8;
 4. drives ``nellie_tpu_torch.pipeline.run.run`` on a 3x64x256x256 uint16
    confocal-like time series (Filter -> ... -> VoxelReassigner ->
    Hierarchy), prints each stage's seconds, the Hierarchy's host share,
    the rows of every feature CSV, the peak device memory and the kernel's
    launches by stage, and checks the outputs and that both the reassigner
-   and the Hierarchy launched the kernel; then checks and times the
-   kernel again at the shapes each of them gave it;
+   and the Hierarchy launched the kernel; then checks the kernel again at
+   the shapes each of them gave it (bit for bit against the CPU) and
+   prints its time beside the plain version's, one PyTorch call's
+   (``library_ms``: ``torch.cdist`` and ``min``, which the port never
+   calls) and its bound (``bound_ms``) with the share of it reached;
 5. runs the same pipeline on a small input on the card and on the CPU and
    holds the two against each other, the feature CSVs and the adjacency
    pickle included.
@@ -50,6 +58,9 @@ HIERARCHY_INPUTS = ("im_preprocessed", "im_instance_label", "im_skel", "im_pixel
                     "im_branch_label_reassigned", "im_obj_label_reassigned", "flow_vector_array")
 TIE_REL = 1e-6   # an index may differ only where the two candidates' float64
                  # squared distances differ by <= TIE_REL * (|q|^2 + |r|^2)
+# published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -93,6 +104,25 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """The device time of one call of ``fn``: the sum of the times of the
+    CUDA kernels it launches, from ``torch.profiler``, over ``reps`` calls.
+    Unlike :func:`time_ms` it leaves out the host's time between launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not us:
+        fail("torch.profiler recorded no device time")
+    return us / reps / 1e3
+
+
 def check_case(name, q, r, nn):
     d2_k, idx_k = nn.NN_KERNEL(q, r)
     torch.cuda.synchronize()
@@ -108,6 +138,67 @@ def check_case(name, q, r, nn):
     if bad or d_bad:
         fail(f"nn kernel disagrees with its plain version on {name}")
     return max_abs
+
+
+def nn_bound(n_q, n_r, d):
+    """(bound_ms, bound_by): the least time the card could take for one
+    call.  Operations: Q * M pairs of 2d + 2 float32 flops (the dot's d
+    multiplies and d - 1 adds, |q|^2 + |r|^2, the doubling and the
+    subtraction) at the fp32 peak.  Bytes: queries and references read
+    once, d2 and index written once, at the memory rate."""
+    ops_ms = n_q * n_r * (2 * d + 2) / FP32_FLOPS * 1e3
+    bytes_ms = (4 * d * (n_q + n_r) + 8 * n_q) / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def check_bitwise(name, q, r, nn):
+    """The kernel on the card against the plain version on CPU copies: d2
+    bit for bit and equal indices, or fail.  Returns the plain (d2, idx)."""
+    d2_k, idx_k = nn.NN_KERNEL(q, r)
+    d2_k, idx_k = d2_k.cpu(), idx_k.cpu()
+    d2_p, idx_p = nn.nn_argmin_plain(q.cpu(), r.cpu())
+    bits = int((d2_k.view(torch.int32) != d2_p.view(torch.int32)).sum())
+    moved = int((idx_k != idx_p).sum())
+    print(f"nn bitwise {name}: Q={q.shape[0]} M={r.shape[0]} d={q.shape[1]} "
+          f"d2 differing in any bit {bits}, indices differing {moved}", flush=True)
+    if bits or moved:
+        fail(f"nn kernel is not bitwise equal to the CPU plain version on {name}")
+    return d2_p, idx_p
+
+
+def phase_split_edges(nn):
+    """The cases where the reference splits meet, bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dev = "cuda"
+
+    def voxels(n_q, n_r, d=3):
+        scale = torch.tensor([0.5, 0.2, 0.2, 0.3, 0.4, 0.25, 0.1, 0.6][:d], device=dev)
+        extent = torch.tensor([64, 256, 256, 32, 16, 16, 8, 8][:d], device=dev)
+        r = torch.floor(torch.rand(n_r, d, generator=gen, device=dev) * extent) * scale
+        q = (torch.rand(n_q, d, generator=gen, device=dev) * extent
+             + torch.randn(n_q, d, generator=gen, device=dev)) * scale
+        return q, r
+
+    check_bitwise("20000 voxels each way", *voxels(20000, 20000), nn)
+    q, base = voxels(5000, 20000)
+    r = torch.cat([base, base, base])
+    plan = nn.launch_plan(q.shape[0], r.shape[0])
+    _, idx = check_bitwise(f"each reference three times, {plan.splits} splits of "
+                           f"{plan.split_len}", q, r, nn)
+    if int(idx.max()) >= base.shape[0]:
+        fail("a duplicate in a later split won over the first copy")
+    r = torch.rand(30000, 3, generator=gen, device=dev) * 2000 + 3000
+    q = torch.cat([r[torch.randperm(30000, generator=gen, device=dev)[:4000]],
+                   torch.rand(1000, 3, generator=gen, device=dev) * 2000 + 3000])
+    d2, _ = check_bitwise("queries on far references (cancellation)", q, r, nn)
+    negative, zero = int((d2[:4000] < 0).sum()), int((d2[:4000] == 0).sum())
+    print(f"nn cancellation: of 4000 queries on a reference, d2 < 0 for {negative}, "
+          f"== 0 for {zero}", flush=True)
+    if not negative or not zero:
+        fail("the cancellation case produced no negative or no zero d2")
+    check_bitwise("one query", *voxels(1, 1_000_000), nn)
+    for d in range(1, 9):
+        check_bitwise(f"width {d}", *voxels(3000, 7001, d), nn)
 
 
 def phase_kernel(nn, gpu):
@@ -142,22 +233,45 @@ def phase_kernel(nn, gpu):
     r = torch.floor(vox) * scale
     q = (vox + torch.randn(NN_MAIN_ROWS, 3, generator=gen, device=dev)) * scale
     max_abs = max(max_abs, check_case(f"{NN_MAIN_ROWS} voxels", q, r, nn))
-    ms = time_ms(lambda: nn.NN_KERNEL(q, r), 5)
+    ms = time_ms(lambda: nn.NN_KERNEL(q, r), 10)
+    on_device_ms = device_ms(lambda: nn.NN_KERNEL(q, r), 10)
     plain_ms = time_ms(lambda: nn.nn_argmin_plain(q, r), 2)
-    print(f"nn time at {NN_MAIN_ROWS}x{NN_MAIN_ROWS}x3: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms [{gpu}]", flush=True)
+    bound_ms, bound_by = nn_bound(NN_MAIN_ROWS, NN_MAIN_ROWS, 3)
+    print(f"nn time at {NN_MAIN_ROWS}x{NN_MAIN_ROWS}x3: kernel {ms:.3f} ms a call (on the "
+          f"device {on_device_ms:.3f} ms), "
+          f"plain {plain_ms:.3f} ms, library not measured (its distance matrix would be "
+          f"{NN_MAIN_ROWS ** 2 * 4 / 1e9:.0f} GB), bound {bound_ms:.3f} ms ({bound_by}), "
+          f"share {bound_ms / ms:.3f} [{gpu}]", flush=True)
+    phase_split_edges(nn)
     return max_abs
 
 
+def library_nn(q, r):
+    """One PyTorch call for the same function (the yardstick; the port
+    never calls it): Euclidean distances through a GEMM, then the row
+    minimum and its index."""
+    return torch.cdist(q, r, compute_mode="use_mm_for_euclid_dist").min(dim=1)
+
+
 def time_kernel_at(nn, gpu, name, q, r):
-    """Check and time the kernel against its plain version on (q, r).
-    Returns (max |d2 error|, kernel ms, plain ms)."""
-    max_abs = check_case(name, q, r, nn)
-    ms = time_ms(lambda: nn.NN_KERNEL(q, r), 10)
+    """Time the kernel on (q, r) beside the plain version and the library
+    call, then check it against the plain version on the card and bit for
+    bit on the CPU (after the timing, so that no CPU work overlaps it).
+    Returns the numbers of its ``paths`` entry."""
     plain_ms = time_ms(lambda: nn.nn_argmin_plain(q, r), 5)
-    print(f"nn time at {name} {q.shape[0]}x{r.shape[0]}x3: kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.3f} ms [{gpu}]", flush=True)
-    return max_abs, ms, plain_ms
+    ms = time_ms(lambda: nn.NN_KERNEL(q, r), 20)
+    library_ms = time_ms(lambda: library_nn(q, r), 5)
+    ms_again = time_ms(lambda: nn.NN_KERNEL(q, r), 20)
+    on_device_ms = device_ms(lambda: nn.NN_KERNEL(q, r), 20)
+    bound_ms, bound_by = nn_bound(q.shape[0], r.shape[0], q.shape[1])
+    print(f"nn time at {name} {q.shape[0]}x{r.shape[0]}x{q.shape[1]}: kernel {ms:.4f} ms a call "
+          f"(again {ms_again:.4f} ms; on the device {on_device_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"share {bound_ms / ms:.3f} [{gpu}]", flush=True)
+    max_abs = check_case(name, q, r, nn)
+    check_bitwise(name, q, r, nn)
+    return {"max_abs_err": max_abs, "ms": ms, "device_ms": on_device_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
 def phase_kernel_main_shapes(nn, gpu, im_info):
@@ -484,6 +598,7 @@ def compare_tables(got, want, headers, skip):
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
+    from nellie_tpu_torch.device import resolve_device
     from nellie_tpu_torch.kernels import nn
 
     kind = torch.cuda.get_device_name(0)
@@ -492,31 +607,34 @@ def main() -> None:
           f"devices {torch.cuda.device_count()}", flush=True)
     print(gpu, flush=True)
 
+    resolve_device("cuda")  # full float32: TF32 off for the library call too
     start = time.perf_counter()
     nn.NN_KERNEL.build()
     print(f"nn kernel build: {time.perf_counter() - start:.2f} s "
           f"(nvcc {nn.NN_KERNEL.build_seconds if nn.NN_KERNEL.build_seconds is not None else 'cached'})",
           flush=True)
+    for d in (3, 8):
+        print(f"nn kernel at d={d}: {nn.NN_KERNEL.info(d)}", flush=True)
 
     max_abs = phase_kernel(nn, gpu)
     root = tempfile.mkdtemp(prefix="nellie_port_smoke_")
     try:
         launches, by_stage, im_info = phase_main_path(nn, gpu, root)
-        (err_r, ms, plain_ms), (err_h, h_ms, h_plain_ms) = phase_kernel_main_shapes(nn, gpu, im_info)
-        max_abs = max(max_abs, err_r, err_h)
+        reassign, hierarchy = phase_kernel_main_shapes(nn, gpu, im_info)
+        max_abs = max(max_abs, reassign["max_abs_err"], hierarchy["max_abs_err"])
         phase_small_parity(root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+    reassign["launches"] = by_stage["VoxelReassigner"]
+    hierarchy["launches"] = by_stage["Hierarchy"]
+    top = {k: reassign[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"kernels": [{
         "name": "nn_argmin", "route": "cuda",
         "source": "nellie_tpu_torch/kernels/csrc/nn_argmin.cu",
-        "replaces": "nellie_tpu/kernels/pallas_nn.py:34",
-        "launches": launches, "max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
-        "paths": {
-            "reassign": {"launches": by_stage["VoxelReassigner"], "ms": ms, "plain_ms": plain_ms},
-            "hierarchy": {"launches": by_stage["Hierarchy"], "ms": h_ms, "plain_ms": h_plain_ms},
-        }}]}), flush=True)
+        "replaces": "nellie_tpu/kernels/pallas_nn.py:72",
+        "launches": launches, "max_abs_err": max_abs, **top,
+        "paths": {"reassign": reassign, "hierarchy": hierarchy}}]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -5,13 +5,17 @@ its layout (``kernels/``, ``stages/``, ``pipeline/run.py``) with the same
 function names, dataclass fields, artifact names and dtypes, so each
 counterpart is easy to find.  It imports ``torch`` and never ``jax``.
 
-Host layers are reused as they are, because they import only numpy and
-the standard library: ``nellie_tpu.io`` (file metadata, OME-TIFF codec,
-artifact store; re-exported as :mod:`nellie_tpu_torch.io`),
-``nellie_tpu.utils.base_logger``, ``nellie_tpu.kernels.simple_point``
-(the thinning LUT), ``nellie_tpu.plugin.config``, and the region
-morphology of the feature tables, ``nellie_tpu.utils.regionprops`` with
-``nellie_tpu.utils.convexhull`` (numpy, and scipy's Qhull when present).
+It imports nothing of ``nellie_tpu`` either: the host layers it shares
+with the JAX package are copies of their own, in numpy and the standard
+library, and behave as the originals do: :mod:`nellie_tpu_torch.io`
+(file metadata, OME-TIFF codec, artifact store),
+:mod:`nellie_tpu_torch.config` (the Settings tree and each stage's
+kwargs), :mod:`nellie_tpu_torch.kernels.simple_point` (the thinning
+table, shipped compressed), :mod:`nellie_tpu_torch.utils.logger`, and
+the region morphology of the feature tables,
+:mod:`nellie_tpu_torch.utils.regionprops` with
+:mod:`nellie_tpu_torch.utils.convexhull` (numpy, and scipy's Qhull when
+present).
 
 Ported so far: all seven stages, Filter -> Label -> Network -> Markers ->
 HuMomentTracking -> VoxelReassigner -> Hierarchy, whole-frame and

@@ -12,8 +12,11 @@ d² = (|q|² + |r|²) − 2 q·r in float32 and the first index reaching it.
 
 The kernel takes unpadded (Q, d<=8) and (M, d) tensors and masks its own
 ragged edges: the TPU kernel's 8-wide padding and tile multiples are
-layout artefacts and are not ported.  ``NN_KERNEL.launches`` counts the
-kernel's launches.
+layout artefacts and are not ported.  Its grid splits the reference axis
+as well as the query axis, so that few queries still fill the card;
+:func:`launch_plan` chooses the split.  ``NN_KERNEL.launches`` counts the
+wrapper's calls of the kernel (one C call: pack the references, the
+split kernel, unpack the result).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -36,6 +40,62 @@ _BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC"]
 _PLAIN_CHUNK_ELEMS = 1 << 27  # bound on the (rows, M) distance block of the plain version
+
+# the kernel's build constants (checked against the library at load time)
+QPT = 12          # queries per thread
+R_TILE = 128      # reference rows per shared-memory tile
+MAX_THREADS = 128  # threads per block, at most
+# the launch plan's targets
+H100_SMS = 132
+MIN_SPLIT_TILES = 3  # a reference split streams at least this many tiles
+TARGET_WAVES = 4     # blocks to launch, in multiples of what the SMs hold at once
+MAX_SPLITS = 65535   # the grid's y extent
+
+
+@dataclass(frozen=True)
+class NNPlan:
+    """How the kernel covers Q queries and M references: ``q_tiles`` tiles
+    of ``q_tile`` = ``threads * QPT`` queries times ``splits`` ranges of
+    ``split_len`` references, each streamed in tiles of ``r_tile`` rows."""
+
+    threads: int
+    q_tile: int
+    q_tiles: int
+    splits: int
+    split_len: int
+    r_tile: int = R_TILE
+
+    @property
+    def blocks(self) -> int:
+        return self.q_tiles * self.splits
+
+
+def launch_plan(n_q: int, n_r: int, sms: int = H100_SMS, resident_warps: int = 16) -> NNPlan:
+    """The kernel's grid for ``n_q`` queries and ``n_r`` references on a
+    card of ``sms`` SMs that each hold ``resident_warps`` warps of the
+    kernel at once (its register budget decides; the wrapper asks the
+    library).
+
+    Threads per block grow with Q, from one warp up to ``MAX_THREADS``,
+    while there are at least 8 query tiles of the larger size.  The
+    reference axis is then split so that the grid is about
+    ``TARGET_WAVES`` full waves of blocks, with the last wave filled, and
+    no split shorter than ``MIN_SPLIT_TILES`` tiles; the splits are equal
+    but for the last, and none is empty."""
+    if n_q < 1 or n_r < 1:
+        raise ValueError(f"launch plan for {n_q} queries and {n_r} references")
+    threads = 32
+    while threads < MAX_THREADS and n_q >= 8 * 2 * threads * QPT:
+        threads *= 2
+    q_tile = threads * QPT
+    q_tiles = -(-n_q // q_tile)
+    resident = sms * max(1, min(32, resident_warps // (threads // 32)))
+    max_splits = max(1, min(MAX_SPLITS, n_r // (MIN_SPLIT_TILES * R_TILE)))
+    splits = min(max_splits, max(1, round(TARGET_WAVES * resident / q_tiles)))
+    waves = -(-q_tiles * splits // resident)
+    splits = min(max_splits, max(splits, waves * resident // q_tiles))
+    split_len = -(-n_r // splits)
+    return NNPlan(threads, q_tile, q_tiles, -(-n_r // split_len), split_len)
 
 
 def nn_argmin_plain(queries: torch.Tensor, refs: torch.Tensor):
@@ -67,6 +127,7 @@ class _NNKernel:
         self.launches = 0
         self.build_seconds = None
         self._lib = None
+        self._info = {}
 
     def library_path(self) -> str:
         with open(_CSRC, "rb") as f:
@@ -98,12 +159,33 @@ class _NNKernel:
                     os.remove(tmp)
             self.build_seconds = time.perf_counter() - start
         lib = ctypes.CDLL(path)
-        lib.nn_argmin_f32.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                                      ctypes.c_void_p, ctypes.c_void_p]
-        lib.nn_argmin_f32.restype = ctypes.c_int
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.nn_argmin_f32.argtypes = [ptr, ptr] + [i32] * 8 + [ptr] * 5
+        lib.nn_argmin_f32.restype = i32
+        lib.nn_argmin_info.argtypes = [i32] + [ctypes.POINTER(i32)] * 6
+        lib.nn_argmin_info.restype = i32
         self._lib = lib
         return lib
+
+    def info(self, dim: int) -> dict:
+        """The library's QPT, R_TILE and MAX_THREADS (checked against this
+        module's), and its split kernel's registers per thread, spill bytes
+        per thread and resident warps per SM at ``dim`` coordinates, on the
+        current CUDA device."""
+        if dim not in self._info:
+            lib = self.build()
+            vals = [ctypes.c_int() for _ in range(6)]
+            err = lib.nn_argmin_info(dim, *[ctypes.byref(v) for v in vals])
+            if err != 0:
+                raise RuntimeError(f"nn_argmin_info failed with cudaError {err}")
+            info = dict(zip(("qpt", "r_tile", "max_threads", "regs", "local_bytes",
+                             "resident_warps"), (v.value for v in vals)))
+            if (info["qpt"], info["r_tile"], info["max_threads"]) != (QPT, R_TILE, MAX_THREADS):
+                raise RuntimeError(f"{self.library_path()} was built with {info}, "
+                                   f"this module expects QPT {QPT}, R_TILE {R_TILE}, "
+                                   f"MAX_THREADS {MAX_THREADS}")
+            self._info[dim] = info
+        return self._info[dim]
 
     def __call__(self, queries: torch.Tensor, refs: torch.Tensor):
         if queries.dtype != torch.float32 or refs.dtype != torch.float32:
@@ -119,14 +201,21 @@ class _NNKernel:
         if n_q >= 2 ** 31 or n_r >= 2 ** 31:
             raise ValueError("more than 2**31 - 1 rows")
         lib = self.build()
+        dim = queries.shape[1]
         q = queries.contiguous()
         r = refs.contiguous()
-        d2 = torch.empty(n_q, dtype=torch.float32, device=q.device)
-        idx = torch.empty(n_q, dtype=torch.int32, device=q.device)
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream(q.device).cuda_stream
-            err = lib.nn_argmin_f32(q.data_ptr(), r.data_ptr(), n_q, n_r, q.shape[1],
-                                    d2.data_ptr(), idx.data_ptr(), stream)
+        dev = q.device
+        with torch.cuda.device(dev):
+            plan = launch_plan(n_q, n_r, torch.cuda.get_device_properties(dev).multi_processor_count,
+                               self.info(dim)["resident_warps"])
+            packed = torch.empty((n_r, 4 * ((dim + 4) // 4)), dtype=torch.float32, device=dev)
+            keys = torch.empty(n_q, dtype=torch.int64, device=dev).fill_(-1)  # all ones
+            d2 = torch.empty(n_q, dtype=torch.float32, device=dev)
+            idx = torch.empty(n_q, dtype=torch.int32, device=dev)
+            err = lib.nn_argmin_f32(q.data_ptr(), r.data_ptr(), n_q, n_r, dim, plan.threads,
+                                    plan.splits, plan.split_len, QPT, plan.r_tile,
+                                    packed.data_ptr(), keys.data_ptr(), d2.data_ptr(),
+                                    idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"nn_argmin_f32 launch failed with cudaError {err}")
         self.launches += 1

@@ -3,7 +3,7 @@
 Port of ``nellie_tpu/kernels/skeleton.py::skeletonize_3d`` with ONE
 backend, the LUT (``_deletable``, ``:53``): each voxel's 26 neighbour
 occupancies are packed into a 26-bit code and looked up in the 8 MiB
-Bertrand–Malandain table (``nellie_tpu.kernels.simple_point``).  The
+Bertrand–Malandain table (:mod:`nellie_tpu_torch.kernels.simple_point`).  The
 reference shows that its three backends agree
 (``tests/test_skeleton_backends.py``).
 
@@ -18,8 +18,8 @@ from __future__ import annotations
 
 import torch
 
-from nellie_tpu.kernels.simple_point import OFFSETS_26, get_simple26_lut
 from nellie_tpu_torch.kernels.filters import shift_fill
+from nellie_tpu_torch.kernels.simple_point import OFFSETS_26, get_simple26_lut
 
 _DIRECTIONS = ((-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
 

@@ -16,8 +16,8 @@ import time
 
 import torch
 
+from nellie_tpu_torch import config as cfg_mod
 from nellie_tpu_torch.io import ImInfo
-from nellie_tpu.plugin import config as cfg_mod
 from nellie_tpu_torch.device import resolve_device
 from nellie_tpu_torch.stages.filtering import Filter
 from nellie_tpu_torch.stages.hierarchical import Hierarchy
@@ -44,7 +44,7 @@ def _port_kwargs(stage: str, params: dict) -> dict:
 
 def params_from_config(cfg) -> dict:
     """Per-stage constructor kwargs of the port from a
-    :class:`nellie_tpu.plugin.config.SettingsConfig` (or its dict or JSON
+    :class:`nellie_tpu_torch.config.SettingsConfig` (or its dict or JSON
     path), plus the ``remove_edges``, ``voxel_reassign`` and
     ``remove_intermediates`` toggles."""
     if isinstance(cfg, str):

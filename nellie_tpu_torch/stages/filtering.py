@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from nellie_tpu_torch.io import ImInfo
-from nellie_tpu.utils.base_logger import logger
+from nellie_tpu_torch.utils.logger import logger
 from nellie_tpu_torch.device import resolve_device
 from nellie_tpu_torch.kernels import frangi as frangi_k
 from nellie_tpu_torch.stages import _frames

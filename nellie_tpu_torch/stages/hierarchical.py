@@ -20,7 +20,7 @@ names, column order and key layout:
   skeleton and node voxels, on the CUDA kernel when the device is a GPU
   (``kernels/nn.py``).
 
-Region morphology (``nellie_tpu.utils.regionprops``) and the adjacency
+Region morphology (:mod:`nellie_tpu_torch.utils.regionprops`) and the adjacency
 pair lists stay host numpy, as in the reference.  The CSVs are written
 with numpy and the standard library on one background thread.
 
@@ -40,14 +40,14 @@ import time
 import numpy as np
 import torch
 
-from nellie_tpu_torch.io import ImInfo
-from nellie_tpu.utils.base_logger import logger
-from nellie_tpu.utils.regionprops import regionprops
 from nellie_tpu_torch.device import resolve_device
+from nellie_tpu_torch.io import ImInfo
 from nellie_tpu_torch.kernels._fp import reduce_sum_of_squares, sqrt
 from nellie_tpu_torch.kernels.nn import nearest_neighbors
 from nellie_tpu_torch.kernels.segstats import STAT_KEYS, branch_geometry, segment_nanstats
 from nellie_tpu_torch.stages.flow_interpolation import FlowInterpolator
+from nellie_tpu_torch.utils.logger import logger
+from nellie_tpu_torch.utils.regionprops import regionprops
 
 # statistic names per level, in CSV column order (reference parity)
 VOXEL_STATS = (

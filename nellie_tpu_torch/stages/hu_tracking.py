@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from nellie_tpu_torch.io import ImInfo
-from nellie_tpu.utils.base_logger import logger
+from nellie_tpu_torch.utils.logger import logger
 from nellie_tpu_torch.device import resolve_device
 from nellie_tpu_torch.kernels import matching, moments
 from nellie_tpu_torch.kernels._fp import f32, log10

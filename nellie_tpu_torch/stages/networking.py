@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from nellie_tpu_torch.io import ImInfo
-from nellie_tpu.utils.base_logger import logger
+from nellie_tpu_torch.utils.logger import logger
 from nellie_tpu_torch.device import resolve_device
 from nellie_tpu_torch.kernels import ccl, edt
 from nellie_tpu_torch.kernels.filters import maximum_filter, minimum_filter, sum_filter

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from nellie_tpu_torch.io import ImInfo
-from nellie_tpu.utils.base_logger import logger
+from nellie_tpu_torch.utils.logger import logger
 from nellie_tpu_torch.device import resolve_device
 from nellie_tpu_torch.kernels.nn import nn_argmin
 from nellie_tpu_torch.kernels.voting import _vote_kernel, stable_lexsort

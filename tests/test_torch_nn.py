@@ -123,3 +123,34 @@ def test_cpu_tensor_never_builds_the_kernel():
     nn.nn_argmin(torch.rand(10, 3), torch.rand(20, 3))
     assert nn.NN_KERNEL.launches == before
     assert nn.NN_KERNEL._lib is None
+
+
+PLAN_SHAPES = [(1, 1), (1, 10 ** 6), (10 ** 6, 1), (37, 5), (513, 2049), (1573, 31247),
+               (47353, 51389), (150000, 150000), (20000, 20000), (4000, 1728)]
+
+
+@pytest.mark.parametrize("qn,mn", PLAN_SHAPES)
+@pytest.mark.parametrize("resident_warps", [4, 16, 64])
+def test_launch_plan_covers_every_reference_once(qn, mn, resident_warps):
+    plan = nn.launch_plan(qn, mn, resident_warps=resident_warps)
+    starts = [s * plan.split_len for s in range(plan.splits)]
+    ends = [min(s + plan.split_len, mn) for s in starts]
+    assert starts[0] == 0 and ends[-1] == mn
+    assert all(e > s for s, e in zip(starts, ends))          # no empty split
+    assert all(b == e for b, e in zip(starts[1:], ends[:-1]))  # no gap, no overlap
+    assert plan.q_tile == plan.threads * nn.QPT and plan.threads % 32 == 0
+    assert plan.threads <= nn.MAX_THREADS and plan.splits <= nn.MAX_SPLITS
+    assert (plan.q_tiles - 1) * plan.q_tile < qn <= plan.q_tiles * plan.q_tile
+    if plan.splits > 1:
+        assert plan.split_len >= nn.MIN_SPLIT_TILES * nn.R_TILE
+
+
+@pytest.mark.parametrize("qn,mn", [(1573, 31247), (47353, 51389)])
+def test_launch_plan_fills_the_card_at_the_callers_shapes(qn, mn):
+    assert nn.launch_plan(qn, mn, sms=132).blocks >= 2 * 132
+
+
+@pytest.mark.parametrize("qn,mn", [(0, 5), (5, 0)])
+def test_launch_plan_rejects_empty_inputs(qn, mn):
+    with pytest.raises(ValueError):
+        nn.launch_plan(qn, mn)
