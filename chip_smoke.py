@@ -25,7 +25,18 @@ Phases, each printing its own lines; any failure exits non-zero:
    calls) and its bound (``bound_ms``) with the share of it reached;
 5. runs the same pipeline on a small input on the card and on the CPU and
    holds the two against each other, the feature CSVs and the adjacency
-   pickle included.
+   pickle included;
+6. drives the 2D main path: ``run`` on a 5x1024x1024 uint16 ``TYX`` movie
+   (X = Y = 0.1 um, T = 2 s), with phase 4's prints and checks (every frame
+   labelled, six-column flow rows, every CSV with the reference's header
+   and ``z_raw`` empty, the kernel launched by the reassigner and by the
+   Hierarchy), then the kernel at d = 2 at the shapes those two gave it;
+7. holds a small ``TYX`` and a ``YX`` input on the card to the CPU, as
+   phase 5 does;
+8. runs the batch CLI (``nellie_tpu_torch.pipeline.cli.main``) in this
+   process on a directory of one ``TYX`` file, one ``YX`` file and one file
+   its substring filter skips, and checks each matching file's organelle
+   table and that the kernel was launched.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits non-zero before printing any result.  It imports no JAX.
@@ -49,6 +60,9 @@ import torch
 MAIN_SHAPE = (3, 64, 256, 256)
 DIM_RES = {"X": 0.2, "Y": 0.2, "Z": 0.5, "T": 2.0}
 SMALL_SHAPE = (3, 12, 48, 48)
+MAIN_SHAPE_2D = (5, 1024, 1024)
+DIM_RES_2D = {"X": 0.1, "Y": 0.1, "Z": None, "T": 2.0}
+SMALL_SHAPE_2D = (3, 64, 64)
 NN_MAIN_ROWS = 150_000
 FEATURE_RTOL = FEATURE_ATOL = 1e-4  # the reference's features bar
 REL_COLUMNS = ("rel_linear_vel", "rel_angular_vel", "rel_linear_acc", "rel_angular_acc",
@@ -56,6 +70,7 @@ REL_COLUMNS = ("rel_linear_vel", "rel_angular_vel", "rel_linear_acc", "rel_angul
 HIERARCHY_INPUTS = ("im_preprocessed", "im_instance_label", "im_skel", "im_pixel_class",
                     "im_skel_relabelled", "im_distance", "im_border",
                     "im_branch_label_reassigned", "im_obj_label_reassigned", "flow_vector_array")
+LIBRARY_MAX_BYTES = 30e9  # largest distance matrix the library call may write
 TIE_REL = 1e-6   # an index may differ only where the two candidates' float64
                  # squared distances differ by <= TIE_REL * (|q|^2 + |r|^2)
 # published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
@@ -260,13 +275,17 @@ def time_kernel_at(nn, gpu, name, q, r):
     Returns the numbers of its ``paths`` entry."""
     plain_ms = time_ms(lambda: nn.nn_argmin_plain(q, r), 5)
     ms = time_ms(lambda: nn.NN_KERNEL(q, r), 20)
-    library_ms = time_ms(lambda: library_nn(q, r), 5)
+    matrix_bytes = 4 * q.shape[0] * r.shape[0]
+    library_ms = (time_ms(lambda: library_nn(q, r), 5) if matrix_bytes <= LIBRARY_MAX_BYTES
+                  else None)
     ms_again = time_ms(lambda: nn.NN_KERNEL(q, r), 20)
     on_device_ms = device_ms(lambda: nn.NN_KERNEL(q, r), 20)
     bound_ms, bound_by = nn_bound(q.shape[0], r.shape[0], q.shape[1])
+    library = (f"{library_ms:.4f} ms" if library_ms is not None else
+               f"not measured (its distance matrix would be {matrix_bytes / 1e9:.0f} GB)")
     print(f"nn time at {name} {q.shape[0]}x{r.shape[0]}x{q.shape[1]}: kernel {ms:.4f} ms a call "
           f"(again {ms_again:.4f} ms; on the device {on_device_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-          f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"library {library}, bound {bound_ms:.4f} ms ({bound_by}), "
           f"share {bound_ms / ms:.3f} [{gpu}]", flush=True)
     max_abs = check_case(name, q, r, nn)
     check_bitwise(name, q, r, nn)
@@ -274,8 +293,8 @@ def time_kernel_at(nn, gpu, name, q, r):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
-def phase_kernel_main_shapes(nn, gpu, im_info):
-    """The kernel at the shapes the main path gave it.  The reassigner
+def phase_kernel_main_shapes(nn, gpu, im_info, tag=""):
+    """The kernel at the shapes a main path gave it.  The reassigner
     matches the voxels of frame 0's objects (in microns) against those of
     frame 1; the Hierarchy measures the border distance of frame 0's
     skeleton and node voxels against its border voxels."""
@@ -284,14 +303,15 @@ def phase_kernel_main_shapes(nn, gpu, im_info):
     skel = artifact(im_info, "im_skel")
     pixel_class = artifact(im_info, "im_pixel_class")
     border = artifact(im_info, "im_border")
-    scale = torch.tensor([DIM_RES["Z"], DIM_RES["Y"], DIM_RES["X"]], device="cuda")
+    axes = ("Y", "X") if im_info.no_z else ("Z", "Y", "X")
+    scale = torch.tensor([im_info.dim_res[a] for a in axes], device="cuda")
 
     def microns(mask):
         return torch.from_numpy(np.argwhere(mask).astype(np.float32)).to("cuda") * scale
 
-    reassign = time_kernel_at(nn, gpu, "the reassigner's frames 0->1",
+    reassign = time_kernel_at(nn, gpu, f"the {tag}reassigner's frames 0->1",
                               *[microns((labels[t] > 0) | (branches[t] > 0)) for t in (0, 1)])
-    hierarchy = time_kernel_at(nn, gpu, "the Hierarchy's frame 0 border",
+    hierarchy = time_kernel_at(nn, gpu, f"the {tag}Hierarchy's frame 0 border",
                                microns((skel[0] > 0) | (pixel_class[0] > 0)), microns(border[0] > 0))
     return reassign, hierarchy
 
@@ -313,21 +333,44 @@ def make_frame(shape, seed=0):
     return np.clip(vol + rng.normal(100, 5, shape), 0, None).astype(np.float32)
 
 
-def write_series(directory, shape):
+def make_frame_2d(shape, seed=0):
+    """A confocal-like 2D frame: twelve wavy tubes of radius about 3 pixels
+    (about 7 % of the frame once segmented) on camera noise."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:shape[0], 0:shape[1]].astype(np.float32)
+    img = np.zeros(shape, np.float32)
+    spacing = shape[0] / 12
+    for i in range(12):
+        cy = spacing * (i + 0.5) + 12 * np.sin(x / (40.0 + 7 * i) + i)
+        img += (600.0 + 30 * i) * np.exp(-((y - cy) ** 2) / (2 * 2.0 ** 2))
+    return np.clip(img + rng.normal(100, 5, shape), 0, None).astype(np.float32)
+
+
+def write_input(directory, name, data, axes, dim_res):
     from nellie_tpu_torch.io import FileInfo, ome, tiff
 
-    t_n, *vol = shape
-    frame = make_frame(tuple(vol))
-    data = np.stack([np.roll(frame, shift=3 * t, axis=1) for t in range(t_n)])
     data = np.clip(data, 0, 65535).astype(np.uint16)
-    desc = ome.build_ome_xml("TZYX", data.shape, "uint16", dim_res=DIM_RES)
+    desc = ome.build_ome_xml(axes, data.shape, "uint16", dim_res=dim_res)
     os.makedirs(directory, exist_ok=True)
-    path = os.path.join(directory, "series.ome.tif")
+    path = os.path.join(directory, f"{name}.ome.tif")
     tiff.imwrite(path, data, description=desc)
     fi = FileInfo(path)
     fi.find_metadata()
     fi.load_metadata()
     return fi
+
+
+def write_series(directory, shape):
+    """The 3D main path's series: the frame rolled 3 voxels along Y per
+    timepoint; for a 2D shape the 2D frame, rolled 2 pixels."""
+    t_n, *frame_shape = shape
+    if len(frame_shape) == 2:
+        frame = make_frame_2d(tuple(frame_shape))
+        data = np.stack([np.roll(frame, shift=2 * t, axis=0) for t in range(t_n)])
+        return write_input(directory, "series", data, "TYX", DIM_RES_2D)
+    frame = make_frame(tuple(frame_shape))
+    data = np.stack([np.roll(frame, shift=3 * t, axis=1) for t in range(t_n)])
+    return write_input(directory, "series", data, "TZYX", DIM_RES)
 
 
 def artifact(im_info, name):
@@ -419,12 +462,15 @@ def check_tables(im_info, skip_nodes):
     return tables
 
 
-def phase_main_path(nn, gpu, root):
+def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
+    """Drive ``run`` on the card on a series of ``shape`` (3D or 2D), with
+    the kernel's launch count set to 0 just before and read just after;
+    print and check what it wrote."""
     from nellie_tpu_torch.pipeline.run import run
     from nellie_tpu_torch.stages.hierarchical import Hierarchy
     from nellie_tpu_torch.stages.voxel_reassignment import VoxelReassigner
 
-    fi = write_series(os.path.join(root, "main"), MAIN_SHAPE)
+    fi = write_series(os.path.join(root, f"main{tag.strip()}"), shape)
     torch.cuda.reset_peak_memory_stats()
     nn.NN_KERNEL.launches = 0
     with StageWatch(nn, (VoxelReassigner, Hierarchy)) as watch:
@@ -432,12 +478,12 @@ def phase_main_path(nn, gpu, root):
     launches = nn.NN_KERNEL.launches
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     for stage, seconds in timings.items():
-        print(f"stage {stage}: {seconds:.3f} s [{gpu}]", flush=True)
+        print(f"{tag}stage {stage}: {seconds:.3f} s [{gpu}]", flush=True)
     host = watch.stages["Hierarchy"].host_seconds
-    print(f"hierarchy: {timings['hierarchy']:.3f} s, of which CSV formatting and writing "
+    print(f"{tag}hierarchy: {timings['hierarchy']:.3f} s, of which CSV formatting and writing "
           f"{host['csv']:.3f} s on the writer thread (waited for at the end: {host['drain']:.3f} s), "
           f"region morphology {host['regionprops']:.3f} s on the host [{gpu}]", flush=True)
-    print(f"peak device memory: {peak_gib:.3f} GiB [{gpu}]", flush=True)
+    print(f"{tag}peak device memory: {peak_gib:.3f} GiB [{gpu}]", flush=True)
     labels = artifact(im_info, "im_instance_label")
     flow = artifact(im_info, "flow_vector_array")
     reassigned = artifact(im_info, "im_obj_label_reassigned")
@@ -446,36 +492,41 @@ def phase_main_path(nn, gpu, root):
     pixel_class = artifact(im_info, "im_pixel_class")
     fg = [int((labels[t] > 0).sum()) for t in range(labels.shape[0])]
     n_matches = sum(len(m[1]) for m in matches)
-    print(f"main path: foreground voxels per frame {fg}, objects per frame "
+    print(f"{tag}main path: foreground voxels per frame {fg}, objects per frame "
           f"{[int(labels[t].max()) for t in range(labels.shape[0])]}, flow rows {len(flow)}, "
           f"reassigned voxels {int((reassigned[1:] > 0).sum())}, voxel matches {n_matches}, "
           f"nn launches {launches} (reassigner {watch.launches['VoxelReassigner']}, "
           f"hierarchy {watch.launches['Hierarchy']})", flush=True)
-    if not np.isfinite(pre).all() or pre.shape != MAIN_SHAPE:
-        fail("im_preprocessed is not finite or has the wrong shape")
+    if not np.isfinite(pre).all() or pre.shape != shape:
+        fail(f"{tag}im_preprocessed is not finite or has the wrong shape")
     if min(fg) == 0:
-        fail("a frame came out with no labels")
+        fail(f"{tag}a frame came out with no labels")
     if len(flow) == 0 or n_matches == 0:
-        fail("no flow rows or no voxel matches")
+        fail(f"{tag}no flow rows or no voxel matches")
+    if flow.shape[1] != 2 * len(shape):
+        fail(f"{tag}flow_vector_array has {flow.shape[1]} columns, not {2 * len(shape)}")
     if watch.launches["VoxelReassigner"] == 0 or watch.launches["Hierarchy"] == 0:
-        fail("the reassigner or the Hierarchy never launched the nn kernel")
+        fail(f"{tag}the reassigner or the Hierarchy never launched the nn kernel")
 
     tables = check_tables(im_info, skip_nodes=False)
-    print("feature rows: " + ", ".join(f"{k} {len(v)}" for k, v in tables.items()), flush=True)
+    print(f"{tag}feature rows: " + ", ".join(f"{k} {len(v)}" for k, v in tables.items()),
+          flush=True)
     if len(tables["voxels"]) != sum(fg):
         fail(f"features_voxels has {len(tables['voxels'])} rows for {sum(fg)} foreground voxels")
     if len(tables["nodes"]) != int((pixel_class > 0).sum()):
         fail("features_nodes does not have one row per skeleton voxel")
-    if len(tables["image"]) != MAIN_SHAPE[0] or min(len(v) for v in tables.values()) == 0:
+    if len(tables["image"]) != shape[0] or min(len(v) for v in tables.values()) == 0:
         fail("a feature table has no rows, or the image table not one row per frame")
     for name, rows in tables.items():
         coords = [float(r[i]) for r in rows for i in (-3, -2, -1) if name != "image" and r[i]]
         if not all(math.isfinite(c) for c in coords):
             fail(f"features_{name} has non-finite coordinates")
+        if im_info.no_z and name != "image" and any(r[-1] != "" for r in rows):
+            fail(f"{tag}features_{name}: z_raw is not empty in 2D")
     with open(im_info.pipeline_paths["adjacency_maps"], "rb") as f:
         adjacency = pickle.load(f)
     if sorted(adjacency) != ["b_o", "n_b", "n_o", "v_b", "v_n", "v_o"] or any(
-            len(v) != MAIN_SHAPE[0] for v in adjacency.values()):
+            len(v) != shape[0] for v in adjacency.values()):
         fail("adjacency_maps.pkl lacks a key or a frame")
     return launches, watch.launches, im_info
 
@@ -484,9 +535,8 @@ def phase_main_path(nn, gpu, root):
 # phase 5: the card against the CPU on a small input
 # ---------------------------------------------------------------------------
 
-def phase_small_parity(root):
-    from nellie_tpu_torch.pipeline.run import run
-
+def small_series():
+    """Two drifting tubes in a 3x12x48x48 series (the CPU tests' input)."""
     t_n, z_n, y_n, x_n = SMALL_SHAPE
     z, y, x = np.mgrid[0:z_n, 0:y_n, 0:x_n].astype(np.float64)
     rng = np.random.default_rng(0)
@@ -497,21 +547,37 @@ def phase_small_parity(root):
         vol += 700.0 * np.exp(-(((z - z_n / 2 + 1) ** 2)
                                 + (y - 0.7 * y_n - t + 4 * np.cos(x / 11.0)) ** 2) / (2 * 2.8 ** 2))
         frames.append(np.clip(vol + rng.normal(100, 5, vol.shape), 0, None))
-    data = np.stack(frames).astype(np.uint16)
+    return np.stack(frames).astype(np.uint16)
 
-    from nellie_tpu_torch.io import FileInfo, ome, tiff
 
-    infos = {}
-    for dev in ("cuda", "cpu"):
-        d = os.path.join(root, f"small_{dev}")
-        os.makedirs(d)
-        path = os.path.join(d, "small.ome.tif")
-        tiff.imwrite(path, data, description=ome.build_ome_xml(
-            "TZYX", data.shape, "uint16", dim_res={"X": 0.2, "Y": 0.2, "Z": 0.5, "T": 1.0}))
-        fi = FileInfo(path)
-        fi.find_metadata()
-        fi.load_metadata()
-        infos[dev] = run(fi, device=dev)
+def small_series_2d():
+    """Two drifting wavy filaments in a 3x64x64 series (the CPU tests' 2D
+    input)."""
+    t_n, y_n, x_n = SMALL_SHAPE_2D
+    y, x = np.mgrid[0:y_n, 0:x_n].astype(np.float64)
+    rng = np.random.default_rng(0)
+    frames = []
+    for t in range(t_n):
+        img = 700.0 * np.exp(-((y - 0.3 * y_n - t - 5 * np.sin(x / 8.0)) ** 2) / (2 * 2.0 ** 2))
+        img += 500.0 * np.exp(-((y - 0.7 * y_n + t - 4 * np.cos(x / 7.0)) ** 2) / (2 * 2.4 ** 2))
+        frames.append(np.clip(img + rng.normal(80, 5, img.shape), 0, None))
+    return np.stack(frames).astype(np.uint16)
+
+
+def phase_small_parity(root, data, axes, dim_res, tag=""):
+    """The pipeline on ``data`` on the card and on the CPU, held to each
+    other: float artifacts within 1e-4 of the frame max, integer artifacts
+    on all but 0.1% of the foreground, flow costs and the feature tables at
+    the features bar, and the Hierarchy alone on the CPU run's artifacts
+    exactly so, with equal adjacency edges."""
+    from nellie_tpu_torch.io import ImInfo
+    from nellie_tpu_torch.pipeline.run import run
+    from nellie_tpu_torch.stages.hierarchical import Hierarchy
+
+    infos = {dev: run(write_input(os.path.join(root, f"small{tag.strip()}_{dev}"), "small", data,
+                                  axes, dim_res), device=dev)
+             for dev in ("cuda", "cpu")}
+    temporal = not infos["cpu"].no_t
     worst = {}
     for name in ("im_preprocessed", "im_distance"):
         a, b = artifact(infos["cuda"], name), artifact(infos["cpu"], name)
@@ -519,19 +585,24 @@ def phase_small_parity(root):
                   for t in range(a.shape[0]))
         worst[name] = err
         if err > 1e-4:
-            fail(f"{name}: card vs CPU error {err:.3g} of the frame max > 1e-4")
+            fail(f"{tag}{name}: card vs CPU error {err:.3g} of the frame max > 1e-4")
     fg = int((artifact(infos["cpu"], "im_instance_label") > 0).sum())
-    for name in ("im_instance_label", "im_skel", "im_pixel_class", "im_skel_relabelled",
-                 "im_marker", "im_border", "im_branch_label_reassigned", "im_obj_label_reassigned"):
+    names = ["im_instance_label", "im_skel", "im_pixel_class", "im_skel_relabelled",
+             "im_marker", "im_border"]
+    if temporal:
+        names += ["im_branch_label_reassigned", "im_obj_label_reassigned"]
+    for name in names:
         a, b = artifact(infos["cuda"], name), artifact(infos["cpu"], name)
         diff = int((a != b).sum())
         worst[name] = diff
         if diff > 0.001 * fg:
-            fail(f"{name}: {diff} voxels differ between card and CPU (foreground {fg})")
-    fa, fb = artifact(infos["cuda"], "flow_vector_array"), artifact(infos["cpu"], "flow_vector_array")
-    if fa.shape != fb.shape or fa.shape[0] == 0:
-        fail(f"flow_vector_array shapes differ or are empty: {fa.shape} vs {fb.shape}")
-    worst["flow_vector_array"] = float(np.abs(fa - fb).max())
+            fail(f"{tag}{name}: {diff} voxels differ between card and CPU (foreground {fg})")
+    if temporal:
+        fa = artifact(infos["cuda"], "flow_vector_array")
+        fb = artifact(infos["cpu"], "flow_vector_array")
+        if fa.shape != fb.shape or fa.shape[0] == 0:
+            fail(f"{tag}flow_vector_array shapes differ or are empty: {fa.shape} vs {fb.shape}")
+        worst["flow_vector_array"] = float(np.abs(fa - fb).max())
 
     # the whole runs' feature tables, all but the branch-relative columns:
     # a branch's reference voxel (its member of minimum |flow|) is a tie
@@ -544,19 +615,12 @@ def phase_small_parity(root):
 
     # the Hierarchy alone on the CPU run's artifacts: every column, and the
     # adjacency edges exactly
-    from nellie_tpu_torch.io import ImInfo
-    from nellie_tpu_torch.stages.hierarchical import Hierarchy
-
-    d = os.path.join(root, "small_hierarchy")
-    os.makedirs(d)
-    path = os.path.join(d, "small.ome.tif")
-    shutil.copyfile(infos["cpu"].im_path, path)
-    fi = FileInfo(path)
-    fi.find_metadata()
-    fi.load_metadata()
+    fi = write_input(os.path.join(root, f"small{tag.strip()}_hierarchy"), "small", data, axes,
+                     dim_res)
     alone = ImInfo(fi)
     for name in HIERARCHY_INPUTS:
-        shutil.copyfile(infos["cpu"].pipeline_paths[name], alone.pipeline_paths[name])
+        if os.path.exists(infos["cpu"].pipeline_paths[name]):
+            shutil.copyfile(infos["cpu"].pipeline_paths[name], alone.pipeline_paths[name])
     Hierarchy(alone, skip_nodes=False, device="cuda").run()
     worst["features, Hierarchy on the same artifacts"] = compare_tables(
         check_tables(alone, skip_nodes=False), want, expected_headers(False), skip=())
@@ -568,9 +632,45 @@ def phase_small_parity(root):
             len(adj_card[k]) != len(adj_cpu[k])
             or not all(np.array_equal(a, b) for a, b in zip(adj_card[k], adj_cpu[k]))
             for k in adj_cpu):
-        fail("adjacency_maps.pkl differs between card and CPU")
+        fail(f"{tag}adjacency_maps.pkl differs between card and CPU")
     worst["adjacency edges"] = sum(len(a) for v in adj_cpu.values() for a in v)
-    print(f"small input {SMALL_SHAPE}, card vs CPU: {json.dumps(worst)}", flush=True)
+    print(f"{tag}small input {axes} {data.shape}, card vs CPU: {json.dumps(worst)}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the batch CLI on the card
+# ---------------------------------------------------------------------------
+
+def phase_cli(nn, root):
+    """``cli.main`` in this process on a directory of one TYX file, one YX
+    file and one file that ``--substring`` skips; each matching file gets
+    its organelle table and the kernel is launched."""
+    from nellie_tpu_torch.pipeline import cli
+
+    directory = os.path.join(root, "cli")
+    series = small_series_2d()
+    write_input(directory, "mito_movie", series, "TYX", {"X": 0.1, "Y": 0.1, "Z": None, "T": 1.0})
+    write_input(directory, "mito_still", series[0], "YX", {"X": 0.1, "Y": 0.1, "Z": None, "T": None})
+    write_input(directory, "er_skip", series[0], "YX", {"X": 0.1, "Y": 0.1, "Z": None, "T": None})
+    nn.NN_KERNEL.launches = 0
+    cli.main(["--directory", directory, "--substring", "mito"])
+    launches = nn.NN_KERNEL.launches
+    out = os.path.join(directory, "nellie_output")
+    written = sorted(os.listdir(out))
+    for name in ("mito_movie", "mito_still"):
+        tables = [f for f in written if f.startswith(name) and f.endswith("features_organelles.csv")]
+        if not tables:
+            fail(f"the CLI wrote no organelle table for {name}")
+        header, rows = read_table(os.path.join(out, tables[0]))
+        if header != expected_headers(False)["organelles"] or not rows:
+            fail(f"the CLI's organelle table for {name} has another header or no rows")
+    if any(f.startswith("er_skip") for f in written):
+        fail("the CLI processed the file its substring filter skips")
+    if launches == 0:
+        fail("the CLI's runs never launched the nn kernel")
+    print(f"cli: {len(written)} outputs for the 2 matching files, nn launches {launches}",
+          flush=True)
+    return launches
 
 
 def compare_tables(got, want, headers, skip):
@@ -621,20 +721,32 @@ def main() -> None:
     try:
         launches, by_stage, im_info = phase_main_path(nn, gpu, root)
         reassign, hierarchy = phase_kernel_main_shapes(nn, gpu, im_info)
-        max_abs = max(max_abs, reassign["max_abs_err"], hierarchy["max_abs_err"])
-        phase_small_parity(root)
+        phase_small_parity(root, small_series(), "TZYX",
+                           {"X": 0.2, "Y": 0.2, "Z": 0.5, "T": 1.0})
+        _, by_stage_2d, im_info_2d = phase_main_path(nn, gpu, root, MAIN_SHAPE_2D, tag="2D ")
+        reassign_2d, hierarchy_2d = phase_kernel_main_shapes(nn, gpu, im_info_2d, tag="2D ")
+        series_2d = small_series_2d()
+        for data, axes, t_res in ((series_2d, "TYX", 1.0), (series_2d[0], "YX", None)):
+            phase_small_parity(root, data, axes, {"X": 0.1, "Y": 0.1, "Z": None, "T": t_res},
+                               tag=f"2D {axes} ")
+        phase_cli(nn, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
     reassign["launches"] = by_stage["VoxelReassigner"]
     hierarchy["launches"] = by_stage["Hierarchy"]
+    reassign_2d["launches"] = by_stage_2d["VoxelReassigner"]
+    hierarchy_2d["launches"] = by_stage_2d["Hierarchy"]
+    paths = {"reassign": reassign, "hierarchy": hierarchy,
+             "reassign_2d": reassign_2d, "hierarchy_2d": hierarchy_2d}
+    max_abs = max([max_abs] + [p["max_abs_err"] for p in paths.values()])
     top = {k: reassign[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"kernels": [{
         "name": "nn_argmin", "route": "cuda",
         "source": "nellie_tpu_torch/kernels/csrc/nn_argmin.cu",
         "replaces": "nellie_tpu/kernels/pallas_nn.py:72",
         "launches": launches, "max_abs_err": max_abs, **top,
-        "paths": {"reassign": reassign, "hierarchy": hierarchy}}]}), flush=True)
+        "paths": paths}]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

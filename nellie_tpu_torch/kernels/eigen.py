@@ -1,8 +1,8 @@
-"""Closed-form eigenvalues of symmetric 3x3 matrices, elementwise.
+"""Closed-form eigenvalues of symmetric 2x2 and 3x3 matrices, elementwise.
 
-Port of ``nellie_tpu/kernels/eigen.py::eigvalsh3``: the trigonometric
-(Cardano) method on the scaled matrix, no LAPACK, eigenvalues sorted by
-|λ| ascending with a three-element sorting network.  Divisions by
+Port of ``nellie_tpu/kernels/eigen.py``: ``eigvalsh2`` is the quadratic
+formula, ``eigvalsh3`` the trigonometric (Cardano) method on the scaled
+matrix; no LAPACK, eigenvalues sorted by |λ| ascending.  Divisions by
 constants are multiplications by the float32 reciprocal, as XLA compiles
 them.
 """
@@ -12,9 +12,23 @@ from typing import Tuple
 
 import torch
 
-from nellie_tpu_torch.kernels._fp import f32, fma, sum_of_products
+from nellie_tpu_torch.kernels._fp import f32, fma, sqrt, sum_of_products
 
 _TWO_PI_3 = 2.0943951023931953  # 2π/3
+
+
+def eigvalsh2(hxx, hxy, hyy) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eigenvalues of [[hxx, hxy], [hxy, hyy]], sorted by |λ| ascending.
+
+    The discriminant fuses its first square into the sum, as XLA does, and
+    the square root is correctly rounded (:func:`_fp.sqrt`)."""
+    trace = hxx + hyy
+    diff = hxx - hyy
+    delta = sqrt(fma(diff, diff, 4.0 * hxy * hxy))
+    l1 = 0.5 * (trace - delta)
+    l2 = 0.5 * (trace + delta)
+    swap = l1.abs() > l2.abs()
+    return torch.where(swap, l2, l1), torch.where(swap, l1, l2)
 
 
 def eigvalsh3(hxx, hxy, hxz, hyy, hyz, hzz) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

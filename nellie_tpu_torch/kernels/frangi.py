@@ -1,15 +1,16 @@
-"""Multi-scale Frangi vesselness of one 3D frame.
+"""Multi-scale Frangi vesselness of one 2D or 3D frame.
 
 Port of ``nellie_tpu/kernels/frangi.py``: per scale an incremental
 Gaussian (Δσ cascade), γ from min(triangle, Otsu) of the positive smoothed
 voxels, the Hessian and its normalised Frobenius norm, the Frobenius mask,
 closed-form eigenvalues, the Frangi response and a running maximum.  Then
 ``finalize_frame`` (1st-percentile mask and binary opening) and
-``remove_edges_frame``.
+``remove_edges_frame``.  2D frames add the multi-scale LoG blobness
+(``log_blobness_2d``).
 
 Not ported: ``carry_dtype="float16"`` (the reference rescales the frame
 but not a user-set ``frob_thresh``; the port raises instead of copying
-that) and the 2D path (``log_blobness_2d``).
+that).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from nellie_tpu_torch.kernels import eigen, filters, thresholds
-from nellie_tpu_torch.kernels._fp import f32, fma, sum_of_products
+from nellie_tpu_torch.kernels._fp import exp, f32, fma, sum_of_products
 from nellie_tpu_torch.kernels.hessian import hessian_components
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -82,7 +83,21 @@ def _frob_mask(frob: torch.Tensor, params: FrangiParams) -> torch.Tensor:
 
 def _frangi_response(eigs, gamma_sq, params: FrangiParams) -> torch.Tensor:
     """Frangi vesselness from |λ|-sorted eigenvalues; like the reference, the
-    ratio numerators both use |λ2|."""
+    3D ratio numerators both use |λ2|.
+
+    2D takes XLA's exp (:func:`_fp.exp`), so that the response is the
+    reference's bit for bit.  3D keeps PyTorch's: its eigenvalues still
+    differ in the last bits (XLA calls glibc's ``acosf``/``cosf``), and with
+    XLA's exp alone the 3D flow costs, which amplify the smallest Frangi
+    values through a log10, moved from 9.8e-5 to 1.1e-4 of the reference's
+    on the parity input."""
+    if len(eigs) == 2:
+        l1, l2 = eigs
+        rb = l1.abs() / (l2.abs() + f32(1e-12))
+        s_sq = fma(l1, l1, l2 * l2)
+        v = exp(-(rb * rb * f32(1.0 / params.beta_sq))) * (1.0 - exp(-(s_sq / gamma_sq)))
+        v = torch.where(l2 > 0, torch.zeros_like(v), v)
+        return torch.nan_to_num(v, nan=0.0, posinf=0.0, neginf=0.0)
     l1, l2, l3 = eigs
     a2 = l2.abs()
     ra = a2 / (l3.abs() + f32(1e-12))
@@ -119,7 +134,8 @@ def _delta_kernels(params: FrangiParams, ndim: int):
 
 
 def vesselness_frame(frame: torch.Tensor, params: FrangiParams, apply_mask: bool = True):
-    """(vesselness * accumulated mask, accumulated mask) of one 3D frame."""
+    """(vesselness * accumulated mask, accumulated mask) of one 2D or 3D
+    frame."""
     frame = frame.float()
     ndim = frame.ndim
     kernel_stacks = _delta_kernels(params, ndim)
@@ -134,12 +150,28 @@ def vesselness_frame(frame: torch.Tensor, params: FrangiParams, apply_mask: bool
 
         h, frob = hessian_components(gauss, params.spacing)
         h_mask = _frob_mask(frob, params) if apply_mask else torch.ones_like(all_mask)
-        eigs = eigen.eigvalsh3(h["hxx"], h["hxy"], h["hxz"], h["hyy"], h["hyz"], h["hzz"])
+        if ndim == 2:
+            eigs = eigen.eigvalsh2(h["hxx"], h["hxy"], h["hyy"])
+        else:
+            eigs = eigen.eigvalsh3(h["hxx"], h["hxy"], h["hxz"], h["hyy"], h["hyz"], h["hzz"])
         v = _frangi_response(eigs, gamma_sq, params)
         v = torch.where(h_mask, v, torch.zeros_like(v))
         vessel = torch.maximum(vessel, v)
         all_mask = all_mask & h_mask
     return vessel * all_mask, all_mask
+
+
+def log_blobness_2d(frame: torch.Tensor, mask: torch.Tensor, params: FrangiParams) -> torch.Tensor:
+    """Multi-scale LoG "blobness" of a 2D frame inside ``mask``, the
+    maximum over scales, clipped at 0 and normalised to [0, 0.1]."""
+    frame = frame.float()
+    lap = None
+    for sigma in params.sigmas:
+        cur = -filters.gaussian_laplace(frame, params.sigma_vec(sigma)) * f32(float(sigma) ** 2)
+        cur = cur * mask
+        lap = cur if lap is None else torch.maximum(lap, cur)
+    lap = torch.clamp(lap, min=0.0)
+    return lap / (lap.max() + f32(1e-12)) * f32(0.1)
 
 
 def masked_percentile(values: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:
@@ -177,9 +209,9 @@ def finalize_frame(frangi_frame: torch.Tensor, max_samples: int = int(1e6)) -> t
 
 
 def remove_edges_frame(frangi_frame: torch.Tensor) -> torch.Tensor:
-    """Zero a 15-row margin at the top and bottom of each Z-slice's nonzero
-    bounding box."""
-    x = frangi_frame
+    """Zero a 15-row margin at the top and bottom of each Z-slice's (or the
+    2D frame's) nonzero bounding box."""
+    x = frangi_frame[None] if frangi_frame.ndim == 2 else frangi_frame
     rows_any = (x != 0).any(dim=2)  # (Z, Y)
     ny = x.shape[1]
     row_idx = torch.arange(ny, device=x.device)[None, :]
@@ -190,4 +222,5 @@ def remove_edges_frame(frangi_frame: torch.Tensor) -> torch.Tensor:
     margin = torch.clamp(height, max=15)
     kill = (((row_idx >= rmin) & (row_idx < rmin + margin))
             | ((row_idx > rmax - margin) & (row_idx <= rmax))) & has_any
-    return torch.where(kill[:, :, None], torch.zeros_like(x), x)
+    out = torch.where(kill[:, :, None], torch.zeros_like(x), x)
+    return out[0] if frangi_frame.ndim == 2 else out

@@ -11,7 +11,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from nellie_tpu_torch.kernels._fp import f32, sum_of_products
+from nellie_tpu_torch.kernels._fp import f32, sqrt, sum_of_products
 
 
 def gradient(f: torch.Tensor, spacing: float, axis: int) -> torch.Tensor:
@@ -28,28 +28,42 @@ def gradient(f: torch.Tensor, spacing: float, axis: int) -> torch.Tensor:
 def hessian_components(
     image: torch.Tensor, spacing: Sequence[float]
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-    """Unique second derivatives (3D: hxx, hxy, hxz, hyy, hyz, hzz with
-    axis 0 = 'x') and the Frobenius norm over the largest |component|."""
-    if image.ndim != 3:
-        raise ValueError(f"the port supports 3D frames, got {image.ndim}D")
+    """Unique second derivatives (2D: hxx, hxy, hyy; 3D: hxx, hxy, hxz,
+    hyy, hyz, hzz; axis 0 = 'x') and the Frobenius norm over the largest
+    |component|."""
     spacing = tuple(float(s) for s in spacing)
-    g0 = gradient(image, spacing[0], 0)
-    g1 = gradient(image, spacing[1], 1)
-    g2 = gradient(image, spacing[2], 2)
-    h = {
-        "hxx": gradient(g0, spacing[0], 0),
-        "hxy": gradient(g0, spacing[1], 1),
-        "hxz": gradient(g0, spacing[2], 2),
-        "hyy": gradient(g1, spacing[1], 1),
-        "hyz": gradient(g1, spacing[2], 2),
-        "hzz": gradient(g2, spacing[2], 2),
-    }
-    off = sum_of_products([(h["hxy"], h["hxy"]), (h["hxz"], h["hxz"]), (h["hyz"], h["hyz"])])
-    diag = sum_of_products([(h["hxx"], h["hxx"]), (h["hyy"], h["hyy"]), (h["hzz"], h["hzz"])])
-    frob_sq = diag + 2.0 * off
+    if image.ndim == 2:
+        g0 = gradient(image, spacing[0], 0)
+        g1 = gradient(image, spacing[1], 1)
+        h = {
+            "hxx": gradient(g0, spacing[0], 0),
+            "hxy": gradient(g0, spacing[1], 1),
+            "hyy": gradient(g1, spacing[1], 1),
+        }
+        # XLA's order and a correctly rounded root, so that the 2D
+        # Frobenius mask, hence im_preprocessed, follows the reference's
+        frob = sqrt(sum_of_products([(h["hxx"], h["hxx"]), (h["hyy"], h["hyy"])])
+                    + 2.0 * (h["hxy"] * h["hxy"]))
+    elif image.ndim == 3:
+        g0 = gradient(image, spacing[0], 0)
+        g1 = gradient(image, spacing[1], 1)
+        g2 = gradient(image, spacing[2], 2)
+        h = {
+            "hxx": gradient(g0, spacing[0], 0),
+            "hxy": gradient(g0, spacing[1], 1),
+            "hxz": gradient(g0, spacing[2], 2),
+            "hyy": gradient(g1, spacing[1], 1),
+            "hyz": gradient(g1, spacing[2], 2),
+            "hzz": gradient(g2, spacing[2], 2),
+        }
+        off = sum_of_products([(h["hxy"], h["hxy"]), (h["hxz"], h["hxz"]), (h["hyz"], h["hyz"])])
+        diag = sum_of_products([(h["hxx"], h["hxx"]), (h["hyy"], h["hyy"]), (h["hzz"], h["hzz"])])
+        frob = torch.sqrt(diag + 2.0 * off)
+    else:
+        raise ValueError(f"unsupported number of dimensions: {image.ndim}")
 
     max_abs = torch.zeros((), dtype=image.dtype, device=image.device)
     for comp in h.values():
         max_abs = torch.maximum(max_abs, comp.abs().max())
     max_abs = torch.where(max_abs > 0, max_abs, torch.ones_like(max_abs))
-    return h, torch.sqrt(frob_sq) / max_abs
+    return h, frob / max_abs

@@ -1,6 +1,7 @@
-"""Topology-preserving 3D thinning with the simple-point lookup table.
+"""Topology-preserving thinning: 3D with the simple-point lookup table,
+2D by Zhang–Suen.
 
-Port of ``nellie_tpu/kernels/skeleton.py::skeletonize_3d`` with ONE
+Port of ``nellie_tpu/kernels/skeleton.py``.  ``skeletonize_3d`` has ONE
 backend, the LUT (``_deletable``, ``:53``): each voxel's 26 neighbour
 occupancies are packed into a 26-bit code and looked up in the 8 MiB
 Bertrand–Malandain table (:mod:`nellie_tpu_torch.kernels.simple_point`).  The
@@ -13,6 +14,9 @@ layer at the start, simplicity is re-checked as deletions land, and each
 round commits only candidates with no 26-adjacent candidate of lower
 parity index (``:233-279``), so parallel commits equal some sequential
 order of simple-point deletions.
+
+``skeletonize_2d`` (``:286-319``) runs Zhang–Suen's two subiterations
+until a pass deletes nothing.
 """
 from __future__ import annotations
 
@@ -94,3 +98,42 @@ def skeletonize_3d(mask: torch.Tensor, lut: torch.Tensor = None) -> torch.Tensor
         if torch.equal(new, fg):
             return new
         fg = new
+
+
+# P2..P9 clockwise from north, offsets (dy, dx)
+_P_OFFS = ((-1, 0), (-1, 1), (0, 1), (1, 1), (1, 0), (1, -1), (0, -1), (-1, -1))
+
+
+def _zs_pass(fg: torch.Tensor, first: bool) -> torch.Tensor:
+    p = [_shift3(fg, off, False).to(torch.int32) for off in _P_OFFS]
+    b = sum(p)
+    seq = p + [p[0]]
+    a = sum(((seq[i] == 0) & (seq[i + 1] == 1)).to(torch.int32) for i in range(8))
+    p2, p4, p6, p8 = p[0], p[2], p[4], p[6]
+    if first:
+        c1 = (p2 * p4 * p6) == 0
+        c2 = (p4 * p6 * p8) == 0
+    else:
+        c1 = (p2 * p4 * p8) == 0
+        c2 = (p2 * p6 * p8) == 0
+    delete = fg & (b >= 2) & (b <= 6) & (a == 1) & c1 & c2
+    return fg & ~delete
+
+
+def skeletonize_2d(mask: torch.Tensor) -> torch.Tensor:
+    """2D Zhang–Suen thinning of a boolean mask."""
+    fg = mask.bool()
+    while True:
+        new = _zs_pass(_zs_pass(fg, True), False)
+        if torch.equal(new, fg):
+            return new
+        fg = new
+
+
+def skeletonize(mask: torch.Tensor, lut: torch.Tensor = None) -> torch.Tensor:
+    """Dimension dispatch: Zhang–Suen in 2D, LUT thinning in 3D."""
+    if mask.ndim == 2:
+        return skeletonize_2d(mask)
+    if mask.ndim == 3:
+        return skeletonize_3d(mask, lut)
+    raise ValueError(f"skeletonize supports 2D/3D, got {mask.ndim}D")

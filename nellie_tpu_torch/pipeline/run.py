@@ -6,9 +6,13 @@ order of the JAX package's per-stage branch
 (``nellie_tpu/pipeline/run.py:202-229``), so artifacts, the feature CSVs
 and ``adjacency_maps.pkl`` have the reference's names, dtypes and layout.
 
+``run_path`` opens a file and runs it; the batch CLI
+(:mod:`nellie_tpu_torch.pipeline.cli`) calls it per file.
+
 Not ported: the fused segmentation chain and its fallback
 (``run.py:184-201``), the compile warmer and the XLA compile cache, the
-mesh paths, the low-memory ladder, the CLI and batch runs.
+mesh paths, the low-memory ladder and the mesh-batched multi-file runs
+(``pipeline/batch.py``).
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import time
 import torch
 
 from nellie_tpu_torch import config as cfg_mod
-from nellie_tpu_torch.io import ImInfo
+from nellie_tpu_torch.io import FileInfo, ImInfo
 from nellie_tpu_torch.device import resolve_device
 from nellie_tpu_torch.stages.filtering import Filter
 from nellie_tpu_torch.stages.hierarchical import Hierarchy
@@ -122,3 +126,22 @@ def run(file_info, remove_edges=False, otsu_thresh_intensity=False, threshold=No
     if return_timings:
         return im_info, timings
     return im_info
+
+
+def run_path(filepath, ch: int = 0, t_start: int = 0, t_end=None, output_dir=None,
+             device="cuda", **kwargs):
+    """Open ``filepath`` (metadata detected from the file, the channel and
+    time range selected) and :func:`run` it on ``device``; raises
+    ``ValueError`` when the metadata is incomplete."""
+    file_info = FileInfo(filepath, output_dir=output_dir)
+    file_info.find_metadata()
+    file_info.load_metadata()
+    if ch and "C" in (file_info.axes or ""):
+        file_info.change_selected_channel(ch)
+    if (t_start or t_end is not None) and "T" in (file_info.axes or ""):
+        file_info.select_temporal_range(t_start, t_end)
+    errors = file_info.get_validation_errors()
+    if errors:
+        raise ValueError(f"Metadata incomplete for {filepath}: {errors}. "
+                         "Fix axes/resolutions via FileInfo before running.")
+    return run(file_info, device=device, **kwargs)

@@ -2,16 +2,17 @@
 
 Port of ``nellie_tpu/stages/filtering.py``, whole-frame path
 (``_run_frame`` and ``_run_filter``): one ``vesselness_frame`` call per
-timepoint, then ``finalize_frame`` and optionally ``remove_edges_frame``.
-Writes the float32 ``im_preprocessed`` artifact.
+timepoint (in 2D its maximum with the LoG blobness), then
+``finalize_frame`` and optionally ``remove_edges_frame``.  Writes the
+float32 ``im_preprocessed`` artifact.
 
 Not ported: the low-memory chunked path, the mesh-batched path, the
-compile warmer, the CPU fallback ladder (``utils/adaptive_run.py``) and the
-2D blobness branch.
+compile warmer and the CPU fallback ladder (``utils/adaptive_run.py``).
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from nellie_tpu_torch.io import ImInfo
 from nellie_tpu_torch.utils.logger import logger
@@ -21,7 +22,7 @@ from nellie_tpu_torch.stages import _frames
 
 
 class Filter:
-    """Multi-scale Frangi-style vesselness filter for 3D(+T) data."""
+    """Multi-scale Frangi-style vesselness filter for 2D/3D(+T) data."""
 
     def __init__(
         self,
@@ -39,16 +40,17 @@ class Filter:
         carry_dtype: str = "float32",
         device="cuda",
     ):
-        if im_info.no_z:
-            raise NotImplementedError("the port runs 3D data; the 2D branch is not ported yet")
         if carry_dtype != "float32":
             raise NotImplementedError(f"carry_dtype={carry_dtype!r}: the port keeps float32")
         self.im_info = im_info
         self.device = resolve_device(device)
         self.truncate = 3.0
-        z_res = im_info.dim_res.get("Z") or im_info.dim_res.get("X") or 1.0
-        x_res = im_info.dim_res.get("X") or 1.0
-        self.z_ratio = float(z_res) / float(x_res)
+        if im_info.no_z:
+            self.z_ratio = 1.0
+        else:
+            z_res = im_info.dim_res.get("Z") or im_info.dim_res.get("X") or 1.0
+            x_res = im_info.dim_res.get("X") or 1.0
+            self.z_ratio = float(z_res) / float(x_res)
         self.num_t = num_t
         if num_t is None and not im_info.no_t:
             self.num_t = im_info.shape[im_info.axes.index("T")]
@@ -81,8 +83,10 @@ class Filter:
 
     def _get_spacing(self):
         res = self.im_info.dim_res
-        z = res.get("Z") or res.get("X") or 1.0
-        return (float(z), float(res.get("Y") or 1.0), float(res.get("X") or 1.0))
+        yx = (float(res.get("Y") or 1.0), float(res.get("X") or 1.0))
+        if self.im_info.no_z:
+            return yx
+        return (float(res.get("Z") or res.get("X") or 1.0),) + yx
 
     def _set_default_sigmas(self):
         """σ ∈ [min_r/2, max_r/3], at most 5 scales, step ≥ 0.2."""
@@ -112,7 +116,10 @@ class Filter:
     def _run_frame(self, t, mask=True):
         logger.info(f"Running Frangi filter on t={t}.")
         frame = _frames.load(self.im_memmap, t, self.device)
-        vessel, _ = frangi_k.vesselness_frame(frame, self._params, apply_mask=mask)
+        vessel, masks = frangi_k.vesselness_frame(frame, self._params, apply_mask=mask)
+        if self.im_info.no_z:
+            blob = frangi_k.log_blobness_2d(frame, masks, self._params)
+            vessel = torch.maximum(vessel, torch.clamp(blob, min=0.0))
         if self.remove_edges:
             vessel = frangi_k.remove_edges_frame(vessel)
         return vessel

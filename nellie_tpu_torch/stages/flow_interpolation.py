@@ -77,7 +77,8 @@ class FlowInterpolator:
         if num_t is None:
             self.num_t = im_info.shape[im_info.axes.index("T")]
         res = im_info.dim_res
-        self.scaling = (res["Z"], res["Y"], res["X"])
+        self.scaling = ((res["Y"], res["X"]) if im_info.no_z
+                        else (res["Z"], res["Y"], res["X"]))
         self.max_distance_um = max(max_distance_um * (res["T"] or 1.0), 0.5)
         self.forward = forward
         self.flow_vector_array = np.load(im_info.pipeline_paths["flow_vector_array"])
@@ -86,7 +87,7 @@ class FlowInterpolator:
     def _select_rows(self, t):
         """Flow rows and their anchors for timepoint t (fwd: origins; bwd:
         origins + vectors)."""
-        d = 3
+        d = len(self.scaling)
         if self.forward:
             rows = self.flow_vector_array[self.flow_vector_array[:, 0] == t]
             coords = rows[:, 1:1 + d]

@@ -26,8 +26,8 @@ with numpy and the standard library on one background thread.
 
 Not ported: the adaptive retry ladder (``low_memory=True`` raises), the
 mesh paths, the fused chain's device cache of the skeleton, the trimmed
-transfers, the frames-ahead thread pool, the host aggregate of small
-node tables and the 2D branch.
+transfers, the frames-ahead thread pool and the host aggregate of small
+node tables.
 """
 from __future__ import annotations
 
@@ -42,7 +42,7 @@ import torch
 
 from nellie_tpu_torch.device import resolve_device
 from nellie_tpu_torch.io import ImInfo
-from nellie_tpu_torch.kernels._fp import reduce_sum_of_squares, sqrt
+from nellie_tpu_torch.kernels._fp import f32, reduce_sum_of_squares, sqrt
 from nellie_tpu_torch.kernels.nn import nearest_neighbors
 from nellie_tpu_torch.kernels.segstats import STAT_KEYS, branch_geometry, segment_nanstats
 from nellie_tpu_torch.stages.flow_interpolation import FlowInterpolator
@@ -109,15 +109,26 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((v * v).sum(dim=1))
 
 
+def _angle_wrap(x: torch.Tensor) -> torch.Tensor:
+    """``(x + π) mod 2π − π`` with the floor-mod of ``jnp``'s ``%``: the
+    truncated remainder moved into the divisor's sign."""
+    two_pi = f32(2 * np.pi)
+    mod = torch.fmod(x + f32(np.pi), two_pi)
+    mod = torch.where((mod != 0) & (mod < 0), mod + two_pi, mod)
+    return mod - f32(np.pi)
+
+
 def _motility_kernel(coords_px, vec01_px, vec12_px, labels, spacing, dt: float,
                      has01: bool, num_labels: int) -> torch.Tensor:
-    """All per-voxel motility statistics of one 3D frame.
+    """All per-voxel motility statistics of one 2D or 3D frame.
 
-    coords_px/vec01_px/vec12_px: (N, 3) float32 voxel units; labels (N,)
-    branch ids; spacing (3,) float32.  vec12 exists (t < T-1); vec01 is
+    coords_px/vec01_px/vec12_px: (N, d) float32 voxel units; labels (N,)
+    branch ids; spacing (d,) float32.  vec12 exists (t < T-1); vec01 is
     all NaN when ``has01`` is False.  Returns the (9, N) float32 columns
-    in ``_MOTILITY_KEYS`` order."""
-    n = coords_px.shape[0]
+    in ``_MOTILITY_KEYS`` order.  In 2D the angular velocity is the
+    wrapped change of the polar angle (a signed scalar), in 3D the cross
+    product over the product of the norms."""
+    n, d = coords_px.shape
     sp = spacing[None, :]
     coords_1 = coords_px * sp
 
@@ -126,6 +137,11 @@ def _motility_kernel(coords_px, vec01_px, vec12_px, labels, spacing, dt: float,
         return v, _norm(v)
 
     def ang(ra, rb):
+        if d == 2:
+            theta_a = torch.atan2(ra[:, 1], ra[:, 0])
+            theta_b = torch.atan2(rb[:, 1], rb[:, 0])
+            av = _angle_wrap(theta_b - theta_a) / dt
+            return av, av.abs()
         cross = torch.linalg.cross(ra, rb, dim=1)
         norm = (_norm(ra) * _norm(rb))[:, None]
         ang_disp = torch.where(norm != 0, cross / torch.where(norm != 0, norm, 1.0), _NAN)
@@ -172,9 +188,13 @@ def _motility_kernel(coords_px, vec01_px, vec12_px, labels, spacing, dt: float,
         lin_vel_rel_01v, _ = lin(r0_rel, r1_rel01)
         ang_vel_rel_01, _ = ang(r0_rel, r1_rel01)
         lin_acc_mag = _norm((lin_vel_v - lin_vel_01v) / dt)
-        ang_acc_mag = _norm((ang_vel - ang_vel_01) / dt)
         lin_acc_rel_mag = _norm((lin_vel_rel_v - lin_vel_rel_01v) / dt)
-        ang_acc_rel_mag = _norm((ang_vel_rel - ang_vel_rel_01) / dt)
+        ang_acc = (ang_vel - ang_vel_01) / dt
+        ang_acc_rel = (ang_vel_rel - ang_vel_rel_01) / dt
+        if d == 2:
+            ang_acc_mag, ang_acc_rel_mag = ang_acc.abs(), ang_acc_rel.abs()
+        else:
+            ang_acc_mag, ang_acc_rel_mag = _norm(ang_acc), _norm(ang_acc_rel)
     else:
         nana = torch.full((n,), _NAN, device=coords_px.device)
         lin_acc_mag = ang_acc_mag = lin_acc_rel_mag = ang_acc_rel_mag = nana
@@ -388,6 +408,14 @@ def _agg_columns(stat_names, agg) -> dict:
     return cols
 
 
+def _zyx(columns: np.ndarray):
+    """(z, y, x) rows of a (d, n) coordinate array, d = 2 or 3; z is NaN
+    in 2D, as the reference writes ``z_raw`` empty there."""
+    if len(columns) == 2:
+        return np.full(columns.shape[1], np.nan, columns.dtype), columns[0], columns[1]
+    return columns[0], columns[1], columns[2]
+
+
 def _ids_into(member_labels: np.ndarray, row_labels: np.ndarray) -> np.ndarray:
     """Map labels to row indices of `row_labels` (sorted unique); -1 where
     absent (those members don't contribute)."""
@@ -444,9 +472,7 @@ class _VoxelLevel:
         self.branch_labels = np.asarray(h.label_branches[t])[at].astype(np.int64)
         self.intensity = np.asarray(h.im_raw[t])[at].astype(np.float32)
         self.structure = np.asarray(h.im_struct[t])[at].astype(np.float32)
-        self.z = self.coords[:, 0].astype(np.float32)
-        self.y = self.coords[:, 1].astype(np.float32)
-        self.x = self.coords[:, 2].astype(np.float32)
+        self.z, self.y, self.x = _zyx(self.coords.T.astype(np.float32))
 
         vec01_px = vec12_px = None
         if h.flow_interpolator_fw is not None and n > 0:
@@ -456,7 +482,7 @@ class _VoxelLevel:
             if t < h.num_t - 1:
                 vec12_px = h.flow_interpolator_fw.interpolate_coord_dev(coords_f, t)
         sp = h.spacing_dev
-        nan_vec = torch.full((n, 3), _NAN, device=dev)
+        nan_vec = torch.full((n, self.coords.shape[1]), _NAN, device=dev)
         # flow vectors in physical units, consumed by the node level
         self.vec01_dev = nan_vec if vec01_px is None else vec01_px * sp
         self.vec12_dev = nan_vec if vec12_px is None else vec12_px * sp
@@ -536,9 +562,7 @@ class _NodeLevel:
                 h._pool.submit(lambda: self._submit_pairs(
                     h, *_host_box_pairs(lo, hi, vox.coords, shape)))
             self.vergere = self.convergence + self.divergence
-            self.z = coord_means[0] * spacing[0]
-            self.y = coord_means[1] * spacing[1]
-            self.x = coord_means[2] * spacing[2]
+            self.z, self.y, self.x = _zyx(coord_means * spacing[:, None])
         else:
             nanm = np.full(m, np.nan)
             self.convergence = nanm.copy()
@@ -701,7 +725,10 @@ class _BranchLevel:
             mino[i] = r.minor_axis_length
             extent[i] = r.extent
             solidity[i] = r.solidity
-            z[i], y[i], x[i] = r.centroid
+            if len(r.centroid) == 3:
+                z[i], y[i], x[i] = r.centroid
+            else:
+                y[i], x[i] = r.centroid
         setattr(self, f"{prefix}_area", area)
         setattr(self, f"{prefix}_axis_length_maj", maj)
         setattr(self, f"{prefix}_axis_length_min", mino)
@@ -912,12 +939,12 @@ class Hierarchy:
     ):
         if low_memory:
             raise NotImplementedError("Hierarchy: low_memory=True is not ported")
-        if im_info.no_z:
-            raise NotImplementedError("the port runs 3D data; the 2D branch is not ported yet")
         self.im_info = im_info
         self.device = resolve_device(device)
         self.num_t = im_info.shape[0]
-        self.spacing = (im_info.dim_res["Z"], im_info.dim_res["Y"], im_info.dim_res["X"])
+        res = im_info.dim_res
+        self.spacing = ((res["Y"], res["X"]) if im_info.no_z
+                        else (res["Z"], res["Y"], res["X"]))
         self.spacing_dev = torch.tensor(self.spacing, dtype=torch.float32, device=self.device)
         self.skip_nodes = skip_nodes
         self.viewer = viewer

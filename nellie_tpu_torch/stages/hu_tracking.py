@@ -2,12 +2,13 @@
 
 Port of ``nellie_tpu/stages/hu_tracking.py``, sequential path (``:410``)
 with ``_prep_frame_kernel``, ``_roi_features_kernel`` and
-``_frame_features_fused`` (``:76-176``): per marker a zero-padded ROI cube
-is cut around it and reduced to 4 statistics (masked mean/variance of the
-intensity and of the log-normalised Frangi image) and 18 log-Hu features
-of its three max projections; consecutive frames are matched by
-distance-gated z-scored costs.  Writes ``flow_vector_array.npy`` with rows
-[t-1, z, y, x, dz, dy, dx, cost].
+``_frame_features_fused`` (``:76-176``): per marker a zero-padded ROI square
+(2D) or cube (3D) is cut around it and reduced to 4 statistics (masked
+mean/variance of the intensity and of the log-normalised Frangi image) and
+6 log-Hu features of the square or 18 of the cube's three max projections;
+consecutive frames are matched by distance-gated z-scored costs.  Writes
+``flow_vector_array.npy`` with rows [t-1, y, x, dy, dx, cost] (2D) or
+[t-1, z, y, x, dz, dy, dx, cost] (3D).
 
 Not ported: the mesh frame-parallel path, the device frame cache shared
 with the fused segmentation chain, and the host-tiled matcher for very
@@ -54,33 +55,35 @@ def _prep_frame_kernel(frangi: torch.Tensor, distance: torch.Tensor):
 def _roi_features_kernel(intensity_pad, frangi_pad, coords, radii, r):
     """Statistics and log-Hu features of the markers at ``coords``.
 
-    ``*_pad``: the frame padded by ``r`` zeros per side; ``coords`` (n, 3)
+    ``*_pad``: the frame padded by ``r`` zeros per side; ``coords`` (n, d)
     voxel coordinates; ``radii`` (n,) dilated-distance radii."""
+    n, ndim = coords.shape
     shape = torch.tensor([s - 2 * r for s in intensity_pad.shape], device=coords.device)
     rad = torch.ceil(radii).long()
     low = torch.minimum(torch.clamp(coords - rad[:, None], min=0), shape[None])
     high = torch.minimum(torch.clamp(coords + rad[:, None] + 1, min=0), shape[None])
     extent = high - low
     ar = torch.arange(r, device=coords.device)
-    z = (low[:, 0, None] + r + ar).reshape(-1, r, 1, 1)
-    y = (low[:, 1, None] + r + ar).reshape(-1, 1, r, 1)
-    x = (low[:, 2, None] + r + ar).reshape(-1, 1, 1, r)
-    inside = ((ar.reshape(1, r, 1, 1) < extent[:, 0].reshape(-1, 1, 1, 1))
-              & (ar.reshape(1, 1, r, 1) < extent[:, 1].reshape(-1, 1, 1, 1))
-              & (ar.reshape(1, 1, 1, r) < extent[:, 2].reshape(-1, 1, 1, 1)))
-    cubes_i = torch.where(inside, intensity_pad[z, y, x], 0.0)
-    cubes_f = torch.where(inside, frangi_pad[z, y, x], 0.0)
-    n = coords.shape[0]
+    index = []
+    inside = torch.ones((n,) + (r,) * ndim, dtype=torch.bool, device=coords.device)
+    for axis in range(ndim):
+        view = [-1 if a == axis else 1 for a in range(ndim)]
+        index.append((low[:, axis, None] + r + ar).reshape(n, *view))
+        inside = inside & (ar.reshape(1, *view) < extent[:, axis].reshape((n,) + (1,) * ndim))
+    cubes_i = torch.where(inside, intensity_pad[tuple(index)], 0.0)
+    cubes_f = torch.where(inside, frangi_pad[tuple(index)], 0.0)
     stats = moments.masked_mean_variance(torch.cat([cubes_i, cubes_f]))
     stats = torch.cat([stats[:n], stats[n:]], dim=1)
-    return stats, moments.log_hu(moments.hu_3d(cubes_i))
+    hu = moments.hu_2d(cubes_i) if ndim == 2 else moments.hu_3d(cubes_i)
+    return stats, moments.log_hu(hu)
 
 
 def _frame_features_fused(intensity, frangi, distance, coords, r, chunk, scaling):
-    """Per-frame [stats | log-Hu] features (n, 22) and physical coords."""
+    """Per-frame [stats | log-Hu] features (n, 10 in 2D, 22 in 3D) and
+    physical coords."""
     frangi_norm, dil = _prep_frame_kernel(frangi, distance)
-    radii = dil[coords[:, 0], coords[:, 1], coords[:, 2]]
-    pad = (r, r) * 3
+    radii = dil[tuple(coords.T)]
+    pad = (r, r) * coords.shape[1]
     intensity_pad = torch.nn.functional.pad(intensity.float(), pad)
     frangi_pad = torch.nn.functional.pad(frangi_norm, pad)
     parts = [_roi_features_kernel(intensity_pad, frangi_pad, coords[s:s + chunk],
@@ -104,13 +107,12 @@ class HuMomentTracking:
         self.device = resolve_device(device)
         if im_info.no_t:
             return
-        if im_info.no_z:
-            raise NotImplementedError("the port runs 3D data; the 2D branch is not ported yet")
         self.num_t = num_t
         if num_t is None:
             self.num_t = im_info.shape[im_info.axes.index("T")]
         res = im_info.dim_res
-        self.scaling = (res["Z"], res["Y"], res["X"])
+        self.scaling = ((res["Y"], res["X"]) if im_info.no_z
+                        else (res["Z"], res["Y"], res["X"]))
         dt = res.get("T") or 1.0
         if res.get("T") is None:
             logger.warning("Time resolution missing; assuming 1.0s for max_distance_um scaling.")
@@ -131,7 +133,7 @@ class HuMomentTracking:
         coords = np.argwhere(marker)
         n = coords.shape[0]
         if n == 0:
-            return _FrameFeatures(np.zeros((0, 3), int), 0)
+            return _FrameFeatures(np.zeros((0, marker.ndim), int), 0)
         distance = _frames.load(self.im_distance_memmap, t, self.device)
         dmax = float(distance.max())
         r = _next_multiple(max(int(np.ceil(2.0 * dmax)) * 2 + 1, 3), 4)
@@ -187,5 +189,5 @@ class HuMomentTracking:
         if frame_vectors:
             flow_vector_array = np.concatenate(frame_vectors, axis=0)
         else:
-            flow_vector_array = np.empty((0, 8), np.float32)
+            flow_vector_array = np.empty((0, 2 + 2 * len(self.scaling)), np.float32)
         np.save(self.flow_vector_array_path, flow_vector_array)

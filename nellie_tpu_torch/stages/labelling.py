@@ -3,8 +3,8 @@
 Port of ``nellie_tpu/stages/labelling.py``, full-volume path
 (``_run_frame_full_volume``, ``:265``) with the kernels at ``:49-92``:
 log10-domain min(triangle, Otsu) Frangi threshold (optionally gated by an
-intensity Otsu or fixed threshold), hole filling, the small-component
-filter, a 3^3 box-mean smoothing and scipy-numbered labelling.  Writes the
+intensity Otsu or fixed threshold), hole filling (3D only), the
+small-component filter, a 3^d box-mean smoothing and scipy-numbered labelling.  Writes the
 int32 ``im_instance_label`` artifact.
 
 Not ported: the chunked-Z path with host union-find merging, the
@@ -79,8 +79,6 @@ class Label:
                  threshold_sampling_pixels=1_000_000,
                  histogram_nbins=256,
                  device="cuda"):
-        if im_info.no_z:
-            raise NotImplementedError("the port runs 3D data; the 2D branch is not ported yet")
         self.im_info = im_info
         self.device = resolve_device(device)
         self.num_t = num_t
@@ -99,10 +97,14 @@ class Label:
         self.instance_label_memmap = None
 
     def _compute_min_area_pixels(self):
-        """4/3·π·r³ / (x·y·z) voxels, at least 1."""
+        """π·r² / (x·y) pixels in 2D, 4/3·π·r³ / (x·y·z) voxels in 3D; at
+        least 1."""
         res = self.im_info.dim_res
         x_res = res.get("X") or 1.0
         y_res = res.get("Y") or x_res
+        if self.im_info.no_z:
+            area_px = np.pi * self.min_radius_um ** 2 / (float(x_res) * float(y_res))
+            return max(1, int(np.ceil(area_px)))
         z_res = res.get("Z") or x_res
         vol_px = (4.0 / 3.0) * np.pi * self.min_radius_um ** 3 / (
             float(x_res) * float(y_res) * float(z_res))
@@ -149,7 +151,7 @@ class Label:
         use_intensity = intensity_thresh is not None
         return _label_frame_kernel(
             frangi, original, intensity_thresh if use_intensity else 0.0,
-            frangi_thresh, self.min_area_pixels, True, use_intensity)
+            frangi_thresh, self.min_area_pixels, not self.im_info.no_z, use_intensity)
 
     def _run_segmentation(self):
         for t in range(self.num_t):

@@ -89,15 +89,13 @@ class Markers:
     def __init__(self, im_info: ImInfo, num_t=None, min_radius_um=0.20, max_radius_um=1,
                  use_im="distance", num_sigma=5, viewer=None, peak_min_distance=2,
                  device="cuda"):
-        if im_info.no_z:
-            raise NotImplementedError("the port runs 3D data; the 2D branch is not ported yet")
         self.im_info = im_info
         self.device = resolve_device(device)
         self.num_t = 1 if im_info.no_t else num_t
         if self.num_t is None:
             self.num_t = im_info.shape[im_info.axes.index("T")]
         res = im_info.dim_res
-        self.z_ratio = res["Z"] / res["X"]
+        self.z_ratio = 1.0 if im_info.no_z else res["Z"] / res["X"]
         self.min_radius_um = max(min_radius_um, res["X"])
         self.max_radius_um = max_radius_um
         self.min_radius_px = self.min_radius_um / res["X"]

@@ -1,17 +1,17 @@
 """Stage 3 — Network: skeleton, pixel classes and branch labels.
 
 Port of ``nellie_tpu/stages/networking.py``: ``_run_frame_device``
-(``:202``) with the kernels at ``:51-134`` — LUT thinning, removal of
-skeleton voxels whose 3^3 neighbourhood spans two labels, a skeleton voxel
-for every label that lost its skeleton (the raster-first Frangi argmax),
-the 3^3 occupancy class (0 background, 1 isolated, 2 tip, 3 edge,
+(``:202``) with the kernels at ``:51-134`` — thinning (the LUT in 3D,
+Zhang–Suen in 2D), removal of skeleton voxels whose 3^d neighbourhood spans
+two labels, a skeleton voxel for every label that lost its skeleton (the
+raster-first Frangi argmax), the 3^d occupancy class (0 background, 1 isolated, 2 tip, 3 edge,
 4 junction), branch labels as components of the non-junction skeleton, and
 their propagation to whole objects by object-constrained nearest seed.
 Writes ``im_skel`` (int32), ``im_pixel_class`` (uint8) and
 ``im_skel_relabelled`` (uint32).
 
-Not ported: the foreground-sparse pull bundles, the 2D branch and the CPU
-fallback ladder.
+Not ported: the foreground-sparse pull bundles and the CPU fallback
+ladder.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from nellie_tpu_torch.utils.logger import logger
 from nellie_tpu_torch.device import resolve_device
 from nellie_tpu_torch.kernels import ccl, edt
 from nellie_tpu_torch.kernels.filters import maximum_filter, minimum_filter, sum_filter
-from nellie_tpu_torch.kernels.skeleton import simple26_lut, skeletonize_3d
+from nellie_tpu_torch.kernels.skeleton import simple26_lut, skeletonize
 from nellie_tpu_torch.stages import _frames
 
 _INT32_MAX = int(np.iinfo(np.int32).max)
@@ -93,20 +93,18 @@ class Network:
 
     def __init__(self, im_info: ImInfo, num_t=None, min_radius_um=0.20,
                  max_radius_um=1, viewer=None, device="cuda"):
-        if im_info.no_z:
-            raise NotImplementedError("the port runs 3D data; the 2D branch is not ported yet")
         self.im_info = im_info
         self.device = resolve_device(device)
         self.num_t = num_t
         if num_t is None and not im_info.no_t:
             self.num_t = im_info.shape[im_info.axes.index("T")]
         res = im_info.dim_res
-        self.z_ratio = res["Z"] / res["X"]
         self.min_radius_um = max(min_radius_um, res["X"])
         self.max_radius_um = max_radius_um
         self.min_radius_px = self.min_radius_um / res["X"]
         self.max_radius_px = self.max_radius_um / res["X"]
-        self.scaling = (res["Z"], res["Y"], res["X"])
+        self.scaling = ((res["Y"], res["X"]) if im_info.no_z
+                        else (res["Z"], res["Y"], res["X"]))
         self.viewer = viewer
         self._lut = None
 
@@ -133,12 +131,12 @@ class Network:
         """(skeleton labels on branch-labelled voxels, pixel class, branch
         labels of whole objects) for frame ``t``."""
         logger.info(f"Running network analysis, volume {t}/{self.num_t - 1}")
-        if self._lut is None:
+        if self._lut is None and not self.im_info.no_z:
             self._lut = simple26_lut(self.device)
         label_frame = _frames.load(self.label_memmap, t, self.device, np.int32)
         frangi_frame = _frames.load(self.im_frangi_memmap, t, self.device)
 
-        skel_mask = skeletonize_3d(label_frame > 0, self._lut)
+        skel_mask = skeletonize(label_frame > 0, self._lut)
         skel = torch.where(skel_mask, label_frame, 0)
         skel = _clean_skeleton_kernel(skel)
         skel = _add_missing_skeleton_kernel(skel, label_frame, frangi_frame)

@@ -40,10 +40,10 @@ def _pair_match_kernel(cp, cp_scaled, cn, cn_scaled, origin_scaled, origin_post_
                        vec, cost, scaling, interp_max_d, match_max_d):
     """Interpolation -> nearest neighbour -> candidate filters -> best pair.
 
-    cp/cn: (NP, 3)/(NN, 3) float32 voxel coordinates of frames t and t+1,
-    ``*_scaled`` their physical copies; origin_scaled/origin_post_scaled:
-    (M, 3) flow anchors for the forward/backward interpolation; vec (M, 3)
-    voxel-unit flow; cost (M,).  Returns the candidate table
+    cp/cn: (NP, d)/(NN, d) float32 voxel coordinates of frames t and t+1
+    (d = 2 or 3), ``*_scaled`` their physical copies;
+    origin_scaled/origin_post_scaled: (M, d) flow anchors for the
+    forward/backward interpolation; vec (M, d) voxel-unit flow; cost (M,).  Returns the candidate table
     (src, tgt, dist, keep) and per-t+1-voxel (best_src, best_ok)."""
     npq, nnq = cp.shape[0], cn.shape[0]
     dev = cp.device
@@ -117,8 +117,6 @@ class VoxelReassigner:
         if im_info.no_t:
             self.num_t = 1
             return
-        if im_info.no_z:
-            raise NotImplementedError("the port runs 3D data; the 2D branch is not ported yet")
         self.num_t = num_t
         if num_t is None:
             self.num_t = im_info.shape[im_info.axes.index("T")]
@@ -160,8 +158,9 @@ class VoxelReassigner:
         if len(rows) == 0:
             return None
         scaling = np.asarray(self.flow_interpolator_fw.scaling, np.float64)
-        origins = rows[:, 1:4]
-        vecs = rows[:, 4:7]
+        d = len(scaling)
+        origins = rows[:, 1:1 + d]
+        vecs = rows[:, 1 + d:1 + 2 * d]
 
         def put(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)

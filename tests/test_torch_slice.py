@@ -33,8 +33,6 @@ from nellie_tpu_torch.pipeline.run import params_from_config, run
 from nellie_tpu_torch.stages import mocap_marking
 from nellie_tpu_torch.stages import hierarchical as hier
 from nellie_tpu_torch.stages.filtering import Filter
-from nellie_tpu_torch.stages.flow_interpolation import FlowInterpolator
-from nellie_tpu_torch.kernels._fp import reduce_sum_of_squares, sqrt
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEAR_TIE_SHARE = 1e-3  # reassigned-label voxels allowed to differ (share of foreground)
@@ -42,9 +40,6 @@ NEAR_TIE_SHARE = 1e-3  # reassigned-label voxels allowed to differ (share of for
 # last-bit differences of im_preprocessed (XLA's CPU exp, acos, cos and
 # sqrt are not PyTorch's); the largest difference on this input is 9.8e-5.
 FLOW_COST_ATOL = 1e-4
-REL_COLUMNS = ("rel_linear_vel", "rel_angular_vel", "rel_linear_acc", "rel_angular_acc",
-               "rel_directionality")
-NEAR_TIE_FLOW = 1e-5  # relative |flow| gap of two reference-voxel candidates
 
 
 @pytest.fixture(scope="module")
@@ -71,61 +66,13 @@ def near_tie_branches(slice_runs):
     """{t: branch labels} whose reference voxel differs between the runs,
     each checked to be a near-tie."""
     ref, port, _ = slice_runs
-    labels, branches = D.read(ref, "im_instance_label"), D.read(ref, "im_skel_relabelled")
-    spacing = torch.tensor([D.DIM_RES["Z"], D.DIM_RES["Y"], D.DIM_RES["X"]])
-    flipped = {t: set() for t in range(labels.shape[0])}
-    for forward in (True, False):
-        interps = [FlowInterpolator(im_info, forward=forward, device="cpu") for im_info in (ref, port)]
-        for t in range(labels.shape[0]):
-            coords = np.argwhere(labels[t] > 0).astype(np.float32)
-            lbl = torch.from_numpy(branches[t][labels[t] > 0].astype(np.int64))
-            vecs = [interp.interpolate_coord_dev(coords, t) for interp in interps]
-            if vecs[0] is None:
-                continue
-            euc = [sqrt(reduce_sum_of_squares(v * spacing[None])) for v in vecs]
-            idx = [hier._segment_argmin(e, lbl, int(lbl.max()) + 1) for e in euc]
-            for b in torch.nonzero(idx[0] != idx[1]).flatten().tolist():
-                a, c = euc[1][idx[0][b]], euc[1][idx[1][b]]
-                assert abs(float(a - c)) <= NEAR_TIE_FLOW * float(c), (t, b, float(a), float(c))
-                flipped[t].add(b)
-    return flipped
-
-
-def _near_tie_rows(table, frame, flipped, labels, branches):
-    """Rows of ``frame`` (a features table) whose rel_* columns depend on a
-    near-tie branch's reference voxel."""
-    rows = np.zeros(len(frame), bool)
-    for t, found in flipped.items():
-        if not found:
-            continue
-        at_t = (frame["t"] == t).to_numpy()
-        fg = labels[t] > 0
-        if table == "voxels":
-            hit = np.isin(branches[t][fg], list(found))
-            rows[at_t] = hit[frame["label"].to_numpy()[at_t]]
-        elif table == "branches":
-            rows |= at_t & frame["label"].isin(found).to_numpy()
-        elif table == "organelles":
-            organelles = np.unique(labels[t][np.isin(branches[t], list(found)) & fg])
-            rows |= at_t & frame["label"].isin(organelles).to_numpy()
-        else:
-            rows |= at_t
-    return rows
+    return D.near_tie_branches(ref, port, [D.DIM_RES["Z"], D.DIM_RES["Y"], D.DIM_RES["X"]])
 
 
 @pytest.mark.parametrize("table", D.FEATURE_TABLES)
 def test_slice_feature_tables(slice_runs, near_tie_branches, table):
     ref, port, _ = slice_runs
-    path = f"features_{table}"
-    want = D.read_features(ref.pipeline_paths[path])
-    got = D.read_features(port.pipeline_paths[path])
-    assert len(want) > 0
-    rows = _near_tie_rows(table, want, near_tie_branches, D.read(ref, "im_instance_label"),
-                          D.read(ref, "im_skel_relabelled"))
-    assert len(got) == len(want)
-    D.assert_features_equal(want[~rows], got[~rows], table)
-    others = [c for c in want.columns if not c.startswith(REL_COLUMNS)]
-    D.assert_features_equal(want[rows][others], got[rows][others], table)
+    D.assert_features_equal_but_near_ties(ref, port, table, near_tie_branches)
 
 
 def test_slice_adjacency(slice_runs):
@@ -272,3 +219,31 @@ def test_run_default_and_config_toggles(tmp_path):
         assert os.path.exists(pp[f"features_{table}"])
     for name in ("im_preprocessed", "im_instance_label", "flow_vector_array", "adjacency_maps"):
         assert not os.path.exists(pp[name]), name
+
+
+def test_params_from_config_2d(tmp_path):
+    """A config's parameters reach the stages of a 2D series, which take
+    their 2D spacing and no Z ratio."""
+    from nellie_tpu_torch.stages.hu_tracking import HuMomentTracking
+    from nellie_tpu_torch.stages.labelling import Label
+    from nellie_tpu_torch.stages.mocap_marking import Markers
+    from nellie_tpu_torch.stages.networking import Network
+
+    cfg = SettingsConfig(preprocessing_min_radius_um=0.3, segmentation_label_threshold=150.0,
+                         mocap_peak_min_distance=3, remove_edges=True, analyze_node_level=True)
+    kw = params_from_config(cfg)
+    im_info = D.open_im_info(D.write_input(tmp_path, D.tube_series_2d(), D.DIM_RES_2D, "TYX"))
+    assert im_info.no_z and not im_info.no_t
+    filt = Filter(im_info, device="cpu", **kw["filter"])
+    filt._set_default_sigmas()
+    assert filt._params.spacing == (0.1, 0.1) and filt.z_ratio == 1.0 and filt.remove_edges
+    assert filt.sigmas[0] == pytest.approx(1.5)  # 0.3 µm / 0.1 µm / 2
+    label = Label(im_info, device="cpu", **kw["label"])
+    assert label.threshold == 150.0 and label.min_area_pixels == 20  # ceil(π 0.25² / 0.1²)
+    markers = Markers(im_info, device="cpu", **kw["markers"])
+    markers._set_default_sigmas()
+    assert markers.peak_min_distance == 3 and markers._params.sigma_vec(2.0) == (2.0, 2.0)
+    assert Network(im_info, device="cpu", **kw["network"]).scaling == (0.1, 0.1)
+    assert HuMomentTracking(im_info, device="cpu", **kw["tracking"]).scaling == (0.1, 0.1)
+    h = hier.Hierarchy(im_info, device="cpu", **kw["hierarchy"])
+    assert h.spacing == (0.1, 0.1) and h.skip_nodes is False

@@ -17,6 +17,11 @@ from nellie_tpu.io.verifier import FileInfo, ImInfo
 
 SHAPE = (3, 12, 48, 48)
 DIM_RES = {"X": 0.2, "Y": 0.2, "Z": 0.5, "T": 1.0}
+# the 2D time series (axes TYX) and the single-timepoint inputs (YX, ZYX)
+SHAPE_2D = (3, 64, 64)
+DIM_RES_2D = {"X": 0.1, "Y": 0.1, "Z": None, "T": 1.0}
+DIM_RES_YX = {"X": 0.1, "Y": 0.1, "Z": None, "T": None}
+DIM_RES_ZYX = {"X": 0.2, "Y": 0.2, "Z": 0.5, "T": None}
 
 # artifact -> comparison: "exact" or a tolerance relative to the frame max
 SEGMENTATION_ARTIFACTS = {
@@ -48,9 +53,31 @@ def tube_series(shape=SHAPE, seed=0) -> np.ndarray:
     return np.stack(frames).astype(np.uint16)
 
 
-def write_input(directory, data: np.ndarray, dim_res=None) -> str:
+def tube_series_2d(shape=SHAPE_2D, seed=0) -> np.ndarray:
+    """Two wavy filaments (σ ≈ 2 pixels) drifting apart along Y, plus noise."""
+    t_n, y_n, x_n = shape
+    y, x = np.mgrid[0:y_n, 0:x_n].astype(np.float64)
+    rng = np.random.default_rng(seed)
+    frames = []
+    for t in range(t_n):
+        img = 700.0 * np.exp(-((y - 0.3 * y_n - t - 5 * np.sin(x / 8.0)) ** 2) / (2 * 2.0 ** 2))
+        img += 500.0 * np.exp(-((y - 0.7 * y_n + t - 4 * np.cos(x / 7.0)) ** 2)
+                              / (2 * 2.4 ** 2))
+        frames.append(np.clip(img + rng.normal(80, 5, img.shape), 0, None))
+    return np.stack(frames).astype(np.uint16)
+
+
+# axes -> (input, physical pixel sizes) of the 2D and single-timepoint cases
+INPUTS = {
+    "TYX": (lambda: tube_series_2d(), DIM_RES_2D),
+    "YX": (lambda: tube_series_2d()[0], DIM_RES_YX),
+    "ZYX": (lambda: tube_series()[0], DIM_RES_ZYX),
+}
+
+
+def write_input(directory, data: np.ndarray, dim_res=None, axes="TZYX") -> str:
     os.makedirs(directory, exist_ok=True)
-    desc = ome_mod.build_ome_xml("TZYX", data.shape, "uint16", dim_res=dim_res or DIM_RES)
+    desc = ome_mod.build_ome_xml(axes, data.shape, "uint16", dim_res=dim_res or DIM_RES)
     path = os.path.join(str(directory), "tubes.ome.tif")
     tifffile.imwrite(path, data, description=desc)
     return path
@@ -148,3 +175,81 @@ def assert_adjacency_equal(ref, got):
         assert len(got[key]) == len(ref[key]), key
         for a, b in zip(ref[key], got[key]):
             np.testing.assert_array_equal(np.asarray(b), np.asarray(a), err_msg=key)
+
+
+# The branch-relative motility columns (rel_*) hang on each branch's
+# reference voxel, its member of minimum |flow|.  On flow fields of equal
+# unit steps that argmin is a near-tie broken by single ulps, so a
+# last-bit difference upstream may move it; such branches are found,
+# checked to be near-ties and excused from the rel_* comparison.
+REL_COLUMNS = ("rel_linear_vel", "rel_angular_vel", "rel_linear_acc", "rel_angular_acc",
+               "rel_directionality")
+NEAR_TIE_FLOW = 1e-5  # relative |flow| gap of two reference-voxel candidates
+
+
+def near_tie_branches(ref: ImInfo, port: ImInfo, spacing) -> dict:
+    """{t: branch labels} whose reference voxel differs between the two
+    runs, each asserted to be a near-tie of |flow| in the port's flow."""
+    import torch
+
+    from nellie_tpu_torch.kernels._fp import reduce_sum_of_squares, sqrt
+    from nellie_tpu_torch.stages import hierarchical as hier
+    from nellie_tpu_torch.stages.flow_interpolation import FlowInterpolator
+
+    labels, branches = read(ref, "im_instance_label"), read(ref, "im_skel_relabelled")
+    spacing = torch.tensor(spacing, dtype=torch.float32)
+    flipped = {t: set() for t in range(labels.shape[0])}
+    for forward in (True, False):
+        interps = [FlowInterpolator(im_info, forward=forward, device="cpu")
+                   for im_info in (ref, port)]
+        for t in range(labels.shape[0]):
+            coords = np.argwhere(labels[t] > 0).astype(np.float32)
+            lbl = torch.from_numpy(branches[t][labels[t] > 0].astype(np.int64))
+            vecs = [interp.interpolate_coord_dev(coords, t) for interp in interps]
+            if vecs[0] is None:
+                continue
+            euc = [sqrt(reduce_sum_of_squares(v * spacing[None])) for v in vecs]
+            idx = [hier._segment_argmin(e, lbl, int(lbl.max()) + 1) for e in euc]
+            for b in torch.nonzero(idx[0] != idx[1]).flatten().tolist():
+                a, c = euc[1][idx[0][b]], euc[1][idx[1][b]]
+                assert abs(float(a - c)) <= NEAR_TIE_FLOW * float(c), (t, b, float(a), float(c))
+                flipped[t].add(b)
+    return flipped
+
+
+def near_tie_rows(table, frame, flipped, labels, branches) -> np.ndarray:
+    """Rows of ``frame`` (a features table) whose rel_* columns depend on a
+    near-tie branch's reference voxel."""
+    rows = np.zeros(len(frame), bool)
+    for t, found in flipped.items():
+        if not found:
+            continue
+        at_t = (frame["t"] == t).to_numpy()
+        fg = labels[t] > 0
+        if table == "voxels":
+            hit = np.isin(branches[t][fg], list(found))
+            rows[at_t] = hit[frame["label"].to_numpy()[at_t]]
+        elif table == "branches":
+            rows |= at_t & frame["label"].isin(found).to_numpy()
+        elif table == "organelles":
+            organelles = np.unique(labels[t][np.isin(branches[t], list(found)) & fg])
+            rows |= at_t & frame["label"].isin(organelles).to_numpy()
+        else:
+            rows |= at_t
+    return rows
+
+
+def assert_features_equal_but_near_ties(ref: ImInfo, port: ImInfo, table: str, flipped) -> int:
+    """The feature table ``table`` of both runs at the features bar, but
+    for the rel_* columns of rows behind a near-tie branch; returns the
+    number of rows so excused."""
+    path = f"features_{table}"
+    want = read_features(ref.pipeline_paths[path])
+    got = read_features(port.pipeline_paths[path])
+    assert len(want) > 0 and len(got) == len(want), (table, len(want), len(got))
+    rows = near_tie_rows(table, want, flipped, read(ref, "im_instance_label"),
+                         read(ref, "im_skel_relabelled"))
+    assert_features_equal(want[~rows], got[~rows], table)
+    others = [c for c in want.columns if not c.startswith(REL_COLUMNS)]
+    assert_features_equal(want[rows][others], got[rows][others], table)
+    return int(rows.sum())
