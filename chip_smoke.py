@@ -36,7 +36,23 @@ Phases, each printing its own lines; any failure exits non-zero:
 8. runs the batch CLI (``nellie_tpu_torch.pipeline.cli.main``) in this
    process on a directory of one ``TYX`` file, one ``YX`` file and one file
    its substring filter skips, and checks each matching file's organelle
-   table and that the kernel was launched.
+   table and that the kernel was launched;
+9. holds the capacity path (``pipeline/capacity.py``) on the card to the
+   CPU, exactly: ``segment_volume`` on a 24x64x64 volume with the monolith
+   and the chunked strategy (on a 3x3x3 cell grid) and all three emits, on
+   a 2D image, and ``segment_path`` writing ``im_instance_label``;
+10. low memory, card against CPU at phase 5's bars: ``run`` on the small
+   ``TZYX`` input with every stage in its low-memory mode (Label in Z
+   slabs of ``chunk_z``), with the kernel's launches by stage (the
+   low-memory reassigner's among them) and the kernel at the shapes that
+   reassigner gave it; then tracking with ``mode="sparse"`` on 1,500
+   markers a frame, so that the row-tiled matcher runs in two tiles;
+11. the capacity path at 1024^3 (BASELINE config #4): a uint16 volume of
+   about 40 tubes on N(100, 8) noise made on the card from a seed,
+   ``segment_volume(..., emit="sparse_labels")`` with ``strategy="auto"``
+   (the chunked strategy), its seconds by phase, label count, foreground,
+   label dtype and peak device memory, and its labels held to
+   ``scipy.ndimage.label`` of their support, exactly.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits non-zero before printing any result.  It imports no JAX.
@@ -70,6 +86,8 @@ REL_COLUMNS = ("rel_linear_vel", "rel_angular_vel", "rel_linear_acc", "rel_angul
 HIERARCHY_INPUTS = ("im_preprocessed", "im_instance_label", "im_skel", "im_pixel_class",
                     "im_skel_relabelled", "im_distance", "im_border",
                     "im_branch_label_reassigned", "im_obj_label_reassigned", "flow_vector_array")
+CAPACITY_EDGE = 1024
+CAPACITY_SIGMAS = (0.75, 1.1, 1.6)
 LIBRARY_MAX_BYTES = 30e9  # largest distance matrix the library call may write
 TIE_REL = 1e-6   # an index may differ only where the two candidates' float64
                  # squared distances differ by <= TIE_REL * (|q|^2 + |r|^2)
@@ -564,19 +582,31 @@ def small_series_2d():
     return np.stack(frames).astype(np.uint16)
 
 
-def phase_small_parity(root, data, axes, dim_res, tag=""):
+def phase_small_parity(root, data, axes, dim_res, tag="", config=None, nn=None):
     """The pipeline on ``data`` on the card and on the CPU, held to each
     other: float artifacts within 1e-4 of the frame max, integer artifacts
     on all but 0.1% of the foreground, flow costs and the feature tables at
     the features bar, and the Hierarchy alone on the CPU run's artifacts
-    exactly so, with equal adjacency edges."""
+    exactly so, with equal adjacency edges.  With ``nn``, returns the
+    kernel's launches by stage in the card's run."""
     from nellie_tpu_torch.io import ImInfo
     from nellie_tpu_torch.pipeline.run import run
     from nellie_tpu_torch.stages.hierarchical import Hierarchy
+    from nellie_tpu_torch.stages.voxel_reassignment import VoxelReassigner
 
-    infos = {dev: run(write_input(os.path.join(root, f"small{tag.strip()}_{dev}"), "small", data,
-                                  axes, dim_res), device=dev)
-             for dev in ("cuda", "cpu")}
+    infos = {}
+    launches = {}
+    for dev in ("cuda", "cpu"):
+        fi = write_input(os.path.join(root, f"small{tag.strip()}_{dev}"), "small", data, axes,
+                         dim_res)
+        if nn is not None and dev == "cuda":
+            nn.NN_KERNEL.launches = 0
+            with StageWatch(nn, (VoxelReassigner, Hierarchy)) as watch:
+                infos[dev] = run(fi, device=dev, config=config)
+            launches = dict(watch.launches, total=nn.NN_KERNEL.launches)
+            print(f"{tag}nn launches by stage: {json.dumps(launches)}", flush=True)
+        else:
+            infos[dev] = run(fi, device=dev, config=config)
     temporal = not infos["cpu"].no_t
     worst = {}
     for name in ("im_preprocessed", "im_distance"):
@@ -635,6 +665,7 @@ def phase_small_parity(root, data, axes, dim_res, tag=""):
         fail(f"{tag}adjacency_maps.pkl differs between card and CPU")
     worst["adjacency edges"] = sum(len(a) for v in adj_cpu.values() for a in v)
     print(f"{tag}small input {axes} {data.shape}, card vs CPU: {json.dumps(worst)}", flush=True)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -671,6 +702,234 @@ def phase_cli(nn, root):
     print(f"cli: {len(written)} outputs for the 2 matching files, nn launches {launches}",
           flush=True)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the capacity path, card against CPU
+# ---------------------------------------------------------------------------
+
+def capacity_tube(shape=(24, 64, 64), seed=0):
+    """One wavy tube on noise (the CPU tests' capacity input)."""
+    rng = np.random.default_rng(seed)
+    z, y, x = np.mgrid[0:shape[0], 0:shape[1], 0:shape[2]]
+    tube = 800.0 * np.exp(-(((z - 12) ** 2) * 0.3 + (y - 32 + 6 * np.sin(x / 8.0)) ** 2 / 2)
+                          / (2 * 2.0 ** 2))
+    return np.clip(tube + rng.normal(100, 5, shape), 0, 65535).astype(np.uint16)
+
+
+def same_capacity_result(name, card, cpu):
+    """Fail unless two ``segment_volume`` results are equal in every product
+    and count."""
+    for key in ("n_labels", "fg_count", "emit", "strategy", "bytes_up", "bytes_down"):
+        if card.get(key) != cpu.get(key):
+            fail(f"capacity {name}: {key} {card.get(key)} on the card, {cpu.get(key)} on the CPU")
+    product = "labels" if "labels" in cpu else "mask_packed"
+    a, b = card[product], cpu[product]
+    if a.dtype != b.dtype or not np.array_equal(a, b):
+        fail(f"capacity {name}: {product} differ in {int((a != b).sum())} entries")
+    return {k: cpu.get(k) for k in ("n_labels", "fg_count")}
+
+
+def phase_capacity_parity(root):
+    from nellie_tpu_torch.kernels.frangi import FrangiParams
+    from nellie_tpu_torch.pipeline import capacity
+
+    params = FrangiParams(sigmas=(0.75, 0.95), spacing=(0.5, 0.2, 0.2), z_ratio=2.5)
+    vol = capacity_tube()
+    kw = dict(min_area=4, max_chunk_voxels=16 * 64 * 64)
+    grid = capacity._ccl_grid
+    counts = {}
+    try:
+        # a 3x3x3 cell grid, so that the chunked strategy merges on this volume
+        capacity._ccl_grid = lambda shape, **_: [
+            tuple(int(round(d * i / 3)) for i in range(4)) for d in shape]
+        for strategy in ("monolith", "chunked"):
+            for emit in ("labels", "sparse_labels", "mask"):
+                out = {dev: capacity.segment_volume(vol, params, emit=emit, strategy=strategy,
+                                                    device=dev, **kw) for dev in ("cuda", "cpu")}
+                counts[f"{strategy} {emit}"] = same_capacity_result(
+                    f"{strategy} {emit}", out["cuda"], out["cpu"])
+    finally:
+        capacity._ccl_grid = grid
+    img = small_series_2d()[0]
+    params_2d = FrangiParams(sigmas=(0.75, 1.1), spacing=(0.1, 0.1))
+    out = {dev: capacity.segment_volume(img, params_2d, min_area=4, emit="sparse_labels",
+                                        max_chunk_voxels=32 * 64, device=dev)
+           for dev in ("cuda", "cpu")}
+    counts["2D sparse_labels"] = same_capacity_result("2D", out["cuda"], out["cpu"])
+    written = {}
+    for dev in ("cuda", "cpu"):
+        fi = write_input(os.path.join(root, f"capacity_{dev}"), "volume", vol, "ZYX",
+                         {"X": 0.2, "Y": 0.2, "Z": 0.5, "T": None})
+        out = capacity.segment_path(fi.filepath, min_area=4, sigmas=(0.75, 0.95), device=dev)
+        written[dev] = artifact(out["im_info"], "im_instance_label")
+    if written["cuda"].dtype != np.int32 or not np.array_equal(written["cuda"], written["cpu"]):
+        fail("capacity segment_path: im_instance_label differs between card and CPU")
+    counts["segment_path"] = int(written["cpu"].max())
+    print(f"capacity card vs CPU, all equal: {json.dumps(counts)}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: low memory, card against CPU
+# ---------------------------------------------------------------------------
+
+def low_memory_config():
+    from nellie_tpu_torch.config import SettingsConfig
+
+    return SettingsConfig(
+        preprocessing_low_memory=True, segmentation_label_low_memory=True,
+        segmentation_label_chunk_z=5, segmentation_network_low_memory=True,
+        mocap_low_memory=True, mocap_max_chunk_voxels=12 * 24 * 24, tracking_low_memory=True,
+        reassign_low_memory=True, feature_low_memory=True, analyze_node_level=True)
+
+
+def many_markers(shape=(2, 12, 64, 64), n=1500, seed=5):
+    """Tracking artifacts with ``n`` markers a frame (the CPU tests' input):
+    smooth intensity and Frangi images, frame 1 moved one voxel along X."""
+    from scipy import ndimage
+
+    rng = np.random.default_rng(seed)
+    smooth = ndimage.gaussian_filter(rng.normal(size=shape[1:]), 1.5)
+    frame = 300 + 100 * smooth / smooth.std()
+    im = np.stack([np.roll(frame, t, axis=2) for t in range(shape[0])])
+    frangi = np.stack([np.roll(np.abs(smooth), t, axis=2) for t in range(shape[0])])
+    marker = np.zeros(shape, np.uint8)
+    flat = rng.choice(int(np.prod(shape[1:])), n, replace=False)
+    idx = np.stack(np.unravel_index(flat, shape[1:]), 1)
+    for t in range(shape[0]):
+        moved = idx.copy()
+        moved[:, 2] = (moved[:, 2] + t) % shape[3]
+        marker[(t,) + tuple(moved.T)] = 1
+    return im, {"im_preprocessed": (frangi * 1e-3).astype(np.float32), "im_marker": marker,
+                "im_instance_label": marker.astype(np.int32),
+                "im_distance": (1.0 + rng.random(shape)).astype(np.float32)}
+
+
+def phase_low_memory(nn, gpu, root):
+    """The small TZYX input with every stage in low-memory mode, card vs
+    CPU (phase 5's bars, with the kernel's launches by stage on the card),
+    then the tiled matcher on the card against the CPU."""
+    from nellie_tpu_torch.io import ImInfo
+    from nellie_tpu_torch.stages import hu_tracking, voxel_reassignment
+
+    calls = []
+    original = voxel_reassignment.nearest_neighbors
+
+    def recorded(queries, refs, device="cpu", **kwargs):
+        if str(device).startswith("cuda"):
+            calls.append((queries, refs))
+        return original(queries, refs, device=device, **kwargs)
+
+    voxel_reassignment.nearest_neighbors = recorded
+    try:
+        launches = phase_small_parity(
+            root, small_series(), "TZYX", {"X": 0.2, "Y": 0.2, "Z": 0.5, "T": 1.0},
+            tag="low-memory ", config=low_memory_config(), nn=nn)
+    finally:
+        voxel_reassignment.nearest_neighbors = original
+    if launches["VoxelReassigner"] == 0 or not calls:
+        fail("the low-memory reassigner never launched the nn kernel")
+    print("low-memory reassigner nn calls (Q x M): "
+          + ", ".join(f"{q.shape[0]}x{r.shape[0]}" for q, r in calls), flush=True)
+    q, r = (torch.from_numpy(np.ascontiguousarray(a, np.float32)).to("cuda") for a in calls[0])
+    timing = time_kernel_at(nn, gpu, "the low-memory reassigner's first call", q, r)
+
+    im, arrays = many_markers()
+    flows = {}
+    for dev in ("cuda", "cpu"):
+        im_info = ImInfo(write_input(os.path.join(root, f"tiles_{dev}"), "markers", im, "TZYX",
+                                     {"X": 0.2, "Y": 0.2, "Z": 0.5, "T": 1.0}))
+        for name, arr in arrays.items():
+            im_info.allocate_memory(im_info.pipeline_paths[name], dtype=arr.dtype.name,
+                                    data=arr, description=name)
+        stage = hu_tracking.HuMomentTracking(im_info, device=dev, mode="sparse")
+        stage.run()
+        flows[dev] = artifact(im_info, "flow_vector_array")
+    a, b = flows["cuda"], flows["cpu"]
+    if a.shape != b.shape or a.shape[0] <= 1024 or not np.array_equal(a[:, :7], b[:, :7]):
+        fail(f"tiled matcher: flow rows differ between card and CPU ({a.shape} vs {b.shape})")
+    cost_err = float(np.abs(a[:, 7] - b[:, 7]).max())
+    if cost_err > 1e-4:
+        fail(f"tiled matcher: flow costs differ by {cost_err:.3g} between card and CPU")
+    print(f"tiled matcher (1,500 markers a frame, tiles of "
+          f"{stage._tile_rows(1500, 1500)} rows): {a.shape[0]} flow rows equal card to CPU, "
+          f"costs within {cost_err:.3g}", flush=True)
+    timing["launches"] = launches["VoxelReassigner"]
+    return timing
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the capacity path at 1024^3
+# ---------------------------------------------------------------------------
+
+def capacity_volume(edge, seed=0):
+    """The lightsheet-like volume of ``scripts/measure_capacity_1024.py``
+    (about ``edge / 25`` bright tubes along random axes on N(100, 8) noise),
+    with the noise drawn on the card from a seeded generator and the volume
+    built slab by slab; returned as uint16 on the host."""
+    rng = np.random.default_rng(seed)
+    tubes = []
+    for _ in range(max(8, edge // 25)):
+        axis = int(rng.integers(0, 3))
+        c = rng.integers(8, edge - 8, size=2)
+        r = int(rng.integers(2, 4))
+        lo, hi = sorted(int(v) for v in rng.integers(0, edge, size=2))
+        if hi - lo < edge // 8:
+            hi = min(edge, lo + edge // 8)
+        sl = [slice(int(c[0]) - r, int(c[0]) + r + 1), slice(int(c[1]) - r, int(c[1]) + r + 1)]
+        sl.insert(axis, slice(lo, hi))
+        tubes.append(tuple(sl))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = torch.empty((edge, edge, edge), dtype=torch.int32, device="cuda")
+    slab = 64
+    for z0 in range(0, edge, slab):
+        z1 = min(z0 + slab, edge)
+        block = torch.randn((z1 - z0, edge, edge), generator=gen, device="cuda") * 8.0 + 100.0
+        for sl in tubes:
+            lo, hi = max(sl[0].start, z0), min(sl[0].stop, z1)
+            if lo < hi:
+                block[lo - z0:hi - z0, sl[1], sl[2]] += 400.0
+        out[z0:z1] = torch.clamp(block, 0, 65535).to(torch.int32)
+    return out.cpu().numpy().astype(np.uint16)
+
+
+def phase_capacity_1024(gpu, edge=CAPACITY_EDGE):
+    from scipy import ndimage
+
+    from nellie_tpu_torch.kernels.frangi import FrangiParams
+    from nellie_tpu_torch.pipeline import capacity
+
+    start = time.perf_counter()
+    vol = capacity_volume(edge)
+    made = time.perf_counter() - start
+    params = FrangiParams(sigmas=CAPACITY_SIGMAS, spacing=(1.0, 1.0, 1.0), z_ratio=1.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    out = capacity.segment_volume(vol, params, emit="sparse_labels", device="cuda")
+    seconds = time.perf_counter() - start
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    labels = out["labels"]
+    del vol
+    print(f"capacity {edge}^3: volume made in {made:.1f} s; segment_volume {seconds:.1f} s "
+          f"({labels.size / seconds / 1e6:.1f} Mvox/s), strategy {out['strategy']}, emit "
+          f"{out['emit']}, raw resident {out['raw_resident']}, n_labels {out['n_labels']}, "
+          f"fg_count {out['fg_count']} ({out['fg_count'] / labels.size:.4%}), labels "
+          f"{labels.dtype}, {out['bytes_up'] / 1e9:.3f} GB up, {out['bytes_down'] / 1e9:.3f} "
+          f"GB down, peak device memory {peak_gib:.3f} GiB [{gpu}]", flush=True)
+    print(f"capacity {edge}^3 seconds by phase: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out["seconds"].items()) + f" [{gpu}]",
+          flush=True)
+    if out["strategy"] != "chunked" or out["fg_count"] != int((labels > 0).sum()):
+        fail(f"capacity {edge}^3: not the chunked strategy, or fg_count is not the support")
+    start = time.perf_counter()
+    ref, ref_n = ndimage.label(labels > 0, structure=np.ones((3, 3, 3)))
+    equal = ref_n == out["n_labels"] and np.array_equal(ref, labels)
+    print(f"capacity {edge}^3 against scipy.ndimage.label: {ref_n} components, labels "
+          f"{'equal' if equal else 'DIFFERENT'} ({time.perf_counter() - start:.1f} s)", flush=True)
+    if not equal:
+        fail(f"capacity {edge}^3: labels are not scipy's labelling of their support")
+    return {k: out[k] for k in ("n_labels", "fg_count", "seconds")}
 
 
 def compare_tables(got, want, headers, skip):
@@ -730,15 +989,19 @@ def main() -> None:
             phase_small_parity(root, data, axes, {"X": 0.1, "Y": 0.1, "Z": None, "T": t_res},
                                tag=f"2D {axes} ")
         phase_cli(nn, root)
+        phase_capacity_parity(root)
+        reassign_low = phase_low_memory(nn, gpu, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    phase_capacity_1024(gpu)
 
     reassign["launches"] = by_stage["VoxelReassigner"]
     hierarchy["launches"] = by_stage["Hierarchy"]
     reassign_2d["launches"] = by_stage_2d["VoxelReassigner"]
     hierarchy_2d["launches"] = by_stage_2d["Hierarchy"]
     paths = {"reassign": reassign, "hierarchy": hierarchy,
-             "reassign_2d": reassign_2d, "hierarchy_2d": hierarchy_2d}
+             "reassign_2d": reassign_2d, "hierarchy_2d": hierarchy_2d,
+             "reassign_low_memory": reassign_low}
     max_abs = max([max_abs] + [p["max_abs_err"] for p in paths.values()])
     top = {k: reassign[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"kernels": [{

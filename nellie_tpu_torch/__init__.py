@@ -18,8 +18,11 @@ the region morphology of the feature tables,
 present).
 
 Ported so far: all seven stages, Filter -> Label -> Network -> Markers ->
-HuMomentTracking -> VoxelReassigner -> Hierarchy, whole-frame and
-single-device.  The nearest-neighbour argmin that the JAX package runs as
+HuMomentTracking -> VoxelReassigner -> Hierarchy, single-device, each with
+its low-memory mode (halo windows, Z slabs, row tiles, the reassigner's
+host path) and the same-device retry ladder
+(:mod:`nellie_tpu_torch.utils.adaptive_run`), and the capacity path for
+one large volume (:mod:`nellie_tpu_torch.pipeline.capacity`).  The nearest-neighbour argmin that the JAX package runs as
 a Pallas TPU kernel is a CUDA kernel here (``kernels/csrc/nn_argmin.cu``),
 called by the reassigner and by the Hierarchy's border distance;
 everything else is plain torch.  The port imports neither pandas nor

@@ -3,10 +3,15 @@
 Port of ``nellie_tpu/kernels/matching.py``: ``pair_stats`` (masked sums
 for z-scoring each feature difference over distance-gated pairs),
 ``pair_costs`` (z-scored cost, row and column minima), ``_select_matches``
-(the reference's union of row and column candidates under cost 1.0) and
-``match_frames_device``, the single-tile path the JAX stage takes.  The
-port holds all marker pairs of a frame pair in one tile; the JAX package's
-host-tiled ``match_frames`` for very large marker counts is not ported.
+(the reference's union of row and column candidates under cost 1.0),
+``match_frames_device`` (all marker pairs of a frame pair in one tile) and
+``match_frames`` (``:179-269``), which walks tiles of ``tile_rows`` rows
+of the later frame: phase A sums each tile's moments on the device and
+adds the tiles' sums in float64 on the host, phase B z-scores every tile
+with those global moments and keeps the row minima and, across tiles, the
+first column minimum.  The tiles run in the reference's order with its
+reductions, because a single big tile sums in another order and moves the
+z-scored costs.
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from nellie_tpu_torch.device import resolve_device
 from nellie_tpu_torch.kernels._fp import f32, fma, reduce_sum_of_squares
 
 COST_CUTOFF = 1.0
@@ -89,11 +95,8 @@ def match_frames_device(
     count, sums, sumsqs = pair_stats(coords_post, coords_pre, feats_post, feats_pre, max_d)
     if count == 0:
         return [], [], []
-    sums = sums.cpu().numpy().astype(np.float64)
-    sumsqs = sumsqs.cpu().numpy().astype(np.float64)
-    mean = sums / count
-    var = np.maximum(sumsqs / count - mean ** 2, 0.0)
-    std = np.sqrt(var) + 1e-8
+    mean, std = _moments(count, sums.cpu().numpy().astype(np.float64),
+                         sumsqs.cpu().numpy().astype(np.float64))
     dev = coords_post.device
     rmv, rmi, cmv, cmi = pair_costs(
         coords_post, coords_pre, feats_post, feats_pre, max_d,
@@ -101,3 +104,68 @@ def match_frames_device(
         torch.from_numpy(std.astype(np.float32)).to(dev), n_stats)
     return _select_matches(rmv.cpu().numpy(), rmi.cpu().numpy(),
                            cmv.cpu().numpy(), cmi.cpu().numpy(), n_post, n_pre)
+
+
+def _moments(count, sums, sumsqs):
+    """(mean, std) of each feature difference, in float64."""
+    mean = sums / count
+    var = np.maximum(sumsqs / count - mean ** 2, 0.0)
+    return mean, np.sqrt(var) + 1e-8
+
+
+def match_frames(
+    coords_post: np.ndarray, coords_pre: np.ndarray,
+    stats_post: np.ndarray, stats_pre: np.ndarray,
+    hu_post: np.ndarray, hu_pre: np.ndarray,
+    max_distance: float,
+    tile_rows: int = 8192,
+    device="cpu",
+) -> Tuple[list, list, list]:
+    """Matching in row tiles of ``tile_rows`` later-frame markers, each
+    tile on ``device``; host arrays in, (rows, cols, costs) out with the
+    selection of :func:`_select_matches`."""
+    n_post, n_pre = coords_post.shape[0], coords_pre.shape[0]
+    if n_post == 0 or n_pre == 0:
+        return [], [], []
+    dev = resolve_device(device)
+    n_stats = stats_post.shape[1]
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    feats_post = np.concatenate([stats_post, hu_post], axis=1)
+    coords_pre_d = put(coords_pre)
+    feats_pre_d = put(np.concatenate([stats_pre, hu_pre], axis=1))
+    tiles = [(start, min(start + tile_rows, n_post)) for start in range(0, n_post, tile_rows)]
+    tiles = [(s, e, put(coords_post[s:e]), put(feats_post[s:e])) for s, e in tiles]
+    max_d = f32(max_distance)
+
+    # phase A: each tile's masked sums, added across tiles in float64
+    count = 0
+    sums = sumsqs = 0.0
+    for _, _, c, f in tiles:
+        cnt, s, ss = pair_stats(c, coords_pre_d, f, feats_pre_d, max_d)
+        count += cnt
+        sums = sums + s.cpu().numpy().astype(np.float64)
+        sumsqs = sumsqs + ss.cpu().numpy().astype(np.float64)
+    if count == 0:
+        return [], [], []
+    mean, std = _moments(count, sums, sumsqs)
+
+    # phase B: tile costs; row minima per tile, column minima across tiles
+    # (an earlier tile keeps a tie)
+    row_min_val = np.full(n_post, np.inf, np.float32)
+    row_min_idx = np.full(n_post, -1, np.int64)
+    col_min_val = np.full(n_pre, np.inf, np.float32)
+    col_min_idx = np.full(n_pre, -1, np.int64)
+    mean_d, std_d = put(mean), put(std)
+    for start, end, c, f in tiles:
+        rmv, rmi, cmv, cmi = pair_costs(c, coords_pre_d, f, feats_pre_d, max_d,
+                                        mean_d, std_d, n_stats)
+        row_min_val[start:end] = rmv.cpu().numpy()
+        row_min_idx[start:end] = rmi.cpu().numpy()
+        cmv, cmi = cmv.cpu().numpy(), cmi.cpu().numpy()
+        better = cmv < col_min_val
+        col_min_val = np.where(better, cmv, col_min_val)
+        col_min_idx = np.where(better, cmi + start, col_min_idx)
+    return _select_matches(row_min_val, row_min_idx, col_min_val, col_min_idx, n_post, n_pre)

@@ -109,8 +109,13 @@ def hu_moments(eta: torch.Tensor) -> torch.Tensor:
 
 
 def log_hu(hu: torch.Tensor) -> torch.Tensor:
-    """Sign-stable log10 transform."""
-    abs_hu = torch.clamp(hu.abs(), min=torch.finfo(hu.dtype).tiny)
+    """Sign-stable log10 transform.  A subnormal Hu value counts as 0, as
+    XLA's CPU code flushes subnormal results to zero: PyTorch keeps them,
+    and -sign(h) * log10(tiny) would then give ±37.9 where the reference
+    gives 0 (a Hu moment that cancels to within 1e-38)."""
+    tiny = torch.finfo(hu.dtype).tiny
+    hu = torch.where(hu.abs() < tiny, torch.zeros_like(hu), hu)
+    abs_hu = torch.clamp(hu.abs(), min=tiny)
     out = -torch.sign(hu) * log10(abs_hu)
     return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
 

@@ -8,11 +8,14 @@ stops the run instead of failing every file.  A file that fails is
 reported and the batch goes on, as in the reference.
 
     python -m nellie_tpu_torch.pipeline.cli --directory DIR [--substring S]
-        [--device cuda|cpu] [--config settings.json] [--remove_edges] [--timeit]
+        [--device cuda|cpu] [--config settings.json] [--remove_edges] [--low_memory]
+        [--timeit]
+
+``--low_memory`` passes ``low_memory=True`` to ``run``; with ``--config``
+it sets every ``*_low_memory`` field of the config instead, as the
+reference's CLI does.
 
 Not ported: ``--mesh`` (and the mesh-batched multi-file path it selects).
-``--low_memory`` is accepted and refused with ``NotImplementedError``, as
-:func:`nellie_tpu_torch.pipeline.run.params_from_config` refuses it.
 """
 from __future__ import annotations
 
@@ -59,20 +62,21 @@ def main(argv=None):
                         help="Compute device (cuda raises without a GPU)")
     parser.add_argument("--remove_edges", action="store_true")
     parser.add_argument("--low_memory", action="store_true",
-                        help="Not ported: refused with NotImplementedError")
+                        help="Start the stages in their low-memory (windowed) mode")
     parser.add_argument("--timeit", action="store_true", help="Print per-stage wall time")
     parser.add_argument("--config", default=None,
                         help="Path to a SettingsConfig JSON driving every stage's kwargs; "
                              "--low_memory and --remove_edges override its fields")
     args = parser.parse_args(argv)
-    if args.low_memory:
-        raise NotImplementedError("--low_memory: the port has no low-memory path")
 
-    kwargs = {"remove_edges": args.remove_edges}
+    kwargs = {"remove_edges": args.remove_edges, "low_memory": args.low_memory}
     if args.config is not None:
         config = SettingsConfig.load(args.config)
         if args.remove_edges:
             config = dataclasses.replace(config, remove_edges=True)
+        if args.low_memory:
+            config = dataclasses.replace(config, **{
+                f.name: True for f in dataclasses.fields(config) if f.name.endswith("_low_memory")})
         kwargs = {"config": config}
     process_directory(args.directory, args.substring, args.output_directory, args.ch,
                       args.num_t, device=args.device, timeit=args.timeit, **kwargs)

@@ -11,8 +11,8 @@ and ``adjacency_maps.pkl`` have the reference's names, dtypes and layout.
 
 Not ported: the fused segmentation chain and its fallback
 (``run.py:184-201``), the compile warmer and the XLA compile cache, the
-mesh paths, the low-memory ladder and the mesh-batched multi-file runs
-(``pipeline/batch.py``).
+mesh paths and the mesh-batched multi-file runs (``pipeline/batch.py``);
+``run`` therefore has no ``mesh``, ``fused`` or ``warm_start`` argument.
 """
 from __future__ import annotations
 
@@ -31,19 +31,17 @@ from nellie_tpu_torch.stages.mocap_marking import Markers
 from nellie_tpu_torch.stages.networking import Network
 from nellie_tpu_torch.stages.voxel_reassignment import VoxelReassigner
 
-# config keys that only steer the JAX package's device choice, chunking,
-# tiling or host fallbacks; the artifacts do not depend on them
+# config keys that change no artifact: the device (``run`` takes one for
+# every stage), how often Label flushes, a GPU preference of the reference
+# and three bounds that the JAX stages store but never read
 _DROPPED = {
-    "device", "max_chunk_voxels", "chunk_z", "flush_interval", "prefer_gpu", "mode",
-    "max_dense_pairs", "max_dense_roi_voxels_cpu", "max_dense_roi_voxels_gpu",
-    "max_refine_iterations", "max_query_points", "max_bruteforce_pairs",
+    "device", "flush_interval", "prefer_gpu", "max_dense_roi_voxels_cpu",
+    "max_dense_roi_voxels_gpu", "max_query_points", "max_bruteforce_pairs",
 }
 
 
-def _port_kwargs(stage: str, params: dict) -> dict:
-    if params.get("low_memory"):
-        raise NotImplementedError(f"{stage}: low_memory=True is not ported")
-    return {k: v for k, v in params.items() if k not in _DROPPED and k != "low_memory"}
+def _port_kwargs(params: dict) -> dict:
+    return {k: v for k, v in params.items() if k not in _DROPPED}
 
 
 def params_from_config(cfg) -> dict:
@@ -57,19 +55,19 @@ def params_from_config(cfg) -> dict:
         cfg = cfg_mod.SettingsConfig.from_dict(cfg)
     f_kw = cfg_mod.preprocessing_params(cfg)
     f_kw["remove_edges"] = cfg.remove_edges
-    h_kw = _port_kwargs("Hierarchy", cfg_mod.feature_params(cfg))
+    h_kw = _port_kwargs(cfg_mod.feature_params(cfg))
     h_kw.pop("use_gpu")
     # feature_params names skip_nodes only when the config asks for node
     # analysis; otherwise the Hierarchy's own default (True) applies, as in
     # the JAX package's run()
     h_kw.setdefault("skip_nodes", True)
     return {
-        "filter": _port_kwargs("Filter", f_kw),
-        "label": _port_kwargs("Label", cfg_mod.segmentation_label_params(cfg)),
-        "network": _port_kwargs("Network", cfg_mod.segmentation_network_params(cfg)),
-        "markers": _port_kwargs("Markers", cfg_mod.mocap_params(cfg)),
-        "tracking": _port_kwargs("HuMomentTracking", cfg_mod.tracking_params(cfg)),
-        "reassign": _port_kwargs("VoxelReassigner", cfg_mod.reassign_params(cfg)),
+        "filter": _port_kwargs(f_kw),
+        "label": _port_kwargs(cfg_mod.segmentation_label_params(cfg)),
+        "network": _port_kwargs(cfg_mod.segmentation_network_params(cfg)),
+        "markers": _port_kwargs(cfg_mod.mocap_params(cfg)),
+        "tracking": _port_kwargs(cfg_mod.tracking_params(cfg)),
+        "reassign": _port_kwargs(cfg_mod.reassign_params(cfg)),
         "hierarchy": h_kw,
         "voxel_reassign": cfg.voxel_reassign,
         "remove_intermediates": cfg.remove_intermediates,
@@ -77,12 +75,18 @@ def params_from_config(cfg) -> dict:
 
 
 def run(file_info, remove_edges=False, otsu_thresh_intensity=False, threshold=None,
-        timeit=False, device="cuda", skip_nodes=False, return_timings=False, config=None):
+        timeit=False, device="cuda", skip_nodes=False, return_timings=False, config=None,
+        low_memory=False):
     """Run the seven stages on a prepared :class:`FileInfo`.
 
     ``device`` is ``"cuda"`` (raises without a GPU) or ``"cpu"``; nothing
-    falls back from one to the other.  ``config``: a ``SettingsConfig``
-    (or dict, or JSON path) driving every stage's kwargs; the convenience
+    falls back from one to the other.  ``low_memory``: Filter, Label,
+    HuMomentTracking and Hierarchy start in their low-memory mode, as the
+    JAX package's ``run`` passes it; every stage also enters it on its own
+    when a frame looks too large, or after running out of memory
+    (:mod:`nellie_tpu_torch.utils.adaptive_run`).  ``config``: a
+    ``SettingsConfig`` (or dict, or JSON path) driving every stage's
+    kwargs, its per-stage ``*_low_memory`` flags included; the convenience
     arguments above are then ignored.  Returns the :class:`ImInfo`, and
     the per-stage seconds when ``return_timings``.
     """
@@ -91,11 +95,13 @@ def run(file_info, remove_edges=False, otsu_thresh_intensity=False, threshold=No
     if config is not None:
         kw = params_from_config(config)
     else:
+        low = {"low_memory": bool(low_memory)}
         kw = {
-            "filter": {"remove_edges": remove_edges},
-            "label": {"otsu_thresh_intensity": otsu_thresh_intensity, "threshold": threshold},
-            "network": {}, "markers": {}, "tracking": {}, "reassign": {},
-            "hierarchy": {"skip_nodes": skip_nodes},
+            "filter": {"remove_edges": remove_edges, **low},
+            "label": {"otsu_thresh_intensity": otsu_thresh_intensity, "threshold": threshold,
+                      **low},
+            "network": {}, "markers": {}, "tracking": dict(low), "reassign": {},
+            "hierarchy": {"skip_nodes": skip_nodes, **low},
             "voxel_reassign": True, "remove_intermediates": False,
         }
     timings = {}

@@ -24,10 +24,13 @@ Region morphology (:mod:`nellie_tpu_torch.utils.regionprops`) and the adjacency
 pair lists stay host numpy, as in the reference.  The CSVs are written
 with numpy and the standard library on one background thread.
 
-Not ported: the adaptive retry ladder (``low_memory=True`` raises), the
-mesh paths, the fused chain's device cache of the skeleton, the trimmed
-transfers, the frames-ahead thread pool and the host aggregate of small
-node tables.
+Frames are built one at a time in either mode.  ``low_memory`` divides
+the node tables' membership budget (``max_node_mask_elems``) by four, so
+the node aggregation takes smaller voxel chunks (``hierarchical.py:716``).
+
+Not ported: the mesh paths, the fused chain's device cache of the
+skeleton, the trimmed transfers, the frames-ahead thread pool and the host
+aggregate of small node tables.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ from nellie_tpu_torch.kernels._fp import f32, reduce_sum_of_squares, sqrt
 from nellie_tpu_torch.kernels.nn import nearest_neighbors
 from nellie_tpu_torch.kernels.segstats import STAT_KEYS, branch_geometry, segment_nanstats
 from nellie_tpu_torch.stages.flow_interpolation import FlowInterpolator
+from nellie_tpu_torch.utils import adaptive_run
 from nellie_tpu_torch.utils.logger import logger
 from nellie_tpu_torch.utils.regionprops import regionprops
 
@@ -548,8 +552,8 @@ class _NodeLevel:
 
         c_total = len(vox.coords)
         if m and c_total:
-            chunk = int(max(1, min(h.node_chunk_size or 65536,
-                                   h.max_node_mask_elems // m, c_total)))
+            max_elems = h.max_node_mask_elems // (4 if h.low_memory else 1)
+            chunk = int(max(1, min(h.node_chunk_size or 65536, max_elems // m, c_total)))
 
             def put(a):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -937,9 +941,8 @@ class Hierarchy:
         node_chunk_size=None,
         max_node_mask_elems: int = int(5e7),
     ):
-        if low_memory:
-            raise NotImplementedError("Hierarchy: low_memory=True is not ported")
         self.im_info = im_info
+        self.low_memory = bool(low_memory)
         self.device = resolve_device(device)
         self.num_t = im_info.shape[0]
         res = im_info.dim_res
@@ -1106,4 +1109,9 @@ class Hierarchy:
             self._label_edges(branches.component_label, components.component_label))
 
     def run(self):
-        self._run_hierarchy()
+        def attempt(dev, low):
+            self.low_memory = low
+            self._run_hierarchy()
+
+        adaptive_run.run_with_ladder("Hierarchy", self.device, self.low_memory, self.im_info,
+                                     attempt)

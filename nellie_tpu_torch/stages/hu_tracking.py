@@ -10,9 +10,16 @@ consecutive frames are matched by distance-gated z-scored costs.  Writes
 ``flow_vector_array.npy`` with rows [t-1, y, x, dy, dx, cost] (2D) or
 [t-1, z, y, x, dz, dy, dx, cost] (3D).
 
-Not ported: the mesh frame-parallel path, the device frame cache shared
-with the fused segmentation chain, and the host-tiled matcher for very
-large marker counts (the port matches all markers of a pair in one tile).
+The tile-size rule is the reference's (``hu_tracking.py:308-339``):
+``mode="dense"`` one tile, ``"sparse"`` tiles of 1,024 rows, ``"auto"``
+tiles of 8,192, or 2,048 when the pair count exceeds ``max_dense_pairs``
+or in low-memory mode.  A pair whose frames both fit one tile is matched
+in one tile on the device features; otherwise by the row-tiled
+``matching.match_frames`` on the host copies of the features, with the
+physical coordinates taken in float64 and rounded to float32, as there.
+
+Not ported: the mesh frame-parallel path and the device frame cache
+shared with the fused segmentation chain.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from nellie_tpu_torch.kernels import matching, moments
 from nellie_tpu_torch.kernels._fp import f32, log10
 from nellie_tpu_torch.kernels.filters import maximum_filter
 from nellie_tpu_torch.stages import _frames
+from nellie_tpu_torch.utils import adaptive_run
 
 N_STATS = 4
 
@@ -102,9 +110,13 @@ class HuMomentTracking:
     """Hu-moment + distance cost matching across timepoints."""
 
     def __init__(self, im_info: ImInfo, num_t=None, max_distance_um=1.0, viewer=None,
-                 roi_chunk: int = 1024, device="cuda"):
+                 roi_chunk: int = 1024, device="cuda", mode: str = "auto",
+                 max_dense_pairs: int = int(1e7), low_memory: bool = False):
         self.im_info = im_info
         self.device = resolve_device(device)
+        self.mode = mode
+        self.max_dense_pairs = int(max_dense_pairs)
+        self.low_memory = bool(low_memory)
         if im_info.no_t:
             return
         self.num_t = num_t
@@ -144,14 +156,35 @@ class HuMomentTracking:
             self.scaling)
         return _FrameFeatures(coords.astype(int), n, feats, coords_phys)
 
+    def _tile_rows(self, n_post, n_pre):
+        if self.mode == "dense":
+            return max(n_post, 1)
+        if self.mode == "sparse":
+            return 1024
+        too_big = n_post * n_pre > self.max_dense_pairs
+        return 2048 if (too_big or self.low_memory) else 8192
+
+    def _match_frames(self, frame_t: _FrameFeatures, frame_prev: _FrameFeatures):
+        n_post, n_pre = frame_t.n, frame_prev.n
+        tile_rows = self._tile_rows(n_post, n_pre)
+        if n_post <= tile_rows and n_pre <= tile_rows:
+            return matching.match_frames_device(
+                frame_t.coords_phys, frame_t.feats, frame_prev.coords_phys, frame_prev.feats,
+                self.max_distance_um, N_STATS)
+        scaling = np.asarray(self.scaling, float)
+        feats_t = frame_t.feats.cpu().numpy()
+        feats_prev = frame_prev.feats.cpu().numpy()
+        return matching.match_frames(
+            frame_t.coords_voxel * scaling, frame_prev.coords_voxel * scaling,
+            feats_t[:, :N_STATS], feats_prev[:, :N_STATS],
+            feats_t[:, N_STATS:], feats_prev[:, N_STATS:],
+            self.max_distance_um, tile_rows=tile_rows, device=self.device)
+
     def _pair_rows(self, t, features, prev_features):
         """Rows [t-1, idx0, vec, cost] for the (t-1, t) pair."""
         if features.n == 0 or prev_features.n == 0:
             return None
-        rows, cols, costs = matching.match_frames_device(
-            features.coords_phys, features.feats,
-            prev_features.coords_phys, prev_features.feats,
-            self.max_distance_um, N_STATS)
+        rows, cols, costs = self._match_frames(features, prev_features)
         if len(rows) == 0:
             return None
         rows = np.asarray(rows, np.int64)
@@ -184,6 +217,15 @@ class HuMomentTracking:
         if self.im_info.no_t:
             logger.info("Skipping Hu moment tracking for non-temporal dataset.")
             return
+
+        def attempt(dev, low):
+            self.low_memory = low
+            self._run_hu_tracking()
+
+        adaptive_run.run_with_ladder("HuMomentTracking", self.device, self.low_memory,
+                                     self.im_info, attempt)
+
+    def _run_hu_tracking(self):
         self._allocate_memory()
         frame_vectors = self._run_hu_tracking_sequential()
         if frame_vectors:

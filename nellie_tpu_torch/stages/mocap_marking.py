@@ -4,10 +4,13 @@ Port of ``nellie_tpu/stages/mocap_marking.py``: ``markers_frame``
 (``:81``), ``markers_frame_distance`` (``:118``) and ``_run_frame``
 (``:230``).  Per frame: the clamped EDT of the object mask, the outside
 border shell, multi-scale LoG peaks with best-response cross-scale
-suppression, and intensity-scored non-maximum suppression.  Writes
-``im_marker`` (uint8), ``im_distance`` (float32) and ``im_border`` (uint8).
-
-Not ported: the low-memory chunked path and the CPU fallback ladder.
+suppression, and intensity-scored non-maximum suppression.  The
+low-memory path (``_run_frame_chunked``, ``:254-288``) runs the same
+function on halo windows of at most ``max_chunk_voxels`` core voxels, with
+a halo (``_chunk_halo``, ``:216-227``) of the LoG's reach plus the
+suppression distance plus the distance clamp, so that every owned voxel
+sees what it sees in the whole frame.  Writes ``im_marker`` (uint8),
+``im_distance`` (float32) and ``im_border`` (uint8).
 """
 from __future__ import annotations
 
@@ -23,7 +26,13 @@ from nellie_tpu_torch.device import resolve_device
 from nellie_tpu_torch.kernels import edt
 from nellie_tpu_torch.kernels._fp import f32
 from nellie_tpu_torch.kernels.filters import binary_dilation, gaussian_laplace, maximum_filter
-from nellie_tpu_torch.stages import _frames
+from nellie_tpu_torch.utils import adaptive_run
+from nellie_tpu_torch.utils.chunking import (
+    compute_chunk_shape,
+    crop_core,
+    iter_uniform_windows,
+    uniform_window_shapes,
+)
 
 
 @dataclass(frozen=True)
@@ -88,7 +97,7 @@ class Markers:
 
     def __init__(self, im_info: ImInfo, num_t=None, min_radius_um=0.20, max_radius_um=1,
                  use_im="distance", num_sigma=5, viewer=None, peak_min_distance=2,
-                 device="cuda"):
+                 device="cuda", low_memory=False, max_chunk_voxels=int(1e6)):
         self.im_info = im_info
         self.device = resolve_device(device)
         self.num_t = 1 if im_info.no_t else num_t
@@ -105,6 +114,8 @@ class Markers:
         self.peak_min_distance = int(peak_min_distance)
         self.truncate = 4.0
         self.viewer = viewer
+        self.low_memory = bool(low_memory)
+        self.max_chunk_voxels = int(max_chunk_voxels)
 
     def _set_default_sigmas(self):
         """σ ∈ [min_r/2, max_r/3] with a step of at least 0.2."""
@@ -145,28 +156,76 @@ class Markers:
             info.pipeline_paths["im_border"], dtype="uint8",
             description="border image", return_memmap=True)
 
+    def _chunk_halo(self):
+        """Per-axis halo of the windows: the LoG's reach, the suppression
+        distance and the distance clamp."""
+        sigma_max = float(max(self.sigmas))
+        nms_h = self.peak_min_distance
+        dist_h = int(np.ceil(self.max_radius_px * 2.0))
+        h_xy = max(int(np.ceil(self.truncate * sigma_max)), 1) + nms_h + dist_h
+        if self.im_info.no_z:
+            return (h_xy, h_xy)
+        log_hz = int(np.ceil(self.truncate * sigma_max / max(self.z_ratio, 1e-6)))
+        return (max(log_hz, 1) + nms_h + dist_h, h_xy, h_xy)
+
+    def _markers(self, intensity, mask, frangi):
+        if frangi is not None:
+            return markers_frame(intensity, mask, frangi, self._params)
+        return markers_frame_distance(intensity, mask, self._params)
+
     def _run_frame(self, t):
         logger.info(f"Running motion capture marking, volume {t}/{self.num_t - 1}")
-        mask = _frames.load(self.label_memmap, t, self.device, np.int32) > 0
-        if not bool(mask.any()):
-            zero = torch.zeros(mask.shape, dtype=torch.uint8, device=self.device)
-            return zero, torch.zeros(mask.shape, device=self.device), zero
-        intensity = _frames.load(self.im_memmap, t, self.device)
-        if self.use_im == "frangi":
-            base = _frames.load(self.im_frangi_memmap, t, self.device)
-            return markers_frame(intensity, mask, base, self._params)
-        return markers_frame_distance(intensity, mask, self._params)
+        mask = np.ascontiguousarray(self.label_memmap[t]) > 0
+        if not mask.any():
+            zero = np.zeros(mask.shape, np.uint8)
+            return zero, np.zeros(mask.shape, np.float32), zero
+        intensity = np.ascontiguousarray(self.im_memmap[t])
+        frangi = (np.ascontiguousarray(self.im_frangi_memmap[t], np.float32)
+                  if self.use_im == "frangi" else None)
+        if self.low_memory:
+            return self._run_frame_chunked(intensity, mask, frangi)
+
+        def put(a):
+            return None if a is None else torch.from_numpy(a).to(self.device)
+
+        out = self._markers(put(intensity.astype(np.float32)), put(mask), put(frangi))
+        return tuple(a.cpu().numpy() for a in out)
+
+    def _run_frame_chunked(self, intensity, mask, frangi):
+        """Window by window, each uploaded alone; the owned boxes are
+        assembled on the host."""
+        shape = mask.shape
+        chunk_shape = compute_chunk_shape(shape, self.max_chunk_voxels)
+        halo = self._chunk_halo()
+        core_shape, _ = uniform_window_shapes(shape, chunk_shape, halo)
+        out = (np.zeros(shape, np.uint8), np.zeros(shape, np.float32), np.zeros(shape, np.uint8))
+
+        def put(a, ext):
+            return None if a is None else torch.from_numpy(
+                np.ascontiguousarray(a[ext], np.float32 if a.dtype != bool else bool)).to(self.device)
+
+        for owned, ext, offset, local in iter_uniform_windows(shape, chunk_shape, halo):
+            parts = self._markers(put(intensity, ext), put(mask, ext), put(frangi, ext))
+            for dst, part in zip(out, parts):
+                dst[owned] = crop_core(part, offset, core_shape)[local].cpu().numpy()
+        return out
 
     def _run_mocap_marking(self):
         for t in range(self.num_t):
             if self.viewer is not None:
                 self.viewer.status = f"Running mocap marking. Frame: {t + 1} of {self.num_t}."
             marker, distance, border = self._run_frame(t)
-            _frames.store(self.im_marker_memmap, t, marker, np.uint8)
-            _frames.store(self.im_distance_memmap, t, distance, np.float32)
-            _frames.store(self.im_border_memmap, t, border, np.uint8)
+            for memmap, frame in ((self.im_marker_memmap, marker),
+                                  (self.im_distance_memmap, distance),
+                                  (self.im_border_memmap, border)):
+                memmap[t] = frame
+                memmap.flush()
 
     def run(self):
-        self._allocate_memory()
-        self._set_default_sigmas()
-        self._run_mocap_marking()
+        def attempt(dev, low):
+            self.low_memory = low
+            self._allocate_memory()
+            self._set_default_sigmas()
+            self._run_mocap_marking()
+
+        adaptive_run.run_with_ladder("Markers", self.device, self.low_memory, self.im_info, attempt)

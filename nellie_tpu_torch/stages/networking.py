@@ -10,8 +10,10 @@ their propagation to whole objects by object-constrained nearest seed.
 Writes ``im_skel`` (int32), ``im_pixel_class`` (uint8) and
 ``im_skel_relabelled`` (uint32).
 
-Not ported: the foreground-sparse pull bundles and the CPU fallback
-ladder.
+``low_memory`` and ``max_chunk_voxels`` are accepted and change nothing,
+as in the reference.
+
+Not ported: the foreground-sparse pull bundles.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from nellie_tpu_torch.kernels import ccl, edt
 from nellie_tpu_torch.kernels.filters import maximum_filter, minimum_filter, sum_filter
 from nellie_tpu_torch.kernels.skeleton import simple26_lut, skeletonize
 from nellie_tpu_torch.stages import _frames
+from nellie_tpu_torch.utils import adaptive_run
 
 _INT32_MAX = int(np.iinfo(np.int32).max)
 
@@ -92,9 +95,14 @@ class Network:
     """Skeleton / pixel-class / branch-label extraction."""
 
     def __init__(self, im_info: ImInfo, num_t=None, min_radius_um=0.20,
-                 max_radius_um=1, viewer=None, device="cuda"):
+                 max_radius_um=1, viewer=None, device="cuda", low_memory: bool = False,
+                 max_chunk_voxels: int = int(1e6)):
         self.im_info = im_info
         self.device = resolve_device(device)
+        # accepted as the reference accepts them: Network has no windowed
+        # path, so neither changes what runs (networking.py:147-152)
+        self.low_memory = bool(low_memory)
+        self.max_chunk_voxels = int(max_chunk_voxels)
         self.num_t = num_t
         if num_t is None and not im_info.no_t:
             self.num_t = im_info.shape[im_info.axes.index("T")]
@@ -157,6 +165,10 @@ class Network:
             _frames.store(self.skel_relabelled_memmap, t, branch, np.uint32)
 
     def run(self):
-        self._get_t()
-        self._allocate_memory()
-        self._run_networking()
+        def attempt(dev, low):
+            self.low_memory = low
+            self._get_t()
+            self._allocate_memory()
+            self._run_networking()
+
+        adaptive_run.run_with_ladder("Network", self.device, self.low_memory, self.im_info, attempt)

@@ -1,7 +1,7 @@
 """Stage 6 — VoxelReassigner: propagate t=0 identities through time.
 
-Port of the DEFAULT fused pair path of
-``nellie_tpu/stages/voxel_reassignment.py``, run as one sequential loop:
+Port of ``nellie_tpu/stages/voxel_reassignment.py``.  The default fused
+pair path runs as one sequential loop:
 for each frame pair (t, t+1), ``_pair_match_kernel`` (``:335-424``)
 interpolates the flow at every voxel of both frames, predicts each voxel
 into the other frame, matches the prediction to the nearest real voxel
@@ -11,11 +11,22 @@ closer than the radius and picks each target's best pair;
 reassigned labels of frame t+1 stay on the device as the next pair's
 input.  The loop keeps the reference's early stops: an empty frame, a pair
 without flow rows, or a pair without a single valid match ends it
-(``:498-707``).  Writes ``im_branch_label_reassigned``,
+(``:498-707``).
+
+In low-memory mode the reference's step-by-step host path runs instead
+(``:772-862``, one pair at a time): the flow is interpolated at each
+frame's voxels (``FlowInterpolator.interpolate_coord``), the predictions
+are matched to the nearest real voxel by the same CUDA kernel
+(``_nn_match``, through ``kernels/nn.py::nearest_neighbors``), and the
+candidates vote on the host with float64 weight sums (the fused path sums
+in float32 on the device, so near-ties may fall the other way between
+the two modes; from 200,000 candidates the votes run on the device in
+float32, as there).  Writes ``im_branch_label_reassigned``,
 ``im_obj_label_reassigned`` (int32) and ``voxel_matches.npy``.
 
-Not ported: the prefetch and writer threads, the mesh window, and the
-step-by-step host path of the low-memory rungs.
+Not ported: the prefetch and writer threads, the mesh window, and
+``_assign_unique_matches`` (kept by the reference for its API; nothing
+calls it).
 """
 from __future__ import annotations
 
@@ -25,9 +36,10 @@ import torch
 from nellie_tpu_torch.io import ImInfo
 from nellie_tpu_torch.utils.logger import logger
 from nellie_tpu_torch.device import resolve_device
-from nellie_tpu_torch.kernels.nn import nn_argmin
+from nellie_tpu_torch.kernels.nn import nearest_neighbors, nn_argmin
 from nellie_tpu_torch.kernels.voting import _vote_kernel, stable_lexsort
 from nellie_tpu_torch.stages.flow_interpolation import FlowInterpolator, _interp_all_kernel
+from nellie_tpu_torch.utils import adaptive_run
 
 _SENTINEL = int(np.iinfo(np.int32).max)
 
@@ -107,10 +119,16 @@ def _pair_vote_kernel(src, tgt, dist, keep, prev_branch, prev_obj,
 class VoxelReassigner:
     """Dense voxel matching along the flow field + weighted label voting."""
 
+    # from this many candidates a vote runs on the device (float32 sums)
+    DEVICE_VOTE_CUTOVER = 200_000
+
     def __init__(self, im_info: ImInfo, num_t=None, viewer=None,
-                 store_running_matches: bool = True, device="cuda"):
+                 store_running_matches: bool = True, max_refine_iterations: int = 3,
+                 device="cuda", low_memory: bool = False):
         self.im_info = im_info
         self.device = resolve_device(device)
+        self.low_memory = bool(low_memory)
+        self.max_refine_iterations = int(max_refine_iterations)
         self.store_running_matches = store_running_matches
         self.viewer = viewer
         self.running_matches = []
@@ -218,16 +236,221 @@ class VoxelReassigner:
             self.reassigned_obj_memmap.flush()
             table, prev_branch, prev_obj = next_table, voted_branch, voted_obj
 
-    def run(self):
-        if self.im_info.no_t:
-            logger.info("Skipping voxel reassignment for non-temporal dataset.")
+    # -- the step-by-step path of low-memory mode ------------------------------
+    def _scale_coords(self, coords):
+        return np.asarray(coords, np.float32) * np.asarray(
+            self.flow_interpolator_fw.scaling, np.float32)
+
+    def _nn_match(self, coords_real_scaled, coords_query_scaled):
+        """(distance, index) of the nearest real voxel of each query."""
+        return nearest_neighbors(coords_query_scaled, coords_real_scaled, device=self.device)
+
+    def _match_voxels_to_centroids(self, coords_real, coords_interpx):
+        _, idx = self._nn_match(self._scale_coords(coords_real),
+                                self._scale_coords(coords_interpx))
+        return idx
+
+    def _compute_error_distance(self, predicted, matched):
+        if predicted.size == 0:
+            return np.empty((0,), np.float32)
+        scaling = np.asarray(self.flow_interpolator_fw.scaling, np.float32)
+        diffs = (predicted - matched).astype(np.float32) * scaling
+        return np.linalg.norm(diffs, axis=1).astype(np.float32)
+
+    def _empty_matches(self, dim):
+        return (np.empty((0, dim), np.int64), np.empty((0, dim), np.int64),
+                np.empty((0,), np.float64))
+
+    def _match_forward(self, flow_interpolator, vox_prev, vox_next, t):
+        """Frame t's voxels moved by the flow, matched to frame t+1's."""
+        empty = self._empty_matches(vox_prev.shape[1] if vox_prev.ndim == 2 else 3)
+        if vox_prev.size == 0 or vox_next.size == 0:
+            return empty
+        vectors = flow_interpolator.interpolate_coord(vox_prev, t)
+        kept = ~np.isnan(vectors).any(axis=1)
+        if not kept.any():
+            return empty
+        vox_prev_kept = vox_prev[kept]
+        centroids_next = vox_prev_kept + vectors[kept]
+        matched = vox_next[self._match_voxels_to_centroids(vox_next, centroids_next)]
+        distances = self._compute_error_distance(centroids_next, matched)
+        mask = distances < self.flow_interpolator_fw.max_distance_um
+        if not mask.any():
+            return empty
+        return (vox_prev_kept[mask].astype(np.int64), matched[mask].astype(np.int64),
+                distances[mask].astype(np.float64))
+
+    def _match_backward(self, flow_interpolator, vox_next, vox_prev, t):
+        """Frame t+1's voxels moved back by the flow, matched to frame t's."""
+        empty = self._empty_matches(vox_prev.shape[1] if vox_prev.ndim == 2 else 3)
+        if vox_prev.size == 0 or vox_next.size == 0:
+            return empty
+        vectors = flow_interpolator.interpolate_coord(vox_next, t)
+        kept = ~np.isnan(vectors).any(axis=1)
+        if not kept.any():
+            return empty
+        vox_next_kept = vox_next[kept]
+        centroids_prev = vox_next_kept - vectors[kept]
+        matched = vox_prev[self._match_voxels_to_centroids(vox_prev, centroids_prev)]
+        distances = self._compute_error_distance(centroids_prev, matched)
+        mask = distances < self.flow_interpolator_fw.max_distance_um
+        if not mask.any():
+            return empty
+        return (matched[mask].astype(np.int64), vox_next_kept[mask].astype(np.int64),
+                distances[mask].astype(np.float64))
+
+    def match_voxels(self, vox_prev, vox_next, t):
+        """Forward candidates, then backward ones: (prev, next, distance)."""
+        parts = [p for p in (
+            self._match_forward(self.flow_interpolator_fw, vox_prev, vox_next, t),
+            self._match_backward(self._flow_interpolator_bw, vox_next, vox_prev, t + 1))
+            if len(p[0])]
+        if not parts:
+            return self._empty_matches(vox_prev.shape[1] if vox_prev.ndim == 2 else 3)
+        return tuple(np.concatenate([p[k] for p in parts], axis=0) for k in range(3))
+
+    def _select_best_pairs(self, vox_prev, vox_next, distances):
+        """Each target's closest candidate (the first of equal distances)."""
+        if vox_prev.size == 0:
+            dim = vox_prev.shape[1] if vox_prev.ndim == 2 else 3
+            return np.empty((0, dim), np.int64), np.empty((0, dim), np.int64)
+        target_flat = np.ravel_multi_index(vox_next.T, self.spatial_shape)
+        order = np.lexsort((distances, target_flat))
+        target_sorted = target_flat[order]
+        change = np.ones(len(order), bool)
+        change[1:] = target_sorted[1:] != target_sorted[:-1]
+        best = order[change]
+        return vox_prev[best], vox_next[best]
+
+    def _vote_targets(self, target_coords, source_labels, distances):
+        """(targets, labels, candidate index) of each target's winning label:
+        the largest sum of 1 / (distance + 1e-6) over its candidates of one
+        label, ties to the lower label; sums in float64 on the host, or in
+        float32 on the device from ``DEVICE_VOTE_CUTOVER`` candidates."""
+        if target_coords.size == 0:
+            return (np.empty((0,), np.int64), np.empty((0,), source_labels.dtype),
+                    np.empty((0,), np.int64))
+        target_flat = np.ravel_multi_index(target_coords.T, self.spatial_shape)
+        if (len(target_flat) >= self.DEVICE_VOTE_CUTOVER
+                and int(np.prod(self.spatial_shape)) < 2 ** 31 - 1):
+            return self._vote_targets_device(target_flat, source_labels, distances)
+        weights = 1.0 / (distances + 1e-6)
+        cand_idx = np.arange(len(weights), dtype=np.int64)
+        order = np.lexsort((-weights, source_labels, target_flat))
+        ts, ls, ws, cs = (target_flat[order], source_labels[order], weights[order],
+                          cand_idx[order])
+        pair_change = np.ones(len(order), bool)
+        pair_change[1:] = (ts[1:] != ts[:-1]) | (ls[1:] != ls[:-1])
+        pair_starts = np.nonzero(pair_change)[0]
+        pair_targets = ts[pair_change]
+        pair_labels = ls[pair_change]
+        pair_best = cs[pair_change]
+        weight_sums = np.add.reduceat(ws, pair_starts)
+        order2 = np.lexsort((-weight_sums, pair_targets))
+        pts, pls, pbs = pair_targets[order2], pair_labels[order2], pair_best[order2]
+        tchange = np.ones(len(order2), bool)
+        tchange[1:] = pts[1:] != pts[:-1]
+        return pts[tchange], pls[tchange], pbs[tchange]
+
+    def _vote_targets_device(self, target_flat, source_labels, distances):
+        def put(a, dtype):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(self.device)
+
+        weights = (1.0 / (np.asarray(distances, np.float64) + 1e-6)).astype(np.float32)
+        win, tgt, lbl, idx = _vote_kernel(
+            put(target_flat, np.int64), put(source_labels, np.int64),
+            put(weights, np.float32), torch.ones(len(target_flat), dtype=torch.bool,
+                                                 device=self.device))
+        win = win.cpu().numpy()
+        return (tgt.cpu().numpy()[win], lbl.cpu().numpy()[win].astype(source_labels.dtype),
+                idx.cpu().numpy()[win])
+
+    def _vote_assign_labels_for_frame(self, candidate_prev, candidate_next, candidate_dist,
+                                      label_memmap, reassigned_memmap, t):
+        """Frame t+1's labels by vote of its candidates whose frame-t voxel
+        is labelled, in up to ``max_refine_iterations`` rounds over the
+        targets still unlabelled."""
+        if candidate_prev.size == 0:
             return
+        prev_labels = reassigned_memmap[t][tuple(candidate_prev.T)]
+        valid = prev_labels > 0
+        if not valid.any():
+            return
+        candidate_prev, candidate_next = candidate_prev[valid], candidate_next[valid]
+        candidate_dist, prev_labels = candidate_dist[valid], prev_labels[valid]
+        target_has_label = label_memmap[t + 1][tuple(candidate_next.T)] > 0
+        if not target_has_label.any():
+            return
+        candidate_prev = candidate_prev[target_has_label]
+        candidate_next = candidate_next[target_has_label]
+        candidate_dist = candidate_dist[target_has_label]
+        prev_labels = prev_labels[target_has_label]
+        for _ in range(max(1, self.max_refine_iterations)):
+            unassigned = reassigned_memmap[t + 1][tuple(candidate_next.T)] == 0
+            if not unassigned.any():
+                break
+            cn = candidate_next[unassigned]
+            _, best_labels, best_idx = self._vote_targets(
+                cn, prev_labels[unassigned], candidate_dist[unassigned])
+            if len(best_idx) == 0:
+                break
+            reassigned_memmap[t + 1][tuple(cn[best_idx].T)] = best_labels
+
+    def _run_reassignment_low_memory(self):
+        """One pair at a time: candidates, the best pairs, then the votes."""
+        self._flow_interpolator_bw = FlowInterpolator(self.im_info, forward=False,
+                                                      device=self.device)
+        match_dtype = np.uint16 if max(self.spatial_shape) < 2 ** 16 else np.uint32
+        for t in range(self.num_t - 1):
+            if self.viewer is not None:
+                self.viewer.status = f"Reassigning voxels. Frame: {t + 1} of {self.num_t}."
+            logger.info(f"Reassigning pixels between frames {t} and {t + 1}")
+            vox_prev = np.argwhere(self._get_master_mask(t))
+            vox_next = np.argwhere(self._get_master_mask(t + 1))
+            if len(vox_prev) == 0 or len(vox_next) == 0:
+                logger.info(f"No voxels to match between frames {t} and {t + 1}; stopping.")
+                break
+            candidate_prev, candidate_next, candidate_dist = self.match_voxels(
+                vox_prev, vox_next, t)
+            if len(candidate_prev) == 0:
+                logger.info(f"No valid matches between frames {t} and {t + 1}; stopping.")
+                break
+            if self.store_running_matches:
+                best_prev, best_next = self._select_best_pairs(
+                    candidate_prev, candidate_next, candidate_dist)
+                self.running_matches.append([best_prev.astype(match_dtype),
+                                             best_next.astype(match_dtype)])
+            self._vote_assign_labels_for_frame(
+                candidate_prev, candidate_next, candidate_dist,
+                self.branch_label_memmap, self.reassigned_branch_memmap, t)
+            self._vote_assign_labels_for_frame(
+                candidate_prev, candidate_next, candidate_dist,
+                self.obj_label_memmap, self.reassigned_obj_memmap, t)
+            self.reassigned_branch_memmap.flush()
+            self.reassigned_obj_memmap.flush()
+
+    def _run_reassignment(self):
         self._allocate_memory()
         self._scaling = torch.tensor(self.flow_interpolator_fw.scaling, dtype=torch.float32,
                                      device=self.device)
         self.reassigned_branch_memmap[0][:] = np.asarray(self.branch_label_memmap[0])
         self.reassigned_obj_memmap[0][:] = np.asarray(self.obj_label_memmap[0])
         self.running_matches = []
-        self._run_reassignment_fused()
+        if self.low_memory:
+            self._run_reassignment_low_memory()
+        else:
+            self._run_reassignment_fused()
         if self.store_running_matches:
             np.save(self.voxel_matches_path, np.array(self.running_matches, dtype=object))
+
+    def run(self):
+        if self.im_info.no_t:
+            logger.info("Skipping voxel reassignment for non-temporal dataset.")
+            return
+
+        def attempt(dev, low):
+            self.low_memory = low
+            self._run_reassignment()
+
+        adaptive_run.run_with_ladder("VoxelReassigner", self.device, self.low_memory,
+                                     self.im_info, attempt)

@@ -4,6 +4,7 @@ The directory of ``tests/test_cli.py``: two 2D ``YX`` files whose names
 match the substring filter and one that does not.  ``main`` runs in this
 process; its outputs land in ``<directory>/nellie_output``.
 """
+import dataclasses
 import json
 import os
 
@@ -83,7 +84,26 @@ def test_cli_config_reaches_the_stages(directory, capsys):
     assert "Failed to run" in printed and "carry_dtype" in printed
 
 
-def test_cli_refuses_low_memory(directory):
-    with pytest.raises(NotImplementedError, match="low_memory"):
-        cli.main(["--directory", str(directory), "--device", "cpu", "--low_memory"])
-    assert not (directory / "nellie_output").exists()
+def test_cli_refuses_low_memory(directory, monkeypatch):
+    """``--low_memory`` runs: without a config it reaches ``run``, with one
+    it sets every ``*_low_memory`` field of the config."""
+    seen = []
+    original = cli.run_path
+
+    def spy(path, **kwargs):
+        seen.append(kwargs)
+        return original(path, **kwargs)
+
+    monkeypatch.setattr(cli, "run_path", spy)
+    cli.main(["--directory", str(directory), "--substring", "mito_a", "--device", "cpu",
+              "--low_memory"])
+    assert seen[-1]["low_memory"] is True
+    assert _outputs(directory, "features_organelles.csv")
+    config = directory / "settings.json"
+    config.write_text(json.dumps({"remove_intermediates": True}))
+    cli.main(["--directory", str(directory), "--substring", "mito_b", "--device", "cpu",
+              "--low_memory", "--config", str(config)])
+    cfg = seen[-1]["config"]
+    lows = [f.name for f in dataclasses.fields(cfg) if f.name.endswith("_low_memory")]
+    assert len(lows) == 7 and all(getattr(cfg, name) for name in lows)
+    assert [f for f in _outputs(directory, "features_organelles.csv") if f.startswith("mito_b")]

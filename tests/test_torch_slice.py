@@ -33,6 +33,7 @@ from nellie_tpu_torch.pipeline.run import params_from_config, run
 from nellie_tpu_torch.stages import mocap_marking
 from nellie_tpu_torch.stages import hierarchical as hier
 from nellie_tpu_torch.stages.filtering import Filter
+from nellie_tpu_torch.stages.labelling import Label
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEAR_TIE_SHARE = 1e-3  # reassigned-label voxels allowed to differ (share of foreground)
@@ -182,24 +183,29 @@ def test_params_from_config(tmp_path):
     with pytest.raises(NotImplementedError):
         Filter(im_info, device="cpu", **params_from_config(
             SettingsConfig(preprocessing_carry_dtype="float16"))["filter"])
-    with pytest.raises(NotImplementedError):
-        params_from_config(SettingsConfig(segmentation_label_low_memory=True))
+    low = params_from_config(SettingsConfig(segmentation_label_low_memory=True,
+                                            segmentation_label_max_chunk_voxels=4608,
+                                            segmentation_label_chunk_z=3))["label"]
+    assert (low["low_memory"], low["max_chunk_voxels"], low["chunk_z"]) == (True, 4608, 3)
+    assert Label(im_info, device="cpu", **low).chunk_z == 3
 
 
 def test_params_from_config_hierarchy(tmp_path):
     kw = params_from_config(SettingsConfig(feature_max_node_mask_elems=1234))
-    assert kw["hierarchy"] == {"enable_motility": True, "enable_adjacency": True,
-                               "max_node_mask_elems": 1234, "skip_nodes": True}
+    assert kw["hierarchy"] == {"low_memory": False, "enable_motility": True,
+                               "enable_adjacency": True, "max_node_mask_elems": 1234,
+                               "skip_nodes": True}
     assert kw["remove_intermediates"] is False
     assert params_from_config(SettingsConfig(analyze_node_level=True))["hierarchy"]["skip_nodes"] is False
     assert params_from_config(SettingsConfig(feature_skip_nodes=False,
                                              feature_node_chunk_size=512))["hierarchy"] == {
-        "enable_motility": True, "enable_adjacency": True, "max_node_mask_elems": int(5e7),
-        "skip_nodes": False, "node_chunk_size": 512}
-    with pytest.raises(NotImplementedError):
-        params_from_config(SettingsConfig(feature_low_memory=True))
+        "low_memory": False, "enable_motility": True, "enable_adjacency": True,
+        "max_node_mask_elems": int(5e7), "skip_nodes": False, "node_chunk_size": 512}
+    low = params_from_config(SettingsConfig(feature_low_memory=True))["hierarchy"]
+    assert low["low_memory"] is True
     im_info = D.open_im_info(D.write_input(tmp_path, D.tube_series()))
     hier.Hierarchy(im_info, device="cpu", **kw["hierarchy"])
+    assert hier.Hierarchy(im_info, device="cpu", **low).low_memory
 
 
 def test_run_default_and_config_toggles(tmp_path):

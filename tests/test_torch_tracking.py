@@ -174,3 +174,12 @@ def test_moment_helpers():
     ref_hu = np.asarray(jax.jit(j_moments.hu_moments)(jnp.asarray(eta)))
     got_hu = moments.hu_moments(torch.from_numpy(eta)).numpy()
     np.testing.assert_allclose(got_hu, ref_hu, rtol=1e-4, atol=1e-12)
+
+
+def test_log_hu_flushes_subnormals():
+    """A Hu value below float32's smallest normal is 0 to the reference (XLA
+    flushes subnormal results), so its log feature is 0, not ±37.9."""
+    tiny = np.finfo(np.float32).tiny
+    hu = np.array([[0.0, tiny / 4, -tiny / 3, tiny, -2.5e-30, 0.7, -1e-3]], np.float32)
+    want = np.asarray(jax.jit(j_moments.log_hu)(jnp.asarray(hu)))
+    np.testing.assert_array_equal(moments.log_hu(torch.from_numpy(hu)).numpy(), want)
