@@ -15,10 +15,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    references, every width d from 1 to 8;
 4. drives ``nellie_tpu_torch.pipeline.run.run`` on a 3x64x256x256 uint16
    confocal-like time series (Filter -> ... -> VoxelReassigner ->
-   Hierarchy), prints each stage's seconds, the Hierarchy's host share,
-   the rows of every feature CSV, the peak device memory and the kernel's
-   launches by stage, and checks the outputs and that both the reassigner
-   and the Hierarchy launched the kernel; then checks the kernel again at
+   Hierarchy, the first four as the fused chain, ``run``'s default),
+   prints each stage's seconds, the Hierarchy's host share, the rows of
+   every feature CSV, the peak device memory and the kernel's launches by
+   stage, and checks the outputs and that both the reassigner and the
+   Hierarchy launched the kernel; runs the series again with
+   ``fused=False`` and holds every artifact of the two runs equal byte for
+   byte, printing ``seg_fused`` beside the four stages' seconds, the device
+   frame cache's peak and ``FusedSegmentation.run(fence_stages=True)``'s
+   seconds by stage; then checks the kernel again at
    the shapes each of them gave it (bit for bit against the CPU) and
    prints its time beside the plain version's, one PyTorch call's
    (``library_ms``: ``torch.cdist`` and ``min``, which the port never
@@ -30,7 +35,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    (X = Y = 0.1 um, T = 2 s), with phase 4's prints and checks (every frame
    labelled, six-column flow rows, every CSV with the reference's header
    and ``z_raw`` empty, the kernel launched by the reassigner and by the
-   Hierarchy), then the kernel at d = 2 at the shapes those two gave it;
+   Hierarchy, the fused and per-stage runs equal), then the kernel at
+   d = 2 at the shapes those two gave it;
 7. holds a small ``TYX`` and a ``YX`` input on the card to the CPU, as
    phase 5 does;
 8. runs the batch CLI (``nellie_tpu_torch.pipeline.cli.main``) in this
@@ -52,7 +58,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    ``segment_volume(..., emit="sparse_labels")`` with ``strategy="auto"``
    (the chunked strategy), its seconds by phase, label count, foreground,
    label dtype and peak device memory, and its labels held to
-   ``scipy.ndimage.label`` of their support, exactly.
+   ``scipy.ndimage.label`` of their support, exactly;
+12. the repo's sample movie (``sample_data/synthetic_3d_mitochondria.ome.tif``,
+   4x16x128x128 ``TZYX``) through ``run_path`` on the card and on the
+   CPU at phase 5's bars, then ``LabelTracks`` of every label from frame 1,
+   the flow vectors as tracks and the markers as points, card against CPU,
+   with ``LabelTracks``' seconds on the card.
+
+Phases 5, 7 and 12 run the fused chain (``run``'s default); phase 10's
+low-memory config takes the per-stage path.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without CUDA the script
 exits non-zero before printing any result.  It imports no JAX.
@@ -60,6 +74,7 @@ exits non-zero before printing any result.  It imports no JAX.
 from __future__ import annotations
 
 import csv
+import filecmp
 import json
 import math
 import os
@@ -145,15 +160,16 @@ def device_ms(fn, reps: int) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    if not us:
-        fail("torch.profiler recorded no device time")
-    return us / reps / 1e3
+    for _ in range(3):  # the profiler now and then hands back no events at all
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us:
+            return us / reps / 1e3
+    fail("torch.profiler recorded no device time in three tries")
 
 
 def check_case(name, q, r, nn):
@@ -546,7 +562,74 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
     if sorted(adjacency) != ["b_o", "n_b", "n_o", "v_b", "v_n", "v_o"] or any(
             len(v) != shape[0] for v in adjacency.values()):
         fail("adjacency_maps.pkl lacks a key or a frame")
-    return launches, watch.launches, im_info
+    return launches, watch.launches, im_info, timings
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 6: the fused chain against the per-stage path
+# ---------------------------------------------------------------------------
+
+SEGMENTATION_STAGES = ("filter", "label", "network", "markers")
+
+
+def written_files(im_info):
+    return {k: p for k, p in im_info.pipeline_paths.items() if os.path.exists(p)}
+
+
+def fused_segmentation_seconds(root, name, shape, fence):
+    """``FusedSegmentation.run`` alone on a fresh copy of the series:
+    (its wall seconds, its seconds by stage when ``fence``)."""
+    from nellie_tpu_torch.io import ImInfo
+    from nellie_tpu_torch.pipeline.fused import FusedSegmentation
+
+    seg = FusedSegmentation(ImInfo(write_series(os.path.join(root, name), shape)),
+                            device="cuda")
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    stage_times = seg.run(fence_stages=fence)
+    torch.cuda.synchronize()
+    return time.perf_counter() - start, stage_times
+
+
+def phase_fused_vs_staged(gpu, root, shape, fused_info, fused_timings, tag=""):
+    """``run(fused=False)`` on the same series on the card: every artifact
+    equal to the fused run's byte for byte (the feature CSVs too, or, where
+    the Hierarchy's float64 ``scatter_add_`` on the card summed in another
+    order, within the features bar), ``seg_fused`` beside the four stages'
+    seconds, the device frame cache's peak, and the fused chain's own
+    seconds by stage with each stage fenced."""
+    from nellie_tpu_torch.pipeline.run import run
+    from nellie_tpu_torch.utils.device_cache import frame_cache
+
+    fi = write_series(os.path.join(root, f"staged{tag.strip()}"), shape)
+    staged_info, staged = run(fi, device="cuda", fused=False, return_timings=True)
+    fused_files, staged_files = written_files(fused_info), written_files(staged_info)
+    if sorted(fused_files) != sorted(staged_files):
+        fail(f"{tag}fused and per-stage runs wrote different artifacts: "
+             f"{sorted(set(fused_files) ^ set(staged_files))}")
+    differ = [k for k, p in fused_files.items()
+              if not filecmp.cmp(p, staged_files[k], shallow=False)]
+    tables = [k for k in differ if k.startswith("features_")]
+    if set(differ) - set(tables):
+        fail(f"{tag}fused and per-stage artifacts differ on the card: {sorted(differ)}")
+    worst = compare_tables(check_tables(fused_info, skip_nodes=False),
+                           check_tables(staged_info, skip_nodes=False),
+                           expected_headers(False), skip=()) if tables else 0.0
+    print(f"{tag}fused vs per-stage on the card: {len(fused_files) - len(differ)} of "
+          f"{len(fused_files)} artifacts equal byte for byte; feature CSVs differing in bytes "
+          f"{tables} (worst at {worst:.3g} of the features bar)", flush=True)
+    per_stage = {k: staged[k] for k in SEGMENTATION_STAGES}
+    warm, _ = fused_segmentation_seconds(root, f"fused_warm{tag.strip()}", shape, fence=False)
+    _, fenced = fused_segmentation_seconds(root, f"fused_fenced{tag.strip()}", shape, fence=True)
+    cache = frame_cache(fused_info)
+    if cache is None or cache.peak == 0 or len(cache):
+        fail(f"{tag}the fused run left no frames in the device cache, or left some behind")
+    print(f"{tag}seg_fused {fused_timings['seg_fused']:.3f} s in the main run, "
+          f"{warm:.3f} s again alone; per-stage path "
+          + ", ".join(f"{k} {v:.3f}" for k, v in per_stage.items())
+          + f" = {sum(per_stage.values()):.3f} s; fused stages fenced "
+          + ", ".join(f"{k} {v:.3f}" for k, v in fenced.items())
+          + f" s; device frame cache peak {cache.peak / 1e9:.3f} GB [{gpu}]", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -582,24 +665,45 @@ def small_series_2d():
     return np.stack(frames).astype(np.uint16)
 
 
-def phase_small_parity(root, data, axes, dim_res, tag="", config=None, nn=None):
+def open_file(path):
+    from nellie_tpu_torch.io import FileInfo
+
+    fi = FileInfo(path)
+    fi.find_metadata()
+    fi.load_metadata()
+    return fi
+
+
+def phase_small_parity(root, data, axes, dim_res, tag="", config=None, nn=None, source=None,
+                       infos=None):
     """The pipeline on ``data`` on the card and on the CPU, held to each
     other: float artifacts within 1e-4 of the frame max, integer artifacts
     on all but 0.1% of the foreground, flow costs and the feature tables at
     the features bar, and the Hierarchy alone on the CPU run's artifacts
-    exactly so, with equal adjacency edges.  With ``nn``, returns the
-    kernel's launches by stage in the card's run."""
+    exactly so, with equal adjacency edges.  With ``source`` (a file), each
+    device runs a copy of it through ``run_path`` instead.  With ``nn``,
+    returns the kernel's launches by stage in the card's run; ``infos``
+    (a dict) receives each device's ``ImInfo``."""
     from nellie_tpu_torch.io import ImInfo
-    from nellie_tpu_torch.pipeline.run import run
+    from nellie_tpu_torch.pipeline.run import run, run_path
     from nellie_tpu_torch.stages.hierarchical import Hierarchy
     from nellie_tpu_torch.stages.voxel_reassignment import VoxelReassigner
 
-    infos = {}
+    def input_copy(directory):
+        if source is None:
+            return write_input(directory, "small", data, axes, dim_res)
+        os.makedirs(directory, exist_ok=True)
+        path = os.path.join(directory, os.path.basename(source))
+        shutil.copyfile(source, path)
+        return open_file(path)
+
+    infos = {} if infos is None else infos
     launches = {}
     for dev in ("cuda", "cpu"):
-        fi = write_input(os.path.join(root, f"small{tag.strip()}_{dev}"), "small", data, axes,
-                         dim_res)
-        if nn is not None and dev == "cuda":
+        fi = input_copy(os.path.join(root, f"small{tag.strip()}_{dev}"))
+        if source is not None:
+            infos[dev] = run_path(fi.filepath, device=dev, config=config)
+        elif nn is not None and dev == "cuda":
             nn.NN_KERNEL.launches = 0
             with StageWatch(nn, (VoxelReassigner, Hierarchy)) as watch:
                 infos[dev] = run(fi, device=dev, config=config)
@@ -645,9 +749,7 @@ def phase_small_parity(root, data, axes, dim_res, tag="", config=None, nn=None):
 
     # the Hierarchy alone on the CPU run's artifacts: every column, and the
     # adjacency edges exactly
-    fi = write_input(os.path.join(root, f"small{tag.strip()}_hierarchy"), "small", data, axes,
-                     dim_res)
-    alone = ImInfo(fi)
+    alone = ImInfo(input_copy(os.path.join(root, f"small{tag.strip()}_hierarchy")))
     for name in HIERARCHY_INPUTS:
         if os.path.exists(infos["cpu"].pipeline_paths[name]):
             shutil.copyfile(infos["cpu"].pipeline_paths[name], alone.pipeline_paths[name])
@@ -664,7 +766,8 @@ def phase_small_parity(root, data, axes, dim_res, tag="", config=None, nn=None):
             for k in adj_cpu):
         fail(f"{tag}adjacency_maps.pkl differs between card and CPU")
     worst["adjacency edges"] = sum(len(a) for v in adj_cpu.values() for a in v)
-    print(f"{tag}small input {axes} {data.shape}, card vs CPU: {json.dumps(worst)}", flush=True)
+    shape = infos["cpu"].shape if data is None else data.shape
+    print(f"{tag}small input {axes} {shape}, card vs CPU: {json.dumps(worst)}", flush=True)
     return launches
 
 
@@ -932,6 +1035,57 @@ def phase_capacity_1024(gpu, edge=CAPACITY_EDGE):
     return {k: out[k] for k in ("n_labels", "fg_count", "seconds")}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the sample movie through run_path, and the track API
+# ---------------------------------------------------------------------------
+
+SAMPLE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sample_data",
+                      "synthetic_3d_mitochondria.ome.tif")
+
+
+def phase_sample_tracks(gpu, root):
+    """The repo's sample movie through ``run_path`` on the card and on the
+    CPU at phase 5's bars; then ``LabelTracks`` of every label from frame 1
+    (ids, frames and properties equal, coordinates within 1e-5 voxel), the
+    flow vectors as tracks and the markers as points, card against CPU."""
+    from nellie_tpu_torch.stages import flow_vector_viz as viz
+    from nellie_tpu_torch.stages.all_tracks_for_label import LabelTracks
+
+    if not os.path.exists(SAMPLE):
+        fail(f"{SAMPLE} is missing")
+    infos = {}
+    phase_small_parity(root, None, "TZYX", None, tag="sample ", source=SAMPLE, infos=infos)
+    tracks, seconds = {}, {}
+    for dev in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        tracks[dev] = LabelTracks(infos[dev], device=dev).run(label_num=None, start_frame=1)
+        torch.cuda.synchronize()
+        seconds[dev] = time.perf_counter() - start
+    a, b = (np.asarray(tracks[dev][0], np.float64) for dev in ("cuda", "cpu"))
+    if (a.shape != b.shape or a.shape[0] == 0 or not np.array_equal(a[:, :2], b[:, :2])
+            or tracks["cuda"][1] != tracks["cpu"][1]):
+        fail(f"LabelTracks: ids, frames or properties differ between card and CPU "
+             f"({a.shape} vs {b.shape})")
+    coord_err = float(np.abs(a[:, 2:] - b[:, 2:]).max())
+    if coord_err > 1e-5:
+        fail(f"LabelTracks: coordinates differ by {coord_err:.3g} voxel between card and CPU")
+    flow = {dev: viz.load_flow_vectors_as_tracks(infos[dev]) for dev in ("cuda", "cpu")}
+    if not np.array_equal(flow["cuda"][0], flow["cpu"][0]):
+        fail("flow_vectors_to_tracks: the tracks differ between card and CPU")
+    cost_err = float(np.abs(flow["cuda"][1]["cost"] - flow["cpu"][1]["cost"]).max())
+    if cost_err > 1e-4:
+        fail(f"flow_vectors_to_tracks: costs differ by {cost_err:.3g} between card and CPU")
+    points = {dev: viz.load_mocap_markers_as_points(infos[dev]) for dev in ("cuda", "cpu")}
+    if points["cuda"].shape[0] == 0 or not np.array_equal(points["cuda"], points["cpu"]):
+        fail("load_mocap_markers_as_points: the points differ between card and CPU")
+    print(f"sample tracks: LabelTracks {a.shape[0]} track points from frame 1, equal card to "
+          f"CPU (coordinates within {coord_err:.3g} voxel), {seconds['cuda']:.3f} s on the card, "
+          f"{seconds['cpu']:.3f} s on the CPU; flow tracks {flow['cpu'][0].shape[0]} points "
+          f"equal (costs within {cost_err:.3g}); marker points {points['cpu'].shape[0]} equal "
+          f"[{gpu}]", flush=True)
+
+
 def compare_tables(got, want, headers, skip):
     """Largest |card - CPU| / (1e-4 + 1e-4 |CPU|) over the feature tables
     (fails above 1, or on another row count or NaN pattern); columns whose
@@ -978,11 +1132,14 @@ def main() -> None:
     max_abs = phase_kernel(nn, gpu)
     root = tempfile.mkdtemp(prefix="nellie_port_smoke_")
     try:
-        launches, by_stage, im_info = phase_main_path(nn, gpu, root)
+        launches, by_stage, im_info, timings = phase_main_path(nn, gpu, root)
+        phase_fused_vs_staged(gpu, root, MAIN_SHAPE, im_info, timings)
         reassign, hierarchy = phase_kernel_main_shapes(nn, gpu, im_info)
         phase_small_parity(root, small_series(), "TZYX",
                            {"X": 0.2, "Y": 0.2, "Z": 0.5, "T": 1.0})
-        _, by_stage_2d, im_info_2d = phase_main_path(nn, gpu, root, MAIN_SHAPE_2D, tag="2D ")
+        _, by_stage_2d, im_info_2d, timings_2d = phase_main_path(nn, gpu, root, MAIN_SHAPE_2D,
+                                                                 tag="2D ")
+        phase_fused_vs_staged(gpu, root, MAIN_SHAPE_2D, im_info_2d, timings_2d, tag="2D ")
         reassign_2d, hierarchy_2d = phase_kernel_main_shapes(nn, gpu, im_info_2d, tag="2D ")
         series_2d = small_series_2d()
         for data, axes, t_res in ((series_2d, "TYX", 1.0), (series_2d[0], "YX", None)):
@@ -991,6 +1148,7 @@ def main() -> None:
         phase_cli(nn, root)
         phase_capacity_parity(root)
         reassign_low = phase_low_memory(nn, gpu, root)
+        phase_sample_tracks(gpu, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_capacity_1024(gpu)

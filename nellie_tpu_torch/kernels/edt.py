@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from nellie_tpu_torch.kernels._fp import f32, sum_of_products
+from nellie_tpu_torch.kernels._fp import f32, sqrt, sum_of_products
 from nellie_tpu_torch.kernels.filters import pad_constant
 
 
@@ -99,7 +99,7 @@ def nearest_seed(
 
     valid = idx >= 0
     labels = torch.where(valid, seed_labels.reshape(-1)[torch.clamp(idx, min=0).long()], 0)
-    return labels, torch.sqrt(seed_dist(idx))
+    return labels, sqrt(seed_dist(idx))
 
 
 def _minplus_axis(f_sq: torch.Tensor, axis: int, radius: int, s: float) -> torch.Tensor:
@@ -127,5 +127,5 @@ def distance_transform(mask: torch.Tensor, sampling: Tuple[float, ...] = None,
         if max_radius_px is not None:
             r = min(r, int(max_radius_px))
         f = _minplus_axis(f, axis, r, float(sampling[axis]))
-    dist = torch.nan_to_num(torch.sqrt(f), posinf=float(max(mask.shape)))
+    dist = torch.nan_to_num(sqrt(f), posinf=float(max(mask.shape)))
     return torch.where(mask, dist, torch.zeros_like(dist))

@@ -12,7 +12,7 @@ from typing import Tuple
 
 import torch
 
-from nellie_tpu_torch.kernels._fp import f32, fma, sqrt, sum_of_products
+from nellie_tpu_torch.kernels._fp import acos, cos, f32, fma, sqrt, sum_of_products
 
 _TWO_PI_3 = 2.0943951023931953  # 2π/3
 
@@ -44,11 +44,14 @@ def eigvalsh3(hxx, hxy, hxz, hyy, hyz, hzz) -> Tuple[torch.Tensor, torch.Tensor,
     a, b, c = hxx * s, hyy * s, hzz * s
     d, e, f = hxy * s, hxz * s, hyz * s
 
-    q = (a + b + c) * f32(1.0 / 3.0)
+    trace = a + b + c
+    third = f32(1.0 / 3.0)
+    q = trace * third
     p1 = sum_of_products([(d, d), (e, e), (f, f)])
-    am, bm, cm = a - q, b - q, c - q
+    # each a - q takes the product trace·(1/3) into a fused multiply-add
+    am, bm, cm = (fma(-trace, third, x) for x in (a, b, c))
     p2 = sum_of_products([(am, am), (bm, bm), (cm, cm)]) + 2.0 * p1
-    p = torch.sqrt(torch.clamp(p2, min=0.0) * f32(1.0 / 6.0))
+    p = sqrt(torch.clamp(p2, min=0.0) * f32(1.0 / 6.0))
     p_safe = torch.where(p > 0, p, torch.ones_like(p))
 
     b00, b11, b22 = am / p_safe, bm / p_safe, cm / p_safe
@@ -58,12 +61,12 @@ def eigvalsh3(hxx, hxy, hxz, hyy, hyz, hzz) -> Tuple[torch.Tensor, torch.Tensor,
     minor2 = sum_of_products([(b01, b12), (-b11, b02)])
     det_b = fma(b02, minor2, fma(b00, minor0, -(b01 * minor1)))
     r = torch.clamp(det_b * 0.5, -1.0, 1.0)
-    phi = torch.acos(r) * f32(1.0 / 3.0)
+    phi = acos(r) * f32(1.0 / 3.0)
 
     two_p = 2.0 * p
-    e1 = fma(two_p, torch.cos(phi), q)
-    e3 = fma(two_p, torch.cos(phi + f32(_TWO_PI_3)), q)
-    e2 = fma(3.0, q, -e1) - e3
+    e1 = fma(two_p, cos(phi), q)
+    e3 = fma(two_p, cos(phi + f32(_TWO_PI_3)), q)
+    e2 = (trace - e1) - e3  # XLA folds 3·(trace/3) back into the trace
 
     degenerate = p == 0
     e1 = torch.where(degenerate, q, e1)

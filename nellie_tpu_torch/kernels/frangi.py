@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from nellie_tpu_torch.kernels import eigen, filters, thresholds
-from nellie_tpu_torch.kernels._fp import exp, f32, fma, sum_of_products
+from nellie_tpu_torch.kernels._fp import exp, f32, fma, sqrt, sum_of_products
 from nellie_tpu_torch.kernels.hessian import hessian_components
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -83,14 +83,9 @@ def _frob_mask(frob: torch.Tensor, params: FrangiParams) -> torch.Tensor:
 
 def _frangi_response(eigs, gamma_sq, params: FrangiParams) -> torch.Tensor:
     """Frangi vesselness from |λ|-sorted eigenvalues; like the reference, the
-    3D ratio numerators both use |λ2|.
-
-    2D takes XLA's exp (:func:`_fp.exp`), so that the response is the
-    reference's bit for bit.  3D keeps PyTorch's: its eigenvalues still
-    differ in the last bits (XLA calls glibc's ``acosf``/``cosf``), and with
-    XLA's exp alone the 3D flow costs, which amplify the smallest Frangi
-    values through a log10, moved from 9.8e-5 to 1.1e-4 of the reference's
-    on the parity input."""
+    3D ratio numerators both use |λ2|.  XLA's exp and correctly rounded
+    square root (:mod:`_fp`), so that the response is the reference's bit
+    for bit in 2D and 3D."""
     if len(eigs) == 2:
         l1, l2 = eigs
         rb = l1.abs() / (l2.abs() + f32(1e-12))
@@ -101,13 +96,13 @@ def _frangi_response(eigs, gamma_sq, params: FrangiParams) -> torch.Tensor:
     l1, l2, l3 = eigs
     a2 = l2.abs()
     ra = a2 / (l3.abs() + f32(1e-12))
-    rb = a2 / (torch.sqrt((l2 * l3).abs()) + f32(1e-12))
+    rb = a2 / (sqrt((l2 * l3).abs()) + f32(1e-12))
     ra_sq = ra * ra
     rb_sq = rb * rb
     s_sq = sum_of_products([(l1, l1), (l2, l2), (l3, l3)])
-    v = ((1.0 - torch.exp(-(ra_sq * f32(1.0 / params.alpha_sq))))
-         * torch.exp(-(rb_sq * f32(1.0 / params.beta_sq)))
-         * (1.0 - torch.exp(-(s_sq / gamma_sq))))
+    v = ((1.0 - exp(-(ra_sq * f32(1.0 / params.alpha_sq))))
+         * exp(-(rb_sq * f32(1.0 / params.beta_sq)))
+         * (1.0 - exp(-(s_sq / gamma_sq))))
     v = torch.where((l3 > 0) | (l2 > 0), torch.zeros_like(v), v)
     return torch.nan_to_num(v, nan=0.0, posinf=0.0, neginf=0.0)
 

@@ -21,29 +21,50 @@ import numpy as np
 import torch
 
 from nellie_tpu_torch.device import resolve_device
-from nellie_tpu_torch.kernels._fp import f32, fma, reduce_sum_of_squares
+from nellie_tpu_torch.kernels._fp import (
+    REDUCE_WINDOW,
+    f32,
+    fma,
+    reduce_sum_of_squares,
+    sqrt,
+    tree_sum_2d,
+)
 
 COST_CUTOFF = 1.0
 
 
 def _pair_mask_and_dist(coords_post, coords_pre, max_distance):
     diff = coords_post[:, None, :] - coords_pre[None, :, :]
-    dist = torch.sqrt(reduce_sum_of_squares(diff))
+    dist = sqrt(reduce_sum_of_squares(diff))
     return dist / max_distance, dist < max_distance
 
 
 def pair_stats(coords_post, coords_pre, feats_post, feats_pre, max_distance):
     """(count, sum_f, sumsq_f) over distance-gated pairs, F+1 entries with
-    the normalised distance first."""
+    the normalised distance first.
+
+    Each masked (rows, cols) sum is XLA's CPU tree reduction
+    (:func:`_fp.tree_sum_2d`); its first level, the 32 x 32 windows, is
+    taken here one window element at a time for every window and feature
+    at once, so that no (rows, cols, F) array is built."""
     dist_n, mask = _pair_mask_and_dist(coords_post, coords_pre, max_distance)
-    maskf = mask.float()
-    sums = [(dist_n * maskf).sum()]
-    sumsqs = [(dist_n * dist_n * maskf).sum()]
-    for f in range(feats_post.shape[1]):
-        d = (feats_post[:, f][:, None] - feats_pre[:, f][None, :]).abs()
-        sums.append((d * maskf).sum())
-        sumsqs.append((d * d * maskf).sum())
-    return int(mask.sum()), torch.stack(sums), torch.stack(sumsqs)
+    w = REDUCE_WINDOW
+    pad_r, pad_c = -mask.shape[0] % w, -mask.shape[1] % w
+    mask = torch.nn.functional.pad(mask, (0, pad_c, 0, pad_r))
+    dist_n = torch.nn.functional.pad(dist_n, (0, pad_c, 0, pad_r))
+    feats_post = torch.nn.functional.pad(feats_post, (0, 0, 0, pad_r))
+    feats_pre = torch.nn.functional.pad(feats_pre, (0, 0, 0, pad_c))
+    sums = sumsqs = None
+    for i in range(w):
+        for j in range(w):
+            d = torch.cat([dist_n[i::w, j::w, None],
+                           (feats_post[i::w, None, :] - feats_pre[None, j::w, :]).abs()], dim=2)
+            m = mask[i::w, j::w, None]
+            v, v2 = torch.where(m, d, 0.0), torch.where(m, d * d, 0.0)
+            sums = v if sums is None else sums + v
+            sumsqs = v2 if sumsqs is None else sumsqs + v2
+    return (int(mask.sum()), tree_sum_2d(sums.permute(2, 0, 1)),
+            tree_sum_2d(sumsqs.permute(2, 0, 1)))
 
 
 def pair_costs(coords_post, coords_pre, feats_post, feats_pre, max_distance,

@@ -33,8 +33,14 @@ def raw_moments(images: torch.Tensor, order: int = 3) -> torch.Tensor:
 _VOXEL_BLOCK = 4096  # voxels per block of widened terms in masked_mean_variance
 
 # (p, q) of the central moments whose first addition XLA's CPU code fuses
-# with its right product (the left one elsewhere); read off its output
-_FUSE_RIGHT = {(0, 3), (1, 2), (1, 3), (2, 1), (2, 3), (3, 0), (3, 1)}
+# with its right product (the left one elsewhere); read off its output.
+# XLA fuses the same expressions differently in different programs: the
+# tracker's feature program (``hu_tracking._frame_features_fused``) maps
+# its chunks of markers with ``lax.map``, which XLA inlines for one chunk
+# and compiles as a loop body for more, and in the loop body μ30 fuses its
+# left product.  ``looped`` below selects that program.
+_FUSE_RIGHT = frozenset({(0, 3), (1, 2), (1, 3), (2, 1), (2, 3), (3, 0), (3, 1)})
+_FUSE_RIGHT_LOOPED = _FUSE_RIGHT - {(3, 0)}
 
 
 def _sum_terms(terms, fuse_right):
@@ -58,8 +64,9 @@ def _sum_terms(terms, fuse_right):
     return acc
 
 
-def central_moments(m: torch.Tensor) -> torch.Tensor:
+def central_moments(m: torch.Tensor, looped: bool = False) -> torch.Tensor:
     k = m.shape[1]
+    fuse_right = _FUSE_RIGHT_LOOPED if looped else _FUSE_RIGHT
     m00 = m[:, 0, 0] + 1e-12
     x_bar = m[:, 1, 0] / m00
     y_bar = m[:, 0, 1] / m00
@@ -77,34 +84,47 @@ def central_moments(m: torch.Tensor) -> torch.Tensor:
                         if keep:
                             factor = f if factor is None else factor * f
                     terms.append((factor, m[:, i, j]))
-            mu[:, p, q] = _sum_terms(terms, (p, q) in _FUSE_RIGHT)
+            mu[:, p, q] = _sum_terms(terms, (p, q) in fuse_right)
     return mu
 
 
-def normalized_moments(images: torch.Tensor) -> torch.Tensor:
+def normalized_moments(images: torch.Tensor, looped: bool = False) -> torch.Tensor:
     """η moments up to order 3, shape (N, 4, 4)."""
     m = raw_moments(images, order=3)
-    mu = central_moments(m)
+    mu = central_moments(m, looped)
     idx = torch.arange(4, device=images.device)
     exponent = ((idx[:, None] + idx[None, :])[None] + 2) / 2.0
     denom = m[:, 0, 0][:, None, None] ** exponent + 1e-12
     return mu / denom
 
 
-def hu_moments(eta: torch.Tensor) -> torch.Tensor:
-    """The first six Hu moments (the 7th is skipped for mirror invariance)."""
+def hu_moments(eta: torch.Tensor, projections: bool = False) -> torch.Tensor:
+    """The first six Hu moments (the 7th is skipped for mirror invariance),
+    with the multiply-adds XLA's CPU code fuses: a product used once is
+    fused into the addition or subtraction that consumes it (read off
+    ``jax.jit`` of the reference).  Where both products of an addition
+    could fuse, the reference's 2D program fuses the left one and leaves
+    h1 unfused; its program over the three projections of a 3D ROI
+    (``projections``) fuses h1 and the right product of h4."""
     eta20, eta02, eta11 = eta[:, 2, 0], eta[:, 0, 2], eta[:, 1, 1]
     eta30, eta12, eta21, eta03 = eta[:, 3, 0], eta[:, 1, 2], eta[:, 2, 1], eta[:, 0, 3]
+    a, b = eta30 + eta12, eta21 + eta03
+    a2, b2 = a * a, b * b
+    s1 = fma(-3.0, eta12, eta30)   # eta30 - 3 eta12
+    s2 = fma(3.0, eta21, -eta03)   # 3 eta21 - eta03
     h0 = eta20 + eta02
-    h1 = (eta20 - eta02) ** 2 + 4 * eta11 ** 2
-    h2 = (eta30 - 3 * eta12) ** 2 + (3 * eta21 - eta03) ** 2
-    h3 = (eta30 + eta12) ** 2 + (eta21 + eta03) ** 2
-    h4 = ((eta30 - 3 * eta12) * (eta30 + eta12)
-          * ((eta30 + eta12) ** 2 - 3 * (eta21 + eta03) ** 2)
-          + (3 * eta21 - eta03) * (eta21 + eta03)
-          * (3 * (eta30 + eta12) ** 2 - (eta21 + eta03) ** 2))
-    h5 = ((eta20 - eta02) * ((eta30 + eta12) ** 2 - (eta21 + eta03) ** 2)
-          + 4 * eta11 * (eta30 + eta12) * (eta21 + eta03))
+    d = eta20 - eta02
+    h2 = fma(s1, s1, s2 * s2)
+    h3 = fma(a, a, b2)
+    p1, t1 = s1 * a, fma(-3.0, b2, a2)
+    p2, t2 = s2 * b, fma(3.0, a2, -b2)
+    if projections:
+        h1 = fma(d, d, 4 * eta11 ** 2)
+        h4 = fma(p2, t2, p1 * t1)
+    else:
+        h1 = d * d + 4 * eta11 ** 2
+        h4 = fma(p1, t1, p2 * t2)
+    h5 = fma((4 * eta11) * a, b, d * fma(a, a, -b2))
     return torch.stack([h0, h1, h2, h3, h4, h5], dim=1)
 
 
@@ -120,16 +140,15 @@ def log_hu(hu: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isfinite(out), out, torch.zeros_like(out))
 
 
-def hu_2d(images: torch.Tensor) -> torch.Tensor:
-    return hu_moments(normalized_moments(images))
+def hu_2d(images: torch.Tensor, looped: bool = False) -> torch.Tensor:
+    return hu_moments(normalized_moments(images, looped))
 
 
-def hu_3d(volumes: torch.Tensor) -> torch.Tensor:
+def hu_3d(volumes: torch.Tensor, looped: bool = False) -> torch.Tensor:
     """(N, Z, Y, X) -> (N, 18): Hu of the three orthogonal max projections."""
-    z_proj = volumes.amax(dim=1)
-    y_proj = volumes.amax(dim=2)
-    x_proj = volumes.amax(dim=3)
-    return torch.cat([hu_2d(z_proj), hu_2d(y_proj), hu_2d(x_proj)], dim=1)
+    return torch.cat([hu_moments(normalized_moments(volumes.amax(dim=axis), looped),
+                                 projections=True)
+                      for axis in (1, 2, 3)], dim=1)
 
 
 def masked_mean_variance(images: torch.Tensor) -> torch.Tensor:

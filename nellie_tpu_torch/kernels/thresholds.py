@@ -12,9 +12,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from nellie_tpu_torch.kernels._fp import fma, sum_of_products
+from nellie_tpu_torch.kernels._fp import fma, sqrt, sum_of_products
 
 _SCAN_BLOCK = 16
+
+
+def _running_sum(x: torch.Tensor) -> torch.Tensor:
+    """Prefix sum along the last axis, one add at a time: the same
+    rounding on the card as on the CPU (``torch.cumsum`` scans in another
+    order on a CUDA device)."""
+    acc = [x[..., 0]]
+    for k in range(1, x.shape[-1]):
+        acc.append(acc[-1] + x[..., k])
+    return torch.stack(acc, dim=-1)
 
 
 def cumsum_f32(x: torch.Tensor) -> torch.Tensor:
@@ -23,12 +33,12 @@ def cumsum_f32(x: torch.Tensor) -> torch.Tensor:
     then added to each block."""
     n = x.shape[0]
     if n <= _SCAN_BLOCK:
-        return torch.cumsum(x, 0)
+        return _running_sum(x)
     nb = -(-n // _SCAN_BLOCK)
     pad = torch.zeros(nb * _SCAN_BLOCK, dtype=x.dtype, device=x.device)
     pad[:n] = x
     blocks = pad.reshape(nb, _SCAN_BLOCK)
-    inner = torch.cumsum(blocks, 1)
+    inner = _running_sum(blocks)
     totals = cumsum_f32(inner[:, -1].contiguous())
     offset = torch.cat([totals.new_zeros(1), totals[:-1]])
     return (inner + offset[:, None]).reshape(-1)[:n]
@@ -98,7 +108,7 @@ def _triangle_from_hist(counts, centers, any_valid):
     arg_peak_f = nbins - arg_peak - 1 if flip else arg_peak
 
     width = torch.tensor(float(arg_peak_f - arg_low_f), device=dev)
-    norm = torch.sqrt(sum_of_products([(peak_height, peak_height), (width, width)]))
+    norm = sqrt(sum_of_products([(peak_height, peak_height), (width, width)]))
     ph = peak_height / torch.clamp(norm, min=1e-30)
     wd = width / torch.clamp(norm, min=1e-30)
 

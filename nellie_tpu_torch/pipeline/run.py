@@ -1,18 +1,22 @@
 """Main entry point of the port.
 
 ``run`` drives Filter -> Label -> Network -> Markers -> HuMomentTracking
--> VoxelReassigner -> Hierarchy through the on-disk artifact store, in the
-order of the JAX package's per-stage branch
-(``nellie_tpu/pipeline/run.py:202-229``), so artifacts, the feature CSVs
-and ``adjacency_maps.pkl`` have the reference's names, dtypes and layout.
+-> VoxelReassigner -> Hierarchy as the JAX package's ``run`` does
+(``nellie_tpu/pipeline/run.py:114-118``, ``:164-229``): by default the
+first four stages run as the fused chain
+(:mod:`nellie_tpu_torch.pipeline.fused`, timed as ``seg_fused``), which
+leaves each frame's tensors on the device for tracking and the Hierarchy;
+in low-memory mode, or with ``fused=False``, stage by stage through the
+on-disk artifact store.  Either way the artifacts, the feature CSVs and
+``adjacency_maps.pkl`` have the reference's names, dtypes and layout.
 
 ``run_path`` opens a file and runs it; the batch CLI
 (:mod:`nellie_tpu_torch.pipeline.cli`) calls it per file.
 
-Not ported: the fused segmentation chain and its fallback
-(``run.py:184-201``), the compile warmer and the XLA compile cache, the
-mesh paths and the mesh-batched multi-file runs (``pipeline/batch.py``);
-``run`` therefore has no ``mesh``, ``fused`` or ``warm_start`` argument.
+Not ported: the compile warmer and the XLA compile cache, the fused
+chain's "accelerator unavailable" retry, the mesh paths and the
+mesh-batched multi-file runs (``pipeline/batch.py``); ``run`` therefore has
+no ``mesh`` or ``warm_start`` argument.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 from nellie_tpu_torch import config as cfg_mod
 from nellie_tpu_torch.io import FileInfo, ImInfo
 from nellie_tpu_torch.device import resolve_device
+from nellie_tpu_torch.pipeline.fused import FusedSegmentation
 from nellie_tpu_torch.stages.filtering import Filter
 from nellie_tpu_torch.stages.hierarchical import Hierarchy
 from nellie_tpu_torch.stages.hu_tracking import HuMomentTracking
@@ -30,6 +35,9 @@ from nellie_tpu_torch.stages.labelling import Label
 from nellie_tpu_torch.stages.mocap_marking import Markers
 from nellie_tpu_torch.stages.networking import Network
 from nellie_tpu_torch.stages.voxel_reassignment import VoxelReassigner
+from nellie_tpu_torch.utils import adaptive_run
+from nellie_tpu_torch.utils.device_cache import frame_cache
+from nellie_tpu_torch.utils.logger import logger
 
 # config keys that change no artifact: the device (``run`` takes one for
 # every stage), how often Label flushes, a GPU preference of the reference
@@ -76,19 +84,26 @@ def params_from_config(cfg) -> dict:
 
 def run(file_info, remove_edges=False, otsu_thresh_intensity=False, threshold=None,
         timeit=False, device="cuda", skip_nodes=False, return_timings=False, config=None,
-        low_memory=False):
+        low_memory=False, fused=True):
     """Run the seven stages on a prepared :class:`FileInfo`.
 
     ``device`` is ``"cuda"`` (raises without a GPU) or ``"cpu"``; nothing
-    falls back from one to the other.  ``low_memory``: Filter, Label,
-    HuMomentTracking and Hierarchy start in their low-memory mode, as the
-    JAX package's ``run`` passes it; every stage also enters it on its own
-    when a frame looks too large, or after running out of memory
+    falls back from one to the other.  ``fused``: Filter, Label, Network
+    and Markers run as one frame loop with the intermediates on the device
+    (the artifacts are those of ``fused=False``, bit for bit); it is not
+    used in low-memory mode, and running out of device memory in it falls
+    back to the per-stage path on the same device.  ``low_memory``:
+    Filter, Label, HuMomentTracking and Hierarchy start in their
+    low-memory mode, as the JAX package's ``run`` passes it; every stage
+    of the per-stage path also enters it on its own when a frame looks too
+    large, or after running out of memory
     (:mod:`nellie_tpu_torch.utils.adaptive_run`).  ``config``: a
     ``SettingsConfig`` (or dict, or JSON path) driving every stage's
-    kwargs, its per-stage ``*_low_memory`` flags included; the convenience
-    arguments above are then ignored.  Returns the :class:`ImInfo`, and
-    the per-stage seconds when ``return_timings``.
+    kwargs, its per-stage ``*_low_memory`` flags included (Filter's,
+    Label's, Network's or Markers' select the per-stage path); the
+    convenience arguments above are then ignored.  Returns the
+    :class:`ImInfo`, and the seconds by stage (``seg_fused`` for the fused
+    chain) when ``return_timings``.
     """
     dev = resolve_device(device)
     im_info = ImInfo(file_info)
@@ -115,14 +130,34 @@ def run(file_info, remove_edges=False, otsu_thresh_intensity=False, threshold=No
             torch.cuda.synchronize(dev)
         timings[name] = time.perf_counter() - start
 
-    timed("filter", Filter(im_info, device=dev, **kw["filter"]))
-    timed("label", Label(im_info, device=dev, **kw["label"]))
-    timed("network", Network(im_info, device=dev, **kw["network"]))
-    timed("markers", Markers(im_info, device=dev, **kw["markers"]))
+    segmentation = ("filter", "label", "network", "markers")
+    use_fused = fused and not any(kw[k].get("low_memory") for k in segmentation)
+    if use_fused:
+        seg = FusedSegmentation(
+            im_info, device=dev, cache_frames=not im_info.no_t,
+            filter_kwargs=kw["filter"], label_kwargs=kw["label"],
+            network_kwargs=kw["network"], markers_kwargs=kw["markers"])
+        try:
+            timed("seg_fused", seg)
+        except adaptive_run.OOM_ERRORS as exc:
+            logger.warning("Fused segmentation ran out of memory (%r); running the stages one "
+                           "by one on %s.", exc, dev)
+            cache = frame_cache(im_info)
+            if cache is not None:
+                cache.clear()
+            use_fused = False
+    if not use_fused:
+        timed("filter", Filter(im_info, device=dev, **kw["filter"]))
+        timed("label", Label(im_info, device=dev, **kw["label"]))
+        timed("network", Network(im_info, device=dev, **kw["network"]))
+        timed("markers", Markers(im_info, device=dev, **kw["markers"]))
     timed("tracking", HuMomentTracking(im_info, device=dev, **kw["tracking"]))
     if kw["voxel_reassign"]:
         timed("reassign", VoxelReassigner(im_info, device=dev, **kw["reassign"]))
     timed("hierarchy", Hierarchy(im_info, device=dev, **kw["hierarchy"]))
+    cache = frame_cache(im_info)
+    if cache is not None:
+        cache.clear()
     if kw["remove_intermediates"]:
         im_info.remove_intermediates()
     timings["total"] = sum(timings.values())

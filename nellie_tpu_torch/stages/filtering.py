@@ -180,7 +180,11 @@ class Filter:
 
     def _run_frame(self, t, mask=True):
         logger.info(f"Running Frangi filter on t={t}.")
-        frame = _frames.load(self.im_memmap, t, self.device)
+        return self._vesselness(_frames.load(self.im_memmap, t, self.device), mask=mask)
+
+    def _vesselness(self, frame, mask=True):
+        """Vesselness of one whole frame on the device (in 2D with the LoG
+        blobness), before the percentile mask."""
         vessel, masks = frangi_k.vesselness_frame(frame, self._params, apply_mask=mask)
         if self.im_info.no_z:
             blob = frangi_k.log_blobness_2d(frame, masks, self._params)
@@ -200,9 +204,11 @@ class Filter:
                 self.frangi_memmap[t] = frame
                 self.frangi_memmap.flush()
                 continue
-            frame = frangi_k.finalize_frame(self._run_frame(t, mask=mask),
-                                            self.max_threshold_samples)
-            _frames.store(self.frangi_memmap, t, frame, np.float32)
+            self._write_frame(t, frangi_k.finalize_frame(self._run_frame(t, mask=mask),
+                                                         self.max_threshold_samples))
+
+    def _write_frame(self, t, frame):
+        _frames.store(self.frangi_memmap, t, frame, np.float32)
 
     def run(self, mask=True):
         logger.info("Running Frangi filter.")

@@ -10,9 +10,9 @@ query is scored against every flow vector of its frame inside the radius:
 
 ``interpolate_coord_dev`` leaves the vectors on the interpolator's device
 for the Hierarchy; ``interpolate_coord`` is its host copy.
-
-Not ported: the module-level track functions used by the GUI
-(``interpolate_all_forward``/``interpolate_all_backward``).
+``interpolate_all_forward`` and ``interpolate_all_backward`` (``:210-257``)
+walk coordinates through time along the interpolated flow into napari
+tracks, for :class:`~nellie_tpu_torch.stages.all_tracks_for_label.LabelTracks`.
 """
 from __future__ import annotations
 
@@ -133,3 +133,60 @@ class FlowInterpolator:
         if res is None:
             return np.full(coords.shape, np.nan)
         return res.cpu().numpy()
+
+
+def interpolate_all_forward(coords, start_t, end_t, im_info, min_track_num=0,
+                            max_distance_um=0.5, device="cuda"):
+    """Walk ``coords`` forward from ``start_t`` to ``end_t`` along the
+    interpolated flow: napari tracks ``[id, t, (z,) y, x]`` and their
+    ``frame_num`` property; a coordinate with no flow in reach stops
+    (becomes NaN)."""
+    flow_interpx = FlowInterpolator(im_info, forward=True, max_distance_um=max_distance_um,
+                                    device=device)
+    coords = np.asarray(coords, float).copy()
+    tracks = []
+    track_properties = {"frame_num": []}
+    frame_range = np.arange(start_t, end_t)
+    for t in frame_range:
+        final_vector = flow_interpx.interpolate_coord(coords, t)
+        if final_vector is None or len(final_vector) == 0:
+            continue
+        for coord_num, coord in enumerate(coords):
+            if np.all(np.isnan(final_vector[coord_num])):
+                coords[coord_num] = np.nan
+                continue
+            if t == frame_range[0]:
+                tracks.append([coord_num + min_track_num, frame_range[0], *coord])
+                track_properties["frame_num"].append(int(frame_range[0]))
+            track_properties["frame_num"].append(int(t) + 1)
+            coords[coord_num] = coord + final_vector[coord_num]
+            tracks.append([coord_num + min_track_num, int(t) + 1, *coords[coord_num]])
+    return tracks, track_properties
+
+
+def interpolate_all_backward(coords, start_t, end_t, im_info, min_track_num=0,
+                             max_distance_um=0.5, device="cuda"):
+    """Walk ``coords`` backward from ``start_t`` down to ``end_t`` along the
+    interpolated flow (the tracks of :func:`interpolate_all_forward`, in
+    reverse time)."""
+    flow_interpx = FlowInterpolator(im_info, forward=False, max_distance_um=max_distance_um,
+                                    device=device)
+    coords = np.asarray(coords, float).copy()
+    tracks = []
+    track_properties = {"frame_num": []}
+    frame_range = list(np.arange(end_t, start_t + 1))[::-1]
+    for t in frame_range:
+        final_vector = flow_interpx.interpolate_coord(coords, t)
+        if final_vector is None or len(final_vector) == 0:
+            continue
+        for coord_num, coord in enumerate(coords):
+            if np.all(np.isnan(final_vector[coord_num])):
+                coords[coord_num] = np.nan
+                continue
+            if t == frame_range[0]:
+                tracks.append([coord_num + min_track_num, frame_range[0], *coord])
+                track_properties["frame_num"].append(int(frame_range[0]))
+            coords[coord_num] = coord - final_vector[coord_num]
+            tracks.append([coord_num + min_track_num, int(t) - 1, *coords[coord_num]])
+            track_properties["frame_num"].append(int(t) - 1)
+    return tracks, track_properties

@@ -28,9 +28,12 @@ Frames are built one at a time in either mode.  ``low_memory`` divides
 the node tables' membership budget (``max_node_mask_elems``) by four, so
 the node aggregation takes smaller voxel chunks (``hierarchical.py:716``).
 
-Not ported: the mesh paths, the fused chain's device cache of the
-skeleton, the trimmed transfers, the frames-ahead thread pool and the host
-aggregate of small node tables.
+The skeleton volume of a frame comes from the fused chain's device cache
+when the chain ran in this process (``_skel_dev``,
+``hierarchical.py:1203-1215``), else from the artifact.
+
+Not ported: the mesh paths, the trimmed transfers, the frames-ahead thread
+pool and the host aggregate of small node tables.
 """
 from __future__ import annotations
 
@@ -50,6 +53,7 @@ from nellie_tpu_torch.kernels.nn import nearest_neighbors
 from nellie_tpu_torch.kernels.segstats import STAT_KEYS, branch_geometry, segment_nanstats
 from nellie_tpu_torch.stages.flow_interpolation import FlowInterpolator
 from nellie_tpu_torch.utils import adaptive_run
+from nellie_tpu_torch.utils.device_cache import frame_cache
 from nellie_tpu_torch.utils.logger import logger
 from nellie_tpu_torch.utils.regionprops import regionprops
 
@@ -632,8 +636,10 @@ class _BranchLevel:
 
         spacing = np.asarray(h.spacing, np.float64)
         if b:
-            lengths_all, deg_at = branch_geometry(
-                torch.from_numpy(skel.astype(np.int32)).to(dev), spacing, skel_coords)
+            skel_dev = h._skel_dev(t)
+            if skel_dev is None:
+                skel_dev = torch.from_numpy(skel.astype(np.int32)).to(dev)
+            lengths_all, deg_at = branch_geometry(skel_dev, spacing, skel_coords)
             lengths = lengths_all[row_labels].astype(np.float64)
 
             radii = h._border_distance_cached(t, skel_coords)
@@ -1107,6 +1113,13 @@ class Hierarchy:
                 self._label_edges(nodes.component_label, components.component_label))
         adjacency["b_o"].append(
             self._label_edges(branches.component_label, components.component_label))
+
+    def _skel_dev(self, t):
+        """Frame t's skeleton volume left on the device by the fused chain,
+        or None; popped, as the Hierarchy is its last reader."""
+        cache = frame_cache(self.im_info)
+        skel = None if cache is None else cache.take("im_skel", t)
+        return None if skel is None else skel.to(self.device)
 
     def run(self):
         def attempt(dev, low):

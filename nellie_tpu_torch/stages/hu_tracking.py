@@ -18,8 +18,13 @@ in one tile on the device features; otherwise by the row-tiled
 ``matching.match_frames`` on the host copies of the features, with the
 physical coordinates taken in float64 and rounded to float32, as there.
 
-Not ported: the mesh frame-parallel path and the device frame cache
-shared with the fused segmentation chain.
+When the fused segmentation chain ran in this process, each frame's raw
+image, vesselness and distance are taken from its device cache
+(:mod:`nellie_tpu_torch.utils.device_cache`, ``hu_tracking.py:241-253``)
+instead of being read back from the artifacts; the low-memory rung clears
+the cache instead (``:446-460``).
+
+Not ported: the mesh frame-parallel path.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ from nellie_tpu_torch.kernels._fp import f32, log10
 from nellie_tpu_torch.kernels.filters import maximum_filter
 from nellie_tpu_torch.stages import _frames
 from nellie_tpu_torch.utils import adaptive_run
+from nellie_tpu_torch.utils.device_cache import frame_cache
 
 N_STATS = 4
 
@@ -60,11 +66,13 @@ def _prep_frame_kernel(frangi: torch.Tensor, distance: torch.Tensor):
     return f, dil
 
 
-def _roi_features_kernel(intensity_pad, frangi_pad, coords, radii, r):
+def _roi_features_kernel(intensity_pad, frangi_pad, coords, radii, r, looped=False):
     """Statistics and log-Hu features of the markers at ``coords``.
 
     ``*_pad``: the frame padded by ``r`` zeros per side; ``coords`` (n, d)
-    voxel coordinates; ``radii`` (n,) dilated-distance radii."""
+    voxel coordinates; ``radii`` (n,) dilated-distance radii; ``looped``:
+    round the moments as the reference's program over more than one chunk
+    of markers does (:mod:`nellie_tpu_torch.kernels.moments`)."""
     n, ndim = coords.shape
     shape = torch.tensor([s - 2 * r for s in intensity_pad.shape], device=coords.device)
     rad = torch.ceil(radii).long()
@@ -82,7 +90,7 @@ def _roi_features_kernel(intensity_pad, frangi_pad, coords, radii, r):
     cubes_f = torch.where(inside, frangi_pad[tuple(index)], 0.0)
     stats = moments.masked_mean_variance(torch.cat([cubes_i, cubes_f]))
     stats = torch.cat([stats[:n], stats[n:]], dim=1)
-    hu = moments.hu_2d(cubes_i) if ndim == 2 else moments.hu_3d(cubes_i)
+    hu = moments.hu_2d(cubes_i, looped) if ndim == 2 else moments.hu_3d(cubes_i, looped)
     return stats, moments.log_hu(hu)
 
 
@@ -94,8 +102,9 @@ def _frame_features_fused(intensity, frangi, distance, coords, r, chunk, scaling
     pad = (r, r) * coords.shape[1]
     intensity_pad = torch.nn.functional.pad(intensity.float(), pad)
     frangi_pad = torch.nn.functional.pad(frangi_norm, pad)
+    looped = coords.shape[0] > chunk
     parts = [_roi_features_kernel(intensity_pad, frangi_pad, coords[s:s + chunk],
-                                  radii[s:s + chunk], r)
+                                  radii[s:s + chunk], r, looped)
              for s in range(0, coords.shape[0], chunk)]
     feats = torch.cat([torch.cat([st, hu], dim=1) for st, hu in parts], dim=0)
     scale = torch.tensor([f32(s) for s in scaling], device=coords.device)
@@ -117,6 +126,7 @@ class HuMomentTracking:
         self.mode = mode
         self.max_dense_pairs = int(max_dense_pairs)
         self.low_memory = bool(low_memory)
+        self._cache = None
         if im_info.no_t:
             return
         self.num_t = num_t
@@ -140,20 +150,28 @@ class HuMomentTracking:
         self.im_distance_memmap = info.get_memmap(info.pipeline_paths["im_distance"])
         self.flow_vector_array_path = info.pipeline_paths["flow_vector_array"]
 
+    def _frame(self, key, memmap, t):
+        """Frame t of an artifact on the device: the fused chain's cached
+        tensor when there is one, else read from ``memmap``."""
+        cached = self._cache.take(key, t) if self._cache is not None else None
+        if cached is not None:
+            return cached.to(self.device)
+        return _frames.load(memmap, t, self.device)
+
     def _get_frame_features(self, t) -> _FrameFeatures:
+        intensity = self._frame("im", self.im_memmap, t)
+        frangi = self._frame("im_preprocessed", self.im_frangi_memmap, t)
+        distance = self._frame("im_distance", self.im_distance_memmap, t)
         marker = np.ascontiguousarray(self.im_marker_memmap[t]) > 0
         coords = np.argwhere(marker)
         n = coords.shape[0]
         if n == 0:
             return _FrameFeatures(np.zeros((0, marker.ndim), int), 0)
-        distance = _frames.load(self.im_distance_memmap, t, self.device)
         dmax = float(distance.max())
         r = _next_multiple(max(int(np.ceil(2.0 * dmax)) * 2 + 1, 3), 4)
         feats, coords_phys = _frame_features_fused(
-            _frames.load(self.im_memmap, t, self.device),
-            _frames.load(self.im_frangi_memmap, t, self.device),
-            distance, torch.from_numpy(coords).to(self.device), r, self.roi_chunk,
-            self.scaling)
+            intensity, frangi, distance, torch.from_numpy(coords).to(self.device), r,
+            self.roi_chunk, self.scaling)
         return _FrameFeatures(coords.astype(int), n, feats, coords_phys)
 
     def _tile_rows(self, n_post, n_pre):
@@ -220,6 +238,12 @@ class HuMomentTracking:
 
         def attempt(dev, low):
             self.low_memory = low
+            self._cache = frame_cache(self.im_info)
+            if low and self._cache is not None:
+                # the low-memory rung exists because memory is tight: free
+                # the fused chain's frames instead of reading them
+                self._cache.clear()
+                self._cache = None
             self._run_hu_tracking()
 
         adaptive_run.run_with_ladder("HuMomentTracking", self.device, self.low_memory,

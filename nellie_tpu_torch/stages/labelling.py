@@ -283,10 +283,14 @@ class Label:
             if self.chunk_z is not None and not self.im_info.no_z:
                 self._run_frame_chunked_z(t, original_view, frangi_view,
                                           intensity_thresh, frangi_thresh)
+                self.instance_label_memmap.flush()
             else:
-                self.instance_label_memmap[t, ...] = self._run_frame_full_volume(
-                    t, original_view, frangi_view, intensity_thresh, frangi_thresh)
-            self.instance_label_memmap.flush()
+                self._write_frame(t, self._run_frame_full_volume(
+                    t, original_view, frangi_view, intensity_thresh, frangi_thresh))
+
+    def _write_frame(self, t, labels):
+        self.instance_label_memmap[t, ...] = labels
+        self.instance_label_memmap.flush()
 
     def run(self):
         logger.info("Running semantic segmentation.")

@@ -214,12 +214,14 @@ class Markers:
         for t in range(self.num_t):
             if self.viewer is not None:
                 self.viewer.status = f"Running mocap marking. Frame: {t + 1} of {self.num_t}."
-            marker, distance, border = self._run_frame(t)
-            for memmap, frame in ((self.im_marker_memmap, marker),
-                                  (self.im_distance_memmap, distance),
-                                  (self.im_border_memmap, border)):
-                memmap[t] = frame
-                memmap.flush()
+            self._write_frame(t, *self._run_frame(t))
+
+    def _write_frame(self, t, marker, distance, border):
+        for memmap, frame in ((self.im_marker_memmap, marker),
+                              (self.im_distance_memmap, distance),
+                              (self.im_border_memmap, border)):
+            memmap[t] = frame
+            memmap.flush()
 
     def run(self):
         def attempt(dev, low):

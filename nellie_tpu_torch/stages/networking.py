@@ -136,14 +136,16 @@ class Network:
             description="skeleton relabelled image", return_memmap=True)
 
     def _run_frame_device(self, t):
-        """(skeleton labels on branch-labelled voxels, pixel class, branch
-        labels of whole objects) for frame ``t``."""
         logger.info(f"Running network analysis, volume {t}/{self.num_t - 1}")
+        return self._frame(_frames.load(self.label_memmap, t, self.device, np.int32),
+                           _frames.load(self.im_frangi_memmap, t, self.device))
+
+    def _frame(self, label_frame, frangi_frame):
+        """(skeleton labels on branch-labelled voxels, pixel class, branch
+        labels of whole objects) of one frame's int32 labels and float32
+        vesselness on the device."""
         if self._lut is None and not self.im_info.no_z:
             self._lut = simple26_lut(self.device)
-        label_frame = _frames.load(self.label_memmap, t, self.device, np.int32)
-        frangi_frame = _frames.load(self.im_frangi_memmap, t, self.device)
-
         skel_mask = skeletonize(label_frame > 0, self._lut)
         skel = torch.where(skel_mask, label_frame, 0)
         skel = _clean_skeleton_kernel(skel)
@@ -159,10 +161,12 @@ class Network:
         for t in range(self.num_t):
             if self.viewer is not None:
                 self.viewer.status = f"Extracting branches. Frame: {t + 1} of {self.num_t}."
-            skel, pixel_class, branch = self._run_frame_device(t)
-            _frames.store(self.skel_memmap, t, skel, np.int32)
-            _frames.store(self.pixel_class_memmap, t, pixel_class, np.uint8)
-            _frames.store(self.skel_relabelled_memmap, t, branch, np.uint32)
+            self._write_frame(t, *self._run_frame_device(t))
+
+    def _write_frame(self, t, skel, pixel_class, branch):
+        _frames.store(self.skel_memmap, t, skel, np.int32)
+        _frames.store(self.pixel_class_memmap, t, pixel_class, np.uint8)
+        _frames.store(self.skel_relabelled_memmap, t, branch, np.uint32)
 
     def run(self):
         def attempt(dev, low):

@@ -29,11 +29,16 @@ OOM_ERRORS = (torch.OutOfMemoryError, MemoryError)
 
 
 def device_free_bytes(device: torch.device):
-    """Free memory of a CUDA device, None for the CPU."""
+    """Free memory of a CUDA device, None for the CPU: the free bytes of
+    ``mem_get_info`` plus the blocks PyTorch's caching allocator holds but
+    no tensor uses, which ``mem_get_info`` counts as used.  That is the JAX package's
+    ``bytes_limit - bytes_in_use``, so what earlier stages left in the
+    cache does not push a stage into low-memory mode."""
     if device.type != "cuda":
         return None
     free, _ = torch.cuda.mem_get_info(device)
-    return int(free)
+    cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return int(free) + int(cached)
 
 
 def host_available_bytes():

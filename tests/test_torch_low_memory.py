@@ -8,17 +8,15 @@ matcher against the JAX package, on the CPU, and its same-device ladder.
   stages built from the same config: discrete artifacts exact,
   ``im_preprocessed`` and ``im_distance`` within 1e-4 of the frame max,
   flow costs within 1e-4, features at the features bar (rel_* near-ties
-  counted, as in ``tests/test_torch_slice.py``).  Filter keeps one window
-  per frame there: the flow costs read log10 of the frame's smallest
-  Frangi values, whose last bits differ from the reference's in 3D
-  (PyTorch's exp, acos and cos; ROADMAP Queue 3), and with this input in
-  windows of 12x24x24 the costs differ by 2.8e-4 (9.8e-5 in one window).
+  counted, as in ``tests/test_torch_slice.py``).  Filter runs in windows
+  of 12x24x24 core voxels, as a real low-memory frame does.
 * Filter in several windows (3D and 2D), held to the JAX package's
   windows at the Filter bar; Markers in windows of a frame wide enough
   that the windows overlap.
 * Label with ``chunk_z`` set (exact), the tiled matcher in a
-  ``mode="sparse"`` tracking run with more markers than one tile
-  (costs within 1e-4) and ``matching.match_frames`` with small tiles.
+  ``mode="sparse"`` tracking run with more markers than one tile (every
+  flow row exact, costs included) and ``matching.match_frames`` with
+  small tiles.
 * ``run(low_memory=True)`` hands the flag to the stages the JAX package's
   ``run`` hands it to, and the ladder retries on the same device only.
 """
@@ -49,7 +47,8 @@ from nellie_tpu_torch.utils import adaptive_run
 
 COST_ATOL = 1e-4
 NEAR_TIE_SHARE = 1e-3  # reassigned-label voxels allowed to differ (share of foreground)
-LOW = dict(preprocessing_low_memory=True, segmentation_label_low_memory=True, segmentation_label_max_chunk_voxels=5 * 48 * 48,
+LOW = dict(preprocessing_low_memory=True, preprocessing_max_chunk_voxels=12 * 24 * 24,
+           segmentation_label_low_memory=True, segmentation_label_max_chunk_voxels=5 * 48 * 48,
            segmentation_network_low_memory=True, mocap_low_memory=True,
            mocap_max_chunk_voxels=12 * 24 * 24, tracking_low_memory=True,
            reassign_low_memory=True, feature_low_memory=True, analyze_node_level=True,
@@ -217,8 +216,8 @@ def many_markers(shape=(2, 12, 64, 64), n=1500, seed=5):
 
 def test_tracking_tiles_from_config(tmp_path):
     """``tracking_mode="sparse"`` reaches tracking, whose 1,024-row tiles
-    (1,500 markers a frame) give the JAX package's flow rows, costs within
-    1e-4; the constructor takes ``mode`` itself too."""
+    (1,500 markers a frame) give the JAX package's flow rows exactly, costs
+    included; the constructor takes ``mode`` itself too."""
     im, arrays = many_markers()
     arrays["im_instance_label"] = arrays["im_marker"].astype(np.int32)
     jax_info, port_info = D.two_copies(tmp_path, im)
@@ -229,8 +228,7 @@ def test_tracking_tiles_from_config(tmp_path):
         SettingsConfig(tracking_mode="sparse"))["tracking"]).run()
     a, b = D.read(jax_info, "flow_vector_array"), D.read(port_info, "flow_vector_array")
     assert a.shape == b.shape and a.shape[0] > 1024
-    np.testing.assert_array_equal(b[:, :7], a[:, :7])
-    np.testing.assert_allclose(b[:, 7], a[:, 7], rtol=0, atol=COST_ATOL)
+    np.testing.assert_array_equal(b, a)
     assert HuMomentTracking(port_info, device="cpu", mode="sparse")._tile_rows(1500, 1500) == 1024
 
 

@@ -37,9 +37,10 @@ from nellie_tpu_torch.stages.labelling import Label
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NEAR_TIE_SHARE = 1e-3  # reassigned-label voxels allowed to differ (share of foreground)
-# See tests/test_torch_tracking.py.  Here the costs also inherit the
-# last-bit differences of im_preprocessed (XLA's CPU exp, acos, cos and
-# sqrt are not PyTorch's); the largest difference on this input is 9.8e-5.
+# See tests/test_torch_tracking.py.  Here the costs also inherit any
+# last-bit difference of im_preprocessed; with XLA's CPU exp, acos, cos and
+# sqrt mirrored (kernels/_fp.py) the costs on this input are the
+# reference's exactly.
 FLOW_COST_ATOL = 1e-4
 
 
@@ -56,10 +57,10 @@ def slice_runs(tmp_path_factory):
 
 
 def test_slice_runs_all_six_stages(slice_runs):
-    """All seven stages run, in order, Hierarchy last."""
+    """All seven stages run, in order, Hierarchy last: the first four as
+    the fused chain, ``run``'s default."""
     _, _, timings = slice_runs
-    assert list(timings) == ["filter", "label", "network", "markers", "tracking",
-                             "reassign", "hierarchy", "total"]
+    assert list(timings) == ["seg_fused", "tracking", "reassign", "hierarchy", "total"]
 
 
 @pytest.fixture(scope="module")
