@@ -21,7 +21,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    stage, and checks the outputs and that both the reassigner and the
    Hierarchy launched the kernel; runs the series again with
    ``fused=False`` and holds every artifact of the two runs equal byte for
-   byte, printing ``seg_fused`` beside the four stages' seconds, the device
+   byte (the feature CSVs too: the Hierarchy's float64 sums add in one
+   order on every device), printing ``seg_fused`` beside the four stages'
+   seconds, the device
    frame cache's peak and ``FusedSegmentation.run(fence_stages=True)``'s
    seconds by stage; then checks the kernel again at
    the shapes each of them gave it (bit for bit against the CPU) and
@@ -63,7 +65,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    4x16x128x128 ``TZYX``) through ``run_path`` on the card and on the
    CPU at phase 5's bars, then ``LabelTracks`` of every label from frame 1,
    the flow vectors as tracks and the markers as points, card against CPU,
-   with ``LabelTracks``' seconds on the card.
+   with ``LabelTracks``' seconds on the card;
+13. the float16 Frangi carry: the small 3D and 2D series with
+   ``preprocessing_carry_dtype="float16"``, card against CPU at phase 5's
+   bars (with the kernel's launches in the 3D run), then Filter on the 3D
+   main series, float32 and float16 in turns, with its seconds;
+14. the native TIFF codec (``nellie_tpu_torch/native``) built with this
+   machine's ``g++``, and the committed fixture files of
+   ``tests/fixtures/tiff_codec`` (LZW, PackBits, the horizontal predictor)
+   decoded strip by strip, in one threaded batch and whole through the
+   reader, native against Python and against the manifest's checksums;
+15. the napari plugin on the card: ``NellieLoader`` on the repo's
+   pure-Python Qt and napari stand-ins (``tests/qt_stubs.py``), file
+   select and Run Nellie on phase 5's small 3D series on the default
+   device (``cuda``), with the kernel's launches, every file equal byte for
+   byte to ``run(fused=False, device="cuda")``'s with the same settings.
 
 Phases 5, 7 and 12 run the fused chain (``run``'s default); phase 10's
 low-memory config takes the per-stage path.
@@ -593,11 +609,11 @@ def fused_segmentation_seconds(root, name, shape, fence):
 
 def phase_fused_vs_staged(gpu, root, shape, fused_info, fused_timings, tag=""):
     """``run(fused=False)`` on the same series on the card: every artifact
-    equal to the fused run's byte for byte (the feature CSVs too, or, where
-    the Hierarchy's float64 ``scatter_add_`` on the card summed in another
-    order, within the features bar), ``seg_fused`` beside the four stages'
-    seconds, the device frame cache's peak, and the fused chain's own
-    seconds by stage with each stage fenced."""
+    equal to the fused run's byte for byte, the feature CSVs too (the
+    Hierarchy's float64 sums add in one order on every device),
+    ``seg_fused`` beside the four stages' seconds, the device frame cache's
+    peak, and the fused chain's own seconds by stage with each stage
+    fenced."""
     from nellie_tpu_torch.pipeline.run import run
     from nellie_tpu_torch.utils.device_cache import frame_cache
 
@@ -609,15 +625,10 @@ def phase_fused_vs_staged(gpu, root, shape, fused_info, fused_timings, tag=""):
              f"{sorted(set(fused_files) ^ set(staged_files))}")
     differ = [k for k, p in fused_files.items()
               if not filecmp.cmp(p, staged_files[k], shallow=False)]
-    tables = [k for k in differ if k.startswith("features_")]
-    if set(differ) - set(tables):
+    if differ:
         fail(f"{tag}fused and per-stage artifacts differ on the card: {sorted(differ)}")
-    worst = compare_tables(check_tables(fused_info, skip_nodes=False),
-                           check_tables(staged_info, skip_nodes=False),
-                           expected_headers(False), skip=()) if tables else 0.0
-    print(f"{tag}fused vs per-stage on the card: {len(fused_files) - len(differ)} of "
-          f"{len(fused_files)} artifacts equal byte for byte; feature CSVs differing in bytes "
-          f"{tables} (worst at {worst:.3g} of the features bar)", flush=True)
+    print(f"{tag}fused vs per-stage on the card: {len(fused_files)} of {len(fused_files)} "
+          f"artifacts equal byte for byte", flush=True)
     per_stage = {k: staged[k] for k in SEGMENTATION_STAGES}
     warm, _ = fused_segmentation_seconds(root, f"fused_warm{tag.strip()}", shape, fence=False)
     _, fenced = fused_segmentation_seconds(root, f"fused_fenced{tag.strip()}", shape, fence=True)
@@ -918,7 +929,7 @@ def phase_low_memory(nn, gpu, root):
     calls = []
     original = voxel_reassignment.nearest_neighbors
 
-    def recorded(queries, refs, device="cpu", **kwargs):
+    def recorded(queries, refs, device="cuda", **kwargs):
         if str(device).startswith("cuda"):
             calls.append((queries, refs))
         return original(queries, refs, device=device, **kwargs)
@@ -1086,6 +1097,188 @@ def phase_sample_tracks(gpu, root):
           f"[{gpu}]", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the float16 Frangi carry
+# ---------------------------------------------------------------------------
+
+def phase_float16(nn, gpu, root):
+    """The small 3D and 2D series with ``preprocessing_carry_dtype=
+    "float16"``, card against CPU at phase 5's bars (with the kernel's
+    launches in the card's 3D run); then Filter on the 3D main series,
+    float32 and float16 in turns, with its seconds."""
+    from nellie_tpu_torch.config import SettingsConfig
+    from nellie_tpu_torch.io import ImInfo
+    from nellie_tpu_torch.stages.filtering import Filter
+
+    cfg = SettingsConfig(preprocessing_carry_dtype="float16", analyze_node_level=True)
+    launches = phase_small_parity(root, small_series(), "TZYX",
+                                  {"X": 0.2, "Y": 0.2, "Z": 0.5, "T": 1.0},
+                                  tag="float16 ", config=cfg, nn=nn)
+    if launches["total"] == 0:
+        fail("the float16 run never launched the nn kernel")
+    phase_small_parity(root, small_series_2d(), "TYX", {"X": 0.1, "Y": 0.1, "Z": None, "T": 1.0},
+                       tag="float16 2D ", config=cfg)
+    seconds = {"float32": [], "float16": []}
+    frames = {}
+    for carry in ("float32", "float16", "float16", "float32"):
+        im_info = ImInfo(write_series(
+            os.path.join(root, f"filter_{carry}_{len(seconds[carry])}"), MAIN_SHAPE))
+        stage = Filter(im_info, device="cuda", carry_dtype=carry)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        stage.run()
+        torch.cuda.synchronize()
+        seconds[carry].append(time.perf_counter() - start)
+        frames[carry] = artifact(im_info, "im_preprocessed")
+    a, b = frames["float16"], frames["float32"]
+    both = (a > 0) & (b > 0)
+    err = max(float(np.abs(a[t][both[t]].astype(np.float64) - b[t][both[t]]).max(initial=0.0))
+              / max(float(np.abs(b[t]).max()), 1e-30) for t in range(MAIN_SHAPE[0]))
+    flipped = int(((a > 0) != (b > 0)).sum())
+    print(f"float16 carry: Filter on the 3D main series {MAIN_SHAPE}, in turns: float32 "
+          + ", ".join(f"{x:.3f}" for x in seconds["float32"]) + " s, float16 "
+          + ", ".join(f"{x:.3f}" for x in seconds["float16"])
+          + f" s; im_preprocessed float16 vs float32: within {err:.3g} of the frame max where "
+          f"both are positive, {flipped} of {a.size} voxels positive in only one [{gpu}]",
+          flush=True)
+    return {"launches": launches["total"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the native TIFF codec
+# ---------------------------------------------------------------------------
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                        "tiff_codec")
+
+
+def phase_native_codec():
+    """Build the native TIFF codec with this machine's g++, then decode the
+    committed fixture files (LZW, PackBits, the horizontal predictor), strip
+    by strip, in one threaded batch and whole through the reader: native
+    and Python decoders byte-equal, the pixels those of the manifest."""
+    import hashlib
+
+    from nellie_tpu_torch import native
+    from nellie_tpu_torch.io import tiff
+
+    if shutil.which("g++") is None:
+        fail("g++ not found: the native TIFF codec cannot be built")
+    start = time.perf_counter()
+    native.available()
+    build = time.perf_counter() - start
+    status = native.status()
+    if status["decoder"] != "native":
+        fail(f"native TIFF codec not built: {status['error']}")
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    n_strips = 0
+    for name, meta in sorted(manifest.items()):
+        path = os.path.join(FIXTURES, name)
+        with tiff.TiffFile(path) as tf:
+            page = tf.pages[0]
+            offsets = tiff._as_tuple(page.tag_value(273))
+            counts = tiff._as_tuple(page.tag_value(279))
+            rows_per_strip = int(page.tag_value(278, page.shape[0]))
+            row_bytes = page.shape[1] * page.dtype.itemsize
+            code, height = page.compression, page.shape[0]
+        with open(path, "rb") as f:
+            raws = []
+            for off, cnt in zip(offsets, counts):
+                f.seek(int(off))
+                raws.append(f.read(int(cnt)))
+        sizes = [min(rows_per_strip, height - i * rows_per_strip) * row_bytes
+                 for i in range(len(raws))]
+        python = tiff._lzw_decode if code == 5 else tiff._packbits_decode
+        fast = native.lzw_decode if code == 5 else native.packbits_decode
+        plain = [python(raw)[:size] for raw, size in zip(raws, sizes)]
+        if [fast(raw, size) for raw, size in zip(raws, sizes)] != plain:
+            fail(f"{name}: a strip decodes otherwise natively than in Python")
+        batch = np.zeros(sum(sizes), np.uint8)
+        lengths = [len(r) for r in raws]
+        if not native.decode_strips(b"".join(raws), np.cumsum([0] + lengths[:-1]), lengths,
+                                    batch, np.cumsum([0] + sizes[:-1]), sizes, code) \
+                or batch.tobytes() != b"".join(plain):
+            fail(f"{name}: the batch strip decoder differs from the Python decoder")
+        before = native.status()["decoded"]["native"]
+        whole = tiff.imread(path)
+        if native.status()["decoded"]["native"] == before:
+            fail(f"{name}: the reader did not take the native decoder")
+        saved, native.CODEC = native.CODEC, native._Codec()
+        native.CODEC.tried = True  # no library: the reader's Python decoders
+        try:
+            slow = tiff.imread(path)
+        finally:
+            native.CODEC = saved
+        digest = hashlib.sha256(whole.tobytes()).hexdigest()
+        if whole.tobytes() != slow.tobytes() or digest != meta["sha256"] \
+                or list(whole.shape) != meta["shape"] or whole.dtype.str != meta["dtype"]:
+            fail(f"{name}: the reader's native and Python paths, or the manifest, disagree")
+        n_strips += len(raws)
+    print(f"native TIFF codec: built with g++ in {build:.2f} s ({status['library']}); "
+          f"{len(manifest)} fixture files, {n_strips} strips: native = batch = Python decoders, "
+          f"whole-file reads native = Python = manifest; {native.status()['decoded']}",
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the napari plugin on the card
+# ---------------------------------------------------------------------------
+
+def plugin_artifacts(im_info):
+    out = {}
+    for directory in (im_info.file_info.output_dir, im_info.file_info.nellie_necessities_dir):
+        for name in os.listdir(directory):
+            if os.path.isfile(os.path.join(directory, name)):
+                out[name] = os.path.join(directory, name)
+    return out
+
+
+def phase_plugin(nn, gpu, root):
+    """The port's ``NellieLoader`` on the repo's pure-Python Qt and napari
+    stand-ins (``tests/qt_stubs.py``, installed only where Qt is absent):
+    file select, then Run Nellie on the card's default device, on phase
+    5's small 3D series, with the kernel's launches; every file it writes
+    equal byte for byte to ``run(fused=False, device="cuda")``'s with the
+    same settings."""
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import qt_stubs
+
+    stubbed = qt_stubs.install()
+    from nellie_tpu_torch.pipeline.run import run
+    from nellie_tpu_torch.plugin.nellie_loader import NellieLoader
+
+    dim_res = {"X": 0.2, "Y": 0.2, "Z": 0.5, "T": 1.0}
+    nellie = NellieLoader(qt_stubs.FakeViewer())
+    if nellie.settings.device() != "cuda":
+        fail(f"the plugin's default device is {nellie.settings.device()!r}, not 'cuda'")
+    fi = write_input(os.path.join(root, "plugin_gui"), "small", small_series(), "TZYX", dim_res)
+    nellie.file_select.initialize_single_file(fi.filepath)
+    nellie.file_select.process_button.click()
+    nn.NN_KERNEL.launches = 0
+    start = time.perf_counter()
+    nellie.processor.run_all_button.click()
+    seconds = time.perf_counter() - start
+    launches = nn.NN_KERNEL.launches
+    status = nellie.processor.status_label.text()
+    if status != "Status: finished feature extraction":
+        fail(f"the plugin's Run Nellie ended with {status!r}")
+    if launches == 0:
+        fail("the plugin's run never launched the nn kernel")
+    ref = run(write_input(os.path.join(root, "plugin_run"), "small", small_series(), "TZYX",
+                          dim_res), device="cuda", fused=False, config=nellie.settings.to_config())
+    got, want = plugin_artifacts(nellie.im_info), plugin_artifacts(ref)
+    if sorted(got) != sorted(want):
+        fail(f"the plugin wrote other files than run(): {sorted(set(got) ^ set(want))}")
+    differ = [k for k in got if not filecmp.cmp(got[k], want[k], shallow=False)]
+    if differ:
+        fail(f"the plugin's files differ from run(fused=False)'s: {sorted(differ)}")
+    print(f"plugin on the card ({'Qt stand-ins' if stubbed else 'real Qt'}): Run Nellie "
+          f"{seconds:.3f} s, nn launches {launches}; {len(got)} of {len(got)} files equal "
+          f"run(fused=False, device='cuda')'s byte for byte [{gpu}]", flush=True)
+    return {"launches": launches}
+
+
 def compare_tables(got, want, headers, skip):
     """Largest |card - CPU| / (1e-4 + 1e-4 |CPU|) over the feature tables
     (fails above 1, or on another row count or NaN pattern); columns whose
@@ -1149,6 +1342,9 @@ def main() -> None:
         phase_capacity_parity(root)
         reassign_low = phase_low_memory(nn, gpu, root)
         phase_sample_tracks(gpu, root)
+        float16 = phase_float16(nn, gpu, root)
+        phase_native_codec()
+        plugin = phase_plugin(nn, gpu, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_capacity_1024(gpu)
@@ -1159,8 +1355,8 @@ def main() -> None:
     hierarchy_2d["launches"] = by_stage_2d["Hierarchy"]
     paths = {"reassign": reassign, "hierarchy": hierarchy,
              "reassign_2d": reassign_2d, "hierarchy_2d": hierarchy_2d,
-             "reassign_low_memory": reassign_low}
-    max_abs = max([max_abs] + [p["max_abs_err"] for p in paths.values()])
+             "reassign_low_memory": reassign_low, "float16_small": float16, "plugin": plugin}
+    max_abs = max([max_abs] + [p["max_abs_err"] for p in paths.values() if "max_abs_err" in p])
     top = {k: reassign[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"kernels": [{
         "name": "nn_argmin", "route": "cuda",

@@ -169,16 +169,25 @@ def _lzw_decode(data: bytes) -> bytes:
     return bytes(out)
 
 
-def _decompress(data: bytes, compression: int) -> bytes:
+def _decompress(data: bytes, compression: int, expected_size: int = 0) -> bytes:
     if compression == COMPRESSION.NONE:
         return data
     if compression in (COMPRESSION.DEFLATE, COMPRESSION.ADOBE_DEFLATE):
         return zlib.decompress(data)
-    if compression == COMPRESSION.PACKBITS:
-        return _packbits_decode(data)
-    if compression == COMPRESSION.LZW:
-        return _lzw_decode(data)
-    raise ValueError(f"Unsupported TIFF compression: {compression}")
+    if compression not in (COMPRESSION.PACKBITS, COMPRESSION.LZW):
+        raise ValueError(f"Unsupported TIFF compression: {compression}")
+    # the native codec (nellie_tpu_torch/native) where it is built; the
+    # Python decoders give the same bytes
+    from nellie_tpu_torch import native
+
+    packbits = compression == COMPRESSION.PACKBITS
+    if expected_size:
+        decode = native.packbits_decode if packbits else native.lzw_decode
+        out = decode(data, expected_size)
+        if out is not None:
+            return out
+    native.record("python")
+    return _packbits_decode(data) if packbits else _lzw_decode(data)
 
 
 # --------------------------------------------------------------------------
@@ -538,12 +547,14 @@ class TiffFile:
         row_bytes = width * spp * page.dtype.itemsize
         out = np.empty(page.shape, dtype=page.dtype)
         flat = out.reshape(height, -1).view(np.uint8)
+        if self._native_page_data(page, offsets, counts, rows_per_strip, flat, row_bytes):
+            return out
         row = 0
         for off, cnt in zip(offsets, counts):
             self._fh.seek(int(off))
             raw = self._fh.read(int(cnt))
-            data = _decompress(raw, compression)
             nrows = min(rows_per_strip, height - row)
+            data = _decompress(raw, compression, expected_size=nrows * row_bytes)
             need = nrows * row_bytes
             strip = np.frombuffer(data[:need], dtype=np.uint8).reshape(nrows, row_bytes)
             if page.predictor == 2:
@@ -555,6 +566,38 @@ class TiffFile:
             flat[row : row + nrows] = strip
             row += nrows
         return out
+
+    def _native_page_data(self, page, offsets, counts, rows_per_strip, flat, row_bytes) -> bool:
+        """An LZW or PackBits page's strips decoded by the native codec's
+        batch decoder straight into ``flat`` (height, row bytes), then the
+        horizontal predictor undone in place; False (``flat`` untouched
+        or to be overwritten) where the codec is not built or a strip
+        fails, and the strip loop decodes the page instead."""
+        from nellie_tpu_torch import native
+
+        if page.compression not in (COMPRESSION.LZW, COMPRESSION.PACKBITS) or not native.available():
+            return False
+        height = flat.shape[0]
+        raws = []
+        for off, cnt in zip(offsets, counts):
+            self._fh.seek(int(off))
+            raws.append(self._fh.read(int(cnt)))
+        lengths = np.array([len(r) for r in raws], np.int64)
+        starts = np.arange(len(raws), dtype=np.int64) * rows_per_strip
+        nrows = np.minimum(rows_per_strip, height - starts)
+        if len(raws) * rows_per_strip < height or nrows.min() <= 0:
+            return False
+        dst = flat.reshape(-1)
+        if not native.decode_strips(b"".join(raws), np.cumsum(lengths) - lengths, lengths, dst,
+                                    starts * row_bytes, nrows * row_bytes, page.compression):
+            return False
+        if page.predictor == 2:
+            spp = page.shape[2] if len(page.shape) == 3 else 1
+            rows = flat.view(page.dtype.newbyteorder(self.byteorder))
+            if not (rows.dtype.isnative and native.undo_predictor(rows, spp)):
+                arr = rows.reshape(height, -1, spp)
+                rows[:] = np.cumsum(arr, axis=1, dtype=arr.dtype).reshape(height, -1)
+        return True
 
     def asarray(self) -> np.ndarray:
         series = self.series[0]

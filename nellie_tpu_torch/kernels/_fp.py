@@ -322,17 +322,44 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+# XLA's CPU reduce-window kernel over 32 rows by c columns, where c (4 or
+# 8) is the whole last axis, loads 32 floats at a time: LLVM vectorises it
+# across 32 / c rows (its dump of a padded 2,048 x 128 tile's
+# ``wrapped_reduce-window`` kernel).  Wider windows run as scalar loops.
+_WINDOW_LANES = {4: 8, 8: 4}
+
+
 def _window_sums_2d(x: torch.Tensor) -> torch.Tensor:
-    """One level of XLA's CPU tree reduction over the last two axes: each
-    32 x 32 window (zero padded at the ends) summed one element at a time
-    in row-major order."""
+    """One level of XLA's CPU tree reduction over the last two axes.
+
+    Each 32 x 32 window (zero padded at the ends) is summed one element
+    at a time in row-major order, except where the last axis is 4 or 8
+    long and the rows more than 32 (:data:`_WINDOW_LANES`): there lane l
+    sums the rows l, l + lanes, ... of its 32-row window, each row's
+    columns in order (lane 0 starts at +0, the others at -0), and the
+    lanes are then added in halves (l + l + lanes/2, ...), as LLVM's
+    vector reduction does."""
     w = REDUCE_WINDOW
-    x = torch.nn.functional.pad(x, (0, -x.shape[-1] % w, 0, -x.shape[-2] % w))
-    acc = x[..., 0::w, 0::w]
-    for i in range(w):
-        for j in range(w):
-            if i or j:
-                acc = acc + x[..., i::w, j::w]
+    lanes = _WINDOW_LANES.get(x.shape[-1]) if x.shape[-2] > w else None
+    if lanes is None:
+        x = torch.nn.functional.pad(x, (0, -x.shape[-1] % w, 0, -x.shape[-2] % w))
+        acc = x[..., 0::w, 0::w]
+        for i in range(w):
+            for j in range(w):
+                if i or j:
+                    acc = acc + x[..., i::w, j::w]
+        return acc
+    cols = x.shape[-1]
+    x = torch.nn.functional.pad(x, (0, 0, 0, -x.shape[-2] % w))
+    x = x.reshape(*x.shape[:-2], x.shape[-2] // w, w // lanes, lanes, cols)
+    acc = torch.full(x.shape[:-3] + (lanes,), -0.0, dtype=x.dtype, device=x.device)
+    acc[..., 0] = 0.0
+    for step in range(w // lanes):
+        for c in range(cols):
+            acc = acc + x[..., step, :, c]
+    while lanes > 1:
+        lanes //= 2
+        acc = acc[..., :lanes] + acc[..., lanes:]
     return acc
 
 

@@ -8,9 +8,13 @@ closed-form eigenvalues, the Frangi response and a running maximum.  Then
 ``remove_edges_frame``.  2D frames add the multi-scale LoG blobness
 (``log_blobness_2d``).
 
-Not ported: ``carry_dtype="float16"`` (the reference rescales the frame
-but not a user-set ``frob_thresh``; the port raises instead of copying
-that).
+``carry_dtype="float16"`` stores the cascade's carries as float16, as the
+reference's program does: the frame divided by its largest |value|, each
+smoothing pass's output and the vesselness accumulator are rounded to
+float16 (the converts of its optimised HLO), and all arithmetic stays
+float32.  A user-set ``frob_thresh`` needs no rescaling there: the
+Frobenius norm is divided by the largest |Hessian component|, so it does
+not change when the frame is scaled.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from nellie_tpu_torch.kernels._fp import exp, f32, fma, sqrt, sum_of_products
 from nellie_tpu_torch.kernels.hessian import hessian_components
 
 EPS32 = float(np.finfo(np.float32).eps)
+CARRY_DTYPES = {"float32": torch.float32, "float16": torch.float16}
 
 
 @dataclass(frozen=True)
@@ -44,10 +49,9 @@ class FrangiParams:
     carry_dtype: str = "float32"
 
     def __post_init__(self):
-        if self.carry_dtype != "float32":
-            raise NotImplementedError(
-                f"carry_dtype={self.carry_dtype!r}: the port keeps the Frangi "
-                "cascade in float32")
+        if self.carry_dtype not in CARRY_DTYPES:
+            raise ValueError(f"carry_dtype={self.carry_dtype!r}: use one of "
+                             f"{sorted(CARRY_DTYPES)}")
 
     def sigma_vec(self, sigma: float) -> Tuple[float, ...]:
         if len(self.spacing) == 2:
@@ -132,14 +136,21 @@ def vesselness_frame(frame: torch.Tensor, params: FrangiParams, apply_mask: bool
     """(vesselness * accumulated mask, accumulated mask) of one 2D or 3D
     frame."""
     frame = frame.float()
+    carry = CARRY_DTYPES[params.carry_dtype]
+    if carry != torch.float32:
+        # the response does not change under a uniform rescale; this keeps
+        # the carried magnitudes inside float16's range
+        frame = frame / torch.clamp(frame.abs().max(), min=EPS32)
     ndim = frame.ndim
     kernel_stacks = _delta_kernels(params, ndim)
-    gauss = frame
-    vessel = torch.zeros_like(frame)
+    gauss = frame.to(carry)
+    vessel = torch.zeros(frame.shape, dtype=carry, device=frame.device)
     all_mask = torch.ones(frame.shape, dtype=torch.bool, device=frame.device)
     for i in range(len(params.sigmas)):
         for axis in range(ndim):
-            gauss = filters.correlate1d_traced(gauss, kernel_stacks[axis][i], axis)
+            gauss = filters.correlate1d_traced(gauss.float(), kernel_stacks[axis][i],
+                                               axis).to(carry)
+        gauss = gauss.float()
         gamma = _gamma(gauss, params.max_threshold_samples)
         gamma_sq = 2.0 * gamma * gamma
 
@@ -151,9 +162,9 @@ def vesselness_frame(frame: torch.Tensor, params: FrangiParams, apply_mask: bool
             eigs = eigen.eigvalsh3(h["hxx"], h["hxy"], h["hxz"], h["hyy"], h["hyz"], h["hzz"])
         v = _frangi_response(eigs, gamma_sq, params)
         v = torch.where(h_mask, v, torch.zeros_like(v))
-        vessel = torch.maximum(vessel, v)
+        vessel = torch.maximum(vessel, v.to(carry))
         all_mask = all_mask & h_mask
-    return vessel * all_mask, all_mask
+    return vessel.float() * all_mask, all_mask
 
 
 def log_blobness_2d(frame: torch.Tensor, mask: torch.Tensor, params: FrangiParams) -> torch.Tensor:

@@ -25,16 +25,36 @@ def gradient(f: torch.Tensor, spacing: float, axis: int) -> torch.Tensor:
     return torch.cat([first, interior, last], dim=axis)
 
 
-def _second_gradient(f: torch.Tensor, spacing: float, axis: int) -> torch.Tensor:
-    """``gradient(gradient(f))`` along one axis as XLA rounds the 3D
-    ``hyy`` and ``hzz``: it fuses the inner gradient's edge values into
-    the outer gradient, whose two edge differences then take their left
-    product into a fused multiply-add.
+# XLA's CPU compiler does not fuse a concatenation along the minor-most
+# axis whose length is at least this many elements into its consumers
+# ("Concatenate fusion is inefficient" in its fusion log).
+_XLA_MINOR_CONCAT_LIMIT = 128
 
-    At frame shapes where XLA fuses the whole inner gradient (a last axis
-    of 128, for one), its interior differences are fused too and the
-    port's last bits differ there; the parity inputs and the windows of
-    the low-memory Filter are not such shapes."""
+
+def _fuses_inner_gradient(f: torch.Tensor, axis: int) -> bool:
+    """Whether XLA fuses the whole inner gradient into the outer one, as
+    it compiles the reference's Frangi scale body (2D and 3D).
+
+    Two of its fusion rules decide it: the inner gradient's edge-shifted
+    copies are minor-axis concatenations of n - 1 elements, fusible only
+    below the limit; and while the Hessian components' own concatenations
+    (n elements) are fusible too, they enter the same consumer first and
+    its code duplication is then too high to take the inner gradient in.
+    So only a minor axis of exactly the limit fuses it:
+    ``scripts/xla_fusion_probe.py`` finds it at a last axis of 128 alone
+    among 2 to 520 (Z, Y = 12, 48), and at 128 for every Z and Y it tried
+    (1 to 256), in 2D as in 3D."""
+    n = f.shape[axis]
+    return axis == f.ndim - 1 and n - 1 < _XLA_MINOR_CONCAT_LIMIT <= n
+
+
+def _second_gradient(f: torch.Tensor, spacing: float, axis: int) -> torch.Tensor:
+    """``gradient(gradient(f))`` along one axis as XLA rounds the 2D
+    ``hyy`` and the 3D ``hyy`` and ``hzz``: it fuses the inner gradient's
+    edge values into the outer gradient, whose two edge differences then
+    take their left product into a fused multiply-add.  Where it fuses
+    the whole inner gradient (:func:`_fuses_inner_gradient`), every
+    interior difference takes its left product into one as well."""
     g = gradient(f, spacing, axis)
     out = gradient(g, spacing, axis)
     n = f.shape[axis]
@@ -45,7 +65,15 @@ def _second_gradient(f: torch.Tensor, spacing: float, axis: int) -> torch.Tensor
     first = fma(f.narrow(axis, 2, 1) - f.narrow(axis, 0, 1), half, -g.narrow(axis, 0, 1)) * inv
     last = fma(f.narrow(axis, n - 1, 1) - f.narrow(axis, n - 2, 1), inv,
                -g.narrow(axis, n - 2, 1)) * inv
-    return torch.cat([first, out.narrow(axis, 1, n - 2), last], dim=axis)
+    interior = out.narrow(axis, 1, n - 2)
+    if _fuses_inner_gradient(f, axis) and n > 3:
+        # g[i + 1] = diff[i + 1] * coefficient, contracted into g[i + 1] - g[i - 1]
+        diff = torch.cat([f.narrow(axis, 3, n - 3) - f.narrow(axis, 1, n - 3),
+                          f.narrow(axis, n - 1, 1) - f.narrow(axis, n - 2, 1)], dim=axis)
+        coef = torch.full_like(diff, half)
+        coef.narrow(axis, n - 3, 1).fill_(inv)
+        interior = fma(diff, coef, -g.narrow(axis, 0, n - 2)) * half
+    return torch.cat([first, interior, last], dim=axis)
 
 
 def hessian_components(
@@ -61,7 +89,7 @@ def hessian_components(
         h = {
             "hxx": gradient(g0, spacing[0], 0),
             "hxy": gradient(g0, spacing[1], 1),
-            "hyy": gradient(g1, spacing[1], 1),
+            "hyy": _second_gradient(image, spacing[1], 1),
         }
         # XLA's order and a correctly rounded root, so that the 2D
         # Frobenius mask, hence im_preprocessed, follows the reference's

@@ -39,14 +39,16 @@ def _pair_mask_and_dist(coords_post, coords_pre, max_distance):
     return dist / max_distance, dist < max_distance
 
 
-def pair_stats(coords_post, coords_pre, feats_post, feats_pre, max_distance):
+def pair_stats(coords_post, coords_pre, feats_post, feats_pre, max_distance, padded):
     """(count, sum_f, sumsq_f) over distance-gated pairs, F+1 entries with
     the normalised distance first.
 
     Each masked (rows, cols) sum is XLA's CPU tree reduction
     (:func:`_fp.tree_sum_2d`); its first level, the 32 x 32 windows, is
     taken here one window element at a time for every window and feature
-    at once, so that no (rows, cols, F) array is built."""
+    at once, so that no (rows, cols, F) array is built.  ``padded`` is the
+    reference's padded tile (rows, cols): the window sums are padded with
+    zero windows to its shape, on which the later levels' order depends."""
     dist_n, mask = _pair_mask_and_dist(coords_post, coords_pre, max_distance)
     w = REDUCE_WINDOW
     pad_r, pad_c = -mask.shape[0] % w, -mask.shape[1] % w
@@ -63,8 +65,21 @@ def pair_stats(coords_post, coords_pre, feats_post, feats_pre, max_distance):
             v, v2 = torch.where(m, d, 0.0), torch.where(m, d * d, 0.0)
             sums = v if sums is None else sums + v
             sumsqs = v2 if sumsqs is None else sumsqs + v2
+    grow = (0, 0, 0, padded[1] // w - sums.shape[1], 0, padded[0] // w - sums.shape[0])
+    sums = torch.nn.functional.pad(sums, grow)
+    sumsqs = torch.nn.functional.pad(sumsqs, grow)
     return (int(mask.sum()), tree_sum_2d(sums.permute(2, 0, 1)),
             tree_sum_2d(sumsqs.permute(2, 0, 1)))
+
+
+def bucket(n: int, minimum: int = 128) -> int:
+    """The reference's padded tile length: ``minimum`` doubled until it
+    holds ``n`` (``matching._bucket``; the single tile pads to multiples
+    of the ROI chunk the same way)."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
 
 
 def pair_costs(coords_post, coords_pre, feats_post, feats_pre, max_distance,
@@ -105,15 +120,18 @@ def _select_matches(row_min_val, row_min_idx, col_min_val, col_min_idx,
 def match_frames_device(
     coords_post: torch.Tensor, feats_post: torch.Tensor,
     coords_pre: torch.Tensor, feats_pre: torch.Tensor,
-    max_distance: float, n_stats: int,
+    max_distance: float, n_stats: int, chunk: int = 1024,
 ) -> Tuple[list, list, list]:
     """Matching over device-resident features: two reductions on the device,
-    the z-score moments in float64 on the host between them."""
+    the z-score moments in float64 on the host between them.  ``chunk`` is
+    the tracker's ROI chunk, to which the reference pads each frame's
+    markers (doubling)."""
     n_post, n_pre = coords_post.shape[0], coords_pre.shape[0]
     if n_post == 0 or n_pre == 0:
         return [], [], []
     max_d = f32(max_distance)
-    count, sums, sumsqs = pair_stats(coords_post, coords_pre, feats_post, feats_pre, max_d)
+    count, sums, sumsqs = pair_stats(coords_post, coords_pre, feats_post, feats_pre, max_d,
+                                     padded=(bucket(n_post, chunk), bucket(n_pre, chunk)))
     if count == 0:
         return [], [], []
     mean, std = _moments(count, sums.cpu().numpy().astype(np.float64),
@@ -140,15 +158,15 @@ def match_frames(
     hu_post: np.ndarray, hu_pre: np.ndarray,
     max_distance: float,
     tile_rows: int = 8192,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[list, list, list]:
     """Matching in row tiles of ``tile_rows`` later-frame markers, each
     tile on ``device``; host arrays in, (rows, cols, costs) out with the
     selection of :func:`_select_matches`."""
+    dev = resolve_device(device)
     n_post, n_pre = coords_post.shape[0], coords_pre.shape[0]
     if n_post == 0 or n_pre == 0:
         return [], [], []
-    dev = resolve_device(device)
     n_stats = stats_post.shape[1]
 
     def put(a):
@@ -164,8 +182,9 @@ def match_frames(
     # phase A: each tile's masked sums, added across tiles in float64
     count = 0
     sums = sumsqs = 0.0
-    for _, _, c, f in tiles:
-        cnt, s, ss = pair_stats(c, coords_pre_d, f, feats_pre_d, max_d)
+    for start, end, c, f in tiles:
+        cnt, s, ss = pair_stats(c, coords_pre_d, f, feats_pre_d, max_d,
+                                padded=(bucket(end - start), bucket(n_pre)))
         count += cnt
         sums = sums + s.cpu().numpy().astype(np.float64)
         sumsqs = sumsqs + ss.cpu().numpy().astype(np.float64)

@@ -243,7 +243,7 @@ def nn_argmin(queries: torch.Tensor, refs: torch.Tensor):
 
 
 def nearest_neighbors(queries: np.ndarray, refs: np.ndarray, m_chunk: int = 1 << 18,
-                      device="cpu"):
+                      device="cuda"):
     """Host loop (``pallas_nn.nearest_neighbors`` without its TPU tile
     sizes ``tq``/``tm``): nearest reference for every query, streaming the
     references in chunks of ``m_chunk``.  Returns numpy (distances, int64

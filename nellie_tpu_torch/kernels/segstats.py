@@ -9,7 +9,10 @@ Port of ``nellie_tpu/kernels/segstats.py``:
   do not count; an empty segment gives NaN.  Counts, sums and the centred
   sum of squares are taken in float64, as the reference's host path
   (``group_stats_np``, which serves every small table) takes them, so a
-  constant group gets a standard deviation of exactly 0.
+  constant group gets a standard deviation of exactly 0.  The sums add in
+  one pairwise order on every device (:class:`_SegmentSums`) and the
+  square root is taken on the host, so the card's statistics are the
+  CPU's bit for bit.
 * :func:`segment_nanstats_gathered` (``:286-325``) gathers the value
   columns on the device first.
 * :func:`branch_geometry` (``:187-283``): per-label centreline length and
@@ -38,6 +41,44 @@ def _as_ids(seg_ids, device) -> torch.Tensor:
     return torch.from_numpy(np.asarray(seg_ids, np.int64)).to(device)
 
 
+class _SegmentSums:
+    """Float64 sums of the columns of a (S, N) tensor by segment, in one
+    order that does not depend on the device.
+
+    A float64 ``scatter_add_`` adds in index order on the CPU but in the
+    order its atomics land on a GPU, which changes from run to run.  Here
+    the columns are sorted by segment (stably) and each segment is summed
+    as a pairwise tree over its members: at level k the member of rank r,
+    a multiple of 2^(k+1), takes in the member of rank r + 2^k.  Every add
+    is one IEEE float64 add, which rounds alike on both devices."""
+
+    def __init__(self, seg: torch.Tensor, num_segments: int):
+        self.order = torch.argsort(seg, stable=True)
+        sorted_seg = seg[self.order]
+        counts = torch.bincount(sorted_seg, minlength=num_segments)
+        rank = (torch.arange(seg.shape[0], device=seg.device)
+                - (torch.cumsum(counts, 0) - counts)[sorted_seg])
+        size = counts[sorted_seg]
+        self.levels = []
+        step, max_size = 1, int(counts.max())
+        while step < max_size:
+            into = ((rank % (2 * step) == 0) & (rank + step < size)).nonzero().squeeze(1)
+            self.levels.append((into, into + step))
+            step *= 2
+        self.heads = (rank == 0).nonzero().squeeze(1)
+        self.head_seg = sorted_seg[self.heads]
+        self.num_segments = num_segments
+
+    def __call__(self, values: torch.Tensor) -> torch.Tensor:
+        x = values[:, self.order]
+        for into, source in self.levels:
+            x[:, into] = x[:, into] + x[:, source]
+        out = torch.zeros((x.shape[0], self.num_segments), dtype=x.dtype, device=x.device)
+        # 0 + sum, as a scatter onto zeros adds: a sum of -0.0 gives +0.0
+        out[:, self.head_seg] = 0.0 + x[:, self.heads]
+        return out
+
+
 def segment_nanstats(values: torch.Tensor, seg_ids, num_segments: int) -> Dict[str, np.ndarray]:
     """values (S, N) tensor (rounded to float32 first, as the reference
     does), seg_ids (N,) ints.  Returns host float64 arrays of shape
@@ -58,21 +99,25 @@ def segment_nanstats(values: torch.Tensor, seg_ids, num_segments: int) -> Dict[s
     valid = ~torch.isnan(values) & in_range[None, :]
     v64 = torch.where(valid, values, 0.0).double()
 
-    cnt = torch.zeros((s, ns), dtype=torch.float64, device=dev).scatter_add_(1, sid, valid.double())
-    total = torch.zeros((s, ns), dtype=torch.float64, device=dev).scatter_add_(1, sid, v64)
+    sums = _SegmentSums(torch.where(in_range, ids, num_segments), ns)
+    cnt = sums(valid.double())
+    total = sums(v64)
     mean = total / cnt.clamp(min=1.0)
     centred = torch.where(valid, v64 - mean.gather(1, sid), 0.0)
-    ssq = torch.zeros((s, ns), dtype=torch.float64, device=dev).scatter_add_(1, sid, centred * centred)
-    std = torch.sqrt((ssq / cnt.clamp(min=1.0)).clamp(min=0.0))
+    ssq = sums(centred * centred)
+    # the root is taken on the host: a CUDA device's float64 sqrt is not
+    # always correctly rounded, the host's is
+    variance = (ssq / cnt.clamp(min=1.0)).clamp(min=0.0)
     inf = float("inf")
     mn = torch.full((s, ns), inf, device=dev).scatter_reduce_(
         1, sid, torch.where(valid, values, inf), "amin")
     mx = torch.full((s, ns), -inf, device=dev).scatter_reduce_(
         1, sid, torch.where(valid, values, -inf), "amax")
     empty = cnt == 0
-    out = torch.stack([mean, std, mn.double(), mx.double(), total])
+    out = torch.stack([mean, variance, mn.double(), mx.double(), total])
     out = torch.where(empty[None], float("nan"), out)[:, :, :num_segments]
     out = out.cpu().numpy()
+    out[1] = np.sqrt(out[1])
     return {k: out[i] for i, k in enumerate(STAT_KEYS)}
 
 

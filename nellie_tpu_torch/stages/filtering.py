@@ -74,8 +74,6 @@ class Filter:
         max_threshold_samples: int = int(1e6),
         carry_dtype: str = "float32",
     ):
-        if carry_dtype != "float32":
-            raise NotImplementedError(f"carry_dtype={carry_dtype!r}: the port keeps float32")
         self.im_info = im_info
         self.device = resolve_device(device)
         self.truncate = 3.0

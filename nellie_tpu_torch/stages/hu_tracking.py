@@ -188,7 +188,7 @@ class HuMomentTracking:
         if n_post <= tile_rows and n_pre <= tile_rows:
             return matching.match_frames_device(
                 frame_t.coords_phys, frame_t.feats, frame_prev.coords_phys, frame_prev.feats,
-                self.max_distance_um, N_STATS)
+                self.max_distance_um, N_STATS, chunk=self.roi_chunk)
         scaling = np.asarray(self.scaling, float)
         feats_t = frame_t.feats.cpu().numpy()
         feats_prev = frame_prev.feats.cpu().numpy()

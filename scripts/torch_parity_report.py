@@ -8,8 +8,14 @@ measured the same way) on the seeded inputs of ``tests/torch_port_data.py``
 and prints one JSON object:
 
 * ``im_preprocessed``: the 3D tube series through Filter, whole frames and
-  12x24x24 low-memory windows: voxels that differ and the largest
-  difference (absolute, and relative to the frame max);
+  12x24x24 low-memory windows, whole frames 128 voxels wide (where XLA
+  fuses the Hessian's inner gradient), and the 2D series, 64 and 128
+  pixels wide: voxels that differ and the largest difference (absolute,
+  and relative to the frame max);
+* ``pair_stats``: the tracker's masked pair sums on tiles whose padded
+  shape takes a second window level (2,048 x 128, 2,048 x 256,
+  4,096 x 128): sums that differ, and the largest difference relative to
+  the sum;
 * ``slice_flow_cost``: Filter -> tracking on the same series, the largest
   flow-cost difference (``None`` when the flow rows differ);
 * ``sparse_flow_cost``: ``mode="sparse"`` tracking on 1,500 markers a frame
@@ -62,9 +68,16 @@ def main() -> None:
         return float(np.abs(a[:, -1] - b[:, -1]).max())
 
     report["im_preprocessed"] = {}
-    for name, kw in (("whole frames", {}),
-                     ("12x24x24 windows", dict(low_memory=True, max_chunk_voxels=12 * 24 * 24))):
-        ref, port = D.two_copies(root / name.replace(" ", "_"))
+    inputs = {"whole frames": (None, {}),
+              "12x24x24 windows": (None, dict(low_memory=True, max_chunk_voxels=12 * 24 * 24)),
+              "whole frames 3x12x48x128": (D.tube_series((3, 12, 48, 128)), {}),
+              "2D 3x64x64": (D.tube_series_2d(), {}),
+              "2D 3x64x128": (D.tube_series_2d((3, 64, 128)), {})}
+    for name, (data, kw) in inputs.items():
+        ref, port = (D.open_im_info(D.write_input(root / name.replace(" ", "_") / side, data,
+                                                  D.DIM_RES_2D, "TYX"))
+                     for side in ("jax", "port")) if name.startswith("2D") else \
+            D.two_copies(root / name.replace(" ", "_"), data)
         JFilter(ref, **kw).run()
         Filter(port, device="cpu", **kw).run()
         a, b = D.read(ref, "im_preprocessed"), D.read(port, "im_preprocessed")
@@ -89,7 +102,35 @@ def main() -> None:
     JTracking(ref, mode="sparse").run()
     HuMomentTracking(port, device="cpu", mode="sparse").run()
     report["sparse_flow_cost"] = flow_cost(ref, port)
+    report["pair_stats"] = pair_stats_report()
     print(json.dumps(report))
+
+
+def pair_stats_report():
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from nellie_tpu.kernels import matching as j_matching
+    from nellie_tpu_torch.kernels import matching
+    from test_torch_parity_repairs import matcher_tiles, reference_tile
+
+    takes_padding = "padded" in inspect.signature(matching.pair_stats).parameters
+    out = {}
+    for n_post, n_pre in ((1100, 70), (1100, 200), (2500, 70)):
+        cp, cq, fp, fq = matcher_tiles(n_post=n_post, n_pre=n_pre)
+        tile = reference_tile(cp, cq, fp, fq)
+        _, sums, sumsqs = j_matching.pair_stats(*tile, np.float32(1.0))
+        kw = {"padded": (len(tile[0]), len(tile[1]))} if takes_padding else {}
+        _, got_s, got_q = matching.pair_stats(*(torch.from_numpy(a) for a in (cp, cq, fp, fq)),
+                                              1.0, **kw)
+        want = np.concatenate([np.asarray(sums), np.asarray(sumsqs)])
+        got = np.concatenate([got_s.numpy(), got_q.numpy()])
+        out[f"{len(tile[0])}x{len(tile[1])}"] = {
+            "sums_differing": int((got != want).sum()), "sums": int(want.size),
+            "max_rel": float((np.abs(got.astype(np.float64) - want) / np.abs(want)).max())}
+    return out
 
 
 if __name__ == "__main__":

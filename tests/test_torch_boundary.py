@@ -1,10 +1,12 @@
 """The PyTorch port stands alone: it imports nothing of the JAX package
-(``nellie_tpu``) and nothing of JAX, neither in its source nor at run time.
+(``nellie_tpu``), nothing of JAX and neither pandas nor pyarrow, neither in
+its source nor at run time.
 
 Only the tests import both.  The source check parses every ``.py`` of
 ``nellie_tpu_torch/`` and ``chip_smoke.py``; the run-time check imports
 every module of the port and ``chip_smoke`` in a fresh interpreter and
-lists what landed in ``sys.modules``.
+lists what landed in ``sys.modules`` (the napari plugin's modules with the
+Qt/napari stand-ins of ``tests/qt_stubs.py`` where Qt is absent).
 """
 import ast
 import json
@@ -24,7 +26,7 @@ SOURCES = sorted(
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("nellie_tpu", "jax")
+    return top in ("nellie_tpu", "jax", "pandas", "pyarrow")
 
 
 def _imports(tree):
@@ -46,6 +48,7 @@ def _imports(tree):
 def test_forbidden_names():
     assert _forbidden("nellie_tpu") and _forbidden("nellie_tpu.io.tiff")
     assert _forbidden("jax") and _forbidden("jax.numpy")
+    assert _forbidden("pandas") and _forbidden("pyarrow.csv")
     assert not _forbidden("nellie_tpu_torch") and not _forbidden("nellie_tpu_torch.io")
     assert not _forbidden("jaxlib_free") and not _forbidden("torch")
 
@@ -61,6 +64,9 @@ def test_source_imports_nothing_of_jax_or_the_jax_package(rel):
 _IMPORT_ALL = r"""
 import importlib, importlib.util, json, pkgutil, sys
 sys.path.insert(0, sys.argv[1])
+sys.path.insert(0, sys.argv[1] + "/tests")
+import qt_stubs
+qt_stubs.install()
 import nellie_tpu_torch
 names = ["nellie_tpu_torch"]
 for info in pkgutil.walk_packages(nellie_tpu_torch.__path__, "nellie_tpu_torch."):

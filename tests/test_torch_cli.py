@@ -7,14 +7,17 @@ process; its outputs land in ``<directory>/nellie_output``.
 import dataclasses
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
+from nellie_tpu_torch.io import FileInfo, ImInfo
 from nellie_tpu_torch.io import ome as ome_mod
 from nellie_tpu_torch.io import tiff as tifffile
 from nellie_tpu_torch.pipeline import cli
+from nellie_tpu_torch.stages.filtering import Filter
 
 MATCHING = ("mito_a", "mito_b")
 
@@ -68,8 +71,9 @@ def test_cli_cuda_without_gpu_raises_before_any_file(directory, capsys):
 
 
 def test_cli_config_reaches_the_stages(directory, capsys):
-    """A config's toggles apply to every file, and a stage option the port
-    refuses fails each file alone while the batch goes on."""
+    """A config's toggles apply to every file, and its Filter options reach
+    the Filter: the float16 carry runs and writes what the Filter alone
+    writes with it."""
     config = directory / "settings.json"
     config.write_text(json.dumps({"remove_intermediates": True, "analyze_node_level": True}))
     cli.main(["--directory", str(directory), "--substring", "mito", "--device", "cpu",
@@ -80,8 +84,22 @@ def test_cli_config_reaches_the_stages(directory, capsys):
     config.write_text(json.dumps({"preprocessing_carry_dtype": "float16"}))
     cli.main(["--directory", str(directory), "--substring", "mito_a", "--device", "cpu",
               "--config", str(config)])
-    printed = capsys.readouterr().out
-    assert "Failed to run" in printed and "carry_dtype" in printed
+    assert "Failed to run" not in capsys.readouterr().out
+    (got,) = (directory / "nellie_output" / "nellie_necessities").glob(
+        "mito_a*im_preprocessed*")
+    alone = directory / "alone"
+    alone.mkdir()
+    shutil.copyfile(directory / "mito_a.ome.tif", alone / "mito_a.ome.tif")
+    written = {}
+    for carry in ("float16", "float32"):
+        fi = FileInfo(str(alone / "mito_a.ome.tif"))
+        fi.find_metadata()
+        fi.load_metadata()
+        info = ImInfo(fi)
+        Filter(info, device="cpu", carry_dtype=carry).run()
+        written[carry] = tifffile.imread(info.pipeline_paths["im_preprocessed"])
+    np.testing.assert_array_equal(tifffile.imread(str(got)), written["float16"])
+    assert not np.array_equal(written["float16"], written["float32"])
 
 
 def test_cli_refuses_low_memory(directory, monkeypatch):

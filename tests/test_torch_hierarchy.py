@@ -88,6 +88,38 @@ def test_segment_nanstats_against_jax_kernel_and_host_oracle():
     np.testing.assert_array_equal(np.nan_to_num(counts), want)
 
 
+def _pairwise_sums(values, seg, groups):
+    """Per segment, its members in index order summed as a pairwise tree
+    (rank r takes in r + 2^k at level k), in float64, plus +0."""
+    out = np.zeros((values.shape[0], groups))
+    for g in range(groups):
+        x = [row for row in values[:, seg == g].T.astype(np.float64)]
+        step = 1
+        while step < len(x):
+            for r in range(0, len(x) - step, 2 * step):
+                x[r] = x[r] + x[r + step]
+            step *= 2
+        if x:
+            out[:, g] = 0.0 + x[0]
+    return out
+
+
+def test_segment_sums_in_a_fixed_pairwise_order():
+    """The float64 sums take one order on every device: members sorted by
+    segment, then a pairwise tree (a GPU scatter_add's atomics add in
+    another order each run).  Bitwise to a numpy tree."""
+    values, seg, groups = _segment_inputs(seed=3, n=4000, groups=40)
+    # magnitudes from 1e-8 to 1e8, so that float64 sums round and their
+    # order shows
+    scale = 10.0 ** np.random.default_rng(4).uniform(-8, 8, values.shape)
+    values = (values * scale).astype(np.float32)
+    got = segstats.segment_nanstats(T(values), seg, groups)
+    valid = np.where(np.isnan(values), 0.0, values).astype(np.float32)
+    want = _pairwise_sums(valid, seg, groups)
+    empty = np.isnan(got["sum"])
+    np.testing.assert_array_equal(got["sum"][~empty], want[~empty])
+
+
 def test_segment_nanstats_gathered_against_jax():
     values, _, groups = _segment_inputs(seed=1, n=3000)
     rng = np.random.default_rng(2)

@@ -13,6 +13,10 @@ figure, held to the JAX package on the CPU.
   chunk of markers, inlined, and several, a loop) are bitwise (the
   ``mode="sparse"`` tracking run is held to the reference exactly in
   ``tests/test_torch_low_memory.py``).
+* The 3D Hessian at the one width where XLA fuses its whole inner
+  gradient (128), the 2D Hessian, and the matcher's second window level
+  (LLVM's vectorised reduce-window) are bitwise too.
+* ``nearest_neighbors`` and ``match_frames`` default to the card.
 * ``device_free_bytes`` counts the caching allocator's unused blocks as
   free.
 """
@@ -30,7 +34,8 @@ from nellie_tpu.kernels import frangi as j_frangi
 from nellie_tpu.kernels import matching as j_matching
 from nellie_tpu.stages import hu_tracking as j_tracking
 from nellie_tpu.stages.filtering import Filter as JFilter
-from nellie_tpu_torch.kernels import _fp, eigen, frangi, matching
+from nellie_tpu_torch.device import resolve_device
+from nellie_tpu_torch.kernels import _fp, eigen, frangi, hessian, matching, nn
 from nellie_tpu_torch.stages import hu_tracking
 from nellie_tpu_torch.stages.filtering import Filter
 from nellie_tpu_torch.utils import adaptive_run
@@ -117,6 +122,42 @@ def test_filter_3d_equals_the_reference(tmp_path, kw):
     D.assert_artifact_equal(ref, port, "im_preprocessed", "exact")
 
 
+@pytest.mark.parametrize("width", [128, 256])
+def test_filter_3d_whole_frames_at_fused_widths(tmp_path, width):
+    """Whole 3D frames whose last axis is 128, the one width at which XLA
+    fuses the inner gradient of ``hzz`` whole (``hessian._fuses_inner_gradient``),
+    and the main 3D shape's width, 256: ``im_preprocessed`` bit for bit."""
+    ref, port = D.two_copies(tmp_path, D.tube_series((3, 12, 48, width)))
+    JFilter(ref).run()
+    Filter(port, device="cpu").run()
+    D.assert_artifact_equal(ref, port, "im_preprocessed", "exact")
+
+
+def test_inner_gradient_fusion_rule():
+    """XLA leaves a minor-axis concatenation of 128 elements or more
+    unfused, so only a last axis of exactly 128 fuses the inner gradient;
+    the other axes never do."""
+    fused = [w for w in range(2, 600)
+             if hessian._fuses_inner_gradient(torch.zeros(1, 1, w), 2)]
+    assert fused == [128]
+    assert not hessian._fuses_inner_gradient(torch.zeros(1, 128, 128), 1)
+    assert hessian._fuses_inner_gradient(torch.zeros(64, 128), 1)
+
+
+@pytest.mark.parametrize("shape", [(64, 64), (64, 128), (128, 256)])
+def test_vesselness_2d_bitwise(shape):
+    """The 2D ``hyy`` rounds as the 3D ``hyy`` and ``hzz`` do: its edges,
+    and at a width of 128 its interior, take a fused multiply-add."""
+    frame = D.tube_series_2d((1,) + shape)[0].astype(np.float32)
+    sigmas, spacing = (0.5, 0.75, 1.0), (0.1, 0.1)
+    params = frangi.FrangiParams(sigmas=sigmas, spacing=spacing)
+    j_params = j_frangi.FrangiParams(sigmas=sigmas, spacing=spacing)
+    v_j, m_j = jax.jit(lambda x: j_frangi.vesselness_frame(x, j_params))(frame)
+    v_p, m_p = frangi.vesselness_frame(T(frame), params)
+    assert_bitwise(v_p, v_j)
+    np.testing.assert_array_equal(m_p.numpy(), np.asarray(m_j))
+
+
 # -- A2: the tiled matcher -----------------------------------------------------
 
 def matcher_tiles(seed=0, n_post=300, n_pre=260, n_feat=22):
@@ -146,7 +187,8 @@ def test_pair_stats_and_costs_bitwise():
     tile = reference_tile(cp, cq, fp, fq)
     max_d = np.float32(1.0)
     count, sums, sumsqs = j_matching.pair_stats(*tile, max_d)
-    got = matching.pair_stats(T(cp), T(cq), T(fp), T(fq), float(max_d))
+    got = matching.pair_stats(T(cp), T(cq), T(fp), T(fq), float(max_d),
+                              padded=(len(tile[0]), len(tile[1])))
     assert got[0] == int(count) > 0
     assert_bitwise(got[1], sums)
     assert_bitwise(got[2], sumsqs)
@@ -159,20 +201,20 @@ def test_pair_stats_and_costs_bitwise():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w)[:n])
 
 
-def test_pair_stats_second_window_level():
-    """A tile of more than 1,024 padded rows against a narrow one (2,048 x
-    128): XLA sums the 64 x 4 window sums in 32 x 4 windows in an order
-    not identified yet (neither row- nor column-major), so some of the 23
-    sums differ from the port's in their last bits.  Held at the measured
-    4.4e-7 of the sum."""
-    cp, cq, fp, fq = matcher_tiles(n_post=1100, n_pre=70)
-    count, sums, sumsqs = j_matching.pair_stats(*reference_tile(cp, cq, fp, fq),
-                                                np.float32(1.0))
-    got = matching.pair_stats(T(cp), T(cq), T(fp), T(fq), 1.0)
+@pytest.mark.parametrize("n_post, n_pre", [(1100, 70), (1100, 200), (2500, 70)])
+def test_pair_stats_second_window_level(n_post, n_pre):
+    """Tiles of more than 1,024 padded rows against a narrow one (2,048 x
+    128, 2,048 x 256, 4,096 x 128): XLA sums the window sums in 32-row
+    windows whose kernel LLVM vectorises across rows (8 lanes of 4
+    columns, 4 lanes of 8), then adds the lanes in halves.  Bitwise."""
+    cp, cq, fp, fq = matcher_tiles(n_post=n_post, n_pre=n_pre)
+    tile = reference_tile(cp, cq, fp, fq)
+    count, sums, sumsqs = j_matching.pair_stats(*tile, np.float32(1.0))
+    got = matching.pair_stats(T(cp), T(cq), T(fp), T(fq), 1.0,
+                              padded=(len(tile[0]), len(tile[1])))
     assert got[0] == int(count)
-    for g, w in ((got[1], sums), (got[2], sumsqs)):
-        w = np.asarray(w)
-        np.testing.assert_allclose(g.numpy(), w, rtol=4.4e-7, atol=0)
+    assert_bitwise(got[1], sums)
+    assert_bitwise(got[2], sumsqs)
 
 
 def marker_frame(ndim, n, seed=3):
@@ -209,6 +251,24 @@ def test_tracking_features_bitwise(ndim, n):
     got, _ = hu_tracking._frame_features_fused(
         T(intensity.astype(np.int32)), T(frangi_im), T(distance), T(coords), r, chunk, scaling)
     assert_bitwise(got, np.asarray(want)[:n])
+
+
+# -- A4: the host-array entry points run on the card unless told otherwise
+
+def test_host_array_entry_points_default_to_cuda(monkeypatch):
+    """``nearest_neighbors`` and ``match_frames`` without ``device`` ask for
+    the card, and without one raise ``resolve_device``'s error."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError) as want:
+        resolve_device("cuda")
+    pts = np.random.default_rng(0).normal(size=(20, 3)).astype(np.float32)
+    feats = np.ones((20, 4), np.float32)
+    with pytest.raises(RuntimeError) as got:
+        nn.nearest_neighbors(pts, pts)
+    assert str(got.value) == str(want.value)
+    with pytest.raises(RuntimeError) as got:
+        matching.match_frames(pts, pts, feats, feats, feats, feats, 1.0)
+    assert str(got.value) == str(want.value)
 
 
 # -- A3: free device memory ----------------------------------------------------

@@ -172,8 +172,18 @@ def test_vesselness_frame_matches():
 
 
 def test_frangi_params_refuse_float16_carry():
-    with pytest.raises(NotImplementedError):
-        frangi.FrangiParams(sigmas=(1.0,), spacing=(1.0, 1.0, 1.0), carry_dtype="float16")
+    """The float16 carry is accepted and runs as the reference's does (bit
+    for bit on this frame); a carry dtype the reference has not is refused."""
+    with pytest.raises(ValueError):
+        frangi.FrangiParams(sigmas=(1.0,), spacing=(1.0, 1.0, 1.0), carry_dtype="bfloat16")
+    kw = dict(sigmas=(0.625, 0.8333, 1.0417), spacing=(0.5, 0.2, 0.2), z_ratio=2.5,
+              carry_dtype="float16")
+    frame = D.tube_series()[1].astype(np.float32)
+    v_j, m_j = (np.asarray(a) for a in jax.jit(
+        lambda x: j_frangi.vesselness_frame(x, j_frangi.FrangiParams(**kw)))(frame))
+    v_p, m_p = frangi.vesselness_frame(_t(frame), frangi.FrangiParams(**kw))
+    np.testing.assert_array_equal(v_p.numpy().view(np.int32), v_j.view(np.int32))
+    np.testing.assert_array_equal(m_p.numpy(), m_j)
 
 
 def test_filters_bitwise():

@@ -119,13 +119,17 @@ def test_slice_voxel_matches(slice_runs):
 
 
 def test_port_imports_without_jax():
-    """The card's machine has no JAX, pandas or pyarrow: every submodule of
-    the port, and chip_smoke.py, import with them blocked, the plain NN
+    """The card's machine has no JAX, pandas or pyarrow (nor Qt, which the
+    napari plugin's modules meet in ``tests/qt_stubs.py``): every submodule
+    of the port, and chip_smoke.py, import with them blocked, the plain NN
     runs and the Hierarchy's writer writes a one-frame CSV."""
     code = (
         "import sys, pkgutil, importlib, tempfile, os\n"
         "for name in ('jax', 'pandas', 'pyarrow'):\n"
         "    sys.modules[name] = None\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import qt_stubs\n"
+        "qt_stubs.install()\n"
         "import nellie_tpu_torch\n"
         "for m in pkgutil.walk_packages(nellie_tpu_torch.__path__, 'nellie_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -181,9 +185,10 @@ def test_params_from_config(tmp_path):
     assert kw["markers"]["peak_min_distance"] == 3
     im_info = D.open_im_info(D.write_input(tmp_path, D.tube_series()))
     Filter(im_info, device="cpu", **kw["filter"])
-    with pytest.raises(NotImplementedError):
-        Filter(im_info, device="cpu", **params_from_config(
-            SettingsConfig(preprocessing_carry_dtype="float16"))["filter"])
+    f16 = Filter(im_info, device="cpu", **params_from_config(
+        SettingsConfig(preprocessing_carry_dtype="float16"))["filter"])
+    f16._set_default_sigmas()
+    assert f16._params.carry_dtype == "float16"
     low = params_from_config(SettingsConfig(segmentation_label_low_memory=True,
                                             segmentation_label_max_chunk_voxels=4608,
                                             segmentation_label_chunk_z=3))["label"]
