@@ -79,8 +79,20 @@ Phases, each printing its own lines; any failure exits non-zero:
    pure-Python Qt and napari stand-ins (``tests/qt_stubs.py``), file
    select and Run Nellie on phase 5's small 3D series on the default
    device (``cuda``), with the kernel's launches, every file equal byte for
-   byte to ``run(fused=False, device="cuda")``'s with the same settings.
+   byte to ``run(fused=False, device="cuda")``'s with the same settings;
+16. the multi-device path (``nellie_tpu_torch.mesh``) on logical shards of
+   the card (``make_mesh(devices=["cuda:0"] * 4, t_axis=2)``): ``run(mesh=)``
+   on the 3D main series, every file byte for byte phase 4's, its seconds
+   by stage beside phase 4's and the kernel's launches by stage; phase 7's
+   small ``TYX`` input through a 1 x 4 mesh against its one-device run;
+   ``run_files`` over two main-series files (the second shifted) on a 2 x 1
+   mesh against each file's ``run()``; capacity's mesh strategy (z = 4) on
+   a 256x512x512 volume of phase 11's generator against the one-window
+   monolith, with seconds and peak memory; with more than one card, the 3D
+   check again over the real cards.
 
+Phase 5 holds the flow costs card = CPU exactly (the Hu moments' powers
+round as XLA's CPU code rounds them, ``kernels/_fp.py::pow``).
 Phases 5, 7 and 12 run the fused chain (``run``'s default); phase 10's
 low-memory config takes the per-stage path.
 
@@ -748,6 +760,9 @@ def phase_small_parity(root, data, axes, dim_res, tag="", config=None, nn=None, 
         if fa.shape != fb.shape or fa.shape[0] == 0:
             fail(f"{tag}flow_vector_array shapes differ or are empty: {fa.shape} vs {fb.shape}")
         worst["flow_vector_array"] = float(np.abs(fa - fb).max())
+        if config is None and source is None and worst["flow_vector_array"] != 0:
+            fail(f"{tag}flow costs differ between card and CPU "
+                 f"({worst['flow_vector_array']:.3g})")
 
     # the whole runs' feature tables, all but the branch-relative columns:
     # a branch's reference voxel (its member of minimum |flow|) is a tie
@@ -1279,6 +1294,122 @@ def phase_plugin(nn, gpu, root):
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the multi-device path
+# ---------------------------------------------------------------------------
+
+MESH_CAPACITY_SHAPE = (256, 512, 512)
+
+
+def differing_files(a_info, b_info, tag):
+    """Names of the files two runs wrote that differ (fails when they wrote
+    different files); also returns how many were compared."""
+    a, b = written_files(a_info), written_files(b_info)
+    if sorted(a) != sorted(b):
+        fail(f"{tag}the runs wrote different files: {sorted(set(a) ^ set(b))}")
+    return [k for k in a if not filecmp.cmp(a[k], b[k], shallow=False)], len(a)
+
+
+def mesh_main_series(nn, gpu, root, mesh, name, single_info, single_timings):
+    """``run(mesh=)`` on the 3D main series, the kernel's count set to 0 just
+    before and read just after; every file held to phase 4's run."""
+    from nellie_tpu_torch.pipeline.run import run
+    from nellie_tpu_torch.stages.hierarchical import Hierarchy
+    from nellie_tpu_torch.stages.voxel_reassignment import VoxelReassigner
+
+    fi = write_series(os.path.join(root, f"mesh_{name}"), MAIN_SHAPE)
+    nn.NN_KERNEL.launches = 0
+    with StageWatch(nn, (VoxelReassigner, Hierarchy)) as watch:
+        info, timings = run(fi, mesh=mesh, return_timings=True)
+    launches = dict(watch.launches, total=nn.NN_KERNEL.launches)
+    differ, n = differing_files(single_info, info, f"mesh {name}: ")
+    if differ:
+        fail(f"mesh {name}: files differ from the one-device run: {sorted(differ)}")
+    print(f"mesh {name} {mesh}: {n} of {n} files equal phase 4's byte for byte; nn launches "
+          f"by stage {json.dumps(launches)}", flush=True)
+    print(f"mesh {name} seconds by stage: "
+          + ", ".join(f"{k} {v:.3f} (one device {single_timings.get(k, float('nan')):.3f})"
+                      for k, v in timings.items()) + f" [{gpu}]", flush=True)
+    if launches["total"] == 0 or launches["VoxelReassigner"] == 0 or launches["Hierarchy"] == 0:
+        fail(f"mesh {name}: the reassigner or the Hierarchy never launched the nn kernel")
+    return launches
+
+
+def phase_mesh(nn, gpu, root, single_info, single_timings):
+    """16: the multi-device path (see the module docstring)."""
+    from nellie_tpu_torch.kernels.frangi import FrangiParams
+    from nellie_tpu_torch.mesh import make_mesh
+    from nellie_tpu_torch.pipeline import capacity
+    from nellie_tpu_torch.pipeline.batch import run_files
+    from nellie_tpu_torch.pipeline.run import run
+
+    start = time.perf_counter()
+    print("mesh: logical shards (one card listed four times); their seconds are not a "
+          "multi-GPU speed", flush=True)
+    launches = mesh_main_series(nn, gpu, root, make_mesh(devices=["cuda:0"] * 4, t_axis=2),
+                                "3D 2x2", single_info, single_timings)
+
+    small = small_series_2d()
+    res_2d = {"X": 0.1, "Y": 0.1, "Z": None, "T": 1.0}
+    one = run(write_input(os.path.join(root, "mesh2d_one"), "small", small, "TYX", res_2d),
+              device="cuda")
+    four = run(write_input(os.path.join(root, "mesh2d_mesh"), "small", small, "TYX", res_2d),
+               mesh=make_mesh(devices=["cuda:0"] * 4))
+    differ, n = differing_files(one, four, "mesh 2D: ")
+    if differ:
+        fail(f"mesh 2D 1x4: files differ from the one-device run: {sorted(differ)}")
+    print(f"mesh 2D 1x4 on the small TYX input: {n} of {n} files equal byte for byte",
+          flush=True)
+
+    t_n, *frame_shape = MAIN_SHAPE
+    frame = make_frame(tuple(frame_shape))
+    shifted = np.stack([np.roll(np.roll(frame, 3 * t, axis=1), 11, axis=2) for t in range(t_n)])
+    alone = run(write_input(os.path.join(root, "files_alone1"), "series", shifted, "TZYX",
+                            DIM_RES), device="cuda")
+    files = [write_series(os.path.join(root, "files0"), MAIN_SHAPE),
+             write_input(os.path.join(root, "files1"), "series", shifted, "TZYX", DIM_RES)]
+    t0 = time.perf_counter()
+    batch = run_files(files, mesh=make_mesh(devices=["cuda:0"] * 2, t_axis=2))
+    batch_s = time.perf_counter() - t0
+    for k, want in enumerate((single_info, alone)):
+        differ, n = differing_files(want, batch[k], f"run_files file {k}: ")
+        if differ:
+            fail(f"run_files file {k}: files differ from its own run(): {sorted(differ)}")
+    print(f"run_files on a 2x1 mesh: two main-series files in {batch_s:.3f} s, {n} of {n} "
+          f"files of each equal its own run()'s [{gpu}]", flush=True)
+
+    vol = np.ascontiguousarray(capacity_volume(MESH_CAPACITY_SHAPE[1])[:MESH_CAPACITY_SHAPE[0]])
+    params = FrangiParams(sigmas=CAPACITY_SIGMAS, spacing=(1.0, 1.0, 1.0), z_ratio=1.0)
+    out = {}
+    for name, kw in (("monolith", dict(strategy="monolith", max_chunk_voxels=vol.size,
+                                       device="cuda")),
+                     ("mesh", dict(mesh=make_mesh(devices=["cuda:0"] * 4)))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = capacity.segment_volume(vol, params, emit="labels", **kw)
+        torch.cuda.synchronize()
+        out[name] = (res, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2 ** 30)
+    (mono, mono_s, mono_gib), (mesh_res, mesh_s, mesh_gib) = out["monolith"], out["mesh"]
+    equal = (mesh_res["strategy"] == "mesh" and mesh_res["n_labels"] == mono["n_labels"]
+             and np.array_equal(mesh_res["labels"], mono["labels"]))
+    print(f"capacity mesh z=4 on {MESH_CAPACITY_SHAPE}: {mesh_s:.3f} s, peak {mesh_gib:.3f} GiB, "
+          f"{mesh_res['n_labels']} labels; one-window monolith {mono_s:.3f} s, peak "
+          f"{mono_gib:.3f} GiB, {mono['n_labels']} labels; labels "
+          f"{'equal' if equal else 'DIFFERENT'} [{gpu}]", flush=True)
+    if not equal or mono["n_labels"] == 0:
+        fail("capacity mesh: labels differ from the one-window monolith's, or none")
+
+    if torch.cuda.device_count() > 1:
+        mesh_main_series(nn, gpu, root, make_mesh(t_axis=2), "3D real cards", single_info,
+                         single_timings)
+    else:
+        print("mesh: one card visible, so only logical shards ran; a run over real cards "
+              "needs a machine with more than one", flush=True)
+    print(f"phase 16 (mesh): {time.perf_counter() - start:.1f} s", flush=True)
+    return {"launches": launches["total"], "by_stage": launches}
+
+
 def compare_tables(got, want, headers, skip):
     """Largest |card - CPU| / (1e-4 + 1e-4 |CPU|) over the feature tables
     (fails above 1, or on another row count or NaN pattern); columns whose
@@ -1345,6 +1476,7 @@ def main() -> None:
         float16 = phase_float16(nn, gpu, root)
         phase_native_codec()
         plugin = phase_plugin(nn, gpu, root)
+        mesh = phase_mesh(nn, gpu, root, im_info, timings)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     phase_capacity_1024(gpu)
@@ -1355,7 +1487,8 @@ def main() -> None:
     hierarchy_2d["launches"] = by_stage_2d["Hierarchy"]
     paths = {"reassign": reassign, "hierarchy": hierarchy,
              "reassign_2d": reassign_2d, "hierarchy_2d": hierarchy_2d,
-             "reassign_low_memory": reassign_low, "float16_small": float16, "plugin": plugin}
+             "reassign_low_memory": reassign_low, "float16_small": float16, "plugin": plugin,
+             "mesh": mesh}
     max_abs = max([max_abs] + [p["max_abs_err"] for p in paths.values() if "max_abs_err" in p])
     top = {k: reassign[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     print(json.dumps({"kernels": [{

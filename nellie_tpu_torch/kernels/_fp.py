@@ -374,3 +374,113 @@ def tree_sum_2d(x: torch.Tensor) -> torch.Tensor:
     for k in range(1, flat.shape[-1]):
         acc = acc + flat[..., k]
     return acc
+
+
+# glibc's float power (sysdeps/ieee754/flt-32/e_powf.c with its tables in
+# e_powf_log2_data.c and e_exp2f_data.c, in glibc since 2.28), which XLA's
+# CPU code calls for a scalar ``jnp.power``: log2 x from a 16-entry table
+# and a degree-5 polynomial, then 2**(y log2 x) from a 32-entry table and a
+# cubic, all in double, rounded once to float32
+_POWF_OFF = 0x3F330000
+_POWF_TAB = tuple(float.fromhex(h) for h in (
+    "0x1.661ec79f8f3bep+0", "-0x1.efec65b963019p-2", "0x1.571ed4aaf883dp+0", "-0x1.b0b6832d4fca4p-2",
+    "0x1.49539f0f010b0p+0", "-0x1.7418b0a1fb77bp-2", "0x1.3c995b0b80385p+0", "-0x1.39de91a6dcf7bp-2",
+    "0x1.30d190c8864a5p+0", "-0x1.01d9bf3f2b631p-2", "0x1.25e227b0b8ea0p+0", "-0x1.97c1d1b3b7af0p-3",
+    "0x1.1bb4a4a1a343fp+0", "-0x1.2f9e393af3c9fp-3", "0x1.12358f08ae5bap+0", "-0x1.960cbbf788d5cp-4",
+    "0x1.0953f419900a7p+0", "-0x1.a6f9db6475fcep-5", "0x1.0000000000000p+0", "0x0.0p+0",
+    "0x1.e608cfd9a47acp-1", "0x1.338ca9f24f53dp-4", "0x1.ca4b31f026aa0p-1", "0x1.476a9543891bap-3",
+    "0x1.b2036576afce6p-1", "0x1.e840b4ac4e4d2p-3", "0x1.9c2d163a1aa2dp-1", "0x1.40645f0c6651cp-2",
+    "0x1.886e6037841edp-1", "0x1.88e9c2c1b9ff8p-2", "0x1.767dcf5534862p-1", "0x1.ce0a44eb17bccp-2"))
+_POWF_A = tuple(float.fromhex(h) for h in (
+    "0x1.27616c9496e0bp-2", "-0x1.71969a075c67ap-2", "0x1.ec70a6ca7baddp-2",
+    "-0x1.7154748bef6c8p-1", "0x1.71547652ab82bp+0"))
+_EXP2F_TAB = (
+    0x3ff0000000000000, 0x3fefd9b0d3158574, 0x3fefb5586cf9890f, 0x3fef9301d0125b51,
+    0x3fef72b83c7d517b, 0x3fef54873168b9aa, 0x3fef387a6e756238, 0x3fef1e9df51fdee1,
+    0x3fef06fe0a31b715, 0x3feef1a7373aa9cb, 0x3feedea64c123422, 0x3feece086061892d,
+    0x3feebfdad5362a27, 0x3feeb42b569d4f82, 0x3feeab07dd485429, 0x3feea47eb03a5585,
+    0x3feea09e667f3bcd, 0x3fee9f75e8ec5f74, 0x3feea11473eb0187, 0x3feea589994cce13,
+    0x3feeace5422aa0db, 0x3feeb737b0cdc5e5, 0x3feec49182a3f090, 0x3feed503b23e255d,
+    0x3feee89f995ad3ad, 0x3feeff76f2fb5e47, 0x3fef199bdd85529c, 0x3fef3720dcef9069,
+    0x3fef5818dcfba487, 0x3fef7c97337b9b5f, 0x3fefa4afa2a490da, 0x3fefd0765b6e4540)
+_EXP2F_SHIFT = float.fromhex("0x1.8p+47")  # rounds to multiples of 1/32
+_EXP2F_C = tuple(float.fromhex(h) for h in (
+    "0x1.c6af84b912394p-5", "0x1.ebfce50fac4f3p-3", "0x1.62e42ff0c52d6p-1"))
+_VELTKAMP = float(2 ** 27 + 1)
+
+
+def _fma64(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a*b + c`` in double with the product's rounding error kept
+    (Dekker's exact product), as the fused multiply-adds of glibc's FMA
+    build round it except at double ties."""
+    b = torch.as_tensor(b, dtype=torch.float64, device=a.device)
+    p = a * b
+    ah = a * _VELTKAMP
+    ah = ah - (ah - a)
+    bh = b * _VELTKAMP
+    bh = bh - (bh - b)
+    err = ((ah * bh - p) + ah * (b - bh) + (a - ah) * bh) + (a - ah) * (b - bh)
+    s = p + c
+    bp = s - p
+    t = (p - (s - bp)) + (c - bp)
+    return s + (t + err)
+
+
+def pow(x: torch.Tensor, y: float) -> torch.Tensor:  # noqa: A001 — the jnp name
+    """``x ** y`` for a float32 tensor and an exponent that XLA's CPU code
+    does not see as a constant, bit for bit: a call to glibc's ``powf``
+    (its FMA build, which x86-64 with FMA runs) under XLA's flush of
+    subnormal inputs and results to zero.  That is how the reference's
+    tracker computes the Hu normalisation ``m00 ** ((i + j + 2) / 2)``: the
+    exponent is formed in the fused loop, so even 1 and 2 go through
+    ``powf``.  Covers x >= 0, 0 -> 0 and inf -> inf for y > 0, overflow to
+    inf and underflow to 0; negative x gives NaN except at integer y.
+    PyTorch's ``pow`` differs from it in the last bit, on the card and on
+    the CPU."""
+    x = x.float()
+    x = torch.where(x.abs() < _TINY, torch.zeros_like(x), x)
+    y = float(np.float32(y))
+    dev = x.device
+    ax = x.abs()
+    ix = ax.view(torch.int32).to(torch.int64)
+    tmp = ix - _POWF_OFF
+    i = (tmp >> 19) & 15
+    top = tmp & -0x800000  # 0xff800000 as a signed mask
+    iz = (ix - top).to(torch.int32).view(torch.float32).double()
+    k = (top >> 23).double()
+    tab = torch.tensor(_POWF_TAB, dtype=torch.float64, device=dev).reshape(16, 2)
+    invc, logc = tab[i, 0], tab[i, 1]
+    r = _fma64(iz, invc, -1.0)
+    y0 = logc + k
+    r2 = r * r
+    a = _fma64(r, _POWF_A[0], _POWF_A[1])
+    p = _fma64(r, _POWF_A[2], _POWF_A[3])
+    r4 = r2 * r2
+    q = _fma64(r, _POWF_A[4], y0)
+    q = _fma64(p, r2, q)
+    logx = _fma64(a, r4, q)
+    ylogx = logx * y
+    # exp2: ylogx = k/32 + r, 2**(k/32) from the table scaled by 2**(k//32)
+    kd = ylogx + _EXP2F_SHIFT
+    kd = kd - _EXP2F_SHIFT
+    r = ylogx - kd
+    ki = torch.round(kd * 32.0).to(torch.int64)
+    t = torch.tensor(_EXP2F_TAB, dtype=torch.int64, device=dev)[ki & 31] + (ki << 47)
+    s = t.view(torch.float64)
+    z = _fma64(r, _EXP2F_C[0], _EXP2F_C[1])
+    r2 = r * r
+    out = _fma64(r, _EXP2F_C[2], 1.0)
+    out = (_fma64(z, r2, out) * s).float()
+    out = torch.where(out.abs() < _TINY, torch.zeros_like(out), out)
+    out = torch.where(ylogx > float.fromhex("0x1.fffffffd1d571p+6"),
+                      torch.full_like(out, float("inf")), out)
+    out = torch.where(ylogx <= -150.0, torch.zeros_like(out), out)
+    if y > 0:
+        out = torch.where(ax == 0, torch.zeros_like(out), out)
+        out = torch.where(torch.isinf(ax), ax, out)
+    if y == np.floor(y):
+        odd = bool(int(y) % 2)
+        out = torch.where((x < 0) & odd, -out, out)
+    else:
+        out = torch.where(x < 0, torch.full_like(out, float("nan")), out)
+    return torch.where(torch.isnan(x), x, out)

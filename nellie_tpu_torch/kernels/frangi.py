@@ -26,7 +26,11 @@ import torch
 
 from nellie_tpu_torch.kernels import eigen, filters, thresholds
 from nellie_tpu_torch.kernels._fp import exp, f32, fma, sqrt, sum_of_products
-from nellie_tpu_torch.kernels.hessian import hessian_components
+from nellie_tpu_torch.kernels.hessian import (
+    hessian_unnormalized,
+    largest_component,
+    nonzero_or_one,
+)
 
 EPS32 = float(np.finfo(np.float32).eps)
 CARRY_DTYPES = {"float32": torch.float32, "float16": torch.float16}
@@ -64,25 +68,50 @@ def _stride_masked_positive(volume: torch.Tensor, max_samples: int) -> torch.Ten
     return thresholds.stride_mask(tuple(volume.shape), strides, volume.device) & (volume > 0)
 
 
-def _gamma(gauss: torch.Tensor, max_samples: int) -> torch.Tensor:
-    pos = _stride_masked_positive(gauss, max_samples)
-    if not bool(pos.any()):
-        return torch.tensor(EPS32, device=gauss.device)
-    return torch.clamp(thresholds.min_triangle_otsu(gauss, pos), min=EPS32)
+class WholeFrame:
+    """The frame-wide reductions of the cascade when the frame is held
+    whole (one block, the frame itself).  :mod:`nellie_tpu_torch.mesh.sharded`
+    has the same three methods over the cores of a frame's shards; the
+    cascade reads nothing else of the whole frame."""
+
+    minor_extent = None  # the Hessian's width rule reads the block's own
+
+    @staticmethod
+    def core(index: int, block: torch.Tensor) -> torch.Tensor:
+        return block
+
+    @staticmethod
+    def all_max(values):
+        return values
+
+    @staticmethod
+    def triangle_otsu(blocks, max_samples: int):
+        """min(triangle, Otsu) of the strided positive voxels, one per
+        block, or None when no sampled voxel is positive."""
+        pos = _stride_masked_positive(blocks[0], max_samples)
+        if not bool(pos.any()):
+            return None
+        return [thresholds.min_triangle_otsu(blocks[0], pos)]
 
 
-def _frob_mask(frob: torch.Tensor, params: FrangiParams) -> torch.Tensor:
+def _gammas(gauss, max_samples: int, stats):
+    thr = stats.triangle_otsu(gauss, max_samples)
+    if thr is None:
+        return [torch.tensor(EPS32, device=g.device) for g in gauss]
+    return [torch.clamp(t, min=EPS32) for t in thr]
+
+
+def _frob_masks(frobs, params: FrangiParams, stats):
     if not params.frob_thresh_division:
-        return frob > 0
+        return [frob > 0 for frob in frobs]
     if params.frob_thresh is not None:
-        threshold = torch.tensor(f32(params.frob_thresh), device=frob.device)
+        thr = [torch.tensor(f32(params.frob_thresh), device=f.device) for f in frobs]
     else:
-        pos = _stride_masked_positive(frob, params.max_threshold_samples)
-        if bool(pos.any()):
-            threshold = thresholds.min_triangle_otsu(frob, pos)
-        else:
-            threshold = torch.zeros((), device=frob.device)
-    return frob > (threshold * f32(1.0 / params.frob_thresh_division))
+        thr = stats.triangle_otsu(frobs, params.max_threshold_samples)
+        if thr is None:
+            thr = [torch.zeros((), device=f.device) for f in frobs]
+    scale = f32(1.0 / params.frob_thresh_division)
+    return [frob > (t * scale) for frob, t in zip(frobs, thr)]
 
 
 def _frangi_response(eigs, gamma_sq, params: FrangiParams) -> torch.Tensor:
@@ -135,49 +164,88 @@ def _delta_kernels(params: FrangiParams, ndim: int):
 def vesselness_frame(frame: torch.Tensor, params: FrangiParams, apply_mask: bool = True):
     """(vesselness * accumulated mask, accumulated mask) of one 2D or 3D
     frame."""
-    frame = frame.float()
+    (vessel,), (mask,) = vesselness_blocks([frame], params, apply_mask, WholeFrame())
+    return vessel, mask
+
+
+def vesselness_blocks(blocks, params: FrangiParams, apply_mask: bool, stats):
+    """:func:`vesselness_frame` of a frame given as blocks, each on its own
+    device: every per-voxel step runs block by block, and the frame-wide
+    reductions (the float16 carry's scale, γ, the Hessian's largest
+    component, the Frobenius threshold) come from ``stats``
+    (:class:`WholeFrame` or a mesh's shard statistics).  Returns the lists
+    of vesselness and mask blocks."""
+    frames = [b.float() for b in blocks]
     carry = CARRY_DTYPES[params.carry_dtype]
     if carry != torch.float32:
         # the response does not change under a uniform rescale; this keeps
         # the carried magnitudes inside float16's range
-        frame = frame / torch.clamp(frame.abs().max(), min=EPS32)
-    ndim = frame.ndim
+        scale = stats.all_max([stats.core(b, f).abs().max() for b, f in enumerate(frames)])
+        frames = [f / torch.clamp(m, min=EPS32) for f, m in zip(frames, scale)]
+    ndim = frames[0].ndim
     kernel_stacks = _delta_kernels(params, ndim)
-    gauss = frame.to(carry)
-    vessel = torch.zeros(frame.shape, dtype=carry, device=frame.device)
-    all_mask = torch.ones(frame.shape, dtype=torch.bool, device=frame.device)
+    gauss = [f.to(carry) for f in frames]
+    vessel = [torch.zeros(f.shape, dtype=carry, device=f.device) for f in frames]
+    all_mask = [torch.ones(f.shape, dtype=torch.bool, device=f.device) for f in frames]
     for i in range(len(params.sigmas)):
-        for axis in range(ndim):
-            gauss = filters.correlate1d_traced(gauss.float(), kernel_stacks[axis][i],
-                                               axis).to(carry)
-        gauss = gauss.float()
-        gamma = _gamma(gauss, params.max_threshold_samples)
-        gamma_sq = 2.0 * gamma * gamma
-
-        h, frob = hessian_components(gauss, params.spacing)
-        h_mask = _frob_mask(frob, params) if apply_mask else torch.ones_like(all_mask)
-        if ndim == 2:
-            eigs = eigen.eigvalsh2(h["hxx"], h["hxy"], h["hyy"])
-        else:
-            eigs = eigen.eigvalsh3(h["hxx"], h["hxy"], h["hxz"], h["hyy"], h["hyz"], h["hzz"])
-        v = _frangi_response(eigs, gamma_sq, params)
-        v = torch.where(h_mask, v, torch.zeros_like(v))
-        vessel = torch.maximum(vessel, v.to(carry))
-        all_mask = all_mask & h_mask
-    return vessel.float() * all_mask, all_mask
+        for b, g in enumerate(gauss):
+            for axis in range(ndim):
+                g = filters.correlate1d_traced(g.float(), kernel_stacks[axis][i], axis).to(carry)
+            gauss[b] = g.float()
+        gamma_sq = [2.0 * g * g for g in _gammas(gauss, params.max_threshold_samples, stats)]
+        hf = [hessian_unnormalized(g, params.spacing, stats.minor_extent) for g in gauss]
+        largest = stats.all_max([
+            largest_component({k: stats.core(b, v) for k, v in h.items()})
+            for b, (h, _) in enumerate(hf)])
+        frobs = [frob / nonzero_or_one(m) for (_, frob), m in zip(hf, largest)]
+        h_masks = (_frob_masks(frobs, params, stats) if apply_mask
+                   else [torch.ones_like(m) for m in all_mask])
+        for b, (h, _) in enumerate(hf):
+            if ndim == 2:
+                eigs = eigen.eigvalsh2(h["hxx"], h["hxy"], h["hyy"])
+            else:
+                eigs = eigen.eigvalsh3(h["hxx"], h["hxy"], h["hxz"], h["hyy"], h["hyz"],
+                                       h["hzz"])
+            v = _frangi_response(eigs, gamma_sq[b], params)
+            v = torch.where(h_masks[b], v, torch.zeros_like(v))
+            vessel[b] = torch.maximum(vessel[b], v.to(carry))
+            all_mask[b] = all_mask[b] & h_masks[b]
+    return [v.float() * m for v, m in zip(vessel, all_mask)], all_mask
 
 
 def log_blobness_2d(frame: torch.Tensor, mask: torch.Tensor, params: FrangiParams) -> torch.Tensor:
     """Multi-scale LoG "blobness" of a 2D frame inside ``mask``, the
     maximum over scales, clipped at 0 and normalised to [0, 0.1]."""
+    lap = log_blob_response(frame, mask, params)
+    return normalize_blobness(lap, lap.max())
+
+
+def log_blob_response(frame: torch.Tensor, mask: torch.Tensor, params: FrangiParams):
+    """The blobness before its normalisation by the frame's maximum."""
     frame = frame.float()
     lap = None
     for sigma in params.sigmas:
         cur = -filters.gaussian_laplace(frame, params.sigma_vec(sigma)) * f32(float(sigma) ** 2)
         cur = cur * mask
         lap = cur if lap is None else torch.maximum(lap, cur)
-    lap = torch.clamp(lap, min=0.0)
-    return lap / (lap.max() + f32(1e-12)) * f32(0.1)
+    return torch.clamp(lap, min=0.0)
+
+
+def normalize_blobness(lap: torch.Tensor, lap_max: torch.Tensor) -> torch.Tensor:
+    return lap / (lap_max + f32(1e-12)) * f32(0.1)
+
+
+def blob_radius(params: FrangiParams, axis: int) -> int:
+    """Receptive radius of :func:`log_blob_response` along ``axis``."""
+    return max(int(4.0 * params.sigma_vec(s)[axis] + 0.5) for s in params.sigmas)
+
+
+def cascade_radius(params: FrangiParams, ndim: int, axis: int) -> int:
+    """Receptive radius of :func:`vesselness_frame` along ``axis``: one
+    padded tap radius per scale, and 2 for the Hessian's second
+    differences."""
+    taps = _delta_kernels(params, ndim)[axis].shape[1]
+    return len(params.sigmas) * (taps // 2) + 2
 
 
 def masked_percentile(values: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:
@@ -218,15 +286,20 @@ def remove_edges_frame(frangi_frame: torch.Tensor) -> torch.Tensor:
     """Zero a 15-row margin at the top and bottom of each Z-slice's (or the
     2D frame's) nonzero bounding box."""
     x = frangi_frame[None] if frangi_frame.ndim == 2 else frangi_frame
-    rows_any = (x != 0).any(dim=2)  # (Z, Y)
-    ny = x.shape[1]
-    row_idx = torch.arange(ny, device=x.device)[None, :]
+    kill = edge_rows((x != 0).any(dim=2))
+    out = torch.where(kill[:, :, None], torch.zeros_like(x), x)
+    return out[0] if frangi_frame.ndim == 2 else out
+
+
+def edge_rows(rows_any: torch.Tensor) -> torch.Tensor:
+    """(Z, Y) rows that :func:`remove_edges_frame` zeroes, from the (Z, Y)
+    table of rows holding a nonzero voxel."""
+    ny = rows_any.shape[1]
+    row_idx = torch.arange(ny, device=rows_any.device)[None, :]
     has_any = rows_any.any(dim=1, keepdim=True)
     rmin = torch.where(rows_any, row_idx, ny).min(dim=1, keepdim=True).values
     rmax = torch.where(rows_any, row_idx, -1).max(dim=1, keepdim=True).values
     height = torch.clamp(rmax - rmin + 1, min=0)
     margin = torch.clamp(height, max=15)
-    kill = (((row_idx >= rmin) & (row_idx < rmin + margin))
+    return (((row_idx >= rmin) & (row_idx < rmin + margin))
             | ((row_idx > rmax - margin) & (row_idx <= rmax))) & has_any
-    out = torch.where(kill[:, :, None], torch.zeros_like(x), x)
-    return out[0] if frangi_frame.ndim == 2 else out

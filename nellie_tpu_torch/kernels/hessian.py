@@ -31,7 +31,7 @@ def gradient(f: torch.Tensor, spacing: float, axis: int) -> torch.Tensor:
 _XLA_MINOR_CONCAT_LIMIT = 128
 
 
-def _fuses_inner_gradient(f: torch.Tensor, axis: int) -> bool:
+def _fuses_inner_gradient(f: torch.Tensor, axis: int, minor_extent=None) -> bool:
     """Whether XLA fuses the whole inner gradient into the outer one, as
     it compiles the reference's Frangi scale body (2D and 3D).
 
@@ -43,12 +43,14 @@ def _fuses_inner_gradient(f: torch.Tensor, axis: int) -> bool:
     So only a minor axis of exactly the limit fuses it:
     ``scripts/xla_fusion_probe.py`` finds it at a last axis of 128 alone
     among 2 to 520 (Z, Y = 12, 48), and at 128 for every Z and Y it tried
-    (1 to 256), in 2D as in 3D."""
-    n = f.shape[axis]
+    (1 to 256), in 2D as in 3D.  ``minor_extent``: the whole frame's
+    last-axis width, when ``f`` is a block of it (the rule is the frame's)."""
+    n = f.shape[axis] if minor_extent is None else int(minor_extent)
     return axis == f.ndim - 1 and n - 1 < _XLA_MINOR_CONCAT_LIMIT <= n
 
 
-def _second_gradient(f: torch.Tensor, spacing: float, axis: int) -> torch.Tensor:
+def _second_gradient(f: torch.Tensor, spacing: float, axis: int,
+                     minor_extent=None) -> torch.Tensor:
     """``gradient(gradient(f))`` along one axis as XLA rounds the 2D
     ``hyy`` and the 3D ``hyy`` and ``hzz``: it fuses the inner gradient's
     edge values into the outer gradient, whose two edge differences then
@@ -66,7 +68,7 @@ def _second_gradient(f: torch.Tensor, spacing: float, axis: int) -> torch.Tensor
     last = fma(f.narrow(axis, n - 1, 1) - f.narrow(axis, n - 2, 1), inv,
                -g.narrow(axis, n - 2, 1)) * inv
     interior = out.narrow(axis, 1, n - 2)
-    if _fuses_inner_gradient(f, axis) and n > 3:
+    if _fuses_inner_gradient(f, axis, minor_extent) and n > 3:
         # g[i + 1] = diff[i + 1] * coefficient, contracted into g[i + 1] - g[i - 1]
         diff = torch.cat([f.narrow(axis, 3, n - 3) - f.narrow(axis, 1, n - 3),
                           f.narrow(axis, n - 1, 1) - f.narrow(axis, n - 2, 1)], dim=axis)
@@ -82,6 +84,24 @@ def hessian_components(
     """Unique second derivatives (2D: hxx, hxy, hyy; 3D: hxx, hxy, hxz,
     hyy, hyz, hzz; axis 0 = 'x') and the Frobenius norm over the largest
     |component|."""
+    h, frob = hessian_unnormalized(image, spacing)
+    return h, frob / nonzero_or_one(largest_component(h))
+
+
+def largest_component(h: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The largest |value| over the Hessian components (0-d tensor)."""
+    return torch.stack([comp.abs().max() for comp in h.values()]).max()
+
+
+def nonzero_or_one(max_abs: torch.Tensor) -> torch.Tensor:
+    return torch.where(max_abs > 0, max_abs, torch.ones_like(max_abs))
+
+
+def hessian_unnormalized(
+    image: torch.Tensor, spacing: Sequence[float], minor_extent=None
+) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """The components and the Frobenius norm before its division by the
+    largest |component|; ``minor_extent`` as for :func:`_fuses_inner_gradient`."""
     spacing = tuple(float(s) for s in spacing)
     if image.ndim == 2:
         g0 = gradient(image, spacing[0], 0)
@@ -89,7 +109,7 @@ def hessian_components(
         h = {
             "hxx": gradient(g0, spacing[0], 0),
             "hxy": gradient(g0, spacing[1], 1),
-            "hyy": _second_gradient(image, spacing[1], 1),
+            "hyy": _second_gradient(image, spacing[1], 1, minor_extent),
         }
         # XLA's order and a correctly rounded root, so that the 2D
         # Frobenius mask, hence im_preprocessed, follows the reference's
@@ -102,18 +122,13 @@ def hessian_components(
             "hxx": gradient(g0, spacing[0], 0),
             "hxy": gradient(g0, spacing[1], 1),
             "hxz": gradient(g0, spacing[2], 2),
-            "hyy": _second_gradient(image, spacing[1], 1),
+            "hyy": _second_gradient(image, spacing[1], 1, minor_extent),
             "hyz": gradient(g1, spacing[2], 2),
-            "hzz": _second_gradient(image, spacing[2], 2),
+            "hzz": _second_gradient(image, spacing[2], 2, minor_extent),
         }
         off = sum_of_products([(h["hxy"], h["hxy"]), (h["hxz"], h["hxz"]), (h["hyz"], h["hyz"])])
         diag = sum_of_products([(h["hxx"], h["hxx"]), (h["hyy"], h["hyy"]), (h["hzz"], h["hzz"])])
         frob = sqrt(diag + 2.0 * off)
     else:
         raise ValueError(f"unsupported number of dimensions: {image.ndim}")
-
-    max_abs = torch.zeros((), dtype=image.dtype, device=image.device)
-    for comp in h.values():
-        max_abs = torch.maximum(max_abs, comp.abs().max())
-    max_abs = torch.where(max_abs > 0, max_abs, torch.ones_like(max_abs))
-    return h, frob / max_abs
+    return h, frob

@@ -17,6 +17,7 @@ from math import comb
 import torch
 
 from nellie_tpu_torch.kernels._fp import contract, fma, log10
+from nellie_tpu_torch.kernels._fp import pow as pow_f32
 
 
 def raw_moments(images: torch.Tensor, order: int = 3) -> torch.Tensor:
@@ -92,9 +93,12 @@ def normalized_moments(images: torch.Tensor, looped: bool = False) -> torch.Tens
     """η moments up to order 3, shape (N, 4, 4)."""
     m = raw_moments(images, order=3)
     mu = central_moments(m, looped)
-    idx = torch.arange(4, device=images.device)
-    exponent = ((idx[:, None] + idx[None, :])[None] + 2) / 2.0
-    denom = m[:, 0, 0][:, None, None] ** exponent + 1e-12
+    # m00 ** ((i + j + 2) / 2) through XLA's CPU pow (glibc's powf; x and
+    # x * x at 1 and 2), so that the denominators agree on every device
+    m00 = m[:, 0, 0]
+    powers = {e: pow_f32(m00, e / 2.0) for e in range(2, 9)}
+    denom = torch.stack([torch.stack([powers[i + j + 2] for j in range(4)], dim=-1)
+                         for i in range(4)], dim=-2) + 1e-12
     return mu / denom
 
 

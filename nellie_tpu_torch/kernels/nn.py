@@ -26,6 +26,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from dataclasses import dataclass
 
@@ -121,13 +122,21 @@ def nn_argmin_plain(queries: torch.Tensor, refs: torch.Tensor):
 
 
 class _NNKernel:
-    """The compiled kernel: built once per process, with a launch count."""
+    """The compiled kernel: built once per process, with a launch count.
+    The build, the info cache and the count are guarded by one lock, so
+    that threads launching it on several devices (a mesh) compile it once
+    and lose no count."""
 
     def __init__(self):
         self.launches = 0
         self.build_seconds = None
         self._lib = None
         self._info = {}
+        self._lock = threading.RLock()
+
+    def count_launch(self):
+        with self._lock:
+            self.launches += 1
 
     def library_path(self) -> str:
         with open(_CSRC, "rb") as f:
@@ -136,8 +145,12 @@ class _NNKernel:
 
     def build(self):
         """Compile the kernel with nvcc (if not already built) and load it."""
-        if self._lib is not None:
+        with self._lock:
+            if self._lib is None:
+                self._lib = self._build()
             return self._lib
+
+    def _build(self):
         path = self.library_path()
         if not os.path.exists(path):
             nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -164,7 +177,6 @@ class _NNKernel:
         lib.nn_argmin_f32.restype = i32
         lib.nn_argmin_info.argtypes = [i32] + [ctypes.POINTER(i32)] * 6
         lib.nn_argmin_info.restype = i32
-        self._lib = lib
         return lib
 
     def info(self, dim: int) -> dict:
@@ -172,20 +184,25 @@ class _NNKernel:
         module's), and its split kernel's registers per thread, spill bytes
         per thread and resident warps per SM at ``dim`` coordinates, on the
         current CUDA device."""
-        if dim not in self._info:
-            lib = self.build()
-            vals = [ctypes.c_int() for _ in range(6)]
-            err = lib.nn_argmin_info(dim, *[ctypes.byref(v) for v in vals])
-            if err != 0:
-                raise RuntimeError(f"nn_argmin_info failed with cudaError {err}")
-            info = dict(zip(("qpt", "r_tile", "max_threads", "regs", "local_bytes",
-                             "resident_warps"), (v.value for v in vals)))
-            if (info["qpt"], info["r_tile"], info["max_threads"]) != (QPT, R_TILE, MAX_THREADS):
-                raise RuntimeError(f"{self.library_path()} was built with {info}, "
-                                   f"this module expects QPT {QPT}, R_TILE {R_TILE}, "
-                                   f"MAX_THREADS {MAX_THREADS}")
-            self._info[dim] = info
-        return self._info[dim]
+        key = (dim, torch.cuda.current_device())
+        with self._lock:
+            return self._info[key] if key in self._info else self._read_info(key)
+
+    def _read_info(self, key) -> dict:
+        dim = key[0]
+        lib = self.build()
+        vals = [ctypes.c_int() for _ in range(6)]
+        err = lib.nn_argmin_info(dim, *[ctypes.byref(v) for v in vals])
+        if err != 0:
+            raise RuntimeError(f"nn_argmin_info failed with cudaError {err}")
+        info = dict(zip(("qpt", "r_tile", "max_threads", "regs", "local_bytes",
+                         "resident_warps"), (v.value for v in vals)))
+        if (info["qpt"], info["r_tile"], info["max_threads"]) != (QPT, R_TILE, MAX_THREADS):
+            raise RuntimeError(f"{self.library_path()} was built with {info}, "
+                               f"this module expects QPT {QPT}, R_TILE {R_TILE}, "
+                               f"MAX_THREADS {MAX_THREADS}")
+        self._info[key] = info
+        return info
 
     def __call__(self, queries: torch.Tensor, refs: torch.Tensor):
         if queries.dtype != torch.float32 or refs.dtype != torch.float32:
@@ -218,7 +235,7 @@ class _NNKernel:
                                     idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"nn_argmin_f32 launch failed with cudaError {err}")
-        self.launches += 1
+        self.count_launch()
         return d2, idx
 
 

@@ -28,13 +28,22 @@ strategy assembles int32 labels on the host, and the monolith re-runs
 itself through it.  ``bytes_up`` and ``bytes_down`` count what crossed
 between host and device, as the reference counts them.
 
+A third strategy, **mesh** (``_segment_mesh``, ``capacity.py:833-933``),
+runs the monolith over a device mesh: the whole volume split along its
+first axis that divides the mesh's z extent, the Frangi cascade unwindowed
+on halo blocks, every statistic over the whole volume and the connectivity
+joined across shards (:mod:`nellie_tpu_torch.mesh`).  Its labels equal the
+monolith's when the monolith's vesselness runs as one window
+(``max_chunk_voxels`` at least the volume); a windowed monolith's
+statistics are per window and differ near window borders.  It keeps the
+reference's logged routes: to the chunked strategy when no axis divides
+or past 65,535 components, and to dense labels past the sparse capacity.
+
 Where the raw volume would not fit on the card beside the working set,
 decided before the window loop from ``torch.cuda.mem_get_info``, each
 window is uploaded from the host instead (the result is the same;
 ``raw_resident`` in the result says which way ran).  ``seconds`` holds the
 device-synchronised time of each phase.
-
-Not ported: the mesh strategy (``capacity.py:833-933``); ``mesh=`` raises.
 """
 from __future__ import annotations
 
@@ -72,10 +81,11 @@ _WINDOW_WORKING_SET = 32
 
 
 class _Phases:
-    """Device-synchronised seconds per phase, summed over its entries."""
+    """Device-synchronised seconds per phase, summed over its entries
+    (``device``: one device or a list of them)."""
 
     def __init__(self, device):
-        self.device = device
+        self.devices = [device] if isinstance(device, torch.device) else list(device)
         self.seconds = {}
 
     @contextmanager
@@ -89,8 +99,9 @@ class _Phases:
             self.seconds[name] = self.seconds.get(name, 0.0) + time.perf_counter() - start
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in set(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
 
 def _box(origin, shape):
@@ -567,6 +578,71 @@ def _segment_chunked(volume, params, min_area, emit, max_chunk_voxels, vessel_dt
 
 
 # ---------------------------------------------------------------------------
+# mesh strategy: the monolith over a device mesh
+# ---------------------------------------------------------------------------
+
+def _segment_mesh(volume, params, min_area, emit, mesh, max_chunk_voxels, vessel_dtype,
+                  threshold_sampling_pixels, histogram_nbins):
+    """The monolith (``_segment_from_vessel``) on a volume split over the
+    mesh's z group; see the module docstring."""
+    from nellie_tpu_torch.mesh import sharded as msh
+
+    shape = volume.shape
+    plan = msh.frame_sharding(mesh, shape)
+    rest = dict(max_chunk_voxels=max_chunk_voxels, vessel_dtype=vessel_dtype,
+                threshold_sampling_pixels=threshold_sampling_pixels,
+                histogram_nbins=histogram_nbins)
+    if plan.axis is None:
+        logger.warning("capacity segment (mesh): no axis of %s divides the mesh z extent %d; "
+                       "falling back to the single-device chunked strategy", shape,
+                       mesh.shape["z"])
+        return _segment_chunked(volume, params, min_area, emit, dev=plan.devices[0], **rest)
+    phases = _Phases(plan.devices)
+    with phases("vesselness"):
+        raw = msh.scatter(volume, plan, torch.float32)
+        vessel, _ = msh.vesselness_shards(raw, plan, params)
+        vessel = [v.to(vessel_dtype) for v in vessel]
+        del raw
+    with phases("segment"):
+        step = max(int(np.prod(shape)) // max(1, threshold_sampling_pixels), 1)
+        sample = msh.gather_flat_strided(vessel, plan, step).float()
+        pct = frangi_k.masked_percentile(sample, sample > 0, 1.0)
+        m1o = msh.halo_map(lambda v: _opening_mask(v, pct.to(v.device)), vessel, plan, 2)
+        thr = _threshold(sample, msh.gather_flat_strided(m1o, plan, step), histogram_nbins)
+        mask = [(v > thr.to(v.device).to(v.dtype)) & m for v, m in zip(vessel, m1o)]
+        del vessel, m1o
+        mask = msh.clean_mask(mask, plan, min_area, volume.ndim == 3)
+        labels, count = (None, 0) if emit == "mask" else msh.cells.label(mask, plan)
+    result = {"strategy": "mesh", "n_devices": int(mesh.devices.size), "bytes_up": volume.nbytes,
+              "raw_resident": True, "seconds": phases.seconds}
+    if emit == "mask":
+        host = msh.gather(mask, plan, torch.device("cpu")).numpy()
+        packed = np.packbits(host, axis=-1)
+        result.update(mask_packed=packed, fg_count=int(host.sum()), emit="mask",
+                      bytes_down=packed.nbytes)
+        return result
+    if count > 0xFFFF:
+        logger.warning("capacity segment (mesh): %d components exceed the uint16 emit; "
+                       "re-running through the single-device chunked strategy", count)
+        return _segment_chunked(volume, params, min_area, emit, dev=plan.devices[0], **rest)
+    host = msh.gather(labels, plan, torch.device("cpu")).numpy().astype(np.uint16)
+    fg_count = int(np.count_nonzero(host))
+    if emit == "sparse_labels":
+        cap = int(np.prod(shape)) // SPARSE_CAP_DIV
+        if fg_count > cap:
+            logger.warning("capacity segment (mesh): %d foreground voxels exceed the sparse "
+                           "capacity %d; falling back to dense labels", fg_count, cap)
+            emit = "labels"
+    bytes_down = (host.nbytes if emit == "labels"
+                  else -(-host.size // 8) + 2 * (int(np.prod(shape)) // SPARSE_CAP_DIV))
+    result.update(labels=host, n_labels=count, fg_count=fg_count, label_overflow=False,
+                  emit=emit, bytes_down=bytes_down)
+    logger.info("capacity segment (mesh, %d shards): %.2f GB up, %.2f GB down", plan.n,
+                volume.nbytes / 1e9, bytes_down / 1e9)
+    return result
+
+
+# ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
 
@@ -619,13 +695,15 @@ def segment_volume(volume: np.ndarray, params: frangi_k.FrangiParams, min_area: 
     produced the result), ``bytes_up``/``bytes_down``, ``raw_resident`` and
     the phase ``seconds``.  ``strategy``: ``"monolith"``, ``"chunked"`` or
     ``"auto"`` (chunked above ``monolith_max_voxels``).  The last axis must
-    be a multiple of 8 for ``emit="mask"``.  ``mesh`` (the reference's
-    multi-device mode) is not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError("capacity: mesh= (the multi-device strategy) is not ported; "
-                                  "it is ROADMAP Queue 1 #6, multi-GPU")
+    be a multiple of 8 for ``emit="mask"``.  ``mesh``: a
+    :class:`nellie_tpu_torch.mesh.Mesh` of more than one device runs the
+    mesh strategy instead (``strategy`` and ``device`` are then unused)."""
     if strategy not in ("auto", "monolith", "chunked"):
         raise ValueError(f"unknown strategy {strategy!r}")
+    if mesh is not None and mesh.devices.size > 1:
+        return _segment_mesh(np.asarray(volume), params, min_area, emit, mesh,
+                             max_chunk_voxels, vessel_dtype, threshold_sampling_pixels,
+                             histogram_nbins)
     dev = resolve_device(device)
     volume = np.asarray(volume)
     shape = volume.shape

@@ -26,8 +26,16 @@ Not ported, on purpose:
 * single-device frame-group batching (``_batch_group``,
   ``_run_batch_single``, ``_BATCH_PROG_CACHE``, ``NELLIE_FUSED_BATCH``,
   ``:486-610``), which amortises one XLA dispatch per group and changes
-  no artifact;
-* ``_run_batch_mesh``, which belongs to multi-GPU.
+  no artifact.
+
+With ``mesh`` (``_run_batch_mesh``, ``fused.py:431-485``) frames run in
+groups of the mesh's t extent (the series padded with zero frames, whose
+results are discarded): frame i of a group on t row i, its Filter and
+Label split over the row's z group (:mod:`nellie_tpu_torch.mesh.sharded`),
+its Network and Markers whole on the row's first device.  A z-only mesh,
+or a single frame, runs frame by frame on row 0.  The frame cache stays
+off under a mesh (``fused.py:392``).  The artifacts equal the
+single-device run's bit for bit.
 """
 from __future__ import annotations
 
@@ -68,11 +76,13 @@ class FusedSegmentation:
     def __init__(self, im_info, remove_edges: bool = False, otsu_thresh_intensity: bool = False,
                  threshold=None, device="cuda", viewer=None, cache_frames: bool = False,
                  filter_kwargs=None, label_kwargs=None, network_kwargs=None,
-                 markers_kwargs=None):
+                 markers_kwargs=None, mesh=None):
         self.im_info = im_info
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # with a mesh, the chain's own device is the mesh's first
+        self.device = resolve_device(device) if mesh is None else mesh.flat()[0]
         self.viewer = viewer
-        self.cache_frames = cache_frames
+        self.cache_frames = cache_frames and mesh is None
 
         def merge(extra, **base):
             kw = dict(base)
@@ -249,12 +259,52 @@ class FusedSegmentation:
         self.network._write_frame(t, tensors["skel"], tensors["pixel_class"], tensors["branch"])
         self.markers._write_frame(t, a["marker"], a["distance"], a["border"])
 
+    # -- mesh --------------------------------------------------------------
+    def _mesh_frame(self, t, row):
+        """Frame t's eight artifacts (host tensors) on one t row of the
+        mesh; t past the series is a zero frame."""
+        from nellie_tpu_torch.mesh import sharded as msh
+
+        f, lb = self.filter, self.label
+        shape = f.im_memmap.shape[1:]
+        plan = msh.plan_frame(row, shape)
+        host = f.im_memmap[t] if t < self.num_t else np.zeros(shape, f.im_memmap.dtype)
+        raw = msh.scatter(host, plan, torch.float32)
+        frangi = msh.filter_shards(raw, plan, f._params, True, f.max_threshold_samples,
+                                   f.remove_edges)
+        it, ft = msh.label_thresholds(frangi, raw, plan, lb)
+        labels, _ = msh.label_shards(frangi, raw, plan, 0.0 if it is None else it, ft,
+                                     lb.min_area_pixels, not self.im_info.no_z, it is not None)
+        raw, frangi, labels = (msh.gather(x, plan) for x in (raw, frangi, labels))
+        skel, pixel_class, branch = self._frame_network(labels, frangi)
+        marker, distance, border = self._frame_markers(raw, labels, frangi)
+        tensors = (frangi, labels, skel, pixel_class, branch, marker, distance, border)
+        return {k: v.cpu() for k, v in zip(_PULLS, tensors)}
+
+    def _run_mesh(self):
+        rows = int(self.mesh.shape.get("t", 1)) if self.num_t > 1 else 1
+        n = self.num_t + (-self.num_t) % rows
+        logger.info("Fused segmentation over %r: %d frames in groups of %d", self.mesh,
+                    self.num_t, rows)
+        for start in range(0, n, rows):
+            if self.viewer is not None:
+                self.viewer.status = f"Segmenting (mesh). Frame: {start + 1} of {self.num_t}."
+            out = self.mesh.map_rows(lambda i, row: self._mesh_frame(start + i, row), rows)
+            for i, pulls in enumerate(out):
+                if start + i < self.num_t:
+                    self._write_frame(start + i, (pulls, None))
+
     def run(self, fence_stages: bool = False):
         """Segment every frame; returns the per-stage seconds when
         ``fence_stages`` (each stage synchronised, which serialises the
-        loop), else {}."""
+        loop), else {}.  Under a mesh nothing is fenced and {} is
+        returned."""
         self._fence = fence_stages
         self._setup()
+        if self.mesh is not None:
+            self._run_mesh()
+            self.stage_times = {}
+            return self.stage_times
         if self.device.type == "cuda":
             self._copy_stream = torch.cuda.Stream(self.device)
         stage_totals = {}

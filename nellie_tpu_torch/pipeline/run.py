@@ -11,12 +11,18 @@ on-disk artifact store.  Either way the artifacts, the feature CSVs and
 ``adjacency_maps.pkl`` have the reference's names, dtypes and layout.
 
 ``run_path`` opens a file and runs it; the batch CLI
-(:mod:`nellie_tpu_torch.pipeline.cli`) calls it per file.
+(:mod:`nellie_tpu_torch.pipeline.cli`) calls it per file, or
+:func:`nellie_tpu_torch.pipeline.batch.run_files` for a mesh-batched
+folder.
 
-Not ported: the compile warmer and the XLA compile cache, the fused
-chain's "accelerator unavailable" retry, the mesh paths and the
-mesh-batched multi-file runs (``pipeline/batch.py``); ``run`` therefore has
-no ``mesh`` or ``warm_start`` argument.
+``mesh`` (a :class:`nellie_tpu_torch.mesh.Mesh`) is passed to every stage
+as the reference passes it (``run.py:161-230``): the segmentation stages
+split each frame over a z group and spread frames over the t rows, and
+tracking, the reassigner and the Hierarchy run frame-parallel over the
+mesh's devices; the artifacts are those of one device, bit for bit.
+
+Not ported: the compile warmer and the XLA compile cache and the fused
+chain's "accelerator unavailable" retry; ``run`` has no ``warm_start``.
 """
 from __future__ import annotations
 
@@ -84,7 +90,7 @@ def params_from_config(cfg) -> dict:
 
 def run(file_info, remove_edges=False, otsu_thresh_intensity=False, threshold=None,
         timeit=False, device="cuda", skip_nodes=False, return_timings=False, config=None,
-        low_memory=False, fused=True):
+        low_memory=False, fused=True, mesh=None):
     """Run the seven stages on a prepared :class:`FileInfo`.
 
     ``device`` is ``"cuda"`` (raises without a GPU) or ``"cpu"``; nothing
@@ -101,11 +107,14 @@ def run(file_info, remove_edges=False, otsu_thresh_intensity=False, threshold=No
     ``SettingsConfig`` (or dict, or JSON path) driving every stage's
     kwargs, its per-stage ``*_low_memory`` flags included (Filter's,
     Label's, Network's or Markers' select the per-stage path); the
-    convenience arguments above are then ignored.  Returns the
-    :class:`ImInfo`, and the seconds by stage (``seg_fused`` for the fused
-    chain) when ``return_timings``.
+    convenience arguments above are then ignored.  ``mesh``: run over a
+    device mesh (:func:`nellie_tpu_torch.mesh.make_mesh`); ``device`` is
+    then the mesh's first device, where the stages without a mesh path
+    run.  Returns the :class:`ImInfo`, and the seconds by stage
+    (``seg_fused`` for the fused chain) when ``return_timings``.
     """
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.flat()[0]
+    cards = {d for d in ([dev] if mesh is None else mesh.flat()) if d.type == "cuda"}
     im_info = ImInfo(file_info)
     if config is not None:
         kw = params_from_config(config)
@@ -121,13 +130,15 @@ def run(file_info, remove_edges=False, otsu_thresh_intensity=False, threshold=No
         }
     timings = {}
 
+    def sync():
+        for card in cards:
+            torch.cuda.synchronize(card)
+
     def timed(name, stage):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        sync()
         start = time.perf_counter()
         stage.run()
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        sync()
         timings[name] = time.perf_counter() - start
 
     segmentation = ("filter", "label", "network", "markers")
@@ -136,7 +147,7 @@ def run(file_info, remove_edges=False, otsu_thresh_intensity=False, threshold=No
         seg = FusedSegmentation(
             im_info, device=dev, cache_frames=not im_info.no_t,
             filter_kwargs=kw["filter"], label_kwargs=kw["label"],
-            network_kwargs=kw["network"], markers_kwargs=kw["markers"])
+            network_kwargs=kw["network"], markers_kwargs=kw["markers"], mesh=mesh)
         try:
             timed("seg_fused", seg)
         except adaptive_run.OOM_ERRORS as exc:
@@ -147,14 +158,14 @@ def run(file_info, remove_edges=False, otsu_thresh_intensity=False, threshold=No
                 cache.clear()
             use_fused = False
     if not use_fused:
-        timed("filter", Filter(im_info, device=dev, **kw["filter"]))
-        timed("label", Label(im_info, device=dev, **kw["label"]))
+        timed("filter", Filter(im_info, device=dev, mesh=mesh, **kw["filter"]))
+        timed("label", Label(im_info, device=dev, mesh=mesh, **kw["label"]))
         timed("network", Network(im_info, device=dev, **kw["network"]))
         timed("markers", Markers(im_info, device=dev, **kw["markers"]))
-    timed("tracking", HuMomentTracking(im_info, device=dev, **kw["tracking"]))
+    timed("tracking", HuMomentTracking(im_info, device=dev, mesh=mesh, **kw["tracking"]))
     if kw["voxel_reassign"]:
-        timed("reassign", VoxelReassigner(im_info, device=dev, **kw["reassign"]))
-    timed("hierarchy", Hierarchy(im_info, device=dev, **kw["hierarchy"]))
+        timed("reassign", VoxelReassigner(im_info, device=dev, mesh=mesh, **kw["reassign"]))
+    timed("hierarchy", Hierarchy(im_info, device=dev, mesh=mesh, **kw["hierarchy"]))
     cache = frame_cache(im_info)
     if cache is not None:
         cache.clear()

@@ -13,7 +13,13 @@ taken in float64 with numpy's linear interpolation (``_finalize_host``,
 there halves the window budget and retries on the same device.  Writes the
 float32 ``im_preprocessed`` artifact.
 
-Not ported: the mesh-batched path and the compile warmer.
+With ``mesh`` (:mod:`nellie_tpu_torch.mesh`) the whole-frame path runs
+frames in groups of the mesh's t extent, each frame split over its t row's
+z group (``_run_filter_batched``, ``filtering.py:332-400``); the artifact
+is the single-device one, bit for bit.  The low-memory path ignores the
+mesh, as the reference's does.
+
+Not ported: the compile warmer.
 """
 from __future__ import annotations
 
@@ -73,9 +79,12 @@ class Filter:
         max_chunk_voxels: int = int(1e6),
         max_threshold_samples: int = int(1e6),
         carry_dtype: str = "float32",
+        mesh=None,
     ):
         self.im_info = im_info
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # with a mesh, the stage's own device is the mesh's first
+        self.device = resolve_device(device) if mesh is None else mesh.flat()[0]
         self.truncate = 3.0
         if im_info.no_z:
             self.z_ratio = 1.0
@@ -191,7 +200,30 @@ class Filter:
             vessel = frangi_k.remove_edges_frame(vessel)
         return vessel
 
+    def _mesh_t_batch(self):
+        """Frames per group on the mesh (its t extent; 1 for one frame)."""
+        return int(self.mesh.shape.get("t", 1)) if self.num_t > 1 else 1
+
+    def _run_filter_batched(self, tb, mask=True):
+        """Groups of ``tb`` frames, frame i of a group on the mesh's t row
+        i, split over the row's z group."""
+        from nellie_tpu_torch.mesh.sharded import batched_filter_kernel
+
+        for start in range(0, self.num_t, tb):
+            ts = list(range(start, min(start + tb, self.num_t)))
+            if self.viewer is not None:
+                self.viewer.status = (f"Preprocessing. Frames: {ts[0] + 1}-{ts[-1] + 1} of "
+                                      f"{self.num_t}.")
+            logger.info(f"Running Frangi filter on t={ts[0]}-{ts[-1]} over the mesh.")
+            frames = [np.asarray(self.im_memmap[t]) for t in ts]
+            out = batched_filter_kernel(frames, self._params, mask, self.max_threshold_samples,
+                                        self.remove_edges, self.mesh)
+            for t, frame in zip(ts, out):
+                self._write_frame(t, frame)
+
     def _run_filter(self, mask=True):
+        if self.mesh is not None and not self.low_memory:
+            return self._run_filter_batched(self._mesh_t_batch(), mask=mask)
         for t in range(self.num_t):
             if self.viewer is not None:
                 self.viewer.status = f"Preprocessing. Frame: {t + 1} of {self.num_t}."

@@ -32,11 +32,19 @@ The skeleton volume of a frame comes from the fused chain's device cache
 when the chain ran in this process (``_skel_dev``,
 ``hierarchical.py:1203-1215``), else from the artifact.
 
-Not ported: the mesh paths, the trimmed transfers, the frames-ahead thread
+With a ``mesh`` of more than one device (``hierarchical.py:1286-1340``)
+frames are built concurrently, as many as the mesh has devices, frame t
+on the mesh's device t mod n (its own copy of the stage's device state,
+:meth:`Hierarchy._frame_view`), and the CSVs and adjacency lists are
+consumed in frame order; the frame cache is not read under a mesh.  The
+files are those of the one-device loop.
+
+Not ported: the trimmed transfers, the single-device frames-ahead thread
 pool and the host aggregate of small node tables.
 """
 from __future__ import annotations
 
+import copy
 import os
 import pickle
 import queue
@@ -701,7 +709,7 @@ class _BranchLevel:
         start = time.perf_counter()
         props = {r.label: r for r in regionprops(label_branches, spacing=tuple(spacing))}
         self._fill_regionprops(props, row_labels, "branch")
-        h.host_seconds["regionprops"] += time.perf_counter() - start
+        h.add_host_seconds("regionprops", time.perf_counter() - start)
 
         if h.im_branch_reassigned is not None:
             fg = label_branches > 0
@@ -786,7 +794,7 @@ class _ComponentLevel(_BranchLevel):
         start = time.perf_counter()
         props = {r.label: r for r in regionprops(label_frame, spacing=spacing)}
         self._fill_regionprops(props, row_labels, "organelle")
-        h.host_seconds["regionprops"] += time.perf_counter() - start
+        h.add_host_seconds("regionprops", time.perf_counter() - start)
 
         if h.im_obj_reassigned is not None:
             fg = label_frame > 0
@@ -946,10 +954,13 @@ class Hierarchy:
         device="cuda",
         node_chunk_size=None,
         max_node_mask_elems: int = int(5e7),
+        mesh=None,
     ):
         self.im_info = im_info
         self.low_memory = bool(low_memory)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # with a mesh, the stage's own device is the mesh's first
+        self.device = resolve_device(device) if mesh is None else mesh.flat()[0]
         self.num_t = im_info.shape[0]
         res = im_info.dim_res
         self.spacing = ((res["Y"], res["X"]) if im_info.no_z
@@ -977,6 +988,7 @@ class Hierarchy:
         self._border_cache = None
         self._pool = None
         self._vn_results = None
+        self._seconds_lock = threading.Lock()
 
     def _allocate_memory(self):
         pp = self.im_info.pipeline_paths
@@ -1023,6 +1035,25 @@ class Hierarchy:
         # every query voxel is in the union by construction
         return udist[np.searchsorted(ravel, np.ravel_multi_index(tuple(coords.T), shape))]
 
+    def add_host_seconds(self, key, seconds):
+        # frames built on several threads (a mesh) share the totals
+        with self._seconds_lock:
+            self.host_seconds[key] += seconds
+
+    def _frame_view(self, dev):
+        """A shallow copy of the stage that builds one frame on ``dev``: its
+        own device, spacing, flow interpolators (they keep per-frame state)
+        and border cache; the memmaps, the host worker and the node
+        results are shared."""
+        view = copy.copy(self)
+        view.device = dev
+        view.spacing_dev = self.spacing_dev.to(dev)
+        view._border_cache = None
+        if self.flow_interpolator_fw is not None:
+            view.flow_interpolator_fw = FlowInterpolator(self.im_info, device=dev)
+            view.flow_interpolator_bw = FlowInterpolator(self.im_info, forward=False, device=dev)
+        return view
+
     def _build_levels(self, t):
         vox = _VoxelLevel(self, t)
         nodes = None if self.skip_nodes else _NodeLevel(self, t, vox)
@@ -1060,11 +1091,29 @@ class Hierarchy:
 
         adjacency = {"v_b": [], "v_n": [], "v_o": [], "n_b": [], "n_o": [], "b_o": []}
         self._vn_results = {} if self.enable_adjacency and not self.skip_nodes else None
+        devs = self.mesh.flat() if self.mesh is not None and self.mesh.devices.size > 1 else None
+        build = self._build_levels
+        executor = None
+        if devs is not None:
+            from nellie_tpu_torch.mesh.sharded import thread_pool
+
+            width = min(len(devs), self.num_t)
+            executor = thread_pool(width, devs)
+            futures = {}
+
+            def build(t):
+                # frames t .. t + width in flight, frame t on devs[t % n]
+                for ahead in range(t, min(t + width + 1, self.num_t)):
+                    if ahead not in futures:
+                        futures[ahead] = executor.submit(
+                            lambda a: self._frame_view(devs[a % len(devs)])._build_levels(a),
+                            ahead)
+                return futures.pop(t).result()
         try:
             for t in range(self.num_t):
                 self._status(f"Extracting features. Frame: {t + 1} of {self.num_t}.")
                 logger.info("Hierarchy: frame %d/%d", t + 1, self.num_t)
-                vox, nodes, branches, components, cols = self._build_levels(t)
+                vox, nodes, branches, components, cols = build(t)
                 writers["voxels"].write(t, np.arange(len(vox.coords), dtype=np.int64),
                                         cols["voxels"])
                 if nodes is not None:
@@ -1077,6 +1126,8 @@ class Hierarchy:
                     self._collect_adjacency(adjacency, vox, nodes, branches, components)
             self._status("Finalizing run.")
         finally:
+            if executor is not None:
+                executor.shutdown(wait=True, cancel_futures=True)
             start = time.perf_counter()
             pool.close()
             self.host_seconds["drain"] = time.perf_counter() - start
@@ -1116,7 +1167,10 @@ class Hierarchy:
 
     def _skel_dev(self, t):
         """Frame t's skeleton volume left on the device by the fused chain,
-        or None; popped, as the Hierarchy is its last reader."""
+        or None; popped, as the Hierarchy is its last reader.  None under a
+        mesh, whose frames run on other devices."""
+        if self.mesh is not None:
+            return None
         cache = frame_cache(self.im_info)
         skel = None if cache is None else cache.take("im_skel", t)
         return None if skel is None else skel.to(self.device)

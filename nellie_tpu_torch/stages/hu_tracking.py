@@ -24,11 +24,17 @@ image, vesselness and distance are taken from its device cache
 instead of being read back from the artifacts; the low-memory rung clears
 the cache instead (``:446-460``).
 
-Not ported: the mesh frame-parallel path.
+With a ``mesh`` of more than one device and more than two frames
+(``_run_hu_tracking_mesh``, ``hu_tracking.py:360-430``) the frame features
+are computed round-robin over the mesh's devices, each pair is matched on
+the device of its later frame with the earlier frame's features copied
+there, and the rows are assembled in t order: the same array as the
+sequential loop.  The frame cache is not read under a mesh (it is
+cleared, ``:446-460``).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -120,9 +126,11 @@ class HuMomentTracking:
 
     def __init__(self, im_info: ImInfo, num_t=None, max_distance_um=1.0, viewer=None,
                  roi_chunk: int = 1024, device="cuda", mode: str = "auto",
-                 max_dense_pairs: int = int(1e7), low_memory: bool = False):
+                 max_dense_pairs: int = int(1e7), low_memory: bool = False, mesh=None):
         self.im_info = im_info
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # with a mesh, the stage's own device is the mesh's first
+        self.device = resolve_device(device) if mesh is None else mesh.flat()[0]
         self.mode = mode
         self.max_dense_pairs = int(max_dense_pairs)
         self.low_memory = bool(low_memory)
@@ -150,18 +158,19 @@ class HuMomentTracking:
         self.im_distance_memmap = info.get_memmap(info.pipeline_paths["im_distance"])
         self.flow_vector_array_path = info.pipeline_paths["flow_vector_array"]
 
-    def _frame(self, key, memmap, t):
-        """Frame t of an artifact on the device: the fused chain's cached
+    def _frame(self, key, memmap, t, dev):
+        """Frame t of an artifact on ``dev``: the fused chain's cached
         tensor when there is one, else read from ``memmap``."""
         cached = self._cache.take(key, t) if self._cache is not None else None
         if cached is not None:
-            return cached.to(self.device)
-        return _frames.load(memmap, t, self.device)
+            return cached.to(dev)
+        return _frames.load(memmap, t, dev)
 
-    def _get_frame_features(self, t) -> _FrameFeatures:
-        intensity = self._frame("im", self.im_memmap, t)
-        frangi = self._frame("im_preprocessed", self.im_frangi_memmap, t)
-        distance = self._frame("im_distance", self.im_distance_memmap, t)
+    def _get_frame_features(self, t, dev=None) -> _FrameFeatures:
+        dev = self.device if dev is None else dev
+        intensity = self._frame("im", self.im_memmap, t, dev)
+        frangi = self._frame("im_preprocessed", self.im_frangi_memmap, t, dev)
+        distance = self._frame("im_distance", self.im_distance_memmap, t, dev)
         marker = np.ascontiguousarray(self.im_marker_memmap[t]) > 0
         coords = np.argwhere(marker)
         n = coords.shape[0]
@@ -170,7 +179,7 @@ class HuMomentTracking:
         dmax = float(distance.max())
         r = _next_multiple(max(int(np.ceil(2.0 * dmax)) * 2 + 1, 3), 4)
         feats, coords_phys = _frame_features_fused(
-            intensity, frangi, distance, torch.from_numpy(coords).to(self.device), r,
+            intensity, frangi, distance, torch.from_numpy(coords).to(dev), r,
             self.roi_chunk, self.scaling)
         return _FrameFeatures(coords.astype(int), n, feats, coords_phys)
 
@@ -182,7 +191,7 @@ class HuMomentTracking:
         too_big = n_post * n_pre > self.max_dense_pairs
         return 2048 if (too_big or self.low_memory) else 8192
 
-    def _match_frames(self, frame_t: _FrameFeatures, frame_prev: _FrameFeatures):
+    def _match_frames(self, frame_t: _FrameFeatures, frame_prev: _FrameFeatures, dev):
         n_post, n_pre = frame_t.n, frame_prev.n
         tile_rows = self._tile_rows(n_post, n_pre)
         if n_post <= tile_rows and n_pre <= tile_rows:
@@ -196,13 +205,14 @@ class HuMomentTracking:
             frame_t.coords_voxel * scaling, frame_prev.coords_voxel * scaling,
             feats_t[:, :N_STATS], feats_prev[:, :N_STATS],
             feats_t[:, N_STATS:], feats_prev[:, N_STATS:],
-            self.max_distance_um, tile_rows=tile_rows, device=self.device)
+            self.max_distance_um, tile_rows=tile_rows, device=dev)
 
-    def _pair_rows(self, t, features, prev_features):
+    def _pair_rows(self, t, features, prev_features, dev=None):
         """Rows [t-1, idx0, vec, cost] for the (t-1, t) pair."""
         if features.n == 0 or prev_features.n == 0:
             return None
-        rows, cols, costs = self._match_frames(features, prev_features)
+        rows, cols, costs = self._match_frames(features, prev_features,
+                                               self.device if dev is None else dev)
         if len(rows) == 0:
             return None
         rows = np.asarray(rows, np.int64)
@@ -231,6 +241,38 @@ class HuMomentTracking:
             prev_features = features
         return frame_vectors
 
+    def _run_hu_tracking_mesh(self):
+        """Frame features round-robin over the mesh's devices from a thread
+        pool, then each pair on its later frame's device; rows in t order."""
+        from nellie_tpu_torch.mesh.sharded import thread_pool
+
+        devs = self.mesh.flat()
+        feats = [None] * self.num_t
+
+        def features_one(t):
+            logger.info(f"Tracking features (mesh) frame {t + 1} of {self.num_t}")
+            feats[t] = self._get_frame_features(t, devs[t % len(devs)])
+
+        workers = max(1, min(len(devs), self.num_t))
+        with thread_pool(workers, devs) as ex:
+            list(ex.map(features_one, range(self.num_t)))
+        pair_rows = [None] * (self.num_t - 1)
+
+        def match_one(t):
+            dev = devs[t % len(devs)]
+            prev = feats[t - 1]
+            if prev.feats is not None:
+                prev = replace(prev, feats=prev.feats.to(dev),
+                               coords_phys=prev.coords_phys.to(dev))
+            pair_rows[t - 1] = self._pair_rows(t, feats[t], prev, dev)
+
+        with thread_pool(workers, devs) as ex:
+            list(ex.map(match_one, range(1, self.num_t)))
+        return [r for r in pair_rows if r is not None]
+
+    def _use_mesh(self):
+        return self.mesh is not None and self.num_t > 2 and self.mesh.devices.size > 1
+
     def run(self):
         if self.im_info.no_t:
             logger.info("Skipping Hu moment tracking for non-temporal dataset.")
@@ -239,9 +281,10 @@ class HuMomentTracking:
         def attempt(dev, low):
             self.low_memory = low
             self._cache = frame_cache(self.im_info)
-            if low and self._cache is not None:
-                # the low-memory rung exists because memory is tight: free
-                # the fused chain's frames instead of reading them
+            if (low or self.mesh is not None) and self._cache is not None:
+                # the low-memory rung exists because memory is tight, and
+                # under a mesh frames run on other devices: free the fused
+                # chain's frames instead of reading them
                 self._cache.clear()
                 self._cache = None
             self._run_hu_tracking()
@@ -251,7 +294,8 @@ class HuMomentTracking:
 
     def _run_hu_tracking(self):
         self._allocate_memory()
-        frame_vectors = self._run_hu_tracking_sequential()
+        frame_vectors = (self._run_hu_tracking_mesh() if self._use_mesh()
+                         else self._run_hu_tracking_sequential())
         if frame_vectors:
             flow_vector_array = np.concatenate(frame_vectors, axis=0)
         else:

@@ -13,7 +13,11 @@ merged across slab faces with a union-find, and renumbered in the order
 first seen.  The thresholds are taken per frame from a strided sample of
 the whole frame.  Writes the int32 ``im_instance_label`` artifact.
 
-Not ported: the mesh-batched path.
+With ``mesh`` (and neither ``chunk_z`` nor low-memory mode) frames run in
+groups of the mesh's t extent, each split over its t row's z group, the
+thresholds still taken per frame from the host sample
+(``_run_segmentation_batched``, ``labelling.py:365-415``); the labels are
+the single-device ones exactly.
 """
 from __future__ import annotations
 
@@ -90,9 +94,12 @@ class Label:
                  histogram_nbins=256,
                  device="cuda",
                  low_memory: bool = False,
-                 max_chunk_voxels: int = int(1e6)):
+                 max_chunk_voxels: int = int(1e6),
+                 mesh=None):
         self.im_info = im_info
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # with a mesh, the stage's own device is the mesh's first
+        self.device = resolve_device(device) if mesh is None else mesh.flat()[0]
         self.num_t = num_t
         if num_t is None and not im_info.no_t:
             self.num_t = im_info.shape[im_info.axes.index("T")]
@@ -272,7 +279,36 @@ class Label:
             self.instance_label_memmap[t, z_start:z_end, ...] = new_ids[
                 np.searchsorted(unique, labels_chunk)]
 
+    def _run_segmentation_batched(self, tb):
+        """Groups of ``tb`` frames over the mesh's t rows, each frame split
+        over its row's z group."""
+        from nellie_tpu_torch.mesh.sharded import batched_label_kernel
+
+        use_intensity = self.otsu_thresh_intensity or self.threshold is not None
+        fill = not self.im_info.no_z
+        for start in range(0, self.num_t, tb):
+            ts = list(range(start, min(start + tb, self.num_t)))
+            if self.viewer is not None:
+                self.viewer.status = (f"Extracting organelles. Frames: {ts[0] + 1}-{ts[-1] + 1} "
+                                      f"of {self.num_t}.")
+            it_b, ft_b, valid_b = [], [], []
+            for t in ts:
+                it, ft = self._compute_frame_thresholds(self.im_memmap[t, ...],
+                                                        self.frangi_memmap[t, ...])
+                it_b.append(0.0 if it is None else it)
+                ft_b.append(ft)
+                valid_b.append(ft is not None)
+            labels = batched_label_kernel(
+                [np.asarray(self.frangi_memmap[t]) for t in ts],
+                [np.asarray(self.im_memmap[t]) for t in ts], it_b, ft_b, valid_b,
+                self.min_area_pixels, fill, use_intensity, self.mesh)
+            for t, lab in zip(ts, labels):
+                self._write_frame(t, lab.cpu().numpy())
+
     def _run_segmentation(self):
+        if self.mesh is not None and not self.low_memory and self.chunk_z is None:
+            tb = int(self.mesh.shape.get("t", 1)) if self.num_t > 1 else 1
+            return self._run_segmentation_batched(tb)
         for t in range(self.num_t):
             if self.viewer is not None:
                 self.viewer.status = f"Extracting organelles. Frame: {t + 1} of {self.num_t}."

@@ -114,7 +114,7 @@ class Network:
         self.scaling = ((res["Y"], res["X"]) if im_info.no_z
                         else (res["Z"], res["Y"], res["X"]))
         self.viewer = viewer
-        self._lut = None
+        self._luts = {}  # the 3D thinning table, per device
 
     def _get_t(self):
         if self.num_t is None:
@@ -143,10 +143,14 @@ class Network:
     def _frame(self, label_frame, frangi_frame):
         """(skeleton labels on branch-labelled voxels, pixel class, branch
         labels of whole objects) of one frame's int32 labels and float32
-        vesselness on the device."""
-        if self._lut is None and not self.im_info.no_z:
-            self._lut = simple26_lut(self.device)
-        skel_mask = skeletonize(label_frame > 0, self._lut)
+        vesselness on the device (any device: a mesh runs frames on several)."""
+        lut = None
+        if not self.im_info.no_z:
+            dev = label_frame.device
+            lut = self._luts.get(dev)
+            if lut is None:
+                lut = self._luts[dev] = simple26_lut(dev)
+        skel_mask = skeletonize(label_frame > 0, lut)
         skel = torch.where(skel_mask, label_frame, 0)
         skel = _clean_skeleton_kernel(skel)
         skel = _add_missing_skeleton_kernel(skel, label_frame, frangi_frame)

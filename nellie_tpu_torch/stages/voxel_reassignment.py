@@ -24,7 +24,14 @@ the two modes; from 200,000 candidates the votes run on the device in
 float32, as there).  Writes ``im_branch_label_reassigned``,
 ``im_obj_label_reassigned`` (int32) and ``voxel_matches.npy``.
 
-Not ported: the prefetch and writer threads, the mesh window, and
+With a ``mesh`` of more than one device (``voxel_reassignment.py:498-545``)
+the label-independent match of pair t (flow interpolation, the NN kernel,
+the candidate filters) runs on the mesh's device t mod n, a device-count
+of pairs ahead on a thread pool, and the voting chain consumes the pairs
+in order on the mesh's first device: the same two kernels, so the same
+labels and matches as on one device.
+
+Not ported: the single-device prefetch and writer threads, and
 ``_assign_unique_matches`` (kept by the reference for its API; nothing
 calls it).
 """
@@ -124,9 +131,11 @@ class VoxelReassigner:
 
     def __init__(self, im_info: ImInfo, num_t=None, viewer=None,
                  store_running_matches: bool = True, max_refine_iterations: int = 3,
-                 device="cuda", low_memory: bool = False):
+                 device="cuda", low_memory: bool = False, mesh=None):
         self.im_info = im_info
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        # with a mesh, the stage's own device is the mesh's first
+        self.device = resolve_device(device) if mesh is None else mesh.flat()[0]
         self.low_memory = bool(low_memory)
         self.max_refine_iterations = int(max_refine_iterations)
         self.store_running_matches = store_running_matches
@@ -159,18 +168,18 @@ class VoxelReassigner:
     def _get_master_mask(self, t):
         return (np.asarray(self.branch_label_memmap[t]) > 0) | (np.asarray(self.obj_label_memmap[t]) > 0)
 
-    def _frame_table(self, t):
+    def _frame_table(self, t, dev):
         """(coords numpy, float32 coords, scaled coords) of frame t's master
-        mask on the device, or None when the frame is empty."""
+        mask on ``dev``, or None when the frame is empty."""
         coords = np.argwhere(self._get_master_mask(t))
         if len(coords) == 0:
             return None
-        cp = torch.from_numpy(coords.astype(np.float32)).to(self.device)
-        return coords, cp, cp * self._scaling
+        cp = torch.from_numpy(coords.astype(np.float32)).to(dev)
+        return coords, cp, cp * self._scaling.to(dev)
 
-    def _flow_rows(self, t):
-        """(origin_scaled, origin_post_scaled, vec, cost) of pair (t, t+1), or
-        None when the pair has no flow rows."""
+    def _flow_rows(self, t, dev):
+        """(origin_scaled, origin_post_scaled, vec, cost) of pair (t, t+1) on
+        ``dev``, or None when the pair has no flow rows."""
         fva = self.flow_interpolator_fw.flow_vector_array
         rows = fva[fva[:, 0] == t]
         if len(rows) == 0:
@@ -181,41 +190,86 @@ class VoxelReassigner:
         vecs = rows[:, 1 + d:1 + 2 * d]
 
         def put(a):
-            return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
+            return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
 
         return (put(origins * scaling), put((origins + vecs) * scaling), put(vecs), put(rows[:, -1]))
 
-    def _label_at(self, memmap, t, coords):
+    def _label_at(self, memmap, t, coords, dev):
         return torch.from_numpy(np.ascontiguousarray(
-            memmap[t][tuple(coords.T)], np.int32)).to(self.device)
+            memmap[t][tuple(coords.T)], np.int32)).to(dev)
+
+    def _match(self, t, dev, table=None):
+        """Pair (t, t+1)'s tables and match outputs on ``dev``, or the reason
+        the chain stops there ("novox" or "noflow")."""
+        max_d = float(np.float32(self.flow_interpolator_fw.max_distance_um))
+        table = table if table is not None else self._frame_table(t, dev)
+        next_table = self._frame_table(t + 1, dev)
+        if table is None or next_table is None:
+            return "novox"
+        flow = self._flow_rows(t, dev)
+        if flow is None:
+            return "noflow"
+        _, cp, cp_s = table
+        _, cn, cn_s = next_table
+        return table, next_table, _pair_match_kernel(
+            cp, cp_s, cn, cn_s, *flow, self._scaling.to(dev), max_d, max_d)
+
+    def _matches_sequential(self, n_pairs):
+        table = None
+        for t in range(n_pairs):
+            res = self._match(t, self.device, table)
+            yield res
+            if isinstance(res, str):
+                return
+            table = res[1]
+
+    def _matches_windowed(self, n_pairs, devs):
+        """Pairs a device-count ahead, pair t on ``devs[t % n]``; yielded in
+        pair order until one stops the chain."""
+        from nellie_tpu_torch.mesh.sharded import thread_pool
+
+        window = len(devs)
+        futures = {}
+        with thread_pool(min(window, n_pairs), devs) as ex:
+            try:
+                for t in range(n_pairs):
+                    for ahead in range(t, min(t + window, n_pairs)):
+                        if ahead not in futures:
+                            futures[ahead] = ex.submit(self._match, ahead, devs[ahead % window])
+                    res = futures.pop(t).result()
+                    yield res
+                    if isinstance(res, str):
+                        return
+            finally:
+                for f in futures.values():
+                    f.cancel()
 
     def _run_reassignment_fused(self):
-        max_d = float(np.float32(self.flow_interpolator_fw.max_distance_um))
+        devs = self.mesh.flat() if self.mesh is not None and self.mesh.devices.size > 1 else None
+        chain = devs[0] if devs else self.device
         match_dtype = np.uint16 if max(self.spatial_shape) < 2 ** 16 else np.uint32
-        table = None
+        n_pairs = self.num_t - 1
+        pairs = (self._matches_windowed(n_pairs, devs) if devs
+                 else self._matches_sequential(n_pairs))
         prev_branch = prev_obj = None
-        for t in range(self.num_t - 1):
+        for t in range(n_pairs):
             if self.viewer is not None:
                 self.viewer.status = f"Reassigning voxels. Frame: {t + 1} of {self.num_t}."
             logger.info(f"Reassigning pixels between frames {t} and {t + 1}")
-            table = table if table is not None else self._frame_table(t)
-            next_table = self._frame_table(t + 1)
-            if table is None or next_table is None:
+            res = next(pairs)
+            if res == "novox":
                 logger.info(f"No voxels to match between frames {t} and {t + 1}; stopping.")
                 break
-            flow = self._flow_rows(t)
-            if flow is None:
+            if res == "noflow":
                 logger.info(f"No valid matches between frames {t} and {t + 1}; stopping.")
                 break
-            coords_p, cp, cp_s = table
-            coords_n, cn, cn_s = next_table
-            src, tgt, dist, keep, best_src, best_ok = _pair_match_kernel(
-                cp, cp_s, cn, cn_s, *flow, self._scaling, max_d, max_d)
+            (coords_p, _, _), (coords_n, _, _), m = res
+            src, tgt, dist, keep, best_src, best_ok = (x.to(chain) for x in m)
             if prev_branch is None:
-                prev_branch = self._label_at(self.reassigned_branch_memmap, t, coords_p)
-                prev_obj = self._label_at(self.reassigned_obj_memmap, t, coords_p)
-            next_has_b = self._label_at(self.branch_label_memmap, t + 1, coords_n) > 0
-            next_has_o = self._label_at(self.obj_label_memmap, t + 1, coords_n) > 0
+                prev_branch = self._label_at(self.reassigned_branch_memmap, t, coords_p, chain)
+                prev_obj = self._label_at(self.reassigned_obj_memmap, t, coords_p, chain)
+            next_has_b = self._label_at(self.branch_label_memmap, t + 1, coords_n, chain) > 0
+            next_has_o = self._label_at(self.obj_label_memmap, t + 1, coords_n, chain) > 0
             voted_branch, voted_obj = _pair_vote_kernel(
                 src, tgt, dist, keep, prev_branch, prev_obj, next_has_b, next_has_o)
 
@@ -234,7 +288,8 @@ class VoxelReassigner:
             self.reassigned_obj_memmap[t + 1][tuple(coords_n[wo].T)] = vo[wo]
             self.reassigned_branch_memmap.flush()
             self.reassigned_obj_memmap.flush()
-            table, prev_branch, prev_obj = next_table, voted_branch, voted_obj
+            prev_branch, prev_obj = voted_branch, voted_obj
+        pairs.close()
 
     # -- the step-by-step path of low-memory mode ------------------------------
     def _scale_coords(self, coords):

@@ -1,5 +1,5 @@
-"""The port's low-memory modes, its Label chunked-Z path and its row-tiled
-matcher against the JAX package, on the CPU, and its same-device ladder.
+"""The port's low-memory modes against the JAX package, on the CPU, and its
+same-device ladder.
 
 * A whole run with every stage in low-memory mode, from a
   ``SettingsConfig`` whose Label budget makes Z slabs (and whose node
@@ -10,23 +10,19 @@ matcher against the JAX package, on the CPU, and its same-device ladder.
   flow costs within 1e-4, features at the features bar (rel_* near-ties
   counted, as in ``tests/test_torch_slice.py``).  Filter runs in windows
   of 12x24x24 core voxels, as a real low-memory frame does.
-* Filter in several windows (3D and 2D), held to the JAX package's
-  windows at the Filter bar; Markers in windows of a frame wide enough
-  that the windows overlap.
-* Label with ``chunk_z`` set (exact), the tiled matcher in a
-  ``mode="sparse"`` tracking run with more markers than one tile (every
-  flow row exact, costs included) and ``matching.match_frames`` with
-  small tiles.
 * ``run(low_memory=True)`` hands the flag to the stages the JAX package's
   ``run`` hands it to, and the ladder retries on the same device only.
+
+The windowed Filter and Markers and Label's chunked-Z path are in
+``tests/test_torch_low_memory_windows.py``, the row-tiled matcher in
+``tests/test_torch_low_memory_tracking.py``.
 """
 import numpy as np
 import pytest
 import torch
-from scipy import ndimage
 
 import torch_port_data as D
-from nellie_tpu.kernels import matching as j_matching
+from torch_port_data import one_torch_thread  # noqa: F401 — autouse
 from nellie_tpu.plugin import config as j_config
 from nellie_tpu.stages.filtering import Filter as JFilter
 from nellie_tpu.stages.hierarchical import Hierarchy as JHierarchy
@@ -36,13 +32,10 @@ from nellie_tpu.stages.mocap_marking import Markers as JMarkers
 from nellie_tpu.stages.networking import Network as JNetwork
 from nellie_tpu.stages.voxel_reassignment import VoxelReassigner as JReassigner
 from nellie_tpu_torch.config import SettingsConfig
-from nellie_tpu_torch.kernels import matching
 from nellie_tpu_torch.pipeline import run as run_mod
 from nellie_tpu_torch.pipeline.run import params_from_config, run
 from nellie_tpu_torch.stages.filtering import Filter
-from nellie_tpu_torch.stages.hu_tracking import HuMomentTracking
 from nellie_tpu_torch.stages.labelling import Label
-from nellie_tpu_torch.stages.mocap_marking import Markers
 from nellie_tpu_torch.utils import adaptive_run
 
 COST_ATOL = 1e-4
@@ -66,12 +59,6 @@ def jax_stage_kwargs(fields):
             (JTracking, j_config.tracking_params(cfg)),
             (JReassigner, j_config.reassign_params(cfg)),
             (JHierarchy, j_config.feature_params(cfg))]
-
-
-def write_artifacts(im_info, arrays):
-    for name, arr in arrays.items():
-        im_info.allocate_memory(im_info.pipeline_paths[name], dtype=arr.dtype.name, data=arr,
-                                description=name)
 
 
 @pytest.fixture(scope="module")
@@ -139,118 +126,6 @@ def test_low_memory_adjacency(low_runs):
     D.assert_adjacency_equal(D.read_adjacency(ref.pipeline_paths["adjacency_maps"]),
                              D.read_adjacency(port.pipeline_paths["adjacency_maps"]))
 
-
-@pytest.mark.parametrize("axes,remove_edges", [("TZYX", False), ("TYX", True)])
-def test_filter_windows_equal_jax(tmp_path, axes, remove_edges):
-    """Filter's windows and its float64 host finalize, within 1e-4 of the
-    frame max of the JAX package's, and different from whole frames."""
-    data, dim_res, budget = ((D.tube_series(), D.DIM_RES, 12 * 24 * 24) if axes == "TZYX"
-                             else (D.tube_series_2d(shape=(2, 96, 64)), D.DIM_RES_2D, 32 * 32))
-    ref, port, whole = (D.open_im_info(D.write_input(tmp_path / k, data, dim_res, axes=axes))
-                        for k in ("jax", "port", "whole"))
-    kw = dict(low_memory=True, max_chunk_voxels=budget, remove_edges=remove_edges)
-    JFilter(ref, **kw).run()
-    Filter(port, device="cpu", **kw).run()
-    Filter(whole, device="cpu", remove_edges=remove_edges).run()
-    D.assert_artifact_equal(ref, port, "im_preprocessed", 1e-4)
-    got = D.read(port, "im_preprocessed")
-    assert (got > 0).any()
-    assert (D.read(whole, "im_preprocessed") != got).any()
-
-
-def test_markers_in_overlapping_windows(tmp_path):
-    """Markers windowed along a wide X axis: the JAX package's windows, and
-    the whole frame's result."""
-    data = D.tube_series(shape=(1, 12, 48, 256))
-    labels, _ = ndimage.label(data > 500)
-    arrays = {"im_instance_label": labels.astype(np.int32)}
-    ref, port, whole = (D.open_im_info(D.write_input(tmp_path / k, data))
-                        for k in ("jax", "port", "whole"))
-    for im_info in (ref, port, whole):
-        write_artifacts(im_info, arrays)
-    budget = 12 * 48 * 64
-    JMarkers(ref, low_memory=True, max_chunk_voxels=budget).run()
-    Markers(port, device="cpu", low_memory=True, max_chunk_voxels=budget).run()
-    Markers(whole, device="cpu").run()
-    for name in ("im_marker", "im_distance", "im_border"):
-        D.assert_artifact_equal(ref, port, name, "exact")
-        D.assert_artifact_equal(whole, port, name, "exact")
-    assert D.read(port, "im_marker").sum() > 0
-
-
-# -- the two repaired faults ---------------------------------------------------
-
-def test_label_chunk_z_from_config(tmp_path):
-    """``segmentation_label_chunk_z`` reaches Label, whose Z slabs give the
-    JAX package's ``im_instance_label`` exactly."""
-    jax_info, port_info = D.two_copies(tmp_path)
-    JFilter(jax_info).run()
-    D.copy_artifacts(jax_info, port_info, ["im_preprocessed"])
-    JLabel(jax_info, chunk_z=5).run()
-    Label(port_info, device="cpu", **params_from_config(
-        SettingsConfig(segmentation_label_chunk_z=5))["label"]).run()
-    D.assert_artifact_equal(jax_info, port_info, "im_instance_label", "exact")
-    assert D.read(port_info, "im_instance_label").max() > 0
-
-
-def many_markers(shape=(2, 12, 64, 64), n=1500, seed=5):
-    """Artifacts for tracking alone: smooth intensity and Frangi images
-    (frame 1 is frame 0 moved one voxel along X), ``n`` markers a frame,
-    moved likewise, and a small distance image."""
-    rng = np.random.default_rng(seed)
-    smooth = ndimage.gaussian_filter(rng.normal(size=shape[1:]), 1.5)
-    frame = 300 + 100 * smooth / smooth.std()
-    im = np.stack([np.roll(frame, t, axis=2) for t in range(shape[0])]).astype(np.uint16)
-    frangi = np.stack([np.roll(np.abs(smooth), t, axis=2) for t in range(shape[0])])
-    frangi = (frangi * 1e-3).astype(np.float32)
-    marker = np.zeros(shape, np.uint8)
-    flat = rng.choice(int(np.prod(shape[1:])), n, replace=False)
-    idx = np.stack(np.unravel_index(flat, shape[1:]), 1)
-    for t in range(shape[0]):
-        moved = idx.copy()
-        moved[:, 2] = (moved[:, 2] + t) % shape[3]
-        marker[(t,) + tuple(moved.T)] = 1
-    distance = (1.0 + rng.random(shape)).astype(np.float32)
-    return im, {"im_preprocessed": frangi, "im_marker": marker, "im_distance": distance}
-
-
-def test_tracking_tiles_from_config(tmp_path):
-    """``tracking_mode="sparse"`` reaches tracking, whose 1,024-row tiles
-    (1,500 markers a frame) give the JAX package's flow rows exactly, costs
-    included; the constructor takes ``mode`` itself too."""
-    im, arrays = many_markers()
-    arrays["im_instance_label"] = arrays["im_marker"].astype(np.int32)
-    jax_info, port_info = D.two_copies(tmp_path, im)
-    for im_info in (jax_info, port_info):
-        write_artifacts(im_info, arrays)
-    JTracking(jax_info, mode="sparse").run()
-    HuMomentTracking(port_info, device="cpu", **params_from_config(
-        SettingsConfig(tracking_mode="sparse"))["tracking"]).run()
-    a, b = D.read(jax_info, "flow_vector_array"), D.read(port_info, "flow_vector_array")
-    assert a.shape == b.shape and a.shape[0] > 1024
-    np.testing.assert_array_equal(b, a)
-    assert HuMomentTracking(port_info, device="cpu", mode="sparse")._tile_rows(1500, 1500) == 1024
-
-
-@pytest.mark.parametrize("tile_rows", [16, 50, 1000])
-def test_match_frames_tiled(tile_rows):
-    """Tiles smaller than the marker count: the same matches, costs within
-    1e-4."""
-    rng = np.random.default_rng(tile_rows)
-    n_post, n_pre = 170, 150
-    coords_pre = rng.integers(0, 20, (n_pre, 3)) * np.array([0.5, 0.2, 0.2])
-    coords_post = coords_pre[rng.integers(0, n_pre, n_post)] + rng.normal(0, 0.2, (n_post, 3))
-    feats = [rng.normal(0, 1, (n, 22)).astype(np.float32) for n in (n_post, n_pre)]
-    args = (coords_post, coords_pre, feats[0][:, :4], feats[1][:, :4], feats[0][:, 4:],
-            feats[1][:, 4:], 1.0)
-    ref = j_matching.match_frames(*args, tile_rows=tile_rows)
-    got = matching.match_frames(*args, tile_rows=tile_rows, device="cpu")
-    assert len(ref[0]) > 0
-    assert got[0] == ref[0] and got[1] == ref[1]
-    np.testing.assert_allclose(got[2], ref[2], rtol=0, atol=COST_ATOL)
-
-
-# -- entry points and the ladder ------------------------------------------------
 
 def test_run_passes_low_memory_as_the_jax_run(tmp_path, monkeypatch):
     """``run(low_memory=True)`` starts Filter, Label, tracking and Hierarchy

@@ -10,6 +10,11 @@ squared distances differ by at most 1e-6 * (|q|^2 + |r|^2) — float32
 cancellation in (|q|^2 + |r|^2) - 2 q.r is of that order.  Distances agree
 to 1e-5 relative.
 """
+import sys
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import pytest
 import torch
@@ -123,6 +128,30 @@ def test_cpu_tensor_never_builds_the_kernel():
     nn.nn_argmin(torch.rand(10, 3), torch.rand(20, 3))
     assert nn.NN_KERNEL.launches == before
     assert nn.NN_KERNEL._lib is None
+
+
+def test_kernel_build_and_count_are_thread_safe(monkeypatch):
+    """Concurrent first launches (a mesh's threads) build the kernel once,
+    and no launch count is lost."""
+    kernel = nn._NNKernel()
+    builds = []
+
+    def slow_build():
+        builds.append(threading.get_ident())
+        time.sleep(0.05)
+        return "library"
+
+    monkeypatch.setattr(kernel, "_build", slow_build)
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(max_workers=32) as ex:
+            libs = list(ex.map(lambda _: kernel.build(), range(32)))
+            list(ex.map(lambda _: [kernel.count_launch() for _ in range(2000)], range(32)))
+    finally:
+        sys.setswitchinterval(switch)
+    assert len(builds) == 1 and set(libs) == {"library"}
+    assert kernel.launches == 32 * 2000
 
 
 PLAN_SHAPES = [(1, 1), (1, 10 ** 6), (10 ** 6, 1), (37, 5), (513, 2049), (1573, 31247),

@@ -6,16 +6,21 @@ figure, held to the JAX package on the CPU.
   points of the ranges the kernels give them (the 3D eigen solver's angles
   and its ``acos`` argument, the Frangi response's exponents, the log of
   the tracker's and Label's positive values).
-* ``eigvalsh3`` and the 3D vesselness then equal the reference's bit for
-  bit, in one window and in the low-memory Filter's windows.
+* ``eigvalsh3`` equals the reference's bit for bit.
 * The tracker's masked pair sums (XLA's 32 x 32 tree reduction), its pair
   costs, and its Hu features in both of the reference's programs (one
   chunk of markers, inlined, and several, a loop) are bitwise (the
   ``mode="sparse"`` tracking run is held to the reference exactly in
-  ``tests/test_torch_low_memory.py``).
-* The 3D Hessian at the one width where XLA fuses its whole inner
-  gradient (128), the 2D Hessian, and the matcher's second window level
-  (LLVM's vectorised reduce-window) are bitwise too.
+  ``tests/test_torch_low_memory_tracking.py``).
+* ``_fp.pow`` equals ``jax.jit`` of ``jnp.power`` at the Hu moments'
+  exponents (1, 1.5, ..., 4, formed in the program as the tracker forms
+  them) bit for bit on 2 * 10**5 seeded values around the tracker's
+  ``m00`` range.
+* The matcher's second window level (LLVM's vectorised reduce-window) is
+  bitwise too, and a whole 3D Filter frame at the one width where XLA fuses
+  the Hessian's inner gradient whole (128).  The 3D and 2D vesselness, the
+  Filter stage and the frame at width 256 are in
+  ``tests/test_torch_parity_repairs_filter.py``.
 * ``nearest_neighbors`` and ``match_frames`` default to the card.
 * ``device_free_bytes`` counts the caching allocator's unused blocks as
   free.
@@ -29,13 +34,13 @@ import jax
 import jax.numpy as jnp
 
 import torch_port_data as D
+from torch_port_data import one_torch_thread  # noqa: F401 — autouse
 from nellie_tpu.kernels import eigen as j_eigen
-from nellie_tpu.kernels import frangi as j_frangi
 from nellie_tpu.kernels import matching as j_matching
 from nellie_tpu.stages import hu_tracking as j_tracking
 from nellie_tpu.stages.filtering import Filter as JFilter
 from nellie_tpu_torch.device import resolve_device
-from nellie_tpu_torch.kernels import _fp, eigen, frangi, hessian, matching, nn
+from nellie_tpu_torch.kernels import _fp, eigen, matching, nn
 from nellie_tpu_torch.stages import hu_tracking
 from nellie_tpu_torch.stages.filtering import Filter
 from nellie_tpu_torch.utils import adaptive_run
@@ -49,8 +54,6 @@ def assert_bitwise(got, want):
     differ = (got.view(np.int32) != want.view(np.int32)) & ~(np.isnan(got) & np.isnan(want))
     assert int(differ.sum()) == 0, f"{int(differ.sum())} of {got.size} differ"
 
-
-# -- A1: the transcendentals ---------------------------------------------------
 
 @pytest.mark.parametrize("lo, hi", [(0.0, np.pi / 3), (2 * np.pi / 3, np.pi), (-100.0, 100.0)])
 def test_cos_bitwise_to_xla(lo, hi):
@@ -91,6 +94,25 @@ def test_log_bitwise_to_xla():
     assert_bitwise(_fp.log10(T(x)), jax.jit(jnp.log10)(x))
 
 
+# the tracker's m00 on the test inputs lies in [2.8e4, 8.3e4] (3D and 2D
+# series); the sweep covers a decade on either side and the edge values
+M00_RANGE = (2.7e3, 8.3e5)
+
+
+@pytest.mark.parametrize("exponent", [1.0, 1.5, 2.0, 2.5, 3.0, 3.5, 4.0])
+def test_pow_bitwise_to_xla(exponent):
+    """``_fp.pow`` against ``jnp.power`` at the Hu normalisation's
+    exponents, formed in the program from i + j as the reference's tracker
+    forms them (its compiled loop calls ``powf`` for every exponent)."""
+    rng = np.random.default_rng(int(exponent * 10))
+    x = (10 ** rng.uniform(*np.log10(M00_RANGE), N // 5)).astype(np.float32)
+    x[:8] = [0, 1, 2, 1e-40, 3e-39, np.inf, np.nan, 3.4e38]
+    ipj = np.add.outer(np.arange(4), np.arange(4)).astype(np.int32)
+    i, j = np.argwhere((ipj + 2) / 2.0 == exponent)[0]
+    want = jax.jit(lambda m, k: m[:, None, None] ** ((k[None] + 2) / 2.0))(x, ipj)
+    assert_bitwise(_fp.pow(T(x), exponent), np.asarray(want)[:, i, j])
+
+
 def test_eigvalsh3_bitwise():
     rng = np.random.default_rng(5)
     h = [rng.normal(0, 3, 50_000).astype(np.float32) for _ in range(6)]
@@ -100,29 +122,7 @@ def test_eigvalsh3_bitwise():
         assert_bitwise(g, w)
 
 
-@pytest.mark.parametrize("t", range(3))
-def test_vesselness_3d_bitwise(t):
-    frame = D.tube_series()[t].astype(np.float32)
-    sigmas, spacing = (0.625, 0.8333, 1.0417, 1.25), (0.5, 0.2, 0.2)
-    params = frangi.FrangiParams(sigmas=sigmas, spacing=spacing, z_ratio=2.5)
-    j_params = j_frangi.FrangiParams(sigmas=sigmas, spacing=spacing, z_ratio=2.5)
-    v_j, m_j = jax.jit(lambda x: j_frangi.vesselness_frame(x, j_params))(frame)
-    v_p, m_p = frangi.vesselness_frame(T(frame), params)
-    assert_bitwise(v_p, v_j)
-    np.testing.assert_array_equal(m_p.numpy(), np.asarray(m_j))
-
-
-@pytest.mark.parametrize("kw", [{}, dict(low_memory=True, max_chunk_voxels=12 * 24 * 24)])
-def test_filter_3d_equals_the_reference(tmp_path, kw):
-    """``im_preprocessed`` of the 3D tube series, whole frames and the
-    low-memory windows: the reference's bit for bit."""
-    ref, port = D.two_copies(tmp_path)
-    JFilter(ref, **kw).run()
-    Filter(port, device="cpu", **kw).run()
-    D.assert_artifact_equal(ref, port, "im_preprocessed", "exact")
-
-
-@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("width", [128])
 def test_filter_3d_whole_frames_at_fused_widths(tmp_path, width):
     """Whole 3D frames whose last axis is 128, the one width at which XLA
     fuses the inner gradient of ``hzz`` whole (``hessian._fuses_inner_gradient``),
@@ -132,33 +132,6 @@ def test_filter_3d_whole_frames_at_fused_widths(tmp_path, width):
     Filter(port, device="cpu").run()
     D.assert_artifact_equal(ref, port, "im_preprocessed", "exact")
 
-
-def test_inner_gradient_fusion_rule():
-    """XLA leaves a minor-axis concatenation of 128 elements or more
-    unfused, so only a last axis of exactly 128 fuses the inner gradient;
-    the other axes never do."""
-    fused = [w for w in range(2, 600)
-             if hessian._fuses_inner_gradient(torch.zeros(1, 1, w), 2)]
-    assert fused == [128]
-    assert not hessian._fuses_inner_gradient(torch.zeros(1, 128, 128), 1)
-    assert hessian._fuses_inner_gradient(torch.zeros(64, 128), 1)
-
-
-@pytest.mark.parametrize("shape", [(64, 64), (64, 128), (128, 256)])
-def test_vesselness_2d_bitwise(shape):
-    """The 2D ``hyy`` rounds as the 3D ``hyy`` and ``hzz`` do: its edges,
-    and at a width of 128 its interior, take a fused multiply-add."""
-    frame = D.tube_series_2d((1,) + shape)[0].astype(np.float32)
-    sigmas, spacing = (0.5, 0.75, 1.0), (0.1, 0.1)
-    params = frangi.FrangiParams(sigmas=sigmas, spacing=spacing)
-    j_params = j_frangi.FrangiParams(sigmas=sigmas, spacing=spacing)
-    v_j, m_j = jax.jit(lambda x: j_frangi.vesselness_frame(x, j_params))(frame)
-    v_p, m_p = frangi.vesselness_frame(T(frame), params)
-    assert_bitwise(v_p, v_j)
-    np.testing.assert_array_equal(m_p.numpy(), np.asarray(m_j))
-
-
-# -- A2: the tiled matcher -----------------------------------------------------
 
 def matcher_tiles(seed=0, n_post=300, n_pre=260, n_feat=22):
     rng = np.random.default_rng(seed)
@@ -253,8 +226,6 @@ def test_tracking_features_bitwise(ndim, n):
     assert_bitwise(got, np.asarray(want)[:n])
 
 
-# -- A4: the host-array entry points run on the card unless told otherwise
-
 def test_host_array_entry_points_default_to_cuda(monkeypatch):
     """``nearest_neighbors`` and ``match_frames`` without ``device`` ask for
     the card, and without one raise ``resolve_device``'s error."""
@@ -270,8 +241,6 @@ def test_host_array_entry_points_default_to_cuda(monkeypatch):
         matching.match_frames(pts, pts, feats, feats, feats, feats, 1.0)
     assert str(got.value) == str(want.value)
 
-
-# -- A3: free device memory ----------------------------------------------------
 
 def test_free_bytes_count_cached_blocks(monkeypatch):
     monkeypatch.setattr(torch.cuda, "mem_get_info", lambda device=None: (3 << 30, 80 << 30))

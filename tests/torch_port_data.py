@@ -10,10 +10,24 @@ import os
 import shutil
 
 import numpy as np
+import pytest
+import torch
 
 from nellie_tpu.io import ome as ome_mod
 from nellie_tpu.io import tiff as tifffile
 from nellie_tpu.io.verifier import FileInfo, ImInfo
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """torch on one intra-op thread for a test module that imports this
+    fixture: tier-1 runs six workers on the machine's cores, where an op
+    spread over several threads waits for all of them; the port's results
+    do not depend on the thread count."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 SHAPE = (3, 12, 48, 48)
 DIM_RES = {"X": 0.2, "Y": 0.2, "Z": 0.5, "T": 1.0}
