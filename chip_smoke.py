@@ -5,8 +5,10 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. the device: name, ``nvidia-smi`` name and power limit, torch/CUDA versions;
-2. builds the nearest-neighbour CUDA kernel from the checkout, times the
-   build and prints its registers, spills and resident warps per SM;
+2. builds the three CUDA kernels from the checkout (nearest neighbour,
+   union-find, flow interpolation; one nvcc each, in parallel), times the
+   builds and prints the nearest-neighbour kernel's registers, spills and
+   resident warps per SM;
 3. checks the kernel against its plain PyTorch version on the card (ragged
    shapes, exact ties on a grid, 150,000 voxels each way) and times both;
    then holds its d2 bit for bit, and its indices, to the plain version on
@@ -90,6 +92,27 @@ Phases, each printing its own lines; any failure exits non-zero:
    a 256x512x512 volume of phase 11's generator against the one-window
    monolith, with seconds and peak memory; with more than one card, the 3D
    check again over the real cards.
+
+17. the union-find (``kernels/csrc/ccl_union_find.cu``) and flow
+   interpolation (``kernels/csrc/flow_interp.cu``) kernels against their
+   plain bodies on the card.  Union-find, exactly (``torch.equal``), at
+   both connectivities: background, foreground, one voxel, a checkerboard,
+   a one-voxel serpentine and a mask touching every face, at 0.1 % and
+   25 % (64x256x256 and 1024x1024, component counts also held to
+   ``scipy.ndimage.label``), every mask phases 4 and 6 gave it, a 1024^3
+   capacity window (262x520x640) from phase 11 and a synthetic one at
+   0.1 %.  Interpolation, bit for bit (NaN where NaN): synthetic inputs at
+   M < 32, 32 < M <= 1024 and M > 1024, d = 2 and 3, with queries on an
+   anchor, with an empty radius and NaN, also against CPU copies, then
+   every call of phases 4 and 6; a row that differs must equal the numpy
+   model with exact fused multiply-adds (``_fp.fma`` rounds twice), and
+   the count is printed.  Each kernel's time (CUDA events and
+   ``torch.profiler``) at its main-path shapes beside the plain body's and
+   its bound, with its launches on the 3D and 2D main paths (counted in
+   phases 4 and 6, set to 0 just before each run) and in phase 11.
+
+Phases 4 and 6 also print the union-find and interpolation kernels'
+launches by caller, and phase 11 the union-find's.
 
 Phase 5 holds the flow costs card = CPU exactly (the Hu moments' powers
 round as XLA's CPU code rounds them, ``kernels/_fp.py::pow``).
@@ -180,15 +203,18 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
+def device_ms(fn, reps: int, required: bool = True):
     """The device time of one call of ``fn``: the sum of the times of the
     CUDA kernels it launches, from ``torch.profiler``, over ``reps`` calls.
-    Unlike :func:`time_ms` it leaves out the host's time between launches."""
+    Unlike :func:`time_ms` it leaves out the host's time between launches.
+    When the profiler records nothing in its tries, fails, or returns None
+    (not measured) unless ``required``."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then hands back no events at all
+    tries = 3 if required else 5
+    for _ in range(tries):  # the profiler now and then hands back no events at all
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -197,7 +223,14 @@ def device_ms(fn, reps: int) -> float:
                  if e.device_type == torch.autograd.DeviceType.CUDA)
         if us:
             return us / reps / 1e3
-    fail("torch.profiler recorded no device time in three tries")
+    if required:
+        fail("torch.profiler recorded no device time in three tries")
+    print(f"torch.profiler recorded no device time in {tries} tries: not measured", flush=True)
+    return None
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def check_case(name, q, r, nn):
@@ -535,9 +568,11 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
     fi = write_series(os.path.join(root, f"main{tag.strip()}"), shape)
     torch.cuda.reset_peak_memory_stats()
     nn.NN_KERNEL.launches = 0
-    with StageWatch(nn, (VoxelReassigner, Hierarchy)) as watch:
+    reset_hand_counts()
+    with StageWatch(nn, (VoxelReassigner, Hierarchy)) as watch, KernelCalls() as calls:
         im_info, timings = run(fi, device="cuda", return_timings=True)
     launches = nn.NN_KERNEL.launches
+    hand = read_hand_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     for stage, seconds in timings.items():
         print(f"{tag}stage {stage}: {seconds:.3f} s [{gpu}]", flush=True)
@@ -569,6 +604,14 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
         fail(f"{tag}flow_vector_array has {flow.shape[1]} columns, not {2 * len(shape)}")
     if watch.launches["VoxelReassigner"] == 0 or watch.launches["Hierarchy"] == 0:
         fail(f"{tag}the reassigner or the Hierarchy never launched the nn kernel")
+    by_caller = {name: {} for name in calls.calls}
+    for name, made in calls.calls.items():
+        for caller, _ in made:
+            by_caller[name][caller] = by_caller[name].get(caller, 0) + 1
+    print(f"{tag}hand kernel launches on the main path: {json.dumps(hand)}, by caller "
+          f"{json.dumps(by_caller)}", flush=True)
+    if hand["ccl_union_find"] == 0 or hand["flow_interp"] == 0:
+        fail(f"{tag}the main path never launched the union-find or the interpolation kernel")
 
     tables = check_tables(im_info, skip_nodes=False)
     print(f"{tag}feature rows: " + ", ".join(f"{k} {len(v)}" for k, v in tables.items()),
@@ -590,7 +633,7 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
     if sorted(adjacency) != ["b_o", "n_b", "n_o", "v_b", "v_n", "v_o"] or any(
             len(v) != shape[0] for v in adjacency.values()):
         fail("adjacency_maps.pkl lacks a key or a frame")
-    return launches, watch.launches, im_info, timings
+    return launches, watch.launches, im_info, timings, {"launches": hand, "calls": calls.calls}
 
 
 # ---------------------------------------------------------------------------
@@ -1034,9 +1077,20 @@ def phase_capacity_1024(gpu, edge=CAPACITY_EDGE):
     params = FrangiParams(sigmas=CAPACITY_SIGMAS, spacing=(1.0, 1.0, 1.0), z_ratio=1.0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    reset_hand_counts()
+    shapes = {}
+
+    def keep(name, tag, args):
+        key = (tag, tuple(args[0].shape))
+        shapes[key] = shapes.get(key, 0) + 1
+        return (name == "ccl_union_find" and key[1] == CAPACITY_WINDOW
+                and tag == "capacity/remove_small_components" and shapes[key] == 1)
+
     start = time.perf_counter()
-    out = capacity.segment_volume(vol, params, emit="sparse_labels", device="cuda")
+    with KernelCalls(keep) as calls:
+        out = capacity.segment_volume(vol, params, emit="sparse_labels", device="cuda")
     seconds = time.perf_counter() - start
+    hand = read_hand_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     labels = out["labels"]
     del vol
@@ -1049,6 +1103,11 @@ def phase_capacity_1024(gpu, edge=CAPACITY_EDGE):
     print(f"capacity {edge}^3 seconds by phase: "
           + ", ".join(f"{k} {v:.3f}" for k, v in out["seconds"].items()) + f" [{gpu}]",
           flush=True)
+    print(f"capacity {edge}^3 hand kernel launches: {json.dumps(hand)}; union-find calls by "
+          "caller and shape: " + ", ".join(f"{t} {sh} x{n}" for (t, sh), n in shapes.items()),
+          flush=True)
+    if hand["ccl_union_find"] == 0:
+        fail(f"capacity {edge}^3 never launched the union-find kernel")
     if out["strategy"] != "chunked" or out["fg_count"] != int((labels > 0).sum()):
         fail(f"capacity {edge}^3: not the chunked strategy, or fg_count is not the support")
     start = time.perf_counter()
@@ -1058,7 +1117,8 @@ def phase_capacity_1024(gpu, edge=CAPACITY_EDGE):
           f"{'equal' if equal else 'DIFFERENT'} ({time.perf_counter() - start:.1f} s)", flush=True)
     if not equal:
         fail(f"capacity {edge}^3: labels are not scipy's labelling of their support")
-    return {k: out[k] for k in ("n_labels", "fg_count", "seconds")}
+    return dict({k: out[k] for k in ("n_labels", "fg_count", "seconds")}, launches=hand,
+                calls=calls.calls["ccl_union_find"])
 
 
 # ---------------------------------------------------------------------------
@@ -1410,6 +1470,493 @@ def phase_mesh(nn, gpu, root, single_info, single_timings):
     return {"launches": launches["total"], "by_stage": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the union-find and flow interpolation kernels against their
+# plain bodies; their inputs and numpy models (the CPU tests use them too)
+# ---------------------------------------------------------------------------
+
+CCL_SHAPE_3D = (64, 256, 256)
+CCL_SHAPE_2D = (1024, 1024)
+CAPACITY_WINDOW = (262, 520, 640)  # one halo window of the 1024^3 area filter
+# the plain body's min propagation crosses a stretch of the serpentine that
+# runs against the raster order one voxel a round, so it is held to the
+# plain body at these shapes only, and to scipy's labelling at the large ones
+SERPENTINE_SHAPES = ((8, 32, 64), (64, 128))
+MAX_DOUBLE_ROUNDED_ROWS = 64  # more differing rows than this cannot be _fp.fma's double rounding
+
+
+def serpentine(shape):
+    """A one-voxel-thick path through the whole volume (2D or 3D): every
+    other row in full, joined at alternate ends, every other plane likewise;
+    one component at either connectivity, and the longest path for
+    propagation rounds."""
+    if len(shape) < 3:
+        return serpentine((1,) * (3 - len(shape)) + tuple(shape)).reshape(shape)
+    mask = np.zeros(shape, bool)
+    z_n, y_n, x_n = shape
+    end = 0
+    rows = [(z, y) for z in range(0, z_n, 2)
+            for y in (range(0, y_n, 2) if z % 4 == 0 else range((y_n - 1) // 2 * 2, -1, -2))]
+    for k, (z, y) in enumerate(rows):
+        mask[z, y, :] = True
+        if k + 1 < len(rows):
+            nz, ny = rows[k + 1]
+            end = x_n - 1 if k % 2 == 0 else 0
+            if nz == z:
+                mask[z, min(y, ny):max(y, ny) + 1, end] = True
+            else:
+                mask[z:nz + 1, y, end] = True
+    return mask
+
+
+def ccl_masks(shape, seed=0):
+    """Phase 17's masks for the union-find kernel at a 2D or 3D ``shape``,
+    by name, as numpy bool arrays (the serpentine apart: see
+    :data:`SERPENTINE_SHAPES`)."""
+    rng = np.random.default_rng(seed)
+    one = np.zeros(shape, bool)
+    one[tuple(s // 2 for s in shape)] = True
+    faces = rng.random(shape) < 0.3
+    for axis in range(len(shape)):
+        for end in (0, shape[axis] - 1):
+            idx = [slice(None)] * len(shape)
+            idx[axis] = end
+            faces[tuple(idx)] |= rng.random(faces[tuple(idx)].shape) < 0.6
+    return {
+        "background": np.zeros(shape, bool),
+        "foreground": np.ones(shape, bool),
+        "one voxel": one,
+        "checkerboard": np.indices(shape).sum(axis=0) % 2 == 0,
+        "every face": faces,
+        "random 0.1%": rng.random(shape) < 0.001,
+        "random 25%": rng.random(shape) < 0.25,
+    }
+
+
+def interp_inputs(n_q, n_m, d, seed=0):
+    """Flow-interpolation inputs as a frame's flow gives them (numpy
+    float32): anchors on a voxel grid in microns, vectors of whole voxel
+    steps (many components exactly 0), positive costs; the queries voxels
+    near the anchors, with ``n_q // 8`` on an anchor (distance 0), as many
+    far from every anchor (an empty radius) and as many NaN.  Returns
+    (query, anchors, vectors, costs, max_distance)."""
+    rng = np.random.default_rng(seed)
+    scale = np.array([0.5, 0.2, 0.2][-d:], np.float32)
+    extent = np.array([16, 48, 48][-d:])
+    anchors = (rng.integers(0, extent, (n_m, d)) * scale).astype(np.float32)
+    vectors = rng.integers(-2, 3, (n_m, d)).astype(np.float32)
+    costs = (rng.random(n_m) * 40 + 0.5).astype(np.float32)
+    query = ((rng.random((n_q, d)) * extent) * scale).astype(np.float32)
+    k = n_q // 8
+    query[:k] = anchors[rng.integers(0, n_m, k)]
+    query[k:2 * k] = -50.0 - rng.random((k, d)).astype(np.float32)
+    query[2 * k:3 * k] = np.nan
+    return query, anchors, vectors, costs, 1.0
+
+
+def fma_rounded_twice(a, b, c):
+    """``kernels/_fp.py::fma`` in numpy: a*b + c in float64, then float32."""
+    a, b, c = (np.asarray(x, np.float32).astype(np.float64) for x in (a, b, c))
+    return (a * b + c).astype(np.float32)
+
+
+def fma_exact(a, b, c):
+    """a*b + c rounded once to float32, as ``__fmaf_rn`` rounds it: the
+    product is exact in float64, the sum is rounded to odd (its error from
+    a two-sum sets the last bit), and that rounds to float32 correctly,
+    since 53 >= 24 + 2 bits."""
+    a, b, c = (np.asarray(x, np.float32).astype(np.float64) for x in (a, b, c))
+    with np.errstate(invalid="ignore", over="ignore"):
+        p = a * b
+        s = p + c
+        bp = s - p
+        err = (p - (s - bp)) + (c - bp)
+        fix = np.isfinite(s) & (err != 0) & ((s.view(np.int64) & 1) == 0)
+        s = np.where(fix, np.nextafter(s, np.where(err > 0, np.inf, -np.inf)), s)
+    return s.astype(np.float32)
+
+
+def interp_model(query, anchors, vectors, costs, max_distance, fma=fma_rounded_twice):
+    """``kernels/csrc/flow_interp.cu``'s loop in numpy, all queries side by
+    side: three passes over the rows in order; rows outside the radius
+    skipped in the weight passes; the weight sum in one accumulator per
+    level of XLA's windows of 32; the dot in four lanes by row mod 4 over
+    rows padded with zeros to a multiple of 4.  With
+    :func:`fma_rounded_twice` it rounds as the plain body does; with
+    :func:`fma_exact`, as the kernel does."""
+    from nellie_tpu_torch.kernels._fp import REDUCE_WINDOW
+    from nellie_tpu_torch.stages.flow_interpolation import tree_levels
+
+    f32 = np.float32
+    q = np.asarray(query, f32)
+    anchors, vectors, costs = (np.asarray(a, f32) for a in (anchors, vectors, costs))
+    n_q, d = q.shape
+    n_m = anchors.shape[0]
+    radius = f32(max_distance)
+    one, zero = f32(1), f32(0)
+
+    def squared_norm(m):
+        diff = q - anchors[m]
+        s = diff[:, 0] * diff[:, 0]
+        for k in range(1, d):
+            s = fma(diff[:, k], diff[:, k], s)
+        return s
+
+    def weight(m, dist, inside, has_zero, neg_w_min):
+        dw = np.where(has_zero, np.where(dist == 0, one, zero),
+                      np.where(dist > 0, one / np.where(dist > 0, dist, one), zero))
+        return np.where(inside, fma(-costs[m], dw, neg_w_min) + one, zero)
+
+    with np.errstate(all="ignore"):
+        anywhere = np.zeros(n_q, bool)
+        has_zero = np.zeros(n_q, bool)
+        min_inv = np.full(n_q, np.inf, f32)
+        min_zero = np.full(n_q, np.inf, f32)
+        for m in range(n_m):
+            dist = np.sqrt(squared_norm(m))
+            inside = dist <= radius
+            at_zero = dist == 0
+            inv = np.where(dist > 0, one / np.where(dist > 0, dist, one), zero)
+            for products, best in ((-costs[m] * inv, min_inv),
+                                   (-costs[m] * np.where(at_zero, one, zero), min_zero)):
+                take = inside & (np.isnan(products) | (products < best))
+                best[take] = products[take]
+            anywhere |= inside
+            has_zero |= inside & at_zero
+        neg_w_min = -np.where(has_zero, min_zero, min_inv)
+
+        levels = tree_levels(n_m)
+        acc = [np.zeros(n_q, f32) for _ in range(levels + 1)]
+        for m in range(n_m):
+            dist = np.sqrt(squared_norm(m))
+            inside = dist <= radius
+            if inside.any():
+                w = weight(m, dist, inside, has_zero, neg_w_min)
+                acc[0] = np.where(inside, acc[0] + w, acc[0])
+            for j in range(levels):
+                if (m + 1) % REDUCE_WINDOW ** (j + 1):
+                    break
+                acc[j + 1] = acc[j + 1] + acc[j]
+                acc[j] = np.zeros(n_q, f32)
+        for j in range(levels):
+            acc[j + 1] = acc[j + 1] + acc[j]
+        safe = np.where(acc[levels] > 0, acc[levels], one)
+
+        lanes = [None] * 4
+        for m in range(-(-n_m // 4) * 4):
+            if m < n_m:
+                dist = np.sqrt(squared_norm(m))
+                inside = dist <= radius
+                wn = np.where(inside, weight(m, dist, inside, has_zero, neg_w_min) / safe, zero)
+                v = vectors[m]
+            else:
+                wn, v = np.zeros(n_q, f32), np.zeros(d, f32)
+            a, b = wn[:, None], v[None, :]
+            lanes[m % 4] = a * b if m < 4 else fma(a, b, lanes[m % 4])
+        out = (lanes[0] + lanes[1]) + (lanes[2] + lanes[3])
+    return np.where(anywhere[:, None], out, f32(np.nan))
+
+
+def same_bits(a, b):
+    """Elementwise: equal float32 bits, or both NaN (NaN payloads differ
+    between devices)."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return (a.view(np.int32) == b.view(np.int32)) | (np.isnan(a) & np.isnan(b))
+
+
+def caller_tag():
+    """Which stage or path made the current kernel call, and through which
+    ``ccl`` function: e.g. ``label/fill_holes``, ``network/label``,
+    ``reassign``, ``hierarchy``, ``capacity/remove_small_components``."""
+    import traceback
+
+    places = (("stages/labelling.py", "label"), ("stages/networking.py", "network"),
+              ("stages/voxel_reassignment.py", "reassign"), ("stages/hierarchical.py", "hierarchy"),
+              ("pipeline/capacity.py", "capacity"), ("mesh/", "mesh"))
+    stage, via = "other", None
+    for frame in reversed(traceback.extract_stack()):
+        path = frame.filename.replace(os.sep, "/")
+        if via is None and path.endswith("kernels/ccl.py") and frame.name in (
+                "fill_holes", "remove_small_components", "label"):
+            via = frame.name
+        hit = next((name for place, name in places if place in path), None)
+        if hit:
+            stage = hit
+            break
+    return stage if via is None else f"{stage}/{via}"
+
+
+class KernelCalls:
+    """Within a ``with`` block, records the union-find and interpolation
+    kernels' calls as (caller tag, arguments), keeping those for which
+    ``keep(kernel name, tag, args)`` is true (tensors are cloned)."""
+
+    def __init__(self, keep=lambda name, tag, args: True):
+        self.keep = keep
+        self.calls = {"ccl_union_find": [], "flow_interp": []}
+        self._saved = []
+
+    def __enter__(self):
+        from nellie_tpu_torch.kernels import ccl
+        from nellie_tpu_torch.stages import flow_interpolation as fi
+
+        for name, cls in (("ccl_union_find", ccl._CCLKernel),
+                          ("flow_interp", fi._FlowInterpKernel)):
+            original = cls.__call__
+
+            def recorded(kernel, *args, _original=original, _name=name):
+                tag = caller_tag()
+                if self.keep(_name, tag, args):
+                    self.calls[_name].append(
+                        (tag, tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                    for a in args)))
+                return _original(kernel, *args)
+
+            cls.__call__ = recorded
+            self._saved.append((cls, original))
+        return self
+
+    def __exit__(self, *exc):
+        for cls, original in self._saved:
+            cls.__call__ = original
+
+
+def hand_counts():
+    from nellie_tpu_torch.kernels import ccl
+    from nellie_tpu_torch.stages import flow_interpolation as fi
+
+    return {"ccl_union_find": ccl.CCL_KERNEL, "flow_interp": fi.FLOW_INTERP_KERNEL}
+
+
+def reset_hand_counts():
+    for kernel in hand_counts().values():
+        kernel.launches = 0
+
+
+def read_hand_counts():
+    return {name: kernel.launches for name, kernel in hand_counts().items()}
+
+
+def scipy_roots(mask, connectivity):
+    """(each voxel's minimum linear index of its component, n for
+    background; the roots) from ``scipy.ndimage.label``."""
+    from scipy import ndimage
+
+    structure = (np.ones((3,) * mask.ndim) if connectivity == "full"
+                 else ndimage.generate_binary_structure(mask.ndim, 1))
+    lab, _ = ndimage.label(mask, structure=structure)
+    flat = lab.reshape(-1)
+    _, first = np.unique(flat, return_index=True)
+    first = np.asarray(first, np.int64)
+    if flat[first[0]] == 0:
+        first[0] = mask.size  # background
+    else:
+        first = np.concatenate([[mask.size], first])
+    return first[flat], first[1:]
+
+
+def ccl_bound(n):
+    """(bound_ms, "bytes"): the mask read once (1 byte a voxel) and the int64
+    roots written once (8 bytes), at the memory rate."""
+    return 9 * n / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def check_ccl(mask, connectivity):
+    """The kernel against the plain body on the card, exactly; returns the
+    number of components."""
+    from nellie_tpu_torch.kernels import ccl
+
+    got = ccl.CCL_KERNEL(mask, connectivity)
+    want = ccl.union_find_roots_plain(mask, connectivity)
+    if got.dtype != torch.int64 or not torch.equal(got, want):
+        bad = int((got != want).sum()) if got.shape == want.shape else -1
+        fail(f"union-find kernel differs from its plain body on {tuple(mask.shape)} "
+             f"{connectivity} in {bad} voxels")
+    return int((want == torch.arange(want.numel(), device=want.device)).sum())
+
+
+def time_ccl(gpu, name, mask, connectivity):
+    """Per-call and device ms of the kernel, the plain body's ms and the bound."""
+    from nellie_tpu_torch.kernels import ccl
+
+    plain_ms = time_ms(lambda: ccl.union_find_roots_plain(mask, connectivity), 2)
+    ms = time_ms(lambda: ccl.CCL_KERNEL(mask, connectivity), 20)
+    on_device = device_ms(lambda: ccl.CCL_KERNEL(mask, connectivity), 20, required=False)
+    bound_ms, bound_by = ccl_bound(mask.numel())
+    fg = float(mask.float().mean())
+    print(f"ccl time at {name} {tuple(mask.shape)} {connectivity} ({fg:.4%} foreground): kernel "
+          f"{ms:.4f} ms a call (on the device {fmt_ms(on_device)}), plain {plain_ms:.4f} ms, "
+          f"library none, bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f} "
+          f"[{gpu}]", flush=True)
+    return {"shape": list(mask.shape), "ms": ms, "device_ms": on_device, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase_ccl_kernel(gpu, recorded, capacity_calls):
+    """The union-find kernel against its plain body on the card: the
+    synthetic masks in 2D and 3D at both connectivities (component counts
+    also held to ``scipy.ndimage.label``; the serpentine small, and large
+    against scipy's roots), every mask the 3D and 2D main paths gave it,
+    the capacity window; then its times."""
+    from nellie_tpu_torch.kernels import ccl
+
+    counts = {}
+    for shape in (CCL_SHAPE_3D, CCL_SHAPE_2D):
+        for name, mask in ccl_masks(shape).items():
+            m = torch.from_numpy(mask).cuda()
+            for conn in ("full", "faces"):
+                n = check_ccl(m, conn)
+                if n != len(scipy_roots(mask, conn)[1]):
+                    fail(f"union-find {name} {shape} {conn}: {n} components, scipy disagrees")
+                counts[f"{len(shape)}D {name} {conn}"] = n
+    for shape in SERPENTINE_SHAPES:
+        for conn in ("full", "faces"):
+            counts[f"serpentine {shape} {conn}"] = check_ccl(
+                torch.from_numpy(serpentine(shape)).cuda(), conn)
+    print(f"ccl kernel = plain body on the card, exactly, at {CCL_SHAPE_3D} and {CCL_SHAPE_2D} "
+          f"(the serpentine at {SERPENTINE_SHAPES}); components (= scipy): "
+          f"{json.dumps(counts)}", flush=True)
+    for shape in (CCL_SHAPE_3D, CCL_SHAPE_2D):
+        mask = serpentine(shape)
+        m = torch.from_numpy(mask).cuda()
+        for conn in ("full", "faces"):
+            want, _ = scipy_roots(mask, conn)
+            if not np.array_equal(ccl.CCL_KERNEL(m, conn).cpu().numpy(), want):
+                fail(f"union-find kernel on the serpentine {shape} {conn}: not scipy's roots")
+        print(f"ccl kernel on the serpentine {shape} ({int(mask.sum())} voxels in one path): "
+              f"roots = scipy's at both connectivities; "
+              f"{time_ms(lambda: ccl.CCL_KERNEL(m, 'full'), 5):.4f} ms a call", flush=True)
+    for path, calls in list(recorded.items()) + [("capacity", capacity_calls)]:
+        for tag, (mask, conn) in calls:
+            check_ccl(mask, conn)
+        print(f"ccl kernel = plain body on the card on the {len(calls)} masks the {path} path "
+              f"gave it: " + ", ".join(sorted({f'{t} {tuple(a[0].shape)}' for t, a in calls})),
+              flush=True)
+    rows = {}
+    for path, calls in recorded.items():
+        for tag in ("label/remove_small_components", "network/label"):
+            first = next(((m, c) for t, (m, c) in calls if t == tag), None)
+            if first is None:
+                fail(f"the {path} main path made no union-find call from {tag}")
+            rows[f"{path} {tag}"] = time_ccl(gpu, f"the {path} main path's {tag}", *first)
+    window = next(((m, c) for t, (m, c) in capacity_calls
+                   if tuple(m.shape) == CAPACITY_WINDOW), None)
+    if window is None:
+        fail(f"the 1024^3 capacity run gave the union-find no {CAPACITY_WINDOW} window")
+    rows["capacity window"] = time_ccl(gpu, "a 1024^3 capacity window", *window)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    sparse = torch.rand(CAPACITY_WINDOW, generator=gen, device="cuda") < 0.001
+    for conn in ("full", "faces"):
+        check_ccl(sparse, conn)
+    print(f"ccl kernel = plain body on a synthetic {CAPACITY_WINDOW} window at 0.1% foreground, "
+          f"both connectivities", flush=True)
+    return rows
+
+
+def interp_bound(q, f, max_distance):
+    """(bound_ms, bound_by) of one interpolation call: operations, every
+    (query, row) pair's squared norm (3d - 1 flops) and, for each pair
+    inside the radius (counted on these inputs), its weight, normalisation
+    and dot (2d + 6 flops), at the fp32 peak; bytes, the queries and rows
+    read once and the output written once, at the memory rate."""
+    from nellie_tpu_torch.stages import flow_interpolation as fi
+
+    thresh = fi.radius_threshold(max_distance)
+    (n_q, d), n_m = q.shape, f.shape[0]
+    inside = 0
+    for s in range(0, n_q, 2048):
+        diff = q[s:s + 2048, None, :] - f[None]
+        inside += int(((diff * diff).sum(-1) <= thresh).sum())
+    ops_ms = (n_q * n_m * (3 * d - 1) + inside * (2 * d + 6)) / FP32_FLOPS * 1e3
+    bytes_ms = 4 * (2 * n_q * d + n_m * (2 * d + 1)) / HBM_BYTES_PER_S * 1e3
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")), inside
+
+
+def check_interp(name, args, against_cpu=False):
+    """The kernel against the plain body on the card (and on CPU copies):
+    bit for bit, NaN where it has NaN; a row that differs must equal the
+    numpy model with exact fused multiply-adds (the plain body's
+    ``_fp.fma`` rounds twice).  Returns (differing rows, max |difference|)."""
+    from nellie_tpu_torch.stages import flow_interpolation as fi
+
+    got = fi.FLOW_INTERP_KERNEL(*args).cpu().numpy()
+    wants = [fi._interp_all_plain(*args).cpu().numpy()]
+    if against_cpu:
+        wants.append(fi._interp_all_plain(*[a.cpu() if isinstance(a, torch.Tensor) else a
+                                            for a in args]).numpy())
+    rows = set()
+    max_abs = 0.0
+    for want in wants:
+        same = same_bits(got, want)
+        rows |= set(np.flatnonzero(~same.all(axis=1)).tolist())
+        both = ~np.isnan(got) & ~np.isnan(want)
+        max_abs = max(max_abs, float(np.abs(got[both].astype(np.float64) - want[both]).max(
+            initial=0.0)))
+    if len(rows) > MAX_DOUBLE_ROUNDED_ROWS:
+        fail(f"flow interpolation kernel: {len(rows)} rows differ from the plain body on {name}")
+    if rows:
+        idx = sorted(rows)
+        host = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in args]
+        exact = interp_model(host[0][idx], *host[1:], fma=fma_exact)
+        if not same_bits(got[idx], exact).all():
+            fail(f"flow interpolation kernel on {name}: {len(idx)} rows differ from the plain "
+                 "body and not all equal the model with exact fused multiply-adds")
+    return len(rows), max_abs
+
+
+def time_interp(gpu, name, args):
+    from nellie_tpu_torch.stages import flow_interpolation as fi
+
+    q, f = args[0], args[1]
+    plain_ms = time_ms(lambda: fi._interp_all_plain(*args), 2)
+    ms = time_ms(lambda: fi.FLOW_INTERP_KERNEL(*args), 10)
+    on_device = device_ms(lambda: fi.FLOW_INTERP_KERNEL(*args), 10, required=False)
+    (bound_ms, bound_by), inside = interp_bound(q, f, args[4])
+    print(f"flow_interp time at {name} Q={q.shape[0]} M={f.shape[0]} d={q.shape[1]} "
+          f"({inside} query-row pairs in the radius): kernel {ms:.4f} ms a call (on the device "
+          f"{fmt_ms(on_device)}), plain {plain_ms:.4f} ms, library none, bound {bound_ms:.4f} ms "
+          f"({bound_by}), share {bound_ms / ms:.3f} [{gpu}]", flush=True)
+    return {"shape": [q.shape[0], f.shape[0], q.shape[1]], "ms": ms, "device_ms": on_device,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def phase_interp_kernel(gpu, recorded):
+    """The interpolation kernel against its plain body on the card and on
+    CPU copies (synthetic inputs: M < 32, 32 < M <= 1024, M > 1024, d = 2
+    and 3, queries on an anchor, with an empty radius and NaN), then on
+    every call the 3D and 2D main paths made; then its times."""
+    differ, max_abs, cases = 0, 0.0, []
+    for d in (2, 3):
+        for n_m in (20, 700, 3000):
+            inputs = interp_inputs(4096, n_m, d, seed=n_m + d)
+            args = tuple(torch.from_numpy(a).cuda() for a in inputs[:4]) + (inputs[4],)
+            n, err = check_interp(f"synthetic M={n_m} d={d}", args, against_cpu=True)
+            differ, max_abs = differ + n, max(max_abs, err)
+            cases.append(f"M={n_m} d={d}")
+    print(f"flow_interp kernel on synthetic inputs ({', '.join(cases)}; Q=4096 with 512 on an "
+          f"anchor, 512 with an empty radius, 512 NaN): rows differing from the plain body on "
+          f"the card or the CPU {differ} (each the model's with exact FMAs)", flush=True)
+    rows = {}
+    for path, calls in recorded.items():
+        n_rows = 0
+        for tag, args in calls:
+            n, err = check_interp(f"the {path} path's {tag} call", args)
+            differ, max_abs = differ + n, max(max_abs, err)
+            n_rows += args[0].shape[0]
+        print(f"flow_interp kernel on the {len(calls)} calls of the {path} main path "
+              f"({n_rows} queries; M per call "
+              f"{sorted({int(a[1].shape[0]) for _, a in calls})}): rows differing from the plain "
+              f"body so far {differ}", flush=True)
+        for tag in ("reassign", "hierarchy"):
+            first = next((a for t, a in calls if t == tag), None)
+            if first is None:
+                fail(f"the {path} main path made no interpolation call from {tag}")
+            rows[f"{path} {tag}"] = time_interp(gpu, f"the {path} main path's {tag}", first)
+    print(f"flow_interp: rows differing from the plain body in all {differ} "
+          f"(double rounding of _fp.fma), max |difference| {max_abs:.3g}", flush=True)
+    return rows, differ, max_abs
+
+
 def compare_tables(got, want, headers, skip):
     """Largest |card - CPU| / (1e-4 + 1e-4 |CPU|) over the feature tables
     (fails above 1, or on another row count or NaN pattern); columns whose
@@ -1432,6 +1979,23 @@ def compare_tables(got, want, headers, skip):
     return worst
 
 
+def build_kernels():
+    """Build the three CUDA kernels from the checkout, one nvcc each, all
+    started together; print the seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from nellie_tpu_torch.kernels import nn
+
+    kernels = {"nn_argmin": nn.NN_KERNEL, **hand_counts()}
+    start = time.perf_counter()
+    with ThreadPoolExecutor(len(kernels)) as ex:
+        for future in [ex.submit(k.build) for k in kernels.values()]:
+            future.result()
+    print(f"kernel builds, in parallel: {time.perf_counter() - start:.2f} s; nvcc "
+          + ", ".join(f"{name} {k.build_seconds if k.build_seconds is not None else 'cached'}"
+                      for name, k in kernels.items()), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
@@ -1445,24 +2009,20 @@ def main() -> None:
     print(gpu, flush=True)
 
     resolve_device("cuda")  # full float32: TF32 off for the library call too
-    start = time.perf_counter()
-    nn.NN_KERNEL.build()
-    print(f"nn kernel build: {time.perf_counter() - start:.2f} s "
-          f"(nvcc {nn.NN_KERNEL.build_seconds if nn.NN_KERNEL.build_seconds is not None else 'cached'})",
-          flush=True)
+    build_kernels()
     for d in (3, 8):
         print(f"nn kernel at d={d}: {nn.NN_KERNEL.info(d)}", flush=True)
 
     max_abs = phase_kernel(nn, gpu)
     root = tempfile.mkdtemp(prefix="nellie_port_smoke_")
     try:
-        launches, by_stage, im_info, timings = phase_main_path(nn, gpu, root)
+        launches, by_stage, im_info, timings, hand = phase_main_path(nn, gpu, root)
         phase_fused_vs_staged(gpu, root, MAIN_SHAPE, im_info, timings)
         reassign, hierarchy = phase_kernel_main_shapes(nn, gpu, im_info)
         phase_small_parity(root, small_series(), "TZYX",
                            {"X": 0.2, "Y": 0.2, "Z": 0.5, "T": 1.0})
-        _, by_stage_2d, im_info_2d, timings_2d = phase_main_path(nn, gpu, root, MAIN_SHAPE_2D,
-                                                                 tag="2D ")
+        _, by_stage_2d, im_info_2d, timings_2d, hand_2d = phase_main_path(
+            nn, gpu, root, MAIN_SHAPE_2D, tag="2D ")
         phase_fused_vs_staged(gpu, root, MAIN_SHAPE_2D, im_info_2d, timings_2d, tag="2D ")
         reassign_2d, hierarchy_2d = phase_kernel_main_shapes(nn, gpu, im_info_2d, tag="2D ")
         series_2d = small_series_2d()
@@ -1479,7 +2039,16 @@ def main() -> None:
         mesh = phase_mesh(nn, gpu, root, im_info, timings)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    phase_capacity_1024(gpu)
+    capacity = phase_capacity_1024(gpu)
+
+    start = time.perf_counter()
+    ccl_rows = phase_ccl_kernel(gpu, {"3D": hand["calls"]["ccl_union_find"],
+                                      "2D": hand_2d["calls"]["ccl_union_find"]},
+                                capacity["calls"])
+    interp_rows, interp_differ, interp_err = phase_interp_kernel(
+        gpu, {"3D": hand["calls"]["flow_interp"], "2D": hand_2d["calls"]["flow_interp"]})
+    print(f"phase 17 (hand kernels against their plain bodies): "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
 
     reassign["launches"] = by_stage["VoxelReassigner"]
     hierarchy["launches"] = by_stage["Hierarchy"]
@@ -1490,13 +2059,30 @@ def main() -> None:
              "reassign_low_memory": reassign_low, "float16_small": float16, "plugin": plugin,
              "mesh": mesh}
     max_abs = max([max_abs] + [p["max_abs_err"] for p in paths.values() if "max_abs_err" in p])
-    top = {k: reassign[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-    print(json.dumps({"kernels": [{
-        "name": "nn_argmin", "route": "cuda",
-        "source": "nellie_tpu_torch/kernels/csrc/nn_argmin.cu",
-        "replaces": "nellie_tpu/kernels/pallas_nn.py:72",
-        "launches": launches, "max_abs_err": max_abs, **top,
-        "paths": paths}]}), flush=True)
+    keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    launches_by_path = {name: {"3D": hand["launches"][name], "2D": hand_2d["launches"][name]}
+                        for name in hand["launches"]}
+    launches_by_path["ccl_union_find"]["capacity_1024"] = capacity["launches"]["ccl_union_find"]
+    print(json.dumps({"kernels": [
+        {"name": "nn_argmin", "route": "cuda",
+         "source": "nellie_tpu_torch/kernels/csrc/nn_argmin.cu",
+         "replaces": "nellie_tpu/kernels/pallas_nn.py:72",
+         "launches": launches, "max_abs_err": max_abs, **{k: reassign[k] for k in keys},
+         "paths": paths},
+        {"name": "ccl_union_find", "route": "cuda",
+         "source": "nellie_tpu_torch/kernels/csrc/ccl_union_find.cu",
+         "replaces": "nellie_tpu/kernels/ccl.py:162",
+         "launches": hand["launches"]["ccl_union_find"], "max_abs_err": 0,
+         **{k: ccl_rows["3D label/remove_small_components"][k] for k in keys},
+         "launches_by_path": launches_by_path["ccl_union_find"], "paths": ccl_rows},
+        {"name": "flow_interp", "route": "cuda",
+         "source": "nellie_tpu_torch/kernels/csrc/flow_interp.cu",
+         "replaces": "nellie_tpu/stages/flow_interpolation.py:29",
+         "launches": hand["launches"]["flow_interp"], "max_abs_err": interp_err,
+         **{k: interp_rows["3D reassign"][k] for k in keys},
+         "differing_rows": interp_differ,
+         "launches_by_path": launches_by_path["flow_interp"], "paths": interp_rows},
+    ]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,110 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel is one ``.cu`` file under ``kernels/csrc/`` with a plain C
+interface.  It is compiled with ``nvcc`` for ``sm_90a`` on first use into
+``nellie_tpu_torch/_build/`` (one directory for all kernels; the library
+name carries a hash of the source and the flags, so a change rebuilds) and
+bound with ``ctypes``.  :class:`CudaKernel` holds one such library: the
+build, the launch count and whatever a subclass caches sit under one lock,
+so that the threads of a mesh compile it once and lose no count.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from typing import Sequence
+
+CSRC = os.path.join(os.path.dirname(__file__), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+BASE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
+DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc") or DEFAULT_NVCC
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the "
+                           "kernels of nellie_tpu_torch/kernels/csrc/")
+    return path
+
+
+class CudaKernel:
+    """One CUDA library built from ``csrc/<source>`` with ``flags``.
+
+    ``launches`` counts the wrapper's launches (:meth:`count_launch`);
+    ``build_seconds`` is the nvcc time of this process's build (None when
+    the library was already built).  A subclass binds the library's
+    functions in :meth:`bind`."""
+
+    source = ""
+    flags: Sequence[str] = BASE_FLAGS
+
+    def __init__(self):
+        self.launches = 0
+        self.build_seconds = None
+        self._lib = None
+        self._lock = threading.RLock()
+
+    @property
+    def source_path(self) -> str:
+        return os.path.join(CSRC, self.source)
+
+    def count_launch(self):
+        with self._lock:
+            self.launches += 1
+
+    def library_path(self) -> str:
+        with open(self.source_path, "rb") as f:
+            digest = hashlib.sha256(f.read() + " ".join(self.flags).encode()).hexdigest()[:16]
+        stem = os.path.splitext(self.source)[0]
+        return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+
+    def compile_args(self, output: str) -> list:
+        """nvcc's arguments that build the library into ``output``."""
+        return [*self.flags, "-o", output, self.source_path]
+
+    def build(self):
+        """Compile the kernel with nvcc (if not already built) and load it."""
+        with self._lock:
+            if self._lib is None:
+                self._lib = self._build()
+            return self._lib
+
+    def _build(self):
+        path = self.library_path()
+        if not os.path.exists(path):
+            compiler = nvcc()
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            start = time.perf_counter()
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                proc = subprocess.run([compiler, *self.compile_args(tmp)], capture_output=True,
+                                      text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed on {self.source_path}:\n"
+                                       f"{proc.stdout}{proc.stderr}")
+                os.replace(tmp, path)
+            finally:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+            self.build_seconds = time.perf_counter() - start
+        lib = ctypes.CDLL(path)
+        self.bind(lib)
+        return lib
+
+    def bind(self, lib) -> None:
+        raise NotImplementedError
+
+
+def check_error(name: str, err: int) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{name} failed with cudaError {err}")

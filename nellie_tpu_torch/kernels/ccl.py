@@ -3,19 +3,30 @@
 Port of what ``nellie_tpu/kernels/ccl.py`` computes, not how: the TPU
 build avoids gathers (segmented scans, stencil hop chains, sort-based
 finishers, ``_hop_chain``/``_stencil_hops``/scan encodings at ``:57-160``).
-Here every voxel starts with its own linear index; each round takes the
-minimum over the neighbourhood (26- or 6-connected, foreground only) and
-then jumps pointers (``label = label[label]``), until nothing changes.
-Each component ends at its minimum linear index, and ranking those roots
-gives scipy's raster-order numbering exactly.
+Every component's root is its minimum linear index, and ranking those
+roots gives scipy's raster-order numbering exactly.
+
+:func:`union_find_roots`, through which every caller goes, launches the
+hand-written CUDA kernel ``csrc/ccl_union_find.cu`` (lock-free union-find
+with ``atomicMin``; built for ``sm_90a`` with ``nvcc`` on first use, bound
+through ``ctypes``) on a CUDA tensor, or raises; on a CPU tensor it runs
+:func:`union_find_roots_plain`, where every voxel starts with its own
+linear index and each round takes the minimum over the neighbourhood (26-
+or 6-connected, foreground only) and then jumps pointers
+(``label = label[label]``), until nothing changes.  ``CCL_KERNEL.launches``
+counts the kernel's launches (one C call: init, merge, flatten).
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from nellie_tpu_torch.kernels._cuda import CudaKernel, check_error
 from nellie_tpu_torch.kernels.filters import shift_fill
 
 _JUMPS_PER_ROUND = 4
+MAX_VOXELS = 2 ** 31 - 1  # the kernel's int32 indices and sentinel
 
 
 def _neighbor_min(lbl: torch.Tensor, fg: torch.Tensor, sentinel: int, connectivity: str):
@@ -34,9 +45,9 @@ def _neighbor_min(lbl: torch.Tensor, fg: torch.Tensor, sentinel: int, connectivi
     return torch.where(fg, m, sentinel)
 
 
-def union_find_roots(mask: torch.Tensor, connectivity: str = "full") -> torch.Tensor:
-    """Per-voxel root (the minimum linear index of its component) as a flat
-    int64 tensor; ``mask.numel()`` for background."""
+def union_find_roots_plain(mask: torch.Tensor, connectivity: str = "full") -> torch.Tensor:
+    """:func:`union_find_roots` by min propagation and pointer jumping, in
+    plain torch."""
     n = mask.numel()
     fg = mask.bool()
     lbl = torch.where(fg, torch.arange(n, device=mask.device).reshape(mask.shape), n)
@@ -50,6 +61,58 @@ def union_find_roots(mask: torch.Tensor, connectivity: str = "full") -> torch.Te
         if torch.equal(new, lbl):
             return lbl.reshape(-1)
         lbl = new
+
+
+class _CCLKernel(CudaKernel):
+    """The compiled union-find (``csrc/ccl_union_find.cu``), built once per
+    process, with a launch count."""
+
+    source = "ccl_union_find.cu"
+
+    def bind(self, lib):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.ccl_union_find.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.ccl_union_find.restype = i32
+
+    def __call__(self, mask: torch.Tensor, connectivity: str = "full") -> torch.Tensor:
+        if connectivity not in ("full", "faces"):
+            raise ValueError(f"connectivity {connectivity!r}: expected 'full' or 'faces'")
+        if not 1 <= mask.ndim <= 3:
+            raise ValueError(f"the union-find kernel takes 1 to 3 axes, not {mask.ndim}")
+        n = mask.numel()
+        if n > MAX_VOXELS:
+            raise ValueError(f"{n} voxels: the union-find kernel's int32 indices take at most "
+                             f"{MAX_VOXELS}")
+        dev = mask.device
+        if n == 0:
+            return torch.empty(0, dtype=torch.int64, device=dev)
+        lib = self.build()
+        fg = mask.bool().contiguous()
+        depth, height, width = (1,) * (3 - mask.ndim) + tuple(mask.shape)
+        with torch.cuda.device(dev):
+            parent = torch.empty(n, dtype=torch.int32, device=dev)
+            out = torch.empty(n, dtype=torch.int64, device=dev)
+            err = lib.ccl_union_find(fg.data_ptr(), parent.data_ptr(), out.data_ptr(), depth,
+                                     height, width, int(connectivity == "full"),
+                                     torch.cuda.current_stream(dev).cuda_stream)
+        check_error("ccl_union_find launch", err)
+        self.count_launch()
+        return out
+
+
+CCL_KERNEL = _CCLKernel()
+
+
+def union_find_roots(mask: torch.Tensor, connectivity: str = "full") -> torch.Tensor:
+    """Per-voxel root (the minimum linear index of its component) as a flat
+    int64 tensor; ``mask.numel()`` for background.  A CUDA tensor goes to
+    the hand-written kernel (or raises), a CPU tensor to
+    :func:`union_find_roots_plain`."""
+    if mask.device.type == "cuda":
+        return CCL_KERNEL(mask, connectivity)
+    if mask.device.type == "cpu":
+        return union_find_roots_plain(mask, connectivity)
+    raise ValueError(f"union_find_roots: unsupported device {mask.device}")
 
 
 def label(mask: torch.Tensor, connectivity: str = "full"):

@@ -21,25 +21,15 @@ split kernel, unpack the result).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from nellie_tpu_torch.device import resolve_device
+from nellie_tpu_torch.kernels._cuda import CudaKernel, check_error
 from nellie_tpu_torch.kernels._fp import row_sum_of_squares, sqrt
 
-_CSRC = os.path.join(os.path.dirname(__file__), "csrc", "nn_argmin.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC"]
 _PLAIN_CHUNK_ELEMS = 1 << 27  # bound on the (rows, M) distance block of the plain version
 
 # the kernel's build constants (checked against the library at load time)
@@ -121,63 +111,22 @@ def nn_argmin_plain(queries: torch.Tensor, refs: torch.Tensor):
     return torch.cat(d2_out), torch.cat(idx_out)
 
 
-class _NNKernel:
-    """The compiled kernel: built once per process, with a launch count.
-    The build, the info cache and the count are guarded by one lock, so
-    that threads launching it on several devices (a mesh) compile it once
-    and lose no count."""
+class _NNKernel(CudaKernel):
+    """The compiled kernel (``csrc/nn_argmin.cu``): built once per process,
+    with a launch count and, per width and device, the library's info."""
+
+    source = "nn_argmin.cu"
 
     def __init__(self):
-        self.launches = 0
-        self.build_seconds = None
-        self._lib = None
+        super().__init__()
         self._info = {}
-        self._lock = threading.RLock()
 
-    def count_launch(self):
-        with self._lock:
-            self.launches += 1
-
-    def library_path(self) -> str:
-        with open(_CSRC, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-        return os.path.join(_BUILD_DIR, f"libnn_argmin_{digest}.so")
-
-    def build(self):
-        """Compile the kernel with nvcc (if not already built) and load it."""
-        with self._lock:
-            if self._lib is None:
-                self._lib = self._build()
-            return self._lib
-
-    def _build(self):
-        path = self.library_path()
-        if not os.path.exists(path):
-            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-            if not os.path.exists(nvcc):
-                raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                                   "nellie_tpu_torch/kernels/csrc/nn_argmin.cu")
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            start = time.perf_counter()
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-            os.close(fd)
-            try:
-                proc = subprocess.run([nvcc, *_NVCC_FLAGS, "-o", tmp, _CSRC],
-                                      capture_output=True, text=True)
-                if proc.returncode != 0:
-                    raise RuntimeError(f"nvcc failed on {_CSRC}:\n{proc.stdout}{proc.stderr}")
-                os.replace(tmp, path)
-            finally:
-                if os.path.exists(tmp):
-                    os.remove(tmp)
-            self.build_seconds = time.perf_counter() - start
-        lib = ctypes.CDLL(path)
+    def bind(self, lib):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.nn_argmin_f32.argtypes = [ptr, ptr] + [i32] * 8 + [ptr] * 5
         lib.nn_argmin_f32.restype = i32
         lib.nn_argmin_info.argtypes = [i32] + [ctypes.POINTER(i32)] * 6
         lib.nn_argmin_info.restype = i32
-        return lib
 
     def info(self, dim: int) -> dict:
         """The library's QPT, R_TILE and MAX_THREADS (checked against this
@@ -192,9 +141,7 @@ class _NNKernel:
         dim = key[0]
         lib = self.build()
         vals = [ctypes.c_int() for _ in range(6)]
-        err = lib.nn_argmin_info(dim, *[ctypes.byref(v) for v in vals])
-        if err != 0:
-            raise RuntimeError(f"nn_argmin_info failed with cudaError {err}")
+        check_error("nn_argmin_info", lib.nn_argmin_info(dim, *[ctypes.byref(v) for v in vals]))
         info = dict(zip(("qpt", "r_tile", "max_threads", "regs", "local_bytes",
                          "resident_warps"), (v.value for v in vals)))
         if (info["qpt"], info["r_tile"], info["max_threads"]) != (QPT, R_TILE, MAX_THREADS):
@@ -233,8 +180,7 @@ class _NNKernel:
                                     plan.splits, plan.split_len, QPT, plan.r_tile,
                                     packed.data_ptr(), keys.data_ptr(), d2.data_ptr(),
                                     idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"nn_argmin_f32 launch failed with cudaError {err}")
+        check_error("nn_argmin_f32 launch", err)
         self.count_launch()
         return d2, idx
 

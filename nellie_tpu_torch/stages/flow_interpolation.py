@@ -8,6 +8,12 @@ query is scored against every flow vector of its frame inside the radius:
   w := w − min(w) + 1; w /= Σw    (shift-normalise over the radius set)
   v = Σ w · vec                   (NaN where the radius set is empty)
 
+On a CUDA tensor :func:`_interp_all_kernel` launches the hand-written
+kernel ``kernels/csrc/flow_interp.cu`` (built for ``sm_90a`` with ``nvcc``,
+``-fmad=false``, on first use; bound through ``ctypes``), which rounds as
+the plain body does, or raises; on a CPU tensor it runs the plain body
+tile by tile.  ``FLOW_INTERP_KERNEL.launches`` counts the kernel's launches.
+
 ``interpolate_coord_dev`` leaves the vectors on the interpolator's device
 for the Hierarchy; ``interpolate_coord`` is its host copy.
 ``interpolate_all_forward`` and ``interpolate_all_backward`` (``:210-257``)
@@ -16,12 +22,16 @@ tracks, for :class:`~nellie_tpu_torch.stages.all_tracks_for_label.LabelTracks`.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from nellie_tpu_torch.io import ImInfo
 from nellie_tpu_torch.device import resolve_device
-from nellie_tpu_torch.kernels._fp import contract, fma, reduce_sum_of_squares, sqrt, tree_sum
+from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CudaKernel, check_error
+from nellie_tpu_torch.kernels._fp import (REDUCE_WINDOW, contract, fma, reduce_sum_of_squares,
+                                          sqrt, tree_sum)
 
 _INTERP_TILE = 8192
 
@@ -55,13 +65,102 @@ def _interp_tile_body(query_scaled, flow_scaled, vectors, costs, max_distance):
     return torch.where(any_nb, out, torch.full_like(out, float("nan")))
 
 
-def _interp_all_kernel(query_scaled, flow_scaled, vectors, costs, max_distance):
-    """All queries, one tile of ``_INTERP_TILE`` rows at a time."""
+def radius_threshold(max_distance) -> float:
+    """The largest float32 squared norm s whose correctly rounded square
+    root is at most ``max_distance`` (as float32): ``sqrt(s) <= max_distance``
+    exactly when ``s <= radius_threshold(max_distance)``, since the rounded
+    root is monotonic."""
+    r = np.float32(max_distance)
+    if np.isnan(r) or r < 0:
+        return float("-inf")
+    if np.isinf(r):
+        return float("inf")
+    t = np.float32(np.float64(r) * np.float64(r))
+    up, down = np.float32(np.inf), np.float32(-np.inf)
+    while np.sqrt(t) > r:
+        t = np.nextafter(t, down)
+    while np.sqrt(np.nextafter(t, up)) <= r:
+        t = np.nextafter(t, up)
+    return float(t)
+
+
+def tree_levels(n_rows: int) -> int:
+    """How many times ``_fp.tree_sum`` folds ``n_rows`` values into windows
+    of 32 before at most 32 remain."""
+    levels = 0
+    while n_rows > REDUCE_WINDOW:
+        n_rows = -(-n_rows // REDUCE_WINDOW)
+        levels += 1
+    return levels
+
+
+class _FlowInterpKernel(CudaKernel):
+    """The compiled interpolation (``csrc/flow_interp.cu``), built once per
+    process, with a launch count.  No multiply-add contraction and no fast
+    math: the source writes out every fused multiply-add."""
+
+    source = "flow_interp.cu"
+    flags = (*BASE_FLAGS, "-fmad=false")
+
+    def bind(self, lib):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.flow_interp_f32.argtypes = [ptr] * 4 + [i32] * 3 + [ctypes.c_float, i32, ptr, ptr]
+        lib.flow_interp_f32.restype = i32
+
+    def __call__(self, query_scaled, flow_scaled, vectors, costs, max_distance):
+        tensors = (query_scaled, flow_scaled, vectors, costs)
+        if any(t.dtype != torch.float32 for t in tensors):
+            raise TypeError("the flow interpolation kernel takes float32 tensors")
+        n_q, dim = query_scaled.shape
+        n_m = flow_scaled.shape[0]
+        if dim not in (2, 3) or flow_scaled.shape != (n_m, dim) or vectors.shape != (n_m, dim) \
+                or costs.shape != (n_m,):
+            raise ValueError(f"shapes {[tuple(t.shape) for t in tensors]}: expected (Q, d), "
+                             "(M, d), (M, d) and (M,) with d = 2 or 3")
+        if n_q >= 2 ** 31 or n_m >= 2 ** 31:
+            raise ValueError("more than 2**31 - 1 rows")
+        dev = query_scaled.device
+        if any(t.device != dev for t in tensors):
+            raise ValueError("the flow interpolation's tensors must share one device")
+        out = torch.empty((n_q, dim), dtype=torch.float32, device=dev)
+        if n_q == 0:
+            return out
+        if n_m == 0:
+            return out.fill_(float("nan"))
+        lib = self.build()
+        q, f, v, c = (t.contiguous() for t in tensors)
+        with torch.cuda.device(dev):
+            err = lib.flow_interp_f32(q.data_ptr(), f.data_ptr(), v.data_ptr(), c.data_ptr(),
+                                      n_q, n_m, dim, radius_threshold(max_distance),
+                                      tree_levels(n_m), out.data_ptr(),
+                                      torch.cuda.current_stream(dev).cuda_stream)
+        check_error("flow_interp_f32 launch", err)
+        self.count_launch()
+        return out
+
+
+FLOW_INTERP_KERNEL = _FlowInterpKernel()
+
+
+def _interp_all_plain(query_scaled, flow_scaled, vectors, costs, max_distance):
+    """All queries through the plain body, one tile of ``_INTERP_TILE``
+    rows at a time."""
     return torch.cat([
         _interp_tile_body(query_scaled[s:s + _INTERP_TILE], flow_scaled, vectors,
                           costs, max_distance)
         for s in range(0, query_scaled.shape[0], _INTERP_TILE)
     ], dim=0)
+
+
+def _interp_all_kernel(query_scaled, flow_scaled, vectors, costs, max_distance):
+    """(Q, d) interpolated vectors for all queries: the hand-written kernel
+    on a CUDA tensor (or it raises), :func:`_interp_all_plain` on a CPU
+    tensor."""
+    if query_scaled.device.type == "cuda":
+        return FLOW_INTERP_KERNEL(query_scaled, flow_scaled, vectors, costs, max_distance)
+    if query_scaled.device.type == "cpu":
+        return _interp_all_plain(query_scaled, flow_scaled, vectors, costs, max_distance)
+    raise ValueError(f"_interp_all_kernel: unsupported device {query_scaled.device}")
 
 
 class FlowInterpolator:

@@ -88,3 +88,12 @@ def test_importing_the_whole_port_loads_no_jax_and_no_jax_package():
                 for p in SOURCES if p.startswith("nellie_tpu_torch")}
     assert expected <= set(out["imported"])
     assert [m for m in out["modules"] if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("rel", ["nellie_tpu_torch/kernels/_cuda.py",
+                                 "nellie_tpu_torch/kernels/nn.py",
+                                 "nellie_tpu_torch/kernels/ccl.py",
+                                 "nellie_tpu_torch/stages/flow_interpolation.py"])
+def test_sources_cover_the_cuda_kernel_wrappers(rel):
+    """The checks above parse and import every CUDA kernel's wrapper."""
+    assert rel in SOURCES
