@@ -10,6 +10,7 @@ so that the threads of a mesh compile it once and lose no count.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -59,6 +60,16 @@ class CudaKernel:
     def count_launch(self):
         with self._lock:
             self.launches += 1
+
+    @staticmethod
+    def on_device(dev):
+        """A context that makes CUDA device ``dev`` current, or none when it
+        already is (entering one costs more than a small launch)."""
+        import torch
+
+        if dev.index is None or dev.index == torch.cuda.current_device():
+            return contextlib.nullcontext()
+        return torch.cuda.device(dev)
 
     def library_path(self) -> str:
         with open(self.source_path, "rb") as f:

@@ -2,11 +2,12 @@
 
 XLA compiles the JAX package's fused elementwise code with fused
 multiply-add contraction: ``a*b + c`` is rounded once, not twice.  PyTorch
-rounds after each operation.  The helpers here compute the product and
-the sum in float64 and round once to float32.  The product of two float32
-values is exact in float64, so the result is the correctly rounded fused
-multiply-add except when the float64 sum lands exactly on a float32 tie
-(about one operation in 2**29).
+rounds after each operation.  :func:`fma` rounds once on every device: on
+a CUDA tensor it launches the hand-written kernel ``csrc/fma_f32.cu``
+(the hardware's ``fmaf``; built for ``sm_90a`` with ``nvcc`` on first use,
+bound through ``ctypes``), or raises; on CPU tensors it runs
+:func:`fma_plain`, which rounds to odd in float64 and then once to
+float32.  ``FMA_KERNEL.launches`` counts the kernel's launches.
 
 A sum of products ``p0 + p1 + ... `` is contracted by XLA with the LEFT
 product of the first addition fused: ``fma(a0, b0, a1*b1)``, then
@@ -14,10 +15,13 @@ product of the first addition fused: ``fma(a0, b0, a1*b1)``, then
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence, Tuple, Union
 
 import numpy as np
 import torch
+
+from nellie_tpu_torch.kernels._cuda import CudaKernel, check_error
 
 Operand = Union[torch.Tensor, float]
 
@@ -244,13 +248,140 @@ def acos(x: torch.Tensor) -> torch.Tensor:
 
 
 def _wide(x: Operand):
-    return x.double() if isinstance(x, torch.Tensor) else float(x)
+    """A float64 operand that holds a float32 value: tensors through
+    float32 (float16 values are exact in it), numbers rounded to float32 as
+    XLA rounds a weak-typed constant."""
+    if isinstance(x, torch.Tensor):
+        return (x if x.dtype == torch.float32 else x.float()).double()
+    return f32(x)
+
+
+def fma_plain(a: Operand, b: Operand, c: Operand) -> torch.Tensor:
+    """``a*b + c`` rounded once to float32, in plain torch on any device.
+
+    The product of two float32 values is exact in float64; the sum is
+    rounded to odd: a two-sum gives its rounding error, and where that is
+    not 0 and the float64 sum's last bit is even, the sum steps one ulp
+    toward the error.  Rounding that to float32 is then correct, since
+    53 >= 24 + 2 bits; infinities and NaN pass through."""
+    a, b, c = (_wide(x) for x in (a, b, c))
+    if not isinstance(c, torch.Tensor) and not isinstance(a, torch.Tensor) \
+            and not isinstance(b, torch.Tensor):
+        c = torch.tensor(c, dtype=torch.float64)
+    p = a * b
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)  # NaN where s is not finite
+    bits = s.view(torch.int64)
+    # away from zero where err has the sum's sign, toward it otherwise
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    fix = ((bits & 1) == 0) & ((err > 0) | (err < 0))
+    return torch.where(fix, bits + step, bits).view(torch.float64).float()
+
+
+# the largest number of axes fma_f32.cu walks with strides
+_FMA_MAX_DIMS = 4
+
+
+def _merge_axes(shape, strides):
+    """(sizes, strides by operand) with size-1 axes dropped and each axis
+    merged into the one before it where every operand steps across the
+    pair as across one axis."""
+    sizes, merged = [], [[] for _ in strides]
+    for axis, size in enumerate(shape):
+        if size == 1:
+            continue
+        if sizes and all(st[-1] == s[axis] * size for st, s in zip(merged, strides)):
+            sizes[-1] *= size
+            for st, s in zip(merged, strides):
+                st[-1] = s[axis]
+            continue
+        sizes.append(size)
+        for st, s in zip(merged, strides):
+            st.append(s[axis])
+    if not sizes:
+        return [1], [[0] for _ in strides]
+    return sizes, merged
+
+
+class _FmaKernel(CudaKernel):
+    """The compiled fused multiply-add (``csrc/fma_f32.cu``), built once
+    per process, with a launch count."""
+
+    source = "fma_f32.cu"
+
+    def bind(self, lib):
+        ptr = ctypes.c_void_p
+        lib.fma_f32.argtypes = [ptr, ctypes.c_longlong, ctypes.c_int, ptr, ptr, ptr, ptr, ptr]
+        lib.fma_f32.restype = ctypes.c_int
+
+    def __call__(self, a: Operand, b: Operand, c: Operand) -> torch.Tensor:
+        """``a*b + c`` as a new C-contiguous float32 tensor on the operands'
+        CUDA device.  Operands are CUDA tensors of one device, numbers, or
+        0-dim CPU tensors (taken as numbers); they broadcast.  Float32
+        tensors are read in place, strided or broadcast views included;
+        other float types are first copied to float32, and the views are
+        copied to contiguous tensors only when more than four axes remain
+        after merging."""
+        dev = next(x.device for x in (a, b, c)
+                   if isinstance(x, torch.Tensor) and x.device.type == "cuda")
+        ops = []
+        for x in (a, b, c):
+            if isinstance(x, torch.Tensor):
+                if x.device != dev:
+                    if x.device.type != "cpu" or x.dim() != 0:
+                        raise ValueError(f"fma operands on {x.device} and {dev}")
+                    x = float(x)
+                elif x.dtype != torch.float32:
+                    if not x.dtype.is_floating_point:
+                        raise TypeError(f"fma takes floating-point operands, not {x.dtype}")
+                    x = x.float()
+            ops.append(x if isinstance(x, torch.Tensor) else f32(x))
+        shapes = [x.shape for x in ops if isinstance(x, torch.Tensor)]
+        shape = shapes[0] if all(sh == shapes[0] for sh in shapes) else \
+            torch.broadcast_shapes(*shapes)
+        views = [(x if x.shape == shape else x.expand(shape))
+                 if isinstance(x, torch.Tensor) else None for x in ops]
+        lib = self._lib or self.build()
+        with self.on_device(dev):
+            out = torch.empty(shape, dtype=torch.float32, device=dev)
+            n = out.numel()
+            if n == 0:
+                return out
+            sizes, strides = _merge_axes(shape, [v.stride() if v is not None else
+                                                 (0,) * len(shape) for v in views])
+            if len(sizes) > _FMA_MAX_DIMS:
+                views = [v.contiguous() if v is not None else None for v in views]
+                sizes, strides = [n], [[1 if v is not None else 0] for v in views]
+            pad = (0,) * (_FMA_MAX_DIMS - len(sizes))
+            err = lib.fma_f32(
+                out.data_ptr(), n, len(sizes), _FmaShape(*sizes, *pad),
+                _FmaPointers(*(v.data_ptr() if v is not None else None for v in views)),
+                _FmaValues(*(0.0 if v is not None else x for v, x in zip(views, ops))),
+                _FmaStrides(*(s for st in strides for s in (*st, *pad))),
+                torch.cuda.current_stream().cuda_stream)
+        check_error("fma_f32 launch", err)
+        self.count_launch()
+        return out
+
+
+_FmaShape = ctypes.c_longlong * _FMA_MAX_DIMS
+_FmaPointers = ctypes.c_void_p * 3
+_FmaValues = ctypes.c_float * 3
+_FmaStrides = ctypes.c_longlong * (3 * _FMA_MAX_DIMS)
+FMA_KERNEL = _FmaKernel()
 
 
 def fma(a: Operand, b: Operand, c: Operand) -> torch.Tensor:
-    """``a*b + c`` rounded once to float32."""
-    out = _wide(a) * _wide(b) + _wide(c)
-    return out.float()
+    """``a*b + c`` rounded once to float32, as XLA's contracted
+    multiply-add: the hand-written kernel when an operand is a CUDA tensor
+    (or it raises), :func:`fma_plain` on CPU tensors."""
+    devices = {x.device.type for x in (a, b, c) if isinstance(x, torch.Tensor)}
+    if "cuda" in devices:
+        return FMA_KERNEL(a, b, c)
+    if devices <= {"cpu"}:
+        return fma_plain(a, b, c)
+    raise ValueError(f"fma: unsupported devices {sorted(devices)}")
 
 
 def sum_of_products(pairs: Sequence[Tuple[Operand, Operand]]) -> torch.Tensor:

@@ -7,14 +7,15 @@ Every component's root is its minimum linear index, and ranking those
 roots gives scipy's raster-order numbering exactly.
 
 :func:`union_find_roots`, through which every caller goes, launches the
-hand-written CUDA kernel ``csrc/ccl_union_find.cu`` (lock-free union-find
-with ``atomicMin``; built for ``sm_90a`` with ``nvcc`` on first use, bound
-through ``ctypes``) on a CUDA tensor, or raises; on a CPU tensor it runs
+hand-written CUDA kernel ``csrc/ccl_union_find.cu`` (a block-based
+union-find: runs and unions inside 32-voxel-wide tiles in shared memory,
+lock-free ``atomicMin`` unions across tiles; built for ``sm_90a`` with
+``nvcc`` on first use, bound through ``ctypes``) on a CUDA tensor, or raises; on a CPU tensor it runs
 :func:`union_find_roots_plain`, where every voxel starts with its own
 linear index and each round takes the minimum over the neighbourhood (26-
 or 6-connected, foreground only) and then jumps pointers
 (``label = label[label]``), until nothing changes.  ``CCL_KERNEL.launches``
-counts the kernel's launches (one C call: init, merge, flatten).
+counts the kernel's launches (one C call: local, border, flatten).
 """
 from __future__ import annotations
 
@@ -71,7 +72,7 @@ class _CCLKernel(CudaKernel):
 
     def bind(self, lib):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.ccl_union_find.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.ccl_union_find.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.ccl_union_find.restype = i32
 
     def __call__(self, mask: torch.Tensor, connectivity: str = "full") -> torch.Tensor:
@@ -86,15 +87,19 @@ class _CCLKernel(CudaKernel):
         dev = mask.device
         if n == 0:
             return torch.empty(0, dtype=torch.int64, device=dev)
-        lib = self.build()
-        fg = mask.bool().contiguous()
+        lib = self._lib or self.build()
+        if mask.dtype != torch.bool or not mask.is_contiguous():
+            mask = mask.bool().contiguous()
         depth, height, width = (1,) * (3 - mask.ndim) + tuple(mask.shape)
-        with torch.cuda.device(dev):
+        words = depth * height * (-(-width // 32))
+        with self.on_device(dev):
             parent = torch.empty(n, dtype=torch.int32, device=dev)
+            bits = torch.empty(words, dtype=torch.int32, device=dev)
             out = torch.empty(n, dtype=torch.int64, device=dev)
-            err = lib.ccl_union_find(fg.data_ptr(), parent.data_ptr(), out.data_ptr(), depth,
-                                     height, width, int(connectivity == "full"),
-                                     torch.cuda.current_stream(dev).cuda_stream)
+            err = lib.ccl_union_find(mask.data_ptr(), parent.data_ptr(), bits.data_ptr(),
+                                     out.data_ptr(), depth, height, width,
+                                     int(connectivity == "full"),
+                                     torch.cuda.current_stream().cuda_stream)
         check_error("ccl_union_find launch", err)
         self.count_launch()
         return out

@@ -23,6 +23,7 @@ tracks, for :class:`~nellie_tpu_torch.stages.all_tracks_for_label.LabelTracks`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -65,6 +66,7 @@ def _interp_tile_body(query_scaled, flow_scaled, vectors, costs, max_distance):
     return torch.where(any_nb, out, torch.full_like(out, float("nan")))
 
 
+@functools.lru_cache(maxsize=64)
 def radius_threshold(max_distance) -> float:
     """The largest float32 squared norm s whose correctly rounded square
     root is at most ``max_distance`` (as float32): ``sqrt(s) <= max_distance``
@@ -129,11 +131,12 @@ class _FlowInterpKernel(CudaKernel):
             return out.fill_(float("nan"))
         lib = self.build()
         q, f, v, c = (t.contiguous() for t in tensors)
-        with torch.cuda.device(dev):
+        # the library's launch cache is shared host state: one call at a time
+        with self._lock, self.on_device(dev):
             err = lib.flow_interp_f32(q.data_ptr(), f.data_ptr(), v.data_ptr(), c.data_ptr(),
                                       n_q, n_m, dim, radius_threshold(max_distance),
                                       tree_levels(n_m), out.data_ptr(),
-                                      torch.cuda.current_stream(dev).cuda_stream)
+                                      torch.cuda.current_stream().cuda_stream)
         check_error("flow_interp_f32 launch", err)
         self.count_launch()
         return out

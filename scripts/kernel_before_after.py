@@ -1,0 +1,216 @@
+"""Time the port's hand kernels and its segmentation beside an earlier tree's.
+
+    mkdir -p chip_checkout/earlier
+    git archive <commit> | tar -x -C chip_checkout/earlier
+    python3 scripts/kernel_before_after.py chip_checkout/earlier [--out FILE]
+
+The argument is an unpacked earlier checkout of the repo (the parent
+commit, say).  Needs a CUDA GPU; imports no JAX.
+
+First, in this process and with this tree, it runs ``chip_smoke.py``'s 3D
+and 2D main paths (phases 4 and 6, with their checks) and the 1024^3
+capacity path (phase 11), and keeps the union-find and interpolation
+calls that phase 17 times (``chip_smoke.ccl_rows`` and ``interp_rows``).
+Then four child processes, in turns (earlier, this, this, earlier), each
+importing the package of its own tree:
+
+- each tree's union-find and interpolation kernel on those inputs: a
+  digest of each output (the trees must agree, NaN taken as one value),
+  its time per call (CUDA events) and on the device (``torch.profiler``);
+- the fused segmentation chain (``FusedSegmentation.run(fence_stages=True)``)
+  on the 3D main series, once to warm up and once timed: its wall and
+  Filter seconds;
+- ``capacity.segment_volume`` on ``chip_smoke.capacity_volume(1024)``: its
+  wall and vesselness seconds and its label count.
+
+The last line is one JSON object: each kernel row's times on both trees
+(the least of each tree's two turns) and the seconds of every turn.
+"""
+from __future__ import annotations
+
+import argparse
+import gc
+import hashlib
+import importlib.util
+import json
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.realpath(__file__)))
+TURNS = ("earlier", "this", "this", "earlier")
+
+
+def load_chip_smoke():
+    """This tree's ``chip_smoke`` module, whatever package ``sys.path``
+    finds first."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  os.path.join(REPO, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def digest(out):
+    if out.is_floating_point():
+        out = torch.where(torch.isnan(out), torch.full_like(out, float("nan")), out)
+    return hashlib.sha256(out.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def child(tree, rows_path, out_path, label):
+    """One turn, on ``tree``'s package: the kernel rows, then the fused
+    chain and the capacity path."""
+    sys.path.insert(0, tree)
+    import nellie_tpu_torch
+
+    if os.path.dirname(os.path.dirname(os.path.realpath(nellie_tpu_torch.__file__))) != tree:
+        sys.exit(f"imported {nellie_tpu_torch.__file__}, not the package of {tree}")
+    chip_smoke = load_chip_smoke()
+    from nellie_tpu_torch.device import resolve_device
+    from nellie_tpu_torch.kernels import ccl
+    from nellie_tpu_torch.kernels.frangi import FrangiParams
+    from nellie_tpu_torch.pipeline import capacity
+    from nellie_tpu_torch.stages import flow_interpolation as fi
+
+    resolve_device("cuda")
+    gpu = chip_smoke.gpu_line()
+    rows = torch.load(rows_path)  # tensors, strings and floats only
+    result = {"tree": label, "kernels": {}}
+    for kind, kernel, reps in (("ccl", ccl.CCL_KERNEL, 20),
+                               ("interp", fi.FLOW_INTERP_KERNEL, 10)):
+        for row, args in rows[kind].items():
+            args = tuple(a.cuda() if isinstance(a, torch.Tensor) else a for a in args)
+            out = digest(kernel(*args))
+            ms, on_device = chip_smoke.kernel_times(lambda: kernel(*args), reps)
+            result["kernels"][f"{kind} {row}"] = {"ms": ms, "device_ms": on_device,
+                                                  "digest": out}
+            print(f"{label} tree: {kind} {row}: {ms:.4f} ms a call, on the device "
+                  f"{chip_smoke.fmt_ms(on_device)} [{gpu}]", flush=True)
+    root = tempfile.mkdtemp(prefix="before_after_")
+    try:
+        for name in ("warm-up", "timed"):
+            wall, stages = chip_smoke.fused_segmentation_seconds(
+                root, name, chip_smoke.MAIN_SHAPE, fence=True)
+        result.update(seg_fused=wall, filter=stages["filter"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    vol = chip_smoke.capacity_volume(chip_smoke.CAPACITY_EDGE)
+    params = FrangiParams(sigmas=chip_smoke.CAPACITY_SIGMAS, spacing=(1.0, 1.0, 1.0),
+                          z_ratio=1.0)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = capacity.segment_volume(vol, params, emit="sparse_labels", device="cuda")
+    result.update(capacity=time.perf_counter() - start,
+                  vesselness=out["seconds"]["vesselness"], n_labels=out["n_labels"])
+    print(f"{label} tree: seg_fused {result['seg_fused']:.3f} s, filter {result['filter']:.3f} "
+          f"s; capacity 1024^3 {result['capacity']:.3f} s, vesselness "
+          f"{result['vesselness']:.3f} s, {result['n_labels']} labels [{gpu}]", flush=True)
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+
+
+def record(rows_path):
+    """The kernel rows from this tree's main paths and capacity path,
+    saved on the host to ``rows_path``."""
+    chip_smoke = load_chip_smoke()
+    from nellie_tpu_torch.device import resolve_device
+    from nellie_tpu_torch.kernels import nn
+
+    resolve_device("cuda")
+    gpu = chip_smoke.gpu_line()
+    root = tempfile.mkdtemp(prefix="before_after_")
+    try:
+        hand = chip_smoke.phase_main_path(nn, gpu, root)[4]
+        hand_2d = chip_smoke.phase_main_path(nn, gpu, root, chip_smoke.MAIN_SHAPE_2D,
+                                             tag="2D ")[4]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    capacity = chip_smoke.phase_capacity_1024(gpu)
+    ccl_rows = chip_smoke.ccl_rows({"3D": hand["calls"]["ccl_union_find"],
+                                    "2D": hand_2d["calls"]["ccl_union_find"]},
+                                   capacity["calls"])
+    interp_rows = chip_smoke.interp_rows({"3D": hand["calls"]["flow_interp"],
+                                          "2D": hand_2d["calls"]["flow_interp"]})
+    host = {kind: {row: tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+                   for row, args in rows.items()}
+            for kind, rows in (("ccl", ccl_rows), ("interp", interp_rows))}
+    torch.save(host, rows_path)
+    return gpu
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("earlier", help="an unpacked earlier checkout of the repo")
+    parser.add_argument("--out", help="also write the last line's JSON here")
+    parser.add_argument("--child", nargs=3, metavar=("ROWS", "OUT", "LABEL"),
+                        help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA GPU")
+    earlier = os.path.realpath(args.earlier)
+    if args.child:
+        child(earlier, *args.child)
+        return
+    sys.path.insert(0, REPO)
+    if not os.path.isfile(os.path.join(earlier, "nellie_tpu_torch", "__init__.py")):
+        sys.exit(f"{earlier} holds no nellie_tpu_torch package")
+    work = tempfile.mkdtemp(prefix="before_after_")
+    try:
+        rows_path = os.path.join(work, "rows.pt")
+        gpu = record(rows_path)
+        gc.collect()
+        torch.cuda.empty_cache()  # the children need the card's memory
+        turns = []
+        for k, label in enumerate(TURNS):
+            out = os.path.join(work, f"turn{k}.json")
+            tree = earlier if label == "earlier" else REPO
+            subprocess.run([sys.executable, os.path.abspath(__file__), tree, "--child",
+                            rows_path, out, label], check=True, cwd=REPO)
+            with open(out) as f:
+                turns.append(json.load(f))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    kernels = {}
+    for row in turns[0]["kernels"]:
+        digests = {t["kernels"][row]["digest"] for t in turns}
+        if len(digests) != 1:
+            sys.exit(f"the two trees' kernels differ at {row}")
+        kernels[row] = {}
+        for label in ("this", "earlier"):
+            mine = [t["kernels"][row] for t in turns if t["tree"] == label]
+            kernels[row][label] = {
+                "ms": min(m["ms"] for m in mine),
+                "device_ms": min((m["device_ms"] for m in mine if m["device_ms"] is not None),
+                                 default=None)}
+        this, before = kernels[row]["this"], kernels[row]["earlier"]
+        print(f"{row}: this tree {this['ms']:.4f} ms a call (on the device "
+              f"{fmt(this['device_ms'])}), earlier tree {before['ms']:.4f} ms "
+              f"(on the device {fmt(before['device_ms'])}) [{gpu}]", flush=True)
+    if len({t["n_labels"] for t in turns}) != 1:
+        sys.exit("the two trees' capacity runs found different label counts")
+    seconds = [{k: t[k] for k in ("tree", "seg_fused", "filter", "capacity", "vesselness")}
+               for t in turns]
+    print("seconds by turn: " + "; ".join(
+        f"{s['tree']}: seg_fused {s['seg_fused']:.3f}, filter {s['filter']:.3f}, capacity "
+        f"{s['capacity']:.3f}, vesselness {s['vesselness']:.3f}" for s in seconds)
+        + f" [{gpu}]", flush=True)
+    line = json.dumps({"gpu": gpu, "kernels": kernels, "turns": seconds})
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line, flush=True)
+
+
+def fmt(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+if __name__ == "__main__":
+    main()

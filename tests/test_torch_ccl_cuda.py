@@ -5,7 +5,10 @@ Needs a CUDA GPU and skips without one; imports no JAX.  On the card:
     python -m pytest --noconftest -m gpu tests/test_torch_ccl_cuda.py
 
 (``--noconftest`` because ``tests/conftest.py`` imports JAX.)  The masks
-are ``chip_smoke.ccl_masks`` (phase 17's) at main-path and odd shapes;
+are ``chip_smoke.ccl_masks`` (phase 17's) at main-path shapes and at shapes
+off the kernel's 32 x 8 x 4 and 32 x 32 tiles, a dense background at faces
+connectivity (what ``fill_holes`` gives it), runs that cross warps and
+tiles, and a capacity cell of 2**26 voxels;
 ``union_find_roots`` on a CUDA tensor launches the kernel once and equals
 ``union_find_roots_plain`` on the card and on CPU copies exactly.
 """
@@ -16,7 +19,7 @@ import torch
 import chip_smoke
 from nellie_tpu_torch.kernels import ccl
 
-SHAPES = [(64, 256, 256), (1024, 1024), (7, 33, 65), (1, 1, 5), (130,)]
+SHAPES = [(64, 256, 256), (1024, 1024), (7, 33, 65), (5, 37, 100), (1, 1, 5), (130,)]
 
 
 @pytest.fixture
@@ -110,3 +113,50 @@ def test_kernel_rejects_more_axes_than_three(cuda):
     np.testing.assert_array_equal(
         ccl.union_find_roots(torch.tensor([True, False, True], device=cuda)).cpu().numpy(),
         [0, 3, 2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("connectivity", ["full", "faces"])
+def test_dense_background(cuda, connectivity):
+    """``fill_holes`` runs the kernel on the background: 98.8 % of the
+    voxels, one component with holes."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for shape in ((64, 256, 256), (1024, 1024), (9, 35, 70)):
+        mask = ~(torch.rand(shape, generator=gen, device=cuda) < 0.012)
+        got = ccl.union_find_roots(mask, connectivity)
+        assert torch.equal(got, ccl.union_find_roots_plain(mask, connectivity))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("connectivity", ["full", "faces"])
+def test_runs_cross_warps_and_tiles(cuda, connectivity):
+    """Whole rows joined at alternate ends (a serpentine 100 voxels wide,
+    four words a row) and rows of runs that start in one word and end in
+    the next: joined only through the border unions."""
+    for shape in ((9, 37, 100), (45, 100)):
+        mask = chip_smoke.serpentine(shape)
+        got = ccl.union_find_roots(torch.from_numpy(mask).to(cuda), connectivity)
+        np.testing.assert_array_equal(got.cpu().numpy(),
+                                      chip_smoke.scipy_roots(mask, connectivity)[0])
+    runs = np.zeros((6, 20, 130), bool)
+    runs[:, ::2, 20:50] = True
+    runs[:, 1::2, 60:100] = True
+    runs[::2, :, 49:61] = True
+    _check(runs, connectivity, cuda)
+
+
+@pytest.mark.gpu
+def test_capacity_cell_of_two_to_the_26_voxels(cuda):
+    """A 256 x 512 x 512 cell, the largest capacity gives the kernel
+    (``capacity._CCL_CELL_MAX_VOX``): its foreground at 0.1 % (a label
+    cell) and its background (a fill-holes cell)."""
+    from nellie_tpu_torch.pipeline import capacity
+
+    shape = (256, 512, 512)
+    assert np.prod(shape) == capacity._CCL_CELL_MAX_VOX
+    gen = torch.Generator(device=cuda).manual_seed(26)
+    mask = torch.rand(shape, generator=gen, device=cuda) < 0.001
+    assert torch.equal(ccl.union_find_roots(mask, "full"),
+                       ccl.union_find_roots_plain(mask, "full"))
+    assert torch.equal(ccl.union_find_roots(~mask, "faces"),
+                       ccl.union_find_roots_plain(~mask, "faces"))

@@ -10,15 +10,16 @@ stages run it (flow rows padded to ``_bucket(M)``, under
 ``_interp_all_kernel``) in every bit (NaN where it is NaN).
 
 The CUDA kernel (``kernels/csrc/flow_interp.cu``) cannot run here, so its
-loop is modelled in numpy (``chip_smoke.interp_model``: three passes over
-the rows, rows outside the radius skipped in the weight sums, one
-accumulator per level of XLA's windows of 32, four lanes for the dot).
-With the plain body's double-rounded fused multiply-add the model equals
-the plain body bit for bit; with exact ones it is what the kernel
-computes, and the card check accepts a difference between kernel and
-plain body only where the model with exact ones agrees with the kernel.
-On the card, ``tests/test_torch_flow_interp_cuda.py`` holds the kernel
-itself to the plain body.
+two paths are modelled in numpy: ``chip_smoke.interp_model`` (one pass
+over every pair listing the rows in the radius; the weight sum over the
+list, its level accumulators moved across the skipped windows; the dot
+over the list in four lanes, a zero lane's sign from per-lane counts of
+negative-signed vector components) and ``chip_smoke.interp_model_three_pass``
+(a query whose list overflows: every row in order).  Both round each
+fused multiply-add once, as the kernel and the plain body's ``_fp.fma``
+do, and both equal the plain body bit for bit, with no allowance.  On the
+card, ``tests/test_torch_flow_interp_cuda.py`` holds the kernel itself to
+the plain body.
 """
 import os
 import re
@@ -92,23 +93,65 @@ def test_tile_body_and_tile_loop_agree(case):
 
 
 def test_kernel_model_equals_plain_body(case):
-    """The kernel's streaming order (skipped rows, level accumulators, four
-    lanes) with the plain body's fused multiply-add."""
+    """The kernel's list path (sums and dot over the rows in the radius,
+    skipped windows and zero lanes accounted for) equals the plain body."""
     inputs, plain = case
-    model = chip_smoke.interp_model(*inputs, fma=chip_smoke.fma_rounded_twice)
+    model = chip_smoke.interp_model(*inputs)
     assert chip_smoke.same_bits(model, plain).all()
 
 
 def test_kernel_model_with_exact_fma_differs_only_by_double_rounding(case):
-    """With exact fused multiply-adds the model may differ from the plain
-    body only in the last bits, and on few rows."""
+    """The kernel's three-pass path (every row in order) with exact fused
+    multiply-adds equals the plain body bit for bit: with ``_fp.fma``
+    rounding once, no row differs by a double rounding any more."""
     inputs, plain = case
-    exact = chip_smoke.interp_model(*inputs, fma=chip_smoke.fma_exact)
-    same = chip_smoke.same_bits(exact, plain)
-    assert (~same.all(axis=1)).sum() <= chip_smoke.MAX_DOUBLE_ROUNDED_ROWS
-    both = ~np.isnan(plain)
-    np.testing.assert_array_equal(np.isnan(exact), np.isnan(plain))
-    np.testing.assert_allclose(exact[both], plain[both], rtol=1e-6, atol=1e-7)
+    exact = chip_smoke.interp_model_three_pass(*inputs)
+    assert chip_smoke.same_bits(exact, plain).all()
+
+
+def _plain(query, anchors, vectors, costs, max_distance):
+    return fi._interp_all_kernel(*[torch.from_numpy(a) for a in (query, anchors, vectors,
+                                                                 costs)], max_distance).numpy()
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_overflowing_lists_take_the_three_pass_path(d):
+    """A radius of 3 puts more than ``INTERP_LIST_LEN`` rows inside for
+    most queries: the model takes the three-pass path for them and the list
+    path for the rest, and equals the plain body."""
+    q, f, v, c, _ = chip_smoke.interp_inputs(64, 1500, d, seed=d)
+    overflow = chip_smoke.interp_overflows(q, f, 3.0)
+    assert 16 < overflow < 64
+    assert chip_smoke.same_bits(chip_smoke.interp_model(q, f, v, c, 3.0),
+                                _plain(q, f, v, c, 3.0)).all()
+
+
+@pytest.mark.parametrize("n_m", [4391, chip_smoke.INTERP_TILED_ROWS])
+def test_tables_below_and_above_shared_memory(n_m):
+    """M at the 2D main path's 4,391 rows (the table held in shared memory)
+    and above what shared memory holds (streamed through tiles)."""
+    q, f, v, c, r = chip_smoke.interp_inputs(24, n_m, 2, seed=n_m)
+    assert chip_smoke.same_bits(chip_smoke.interp_model(q, f, v, c, r),
+                                _plain(q, f, v, c, r)).all()
+
+
+def test_list_sum_crosses_skipped_windows():
+    """Rows in the radius 33, 1,100 and 30,000 rows apart (M = 40,000: three
+    window levels): the list path moves its level accumulators across
+    every window boundary between them, as the three-pass path adds +0
+    row by row."""
+    rng = np.random.default_rng(8)
+    n_m = 40_000
+    anchors = np.full((n_m, 2), 50.0, np.float32) + rng.random((n_m, 2)).astype(np.float32)
+    listed = [3, 36, 40, 1140, 1141, 2300, 9000, 31000, 31033, 39999]
+    anchors[listed] = (rng.random((len(listed), 2)) * 0.5).astype(np.float32)
+    vectors = rng.integers(-2, 3, (n_m, 2)).astype(np.float32)
+    costs = (rng.random(n_m) * 40 + 0.5).astype(np.float32)
+    query = (rng.random((6, 2)) * 0.2).astype(np.float32)
+    assert chip_smoke.interp_overflows(query, anchors, 1.0) == 0
+    got = chip_smoke.interp_model(query, anchors, vectors, costs, 1.0)
+    assert np.isfinite(got).all()
+    assert chip_smoke.same_bits(got, _plain(query, anchors, vectors, costs, 1.0)).all()
 
 
 def test_model_sums_weights_in_xla_tree_order():
@@ -149,9 +192,32 @@ def test_zero_lane_keeps_its_sign(n_m, negative_zero):
     plain = fi._interp_all_kernel(*[torch.from_numpy(a) for a in (query, anchors, vectors,
                                                                   costs)], 0.5).numpy()
     assert (plain[:, 0] == 0).all() and np.signbit(plain[:, 0]).all() == negative_zero
-    for fma in (chip_smoke.fma_rounded_twice, chip_smoke.fma_exact):
-        assert chip_smoke.same_bits(
-            chip_smoke.interp_model(query, anchors, vectors, costs, 0.5, fma=fma), plain).all()
+    for model in (chip_smoke.interp_model, chip_smoke.interp_model_three_pass):
+        assert chip_smoke.same_bits(model(query, anchors, vectors, costs, 0.5), plain).all()
+
+
+@pytest.mark.parametrize("outside,want", [(-1.0, "-0"), (2.0, "+0"), (-0.0, "-0"),
+                                          (np.inf, "nan"), (np.nan, "nan")])
+def test_a_lane_skipped_rows_decide(outside, want):
+    """Every in-radius vector's component 0 is -0; the rows outside the
+    radius are negative except one, whose component is ``outside``: a
+    zero lane stays -0 only when every row it skipped is negative-signed,
+    and is NaN where one of them is not finite (+0 * inf)."""
+    anchors = np.array([[0, 0], [0, 0.2], [5, 5], [6, 6], [0, 0.4], [7, 7], [8, 8], [9, 9]],
+                       np.float32)
+    vectors = np.array([[-0.0, 1], [-0.0, 1], [-2, 1], [-3, 1], [-0.0, 2], [-1, 1], [-4, 1],
+                        [-5, 1]], np.float32)
+    vectors[6, 0] = outside
+    costs = np.ones(8, np.float32)
+    query = np.array([[0, 0.1], [0, 0.3]], np.float32)
+    plain = _plain(query, anchors, vectors, costs, 0.5)
+    first = plain[:, 0]
+    if want == "nan":
+        assert np.isnan(first).all()
+    else:
+        assert (first == 0).all() and np.signbit(first).all() == (want == "-0")
+    for model in (chip_smoke.interp_model, chip_smoke.interp_model_three_pass):
+        assert chip_smoke.same_bits(model(query, anchors, vectors, costs, 0.5), plain).all()
 
 
 def test_exact_fma_rounds_once():
