@@ -5,8 +5,9 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. the device: name, ``nvidia-smi`` name and power limit, torch/CUDA versions;
-2. builds the four CUDA kernels from the checkout (nearest neighbour,
-   union-find, flow interpolation, fused multiply-add; one nvcc each, in
+2. builds the six CUDA kernels from the checkout (nearest neighbour,
+   union-find, flow interpolation, fused multiply-add, the Gaussian
+   cascade's 1-D correlation and the Frangi tail; one nvcc each, in
    parallel), times the builds and prints the nearest-neighbour kernel's
    registers, spills and resident warps per SM;
 3. checks the kernel against its plain PyTorch version on the card (ragged
@@ -118,10 +119,24 @@ Phases, each printing its own lines; any failure exits non-zero:
    largest call) beside the plain version's, the library call's where
    there is one and the bound, with the launches on the 3D and 2D
    main paths (counted in phases 4 and 6, set to 0 just before each run)
-   and in phase 11.
+   and in phase 11.  The 1-D correlation (``kernels/csrc/gauss_axis.cu``)
+   and the Frangi tail's two passes (``kernels/csrc/frangi_tail.cu``), bit
+   for bit against their plain versions: the 3D and 2D main cascades'
+   taps with both carries, the LoG's, a dim block, a last axis of 128, a
+   core box, no mask, on synthetic frames (and CPU copies at small
+   shapes), then the largest call of each of phases 4, 6 and 11 on its
+   own operands, with their times beside the plain versions', the bound
+   and (the correlation) one cuDNN convolution;
+18. a real out-of-memory on the card: with most of the card's memory held
+   by a ballast tensor, ``run`` on a 3D series whose full-frame working
+   set passes the ladder's estimate but not the memory left, so the stage
+   runs out of memory and reruns in its low-memory mode on the same
+   device; every file it wrote is held byte for byte to a run that asked
+   for low memory from the start.
 
-Phases 4 and 6 also print the hand kernels' launches by caller, and phase
-11 the union-find's and the multiply-add's.
+Phases 4 and 6 also print the hand kernels' launches by caller and
+``fma_f32``'s by calling function (failing if the Filter's arithmetic
+launched it), and phase 11 the same for capacity.
 
 Phase 5 holds the flow costs card = CPU exactly (the Hu moments' powers
 round as XLA's CPU code rounds them, ``kernels/_fp.py::pow``).
@@ -619,6 +634,7 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
             by_caller[name][caller] = by_caller[name].get(caller, 0) + 1
     print(f"{tag}hand kernel launches on the main path: {json.dumps(hand)}, by caller "
           f"{json.dumps(by_caller)}", flush=True)
+    check_fma_callers(tag + "main path", calls.fma_by_caller, hand["fma_f32"])
     if min(hand.values()) == 0:
         fail(f"{tag}the main path never launched one of the hand kernels: {json.dumps(hand)}")
 
@@ -643,7 +659,9 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
             len(v) != shape[0] for v in adjacency.values()):
         fail("adjacency_maps.pkl lacks a key or a frame")
     return launches, watch.launches, im_info, timings, {"launches": hand, "calls": calls.calls,
-                                                        "fma_largest": calls.fma_largest}
+                                                        "fma_largest": calls.fma_largest,
+                                                        "largest": calls.largest(),
+                                                        "fma_by_caller": calls.fma_by_caller}
 
 
 # ---------------------------------------------------------------------------
@@ -1120,8 +1138,10 @@ def phase_capacity_1024(gpu, edge=CAPACITY_EDGE):
     print(f"capacity {edge}^3 hand kernel launches: {json.dumps(hand)}; union-find calls by "
           "caller and shape: " + ", ".join(f"{t} {sh} x{n}" for (t, sh), n in shapes.items()),
           flush=True)
-    if hand["ccl_union_find"] == 0 or hand["fma_f32"] == 0:
-        fail(f"capacity {edge}^3 never launched the union-find or the fma kernel")
+    check_fma_callers(f"capacity {edge}^3", calls.fma_by_caller, hand["fma_f32"])
+    if min(hand[k] for k in ("ccl_union_find", "fma_f32", "gauss_axis", "frangi_tail")) == 0:
+        fail(f"capacity {edge}^3 never launched the union-find, the fma, the Gaussian or the "
+             "Frangi tail kernel")
     if out["strategy"] != "chunked" or out["fg_count"] != int((labels > 0).sum()):
         fail(f"capacity {edge}^3: not the chunked strategy, or fg_count is not the support")
     start = time.perf_counter()
@@ -1132,7 +1152,9 @@ def phase_capacity_1024(gpu, edge=CAPACITY_EDGE):
     if not equal:
         fail(f"capacity {edge}^3: labels are not scipy's labelling of their support")
     return dict({k: out[k] for k in ("n_labels", "fg_count", "seconds")}, launches=hand,
-                calls=calls.calls["ccl_union_find"], fma_largest=calls.fma_largest)
+                calls=calls.calls["ccl_union_find"], fma_largest=calls.fma_largest,
+                largest=calls.largest(), fma_by_caller=calls.fma_by_caller,
+                peak_gib=peak_gib)
 
 
 # ---------------------------------------------------------------------------
@@ -1548,6 +1570,51 @@ def ccl_masks(shape, seed=0):
     }
 
 
+def filter_frame(shape, seed=0, smooth=False):
+    """A float32 frame for the Filter's kernels: a few bright wavy tubes on
+    N(100, 8) noise, any shape of 1 to 3 axes; ``smooth`` passes it through
+    a Gaussian of sigma 1 (what the tail sees after the cascade)."""
+    from scipy import ndimage
+
+    rng = np.random.default_rng(seed)
+    grids = np.meshgrid(*[np.arange(n, dtype=np.float64) for n in shape], indexing="ij")
+    frame = rng.normal(100.0, 8.0, shape)
+    last = grids[-1]
+    for _ in range(4):
+        dist2 = np.zeros(shape)
+        for g, n in zip(grids[:-1], shape[:-1]):
+            centre = rng.uniform(0, n) + 0.15 * n * np.sin(last / rng.uniform(5, 15))
+            dist2 = dist2 + (g - centre) ** 2
+        frame = frame + rng.uniform(300, 900) * np.exp(-dist2 / (2 * rng.uniform(1.0, 3.0) ** 2))
+    if smooth:
+        frame = ndimage.gaussian_filter(frame, 1.0, mode="reflect")
+    return frame.astype(np.float32)
+
+
+def gauss_axis_model(x, taps, axis, round_half=False):
+    """``csrc/gauss_axis.cu`` in torch: each output reads tap k at the
+    reflected index i + offset_k (numpy's "symmetric") and sums
+    fma(x0, w0, x1 * w1), then fma(xk, wk, acc), rounding once a step;
+    optionally rounded through float16."""
+    from nellie_tpu_torch.kernels._fp import fma_plain
+
+    n = x.shape[axis]
+    i = torch.arange(n, device=x.device)
+
+    def at(offset):
+        m = torch.remainder(i + offset, 2 * n)
+        return torch.index_select(x, axis, torch.where(m < n, m, 2 * n - 1 - m))
+
+    (o0, w0), rest = taps[0], taps[1:]
+    if not rest:
+        acc = at(o0) * w0
+    else:
+        acc = fma_plain(at(o0), w0, at(rest[0][0]) * rest[0][1])
+        for o, w in rest[1:]:
+            acc = fma_plain(at(o), w, acc)
+    return acc.half().float() if round_half else acc
+
+
 def interp_inputs(n_q, n_m, d, seed=0):
     """Flow-interpolation inputs as a frame's flow gives them (numpy
     float32): anchors on a voxel grid in microns, vectors of whole voxel
@@ -1870,59 +1937,127 @@ def caller_tag():
     return stage if via is None else f"{stage}/{via}"
 
 
+# the fma_f32 callers (module.function) that are the Filter's per-voxel
+# arithmetic: since the Filter's kernels took it over, none may launch it
+FILTER_FMA_MODULES = ("filters.", "hessian.", "eigen.")
+FILTER_FMA_EXEMPT = ("frangi.masked_percentile",)  # the 1st-percentile threshold, one fma a frame
+
+
+def fma_caller():
+    """The port's function that called ``_fp.fma`` (or a helper of
+    ``_fp`` that did): ``module.function``, e.g. ``thresholds.triangle_threshold``."""
+    frame = sys._getframe(1)
+    while frame is not None:
+        path = frame.f_code.co_filename.replace(os.sep, "/")
+        if "/nellie_tpu_torch/" in path and not path.endswith("kernels/_fp.py"):
+            return f"{path.rsplit('/', 1)[-1][:-3]}.{frame.f_code.co_name}"
+        frame = frame.f_back
+    return "other"
+
+
+def filter_fma_callers(by_caller):
+    """The Filter's per-voxel callers among ``fma_f32``'s callers."""
+    return {c: n for c, n in by_caller.items()
+            if (c.startswith(FILTER_FMA_MODULES) or c.startswith("frangi."))
+            and c not in FILTER_FMA_EXEMPT}
+
+
 class KernelCalls:
     """Within a ``with`` block, records the union-find and interpolation
     kernels' calls as (caller tag, arguments), keeping those for which
-    ``keep(kernel name, tag, args)`` is true (tensors are cloned)."""
+    ``keep(kernel name, tag, args)`` is true (tensors are cloned); the
+    largest call of ``fma_f32`` (its operands), of ``gauss_axis`` and of each
+    pass of ``frangi_tail`` (their inputs copied to the host, before the
+    call); and ``fma_f32``'s launches by calling function."""
 
     def __init__(self, keep=lambda name, tag, args: True):
         self.keep = keep
         self.calls = {"ccl_union_find": [], "flow_interp": []}
         self.fma_largest = (0, None)  # (elements, operands) of the largest fma_f32 call
+        self.fma_by_caller = {}
+        self.gauss_largest = (0, None)  # (elements, (x on the host, taps, axis, round_half))
+        self.tail_largest = {"hessian_frob": (0, None), "frangi_response": (0, None)}
         self._saved = []
 
+    def _patch(self, cls, name, wrapper):
+        original = getattr(cls, name)
+        setattr(cls, name, lambda kernel, *args, _o=original, **kw: wrapper(_o, kernel, *args, **kw))
+        self._saved.append((cls, name, original))
+
     def __enter__(self):
-        from nellie_tpu_torch.kernels import _fp, ccl
+        from nellie_tpu_torch.kernels import _fp, ccl, filters, frangi
         from nellie_tpu_torch.stages import flow_interpolation as fi
 
-        fma_call = _fp._FmaKernel.__call__
-
-        def fma_recorded(kernel, a, b, c):  # the operands themselves: their layout is timed
-            out = fma_call(kernel, a, b, c)
+        def fma_recorded(original, kernel, a, b, c):  # the operands themselves: their layout is timed
+            caller = fma_caller()
+            self.fma_by_caller[caller] = self.fma_by_caller.get(caller, 0) + 1
+            out = original(kernel, a, b, c)
             if out.numel() > self.fma_largest[0]:
                 self.fma_largest = (out.numel(), (a, b, c))
             return out
 
-        _fp._FmaKernel.__call__ = fma_recorded
-        self._saved.append((_fp._FmaKernel, fma_call))
+        def gauss_recorded(original, kernel, x, taps, axis, round_half=False):
+            if x.numel() > self.gauss_largest[0]:
+                self.gauss_largest = (x.numel(), (x.cpu(), list(taps), axis, round_half))
+            return original(kernel, x, taps, axis, round_half)
+
+        def tail_recorded(name):
+            def recorded(original, kernel, g, geo, *rest):
+                if g.numel() > self.tail_largest[name][0]:
+                    copy = type(geo).from_buffer_copy(geo)
+                    host = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in rest)
+                    self.tail_largest[name] = (g.numel(), (g.cpu(), copy) + host)
+                return original(kernel, g, geo, *rest)
+            return recorded
+
+        self._patch(_fp._FmaKernel, "__call__", fma_recorded)
+        self._patch(filters._GaussAxisKernel, "__call__", gauss_recorded)
+        for name in self.tail_largest:
+            self._patch(frangi._FrangiTailKernel, name, tail_recorded(name))
 
         for name, cls in (("ccl_union_find", ccl._CCLKernel),
                           ("flow_interp", fi._FlowInterpKernel)):
-            original = cls.__call__
-
-            def recorded(kernel, *args, _original=original, _name=name):
+            def recorded(original, kernel, *args, _name=name):
                 tag = caller_tag()
                 if self.keep(_name, tag, args):
                     self.calls[_name].append(
                         (tag, tuple(a.clone() if isinstance(a, torch.Tensor) else a
                                     for a in args)))
-                return _original(kernel, *args)
+                return original(kernel, *args)
 
-            cls.__call__ = recorded
-            self._saved.append((cls, original))
+            self._patch(cls, "__call__", recorded)
         return self
 
     def __exit__(self, *exc):
-        for cls, original in self._saved:
-            cls.__call__ = original
+        for cls, name, original in reversed(self._saved):
+            setattr(cls, name, original)
+
+    def largest(self):
+        """The largest calls of the Filter's kernels and of fma_f32."""
+        return {"fma": self.fma_largest, "gauss_axis": self.gauss_largest,
+                "frangi_tail": dict(self.tail_largest)}
+
+
+def check_fma_callers(what, by_caller, launches):
+    """Print ``fma_f32``'s launches by calling function and fail if one of
+    them is the Filter's per-voxel arithmetic, which its own kernels do."""
+    if sum(by_caller.values()) != launches:
+        fail(f"{what}: fma_f32 launches by caller add up to {sum(by_caller.values())}, the "
+             f"kernel counted {launches}")
+    print(f"{what}: fma_f32 launches by caller {json.dumps(dict(sorted(by_caller.items())))}",
+          flush=True)
+    filter_calls = filter_fma_callers(by_caller)
+    if filter_calls:
+        fail(f"{what}: the Filter's arithmetic launched fma_f32: {json.dumps(filter_calls)}")
 
 
 def hand_counts():
-    from nellie_tpu_torch.kernels import _fp, ccl
+    from nellie_tpu_torch.kernels import _fp, ccl, filters, frangi
     from nellie_tpu_torch.stages import flow_interpolation as fi
 
     return {"ccl_union_find": ccl.CCL_KERNEL, "flow_interp": fi.FLOW_INTERP_KERNEL,
-            "fma_f32": _fp.FMA_KERNEL}
+            "fma_f32": _fp.FMA_KERNEL, "gauss_axis": filters.GAUSS_AXIS_KERNEL,
+            "frangi_tail": frangi.FRANGI_TAIL_KERNEL}
 
 
 def reset_hand_counts():
@@ -2318,6 +2453,348 @@ def phase_fma_kernel(gpu, largest):
     return rows, worst
 
 
+# float32 operations a voxel of the Frangi tail's passes (a fused
+# multiply-add counts two), counted from csrc/frangi_tail.cu: pass 1 the
+# components' differences and products, the flushed sums of squares and the
+# largest |component|; pass 2 the components again, the eigenvalues
+# (scaling, the trigonometric method with acos and two cosines), three exps
+# and the response
+TAIL_OPS = {("hessian_frob", 3): 56, ("hessian_frob", 2): 28,
+            ("frangi_response", 3): 270, ("frangi_response", 2): 90}
+MAIN_FRANGI = {3: dict(sigmas=(0.625, 0.8333, 1.0417, 1.25), spacing=(0.5, 0.2, 0.2),
+                       z_ratio=2.5),
+               2: dict(sigmas=(1.25, 1.6667, 2.0833, 2.5, 2.9167), spacing=(0.1, 0.1))}
+
+
+def gauss_bound(x_numel):
+    """(bound_ms, "bytes"): the input read once and the float32 output
+    written once, 8 bytes a voxel at the memory rate."""
+    return 8 * x_numel / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def check_gauss(name, x, taps, axis, round_half, against_cpu=False):
+    """The kernel against ``gauss_axis_model`` (the plain versions' chain on
+    these taps; ``tests/test_torch_gauss_axis.py`` holds the model to the
+    plain versions) on the card, and on CPU copies; bit for bit."""
+    from nellie_tpu_torch.kernels import filters
+
+    got = filters.GAUSS_AXIS_KERNEL(x, taps, axis, round_half).cpu().numpy()
+    wants = [gauss_axis_model(x, taps, axis, round_half)]
+    if against_cpu:
+        wants.append(gauss_axis_model(x.cpu(), taps, axis, round_half))
+    for want in wants:
+        if not same_bits(got, want.cpu().numpy()).all():
+            fail(f"gauss_axis differs from its plain version on {name}")
+    return 0.0
+
+
+def library_correlation(x, taps, axis):
+    """One cuDNN convolution of the input padded beforehand (symmetric
+    edges; the pad is outside the timed call): the same correlation, in
+    cuDNN's order of summation.  The port never calls it."""
+    from nellie_tpu_torch.kernels import filters
+
+    radius = max(abs(o) for o, _ in taps)
+    weights = [0.0] * (2 * radius + 1)
+    for o, w in taps:
+        weights[o + radius] = w
+    xp = filters.pad_symmetric(x, axis, radius, radius)[None, None]
+    shape = [1, 1] + [1] * x.ndim
+    shape[2 + axis] = len(weights)
+    kernel = torch.tensor(weights, dtype=torch.float32, device=x.device).reshape(shape)
+    conv = {1: torch.nn.functional.conv1d, 2: torch.nn.functional.conv2d,
+            3: torch.nn.functional.conv3d}[x.ndim]
+    return lambda: conv(xp, kernel)
+
+
+def phase_gauss_kernel(gpu, largest):
+    """The 1-D correlation kernel against its plain version on the card:
+    the 3D and 2D main cascades' taps along every axis with both carries,
+    the LoG's, one tap, an axis shorter than the taps (also on CPU copies);
+    then the largest call of each path, bit for bit, with its times."""
+    from nellie_tpu_torch.kernels import filters, frangi
+
+    cases = 0
+    for shape in ((12, 48, 48), CCL_SHAPE_3D, (7, 33, 128), CCL_SHAPE_2D, (3, 200)):
+        x = torch.from_numpy(filter_frame(shape, seed=len(shape))).cuda()
+        small = x.numel() <= 1 << 16
+        params = frangi.FrangiParams(**MAIN_FRANGI[2 if x.ndim == 2 else 3]) \
+            if x.ndim > 1 else None
+        for axis in range(x.ndim):
+            tap_sets = [(filters.traced_taps(w), h) for w in
+                        frangi._delta_kernels(params, x.ndim)[axis] for h in (False, True)]
+            tap_sets += [(filters.nonzero_taps(filters.gaussian_kernel1d(s, 4.0, order=o)), False)
+                         for s, o in ((1.0, 0), (1.0, 2), (2.5, 2))]
+            tap_sets += [([(0, 0.3)], False)]
+            for taps, half in tap_sets:
+                check_gauss(f"{shape} axis {axis}", x, taps, axis, half, against_cpu=small)
+                cases += 1
+    print(f"gauss_axis = plain version bit for bit on {cases} synthetic calls (the main "
+          "cascades' taps with both carries, the LoG's, one tap, an axis shorter than the taps; "
+          "CPU copies too at the small shapes)", flush=True)
+    rows = {}
+    for path, (n, args) in largest.items():
+        if args is None:
+            fail(f"the {path} path made no gauss_axis call")
+        x, taps, axis, half = args
+        x = x.cuda()
+        check_gauss(f"the {path} path's largest call", x, taps, axis, half)
+        plain_ms = time_ms(lambda: gauss_axis_model(x, taps, axis, half), 3)
+        ms, on_device = kernel_times(lambda: filters.GAUSS_AXIS_KERNEL(x, taps, axis, half), 20)
+        library_ms = time_ms(library_correlation(x, taps, axis), 20)
+        bound_ms, bound_by = gauss_bound(n)
+        print(f"gauss_axis = plain version bit for bit, and its time, at the {path} path's "
+              f"largest call ({tuple(x.shape)} along axis {axis}, {len(taps)} taps, float16 "
+              f"carry {half}): kernel {ms:.4f} ms a call (on the device {fmt_ms(on_device)}), "
+              f"plain {plain_ms:.4f} ms, library (cuDNN convolution of the padded input) "
+              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), share "
+              f"{bound_ms / ms:.3f} (on the device {fmt_share(bound_ms, on_device)}) [{gpu}]",
+              flush=True)
+        rows[path] = {"shape": list(x.shape), "axis": axis, "taps": len(taps), "ms": ms,
+                      "device_ms": on_device, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": library_ms}
+        del x
+    return rows, 0.0
+
+
+def tail_bound(name, g, carry_bytes, active=None):
+    """(bound_ms, bound_by) of one pass over block ``g``: bytes at the
+    memory rate, or ``TAIL_OPS`` float32 operations a voxel at the fp32
+    peak, the larger.  Pass 1: the block read and the norm written, 8 bytes
+    a voxel.  Pass 2 does its work only at the ``active`` voxels of the
+    Frobenius mask (all without one): the mask read and vessel read and
+    written everywhere (1 + 2 x carry bytes), the block read (4) and the
+    operations there, all_mask written (1) elsewhere."""
+    n = g.numel()
+    active = n if active is None else active
+    if name == "hessian_frob":
+        nbytes, ops = 8 * n, TAIL_OPS[(name, g.ndim)] * n
+    else:
+        nbytes = (1 + 2 * carry_bytes) * n + 4 * active + (n - active)
+        ops = TAIL_OPS[(name, g.ndim)] * active
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def tail_calls(g, spacing, minor, core_fn, mask_fraction=0.7, carry=torch.float32, seed=0):
+    """(pass 1 arguments, pass 2 arguments) of the kernel on block ``g``,
+    with a Frobenius mask of about ``mask_fraction`` true and a running
+    vessel of small values."""
+    from nellie_tpu_torch.kernels import frangi
+
+    gen = torch.Generator(device=g.device).manual_seed(seed)
+    geo = frangi.tail_geometry(g, spacing, minor, core_fn(g))
+    mask = torch.rand(g.shape, generator=gen, device=g.device) < mask_fraction
+    vessel = (torch.rand(g.shape, generator=gen, device=g.device) * 0.01).to(carry)
+    all_mask = torch.rand(g.shape, generator=gen, device=g.device) < 0.9
+    gamma_sq = torch.tensor(np.float32(2.0 * 40.0 ** 2), device=g.device)
+    return (g, geo), (g, geo, mask, gamma_sq, vessel, all_mask)
+
+
+def run_tail_kernel(name, args, params, copy=True):
+    """One pass of the kernel (on copies of its in-place operands, or on
+    them: a second pass in place changes nothing); returns its outputs."""
+    from nellie_tpu_torch.kernels import frangi
+
+    k = frangi.FRANGI_TAIL_KERNEL
+    if name == "hessian_frob":
+        return k.hessian_frob(*args)
+    g, geo, mask, gamma_sq, vessel, all_mask = args
+    if copy:
+        vessel, all_mask = vessel.clone(), all_mask.clone()
+    k.frangi_response(g, geo, mask, gamma_sq, params, vessel, all_mask)
+    return vessel, all_mask
+
+
+def run_tail_plain(name, args, params, spacing, minor, core_box):
+    """The same pass by the plain version on the operands' device."""
+    from nellie_tpu_torch.kernels import frangi, hessian
+
+    if name == "hessian_frob":
+        g, _ = args
+        box = tuple(slice(a, b) for a, b in zip(*core_box))
+        _, frob, largest = frangi.hessian_frob_plain(g, spacing, minor, lambda v: v[box])
+        return frob, largest
+    g, _, mask, gamma_sq, vessel, all_mask = args
+    h, _ = hessian.hessian_unnormalized(g, spacing, minor)
+    return frangi.frangi_response_plain(h, mask, gamma_sq, params, vessel, all_mask)
+
+
+def geometry_of(geo):
+    """(spacing, minor extent for the fusion rule, core box) that give
+    ``geo`` back through ``frangi.tail_geometry``."""
+    ndim = geo.ndim
+    # 1 / f32(1 / s) in float64 gives back f32(1 / s) and f32(0.5 / s)
+    spacing = tuple(1.0 / float(geo.inv[a]) for a in range(ndim))
+    minor = 128 if geo.fuse_last else 1  # a frame width that fuses, or one that never does
+    core = ([geo.core_lo[a] for a in range(ndim)], [geo.core_hi[a] for a in range(ndim)])
+    return spacing, minor, core
+
+
+def check_tail(name, args, params, spacing, minor, core_box, against_cpu=False):
+    """One pass of the kernel against the plain version on the card (and on
+    CPU copies), bit for bit."""
+    got = [t.cpu() for t in run_tail_kernel(name, args, params)]
+    devices = ["cuda"] + (["cpu"] if against_cpu else [])
+    for dev in devices:
+        moved = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
+        want = [t.cpu() for t in run_tail_plain(name, moved, params, spacing, minor, core_box)]
+        for a, b in zip(got, want):
+            same = torch.equal(a, b) if a.dtype == torch.bool else \
+                same_bits(a.float().numpy(), b.float().numpy()).all()
+            if not same or a.dtype != b.dtype:
+                fail(f"frangi_tail {name} differs from its plain version on {dev} at {name}")
+
+
+def phase_tail_kernel(gpu, largest):
+    """The Frangi tail's two passes against their plain versions on the
+    card: synthetic smoothed blocks in 3D and 2D at the main shapes, a last
+    axis of 128, a core box, both carries, no mask, a dim block (also on CPU
+    copies at the small shapes); then the largest call of each path on its
+    own operands, bit for bit, with the times of both passes."""
+    from nellie_tpu_torch.kernels import frangi
+
+    cases = 0
+    for shape, scale in (((12, 48, 48), 1.0), ((12, 48, 48), 1e-19), ((7, 33, 128), 1.0),
+                         (CCL_SHAPE_3D, 1.0), ((64, 128), 1.0), (CCL_SHAPE_2D, 1.0)):
+        g = torch.from_numpy(filter_frame(shape, seed=sum(shape), smooth=True)
+                             * np.float32(scale)).cuda()
+        params = frangi.FrangiParams(**MAIN_FRANGI[g.ndim])
+        small = g.numel() <= 1 << 16
+        box = ([1] + [0] * (g.ndim - 1), [shape[0] - 1] + list(shape[1:]))
+        core_fn = lambda v: v.narrow(0, 1, v.shape[0] - 2)  # noqa: E731
+        for carry in (torch.float32, torch.float16):
+            for minor in ((None, 1) if shape[-1] == 128 else (None,)):
+                one, two = tail_calls(g, params.spacing, minor, core_fn, carry=carry)
+                check_tail("hessian_frob", one, params, params.spacing, minor, box, small)
+                check_tail("frangi_response", two, params, params.spacing, minor, box, small)
+                no_mask = two[:2] + (None,) + two[3:]
+                check_tail("frangi_response", no_mask, params, params.spacing, minor, box, small)
+                cases += 3
+    print(f"frangi_tail = plain version bit for bit on {cases} synthetic passes (3D and 2D, main "
+          "shapes, a last axis of 128, a core box, both carries, no mask, a dim block; CPU copies "
+          "too at the small shapes)", flush=True)
+    rows = {}
+    for path, calls in largest.items():
+        row = {}
+        for name in ("hessian_frob", "frangi_response"):
+            n, args = calls[name]
+            if args is None:
+                fail(f"the {path} path made no frangi_tail {name} call")
+            g, geo, *rest = args
+            spacing, minor, box = geometry_of(geo)
+            params = frangi.FrangiParams(sigmas=(1.0,), spacing=spacing)
+            if name == "frangi_response":
+                params = rest[2]
+                rest = rest[:2] + rest[3:]
+            args = (g.cuda(), geo) + tuple(a.cuda() if isinstance(a, torch.Tensor) else a
+                                           for a in rest)
+            check_tail(name, args, params, spacing, minor, box)
+            plain_ms = time_ms(lambda: run_tail_plain(name, args, params, spacing, minor, box), 2)
+            ms, on_device = kernel_times(lambda: run_tail_kernel(name, args, params, False), 10)
+            carry_bytes = 2 if name == "frangi_response" and args[4].dtype == torch.float16 else 4
+            active = None
+            if name == "frangi_response" and args[2] is not None:
+                active = int(args[2].sum())
+            bound_ms, bound_by = tail_bound(name, args[0], carry_bytes, active)
+            share_active = "" if active is None else f", {active / args[0].numel():.2%} in the mask"
+            print(f"frangi_tail {name} = plain version bit for bit, and its time, at the {path} "
+                  f"path's largest call ({tuple(args[0].shape)}{share_active}): kernel {ms:.4f} "
+                  f"ms a call (on "
+                  f"the device {fmt_ms(on_device)}), plain {plain_ms:.4f} ms, library none, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f} (on the "
+                  f"device {fmt_share(bound_ms, on_device)}) [{gpu}]", flush=True)
+            row[name] = {"shape": list(args[0].shape), "ms": ms, "device_ms": on_device,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+        both = lambda k: sum(r[k] for r in row.values())  # noqa: E731
+        on_dev = [r["device_ms"] for r in row.values()]
+        rows[path] = dict(row, ms=both("ms"), plain_ms=both("plain_ms"),
+                          bound_ms=both("bound_ms"),
+                          device_ms=None if None in on_dev else sum(on_dev),
+                          bound_by=max(row.values(), key=lambda r: r["bound_ms"])["bound_by"],
+                          library_ms=None)
+    return rows, 0.0
+
+
+# ---------------------------------------------------------------------------
+# phase 18: a real out-of-memory on the card
+# ---------------------------------------------------------------------------
+
+OOM_SHAPE = (2, 64, 512, 512)
+OOM_FREE_FRAMES = 10  # float32 frames left free: over the estimate's 6 / 0.7, under the Filter's peak
+
+
+def phase_out_of_memory(gpu, root):
+    """Filter on a 3D series with ``low_memory=False`` while a ballast
+    tensor holds all but ``OOM_FREE_FRAMES`` float32 frames of the card's
+    memory: the ladder's estimate (6 frames against 0.7 of what is free)
+    lets it start in full-frame mode, the full frame's working set does not
+    fit, PyTorch raises its out-of-memory error, and the ladder reruns the
+    stage in low-memory mode on the same device.  ``im_preprocessed`` must
+    equal, byte for byte, a run that asked for low memory from the start."""
+    import logging
+
+    from nellie_tpu_torch.io import ImInfo
+    from nellie_tpu_torch.stages.filtering import Filter
+    from nellie_tpu_torch.utils import adaptive_run
+
+    start = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    data = np.stack([np.roll(make_frame(OOM_SHAPE[1:]), 3 * t, axis=1)
+                     for t in range(OOM_SHAPE[0])])
+    infos = {name: ImInfo(write_input(os.path.join(root, f"oom_{name}"), "series", data, "TZYX",
+                                      DIM_RES)) for name in ("ladder", "low")}
+    Filter(infos["low"], device="cuda", low_memory=True).run()
+    frame_bytes = int(np.prod(OOM_SHAPE[1:])) * 4
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    target = OOM_FREE_FRAMES * frame_bytes
+    # most of the card at once, then small pieces until the ladder's own
+    # figure (the device's free memory and the free blocks PyTorch caches,
+    # which a large piece would not reuse) is down to the target
+    ballast = [torch.empty(max(free - target - 2 ** 30, 0), dtype=torch.uint8, device=dev)]
+    for _ in range(2000):
+        left = adaptive_run.device_free_bytes(dev)
+        if left <= 1.02 * target:
+            break
+        ballast.append(torch.empty(min(left - target, 2 ** 26) // 512 * 512, dtype=torch.uint8,
+                                   device=dev))
+    left = adaptive_run.device_free_bytes(dev)
+    estimate_low = adaptive_run.should_use_low_memory(infos["ladder"], dev)
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    log = logging.getLogger("nellie_tpu_torch")
+    log.addHandler(handler)
+    try:
+        Filter(infos["ladder"], device="cuda", low_memory=False).run()
+    finally:
+        log.removeHandler(handler)
+        del ballast
+        torch.cuda.empty_cache()
+    messages = [r.getMessage() for r in records]
+    oom = [m for m in messages if "out of memory in full-frame mode" in m]
+    rungs = [m for m in messages if m.startswith("Filter: ") and " mode on " in m]
+    print(f"out of memory on the card: a ballast left {left / 2 ** 20:.1f} MiB free of "
+          f"{total / 2 ** 30:.1f} GiB ({left / frame_bytes:.2f} float32 frames of "
+          f"{OOM_SHAPE[1:]}); the ladder's estimate chose "
+          f"{'low-memory' if estimate_low else 'full-frame'} mode; Filter's rungs: {rungs}; "
+          f"out-of-memory retries: {len(oom)} [{gpu}]", flush=True)
+    if estimate_low or not oom or not rungs or "low-memory mode on cuda" not in rungs[-1]:
+        fail("phase 18: the Filter did not run out of memory in full-frame mode and rerun in "
+             "low-memory mode on the card")
+    paths = [info.pipeline_paths["im_preprocessed"] for info in infos.values()]
+    arrays = [artifact(info, "im_preprocessed") for info in infos.values()]
+    if not np.array_equal(arrays[0], arrays[1]) or not filecmp.cmp(*paths, shallow=False):
+        fail("phase 18: the rerun's im_preprocessed is not the low-memory run's byte for byte")
+    print(f"phase 18 (out of memory): im_preprocessed of the rerun = the low-memory run's, byte "
+          f"for byte ({int((arrays[0] > 0).sum())} nonzero voxels); "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    return {"free_mib": left / 2 ** 20, "retries": len(oom), "rungs": rungs}
+
+
 def compare_tables(got, want, headers, skip):
     """Largest |card - CPU| / (1e-4 + 1e-4 |CPU|) over the feature tables
     (fails above 1, or on another row count or NaN pattern); columns whose
@@ -2341,7 +2818,7 @@ def compare_tables(got, want, headers, skip):
 
 
 def build_kernels():
-    """Build the four CUDA kernels from the checkout, one nvcc each, all
+    """Build the six CUDA kernels from the checkout, one nvcc each, all
     started together; print the seconds."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -2411,8 +2888,19 @@ def main() -> None:
     fma_rows, fma_err = phase_fma_kernel(gpu, {"3D": hand["fma_largest"],
                                                "2D": hand_2d["fma_largest"],
                                                "capacity_1024": capacity["fma_largest"]})
+    largest = {"3D": hand["largest"], "2D": hand_2d["largest"],
+               "capacity_1024": capacity["largest"]}
+    gauss_rows, gauss_err = phase_gauss_kernel(
+        gpu, {path: calls["gauss_axis"] for path, calls in largest.items()})
+    tail_rows, tail_err = phase_tail_kernel(
+        gpu, {path: calls["frangi_tail"] for path, calls in largest.items()})
     print(f"phase 17 (hand kernels against their plain bodies): "
           f"{time.perf_counter() - start:.1f} s", flush=True)
+    root = tempfile.mkdtemp(prefix="nellie_port_oom_")
+    try:
+        phase_out_of_memory(gpu, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     reassign["launches"] = by_stage["VoxelReassigner"]
     hierarchy["launches"] = by_stage["Hierarchy"]
@@ -2426,8 +2914,10 @@ def main() -> None:
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     launches_by_path = {name: {"3D": hand["launches"][name], "2D": hand_2d["launches"][name]}
                         for name in hand["launches"]}
-    for name in ("ccl_union_find", "fma_f32"):
+    for name in ("ccl_union_find", "fma_f32", "gauss_axis", "frangi_tail"):
         launches_by_path[name]["capacity_1024"] = capacity["launches"][name]
+    fma_by_caller = {"3D": hand["fma_by_caller"], "2D": hand_2d["fma_by_caller"],
+                     "capacity_1024": capacity["fma_by_caller"]}
     print(json.dumps({"kernels": [
         {"name": "nn_argmin", "route": "cuda",
          "source": "nellie_tpu_torch/kernels/csrc/nn_argmin.cu",
@@ -2452,7 +2942,20 @@ def main() -> None:
          "replaces": "nellie_tpu/kernels/filters.py:69",
          "launches": hand["launches"]["fma_f32"], "max_abs_err": fma_err,
          **{k: fma_rows["3D"][k] for k in keys},
-         "launches_by_path": launches_by_path["fma_f32"], "paths": fma_rows},
+         "launches_by_path": launches_by_path["fma_f32"], "launches_by_caller": fma_by_caller,
+         "paths": fma_rows},
+        {"name": "gauss_axis", "route": "cuda",
+         "source": "nellie_tpu_torch/kernels/csrc/gauss_axis.cu",
+         "replaces": "nellie_tpu/kernels/filters.py:73",
+         "launches": hand["launches"]["gauss_axis"], "max_abs_err": gauss_err,
+         **{k: gauss_rows["3D"][k] for k in keys},
+         "launches_by_path": launches_by_path["gauss_axis"], "paths": gauss_rows},
+        {"name": "frangi_tail", "route": "cuda",
+         "source": "nellie_tpu_torch/kernels/csrc/frangi_tail.cu",
+         "replaces": "nellie_tpu/kernels/frangi.py:151",
+         "launches": hand["launches"]["frangi_tail"], "max_abs_err": tail_err,
+         **{k: tail_rows["3D"][k] for k in keys},
+         "launches_by_path": launches_by_path["frangi_tail"], "paths": tail_rows},
     ]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

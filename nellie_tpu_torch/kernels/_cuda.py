@@ -3,7 +3,8 @@
 Each kernel is one ``.cu`` file under ``kernels/csrc/`` with a plain C
 interface.  It is compiled with ``nvcc`` for ``sm_90a`` on first use into
 ``nellie_tpu_torch/_build/`` (one directory for all kernels; the library
-name carries a hash of the source and the flags, so a change rebuilds) and
+name carries a hash of the source, the ``csrc/`` headers it includes and
+the flags, so a change to any of them rebuilds) and
 bound with ``ctypes``.  :class:`CudaKernel` holds one such library: the
 build, the launch count and whatever a subclass caches sit under one lock,
 so that the threads of a mesh compile it once and lose no count.
@@ -14,6 +15,7 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -26,6 +28,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
+_QUOTED_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def nvcc() -> str:
@@ -71,9 +74,21 @@ class CudaKernel:
             return contextlib.nullcontext()
         return torch.cuda.device(dev)
 
+    def headers(self) -> list:
+        """The ``csrc/`` headers that the source includes by a quoted name."""
+        with open(self.source_path) as f:
+            names = _QUOTED_INCLUDE.findall(f.read())
+        return [os.path.join(CSRC, n) for n in names if os.path.exists(os.path.join(CSRC, n))]
+
     def library_path(self) -> str:
-        with open(self.source_path, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(self.flags).encode()).hexdigest()[:16]
+        """The library's path under ``_build/``: its name carries a hash of
+        the source, the headers it includes and the flags."""
+        digest = hashlib.sha256()
+        for path in [self.source_path, *self.headers()]:
+            with open(path, "rb") as f:
+                digest.update(f.read())
+        digest.update(" ".join(self.flags).encode())
+        digest = digest.hexdigest()[:16]
         stem = os.path.splitext(self.source)[0]
         return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 
@@ -113,6 +128,14 @@ class CudaKernel:
 
     def bind(self, lib) -> None:
         raise NotImplementedError
+
+
+def on_card(x, name: str) -> bool:
+    """Whether tensor ``x`` takes a hand kernel (a CUDA tensor) or its plain
+    version (a CPU tensor); other devices raise."""
+    if x.device.type in ("cuda", "cpu"):
+        return x.device.type == "cuda"
+    raise ValueError(f"{name}: unsupported device {x.device}")
 
 
 def check_error(name: str, err: int) -> None:

@@ -247,6 +247,12 @@ def acos(x: torch.Tensor) -> torch.Tensor:
     return atan2(sqrt((one - x) * (one + x)), x)
 
 
+def flush(x: torch.Tensor) -> torch.Tensor:
+    """A subnormal float32 result flushed to a zero of its sign, as XLA's
+    CPU code runs with flush-to-zero; other values, NaN included, pass."""
+    return torch.where(x.abs() < _TINY, x * 0.0, x)
+
+
 def _wide(x: Operand):
     """A float64 operand that holds a float32 value: tensors through
     float32 (float16 values are exact in it), numbers rounded to float32 as
@@ -557,20 +563,26 @@ def _fma64(a: torch.Tensor, b, c) -> torch.Tensor:
     return s + (t + err)
 
 
-def pow(x: torch.Tensor, y: float) -> torch.Tensor:  # noqa: A001 — the jnp name
+def pow(x: torch.Tensor, y) -> torch.Tensor:  # noqa: A001 — the jnp name
     """``x ** y`` for a float32 tensor and an exponent that XLA's CPU code
     does not see as a constant, bit for bit: a call to glibc's ``powf``
     (its FMA build, which x86-64 with FMA runs) under XLA's flush of
     subnormal inputs and results to zero.  That is how the reference's
     tracker computes the Hu normalisation ``m00 ** ((i + j + 2) / 2)``: the
     exponent is formed in the fused loop, so even 1 and 2 go through
-    ``powf``.  Covers x >= 0, 0 -> 0 and inf -> inf for y > 0, overflow to
+    ``powf``; and how its Label computes ``10.0 ** t`` of a traced
+    threshold.  ``y`` is a number or a float32 tensor that broadcasts with
+    ``x``.  Covers x >= 0, 0 -> 0 and inf -> inf for y > 0, overflow to
     inf and underflow to 0; negative x gives NaN except at integer y.
     PyTorch's ``pow`` differs from it in the last bit, on the card and on
     the CPU."""
     x = x.float()
     x = torch.where(x.abs() < _TINY, torch.zeros_like(x), x)
-    y = float(np.float32(y))
+    if isinstance(y, torch.Tensor):
+        y = y.float()
+        y = torch.where(y.abs() < _TINY, torch.zeros_like(y), y).double()
+    else:
+        y = float(np.float32(y))
     dev = x.device
     ax = x.abs()
     ix = ax.view(torch.int32).to(torch.int64)
@@ -606,12 +618,12 @@ def pow(x: torch.Tensor, y: float) -> torch.Tensor:  # noqa: A001 — the jnp na
     out = torch.where(ylogx > float.fromhex("0x1.fffffffd1d571p+6"),
                       torch.full_like(out, float("inf")), out)
     out = torch.where(ylogx <= -150.0, torch.zeros_like(out), out)
-    if y > 0:
-        out = torch.where(ax == 0, torch.zeros_like(out), out)
-        out = torch.where(torch.isinf(ax), ax, out)
-    if y == np.floor(y):
-        odd = bool(int(y) % 2)
-        out = torch.where((x < 0) & odd, -out, out)
-    else:
-        out = torch.where(x < 0, torch.full_like(out, float("nan")), out)
-    return torch.where(torch.isnan(x), x, out)
+    y = torch.as_tensor(y, dtype=torch.float64, device=dev)
+    positive = y > 0
+    out = torch.where(positive & (ax == 0), torch.zeros_like(out), out)
+    out = torch.where(positive & torch.isinf(ax), ax.expand_as(out), out)
+    integer = y == torch.floor(y)
+    odd = integer & (torch.remainder(y, 2.0) == 1.0)
+    out = torch.where((x < 0) & odd, -out, out)
+    out = torch.where((x < 0) & ~integer, torch.full_like(out, float("nan")), out)
+    return torch.where(torch.isnan(x), x.expand_as(out), out)

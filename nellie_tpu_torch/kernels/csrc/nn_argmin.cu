@@ -55,7 +55,9 @@
 // Rounding: the formula and its evaluation order are the reference's: the
 // dot q.r starts from the first product and adds each further product with
 // one fused multiply-add (__fmaf_rn), in coordinate order; |q|^2 and |r|^2
-// round every square and add them left to right; d2 is
+// round every square and add them left to right, or, with fused_norms, take
+// each square after the first into a fused multiply-add (as XLA contracts
+// them inside the reassigner's pair program); d2 is
 // __fmaf_rn(-2, q.r, |q|^2 + |r|^2), which equals (|q|^2 + |r|^2) - 2 q.r
 // rounded twice, because 2 q.r is exact.  The compiler never contracts the
 // __f*_rn intrinsics.  So the distances equal the plain version's and the
@@ -87,11 +89,14 @@ struct Row {
   static constexpr int V = (D + 4) / 4;  // float4s per packed row: D coordinates, |r|^2
 };
 
+// |v|^2: every square rounded and added left to right, or (fused) the
+// first square followed by one fused multiply-add a coordinate
 template <int D>
-__device__ __forceinline__ float sq_norm(const float* v) {
+__device__ __forceinline__ float sq_norm(const float* v, bool fused) {
   float acc = __fmul_rn(v[0], v[0]);
 #pragma unroll
-  for (int k = 1; k < D; ++k) acc = __fadd_rn(acc, __fmul_rn(v[k], v[k]));
+  for (int k = 1; k < D; ++k)
+    acc = fused ? __fmaf_rn(v[k], v[k], acc) : __fadd_rn(acc, __fmul_rn(v[k], v[k]));
   return acc;
 }
 
@@ -127,14 +132,14 @@ __device__ __forceinline__ void stage_tile(float4* dst, const float4* rows, int 
 
 template <int D>
 __global__ void __launch_bounds__(AUX_THREADS)
-pack_refs(const float* __restrict__ refs, int n_r, float4* __restrict__ rows) {
+pack_refs(const float* __restrict__ refs, int n_r, bool fused, float4* __restrict__ rows) {
   constexpr int V = Row<D>::V;
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n_r) return;
   float v[4 * V];
 #pragma unroll
   for (int k = 0; k < 4 * V; ++k) v[k] = k < D ? refs[i * D + k] : 0.f;
-  v[D] = sq_norm<D>(v);
+  v[D] = sq_norm<D>(v, fused);
 #pragma unroll
   for (int c = 0; c < V; ++c)
     rows[i * V + c] = make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2], v[4 * c + 3]);
@@ -164,7 +169,7 @@ __device__ __forceinline__ float pair_d2(const float* q, float q2, const float* 
 template <int D>
 __global__ void __launch_bounds__(MAX_THREADS)
 split_kernel(const float* __restrict__ queries, const float4* __restrict__ rows, int n_q,
-             int n_r, int split_len, unsigned long long* __restrict__ keys) {
+             int n_r, int split_len, bool fused, unsigned long long* __restrict__ keys) {
   constexpr int V = Row<D>::V;
   __shared__ __align__(16) float4 tile[2][R_TILE * V];
 
@@ -178,7 +183,7 @@ split_kernel(const float* __restrict__ queries, const float4* __restrict__ rows,
     const long long qi = base + static_cast<long long>(j) * blockDim.x;
 #pragma unroll
     for (int k = 0; k < D; ++k) q[j][k] = qi < n_q ? queries[qi * D + k] : 0.f;
-    q2[j] = sq_norm<D>(q[j]);
+    q2[j] = sq_norm<D>(q[j], fused);
     best[j] = CUDART_INF_F;
     best_i[j] = 0;
   }
@@ -265,15 +270,15 @@ unpack_keys(const unsigned long long* __restrict__ keys, int n_q, float* __restr
 
 template <int D>
 int launch(const float* q, const float* r, int n_q, int n_r, int threads, int splits,
-           int split_len, float* packed, unsigned long long* keys, float* d2, int* idx,
+           int split_len, bool fused, float* packed, unsigned long long* keys, float* d2, int* idx,
            cudaStream_t stream) {
   float4* rows = reinterpret_cast<float4*>(packed);
-  pack_refs<D><<<(n_r + AUX_THREADS - 1) / AUX_THREADS, AUX_THREADS, 0, stream>>>(r, n_r, rows);
+  pack_refs<D><<<(n_r + AUX_THREADS - 1) / AUX_THREADS, AUX_THREADS, 0, stream>>>(r, n_r, fused, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int q_tile = threads * QPT;
   const dim3 grid((n_q + q_tile - 1) / q_tile, splits);
-  split_kernel<D><<<grid, threads, 0, stream>>>(q, rows, n_q, n_r, split_len, keys);
+  split_kernel<D><<<grid, threads, 0, stream>>>(q, rows, n_q, n_r, split_len, fused, keys);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   unpack_keys<<<(n_q + AUX_THREADS - 1) / AUX_THREADS, AUX_THREADS, 0, stream>>>(keys, n_q, d2,
@@ -303,12 +308,13 @@ int info(int* regs, int* local_bytes, int* resident_warps) {
 // rows that cover the references with none empty; `qpt` and `r_tile` must
 // be this build's QPT and R_TILE.  Scratch: `packed` holds n_r rows of
 // 4 * ((dim + 4) / 4) floats, 16-byte aligned; `keys` (n_q,) filled with all
-// ones.  Writes out_d2 (n_q,) and out_idx (n_q,).  Returns a cudaError_t:
+// ones.  fused_norms: nonzero for the fused |q|^2 and |r|^2 (see Rounding).
+// Writes out_d2 (n_q,) and out_idx (n_q,).  Returns a cudaError_t:
 // cudaErrorInvalidValue for arguments outside the above, else the launches'
 // first cudaGetLastError() that is not cudaSuccess.
 extern "C" int nn_argmin_f32(const float* queries, const float* refs, int n_q, int n_r, int dim,
                              int threads, int splits, int split_len, int qpt, int r_tile,
-                             float* packed, unsigned long long* keys, float* out_d2,
+                             int fused_norms, float* packed, unsigned long long* keys, float* out_d2,
                              int* out_idx, void* stream) {
   const bool bad_plan = qpt != QPT || r_tile != R_TILE || threads < 32 ||
                         threads > MAX_THREADS || threads % 32 != 0 || splits < 1 ||
@@ -319,7 +325,7 @@ extern "C" int nn_argmin_f32(const float* queries, const float* refs, int n_q, i
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define NN_CASE(D) \
   case D:          \
-    return launch<D>(queries, refs, n_q, n_r, threads, splits, split_len, packed, keys, out_d2, out_idx, s);
+    return launch<D>(queries, refs, n_q, n_r, threads, splits, split_len, fused_norms != 0, packed, keys, out_d2, out_idx, s);
   switch (dim) {
     NN_CASE(1)
     NN_CASE(2)

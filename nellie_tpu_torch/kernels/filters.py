@@ -5,16 +5,23 @@ Port of ``nellie_tpu/kernels/filters.py``.  Edges follow scipy: 'reflect'
 sum and morphology.  A 1-D correlation is a chain of shifted multiply-adds
 in the same tap order as the reference, each contracted as XLA contracts
 it (:mod:`nellie_tpu_torch.kernels._fp`), so the results are bitwise those
-of the JAX package on the CPU.  Rank filters are separable chains of
-shifted min/max, which are exact for any dtype.
+of the JAX package on the CPU.  On a CUDA tensor the whole chain is one
+launch of the hand-written kernel ``csrc/gauss_axis.cu`` (built for
+``sm_90a`` with ``nvcc`` on first use, bound through ``ctypes``;
+``GAUSS_AXIS_KERNEL.launches`` counts them), which rounds as the plain
+versions (``correlate1d_traced_plain``, ``_correlate1d_plain``) do.  Rank
+filters are separable chains of shifted min/max, which are exact for any
+dtype.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import numpy as np
 import torch
 
+from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CudaKernel, check_error, on_card
 from nellie_tpu_torch.kernels._fp import f32, fma
 
 
@@ -68,7 +75,7 @@ def pad_constant(x: torch.Tensor, axis: int, before: int, after: int, value) -> 
     return torch.cat([x.new_full(shape_b, value), x, x.new_full(shape_a, value)], dim=axis)
 
 
-def _correlate1d(x: torch.Tensor, weights: np.ndarray, axis: int) -> torch.Tensor:
+def _correlate1d_plain(x: torch.Tensor, weights: np.ndarray, axis: int) -> torch.Tensor:
     """Correlate along ``axis`` with scipy 'reflect' edges; zero taps skipped."""
     radius = len(weights) // 2
     if radius == 0:
@@ -88,7 +95,7 @@ def _correlate1d(x: torch.Tensor, weights: np.ndarray, axis: int) -> torch.Tenso
     return out
 
 
-def correlate1d_traced(x: torch.Tensor, weights: np.ndarray, axis: int) -> torch.Tensor:
+def correlate1d_traced_plain(x: torch.Tensor, weights: np.ndarray, axis: int) -> torch.Tensor:
     """Correlation with a fixed-length (possibly zero-padded) tap vector.
 
     The reference traces the taps, so zero taps are not skipped; the
@@ -104,6 +111,91 @@ def correlate1d_traced(x: torch.Tensor, weights: np.ndarray, axis: int) -> torch
     for k in range(2, taps):
         out = fma(xp.narrow(axis, k, n), weights[k], out)
     return out
+
+
+class _GaussAxisKernel(CudaKernel):
+    """The compiled 1-D correlation (``csrc/gauss_axis.cu``), built once per
+    process, with a launch count."""
+
+    source = "gauss_axis.cu"
+    flags = (*BASE_FLAGS, "-fmad=false")
+    max_taps = 256
+
+    def bind(self, lib):
+        ptr = ctypes.c_void_p
+        lib.gauss_axis.argtypes = [ptr, ptr, ctypes.c_longlong, ctypes.c_longlong,
+                                   ctypes.c_longlong, ctypes.c_int, ptr, ptr, ctypes.c_int, ptr]
+        lib.gauss_axis.restype = ctypes.c_int
+
+    def __call__(self, x: torch.Tensor, taps, axis: int, round_half: bool = False) -> torch.Tensor:
+        """The correlation of the float32 CUDA tensor ``x`` along ``axis``
+        over ``taps``, (input offset, float32 weight) pairs in summation
+        order, as a new float32 tensor (each value rounded through float16
+        with ``round_half``)."""
+        if x.device.type != "cuda" or x.dtype != torch.float32:
+            raise TypeError(f"gauss_axis takes a float32 CUDA tensor, not {x.dtype} on {x.device}")
+        if not 1 <= len(taps) <= self.max_taps:
+            raise ValueError(f"gauss_axis takes 1 to {self.max_taps} taps, not {len(taps)}")
+        axis = axis % x.ndim
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        if x.numel() == 0:
+            return out
+        n = x.shape[axis]
+        inner = int(np.prod(x.shape[axis + 1:], dtype=np.int64))
+        offsets = (ctypes.c_int * len(taps))(*(int(o) for o, _ in taps))
+        weights = (ctypes.c_float * len(taps))(*(float(w) for _, w in taps))
+        lib = self._lib or self.build()
+        with self.on_device(x.device):
+            err = lib.gauss_axis(x.data_ptr(), out.data_ptr(), x.numel(), n, inner, len(taps),
+                                 offsets, weights, int(bool(round_half)),
+                                 torch.cuda.current_stream().cuda_stream)
+        check_error("gauss_axis launch", err)
+        self.count_launch()
+        return out
+
+
+GAUSS_AXIS_KERNEL = _GaussAxisKernel()
+
+
+def nonzero_taps(weights: np.ndarray):
+    """The kernel's taps for :func:`_correlate1d_plain`: (input offset,
+    float32 weight) of each nonzero weight in order, the one weight where
+    there is no other; empty where every weight is 0."""
+    radius = len(weights) // 2
+    if radius == 0:
+        return [(0, f32(weights[0]))]
+    return [(k - radius, f32(w)) for k, w in enumerate(weights) if float(w) != 0.0]
+
+
+def traced_taps(weights: np.ndarray):
+    """The kernel's taps for :func:`correlate1d_traced_plain`: every weight,
+    zeros included, as (input offset, float32 weight)."""
+    weights = np.asarray(weights, np.float32)
+    radius = len(weights) // 2
+    return [(k - radius, f32(w)) for k, w in enumerate(weights)]
+
+
+def _correlate1d(x: torch.Tensor, weights: np.ndarray, axis: int) -> torch.Tensor:
+    """Correlate along ``axis`` with scipy 'reflect' edges; zero taps
+    skipped: ``csrc/gauss_axis.cu`` on a CUDA tensor, or
+    :func:`_correlate1d_plain`."""
+    if not on_card(x, "_correlate1d"):
+        return _correlate1d_plain(x, weights, axis)
+    taps = nonzero_taps(weights)
+    return GAUSS_AXIS_KERNEL(x, taps, axis) if taps else torch.zeros_like(x)
+
+
+def correlate1d_traced(x: torch.Tensor, weights: np.ndarray, axis: int,
+                       carry: torch.dtype = torch.float32) -> torch.Tensor:
+    """:func:`correlate1d_traced_plain` of float32 ``x``, each result rounded
+    to ``carry`` (float32 or float16) and returned as float32:
+    ``csrc/gauss_axis.cu`` on a CUDA tensor, or the plain version."""
+    half = carry == torch.float16
+    if not on_card(x, "correlate1d_traced"):
+        out = correlate1d_traced_plain(x, weights, axis)
+        return out.to(carry).float() if half else out
+    return GAUSS_AXIS_KERNEL(x, traced_taps(weights), axis, round_half=half)
 
 
 def gaussian_laplace(x: torch.Tensor, sigma: Sequence[float], truncate: float = 4.0) -> torch.Tensor:

@@ -8,6 +8,14 @@ closed-form eigenvalues, the Frangi response and a running maximum.  Then
 ``remove_edges_frame``.  2D frames add the multi-scale LoG blobness
 (``log_blobness_2d``).
 
+On a CUDA frame a scale runs as one launch of ``csrc/gauss_axis.cu`` per
+axis (:func:`filters.correlate1d_traced`) and two of ``csrc/frangi_tail.cu``
+(:data:`FRANGI_TAIL_KERNEL`: the Hessian's Frobenius norm and largest
+component, then, after the frame-wide statistics in torch, the
+eigenvalues, the response, the mask and the running maximum); on a CPU
+frame the plain versions (``hessian_frob_plain``, ``frangi_response_plain``
+over :mod:`hessian` and :mod:`eigen`) compute the same bits.
+
 ``carry_dtype="float16"`` stores the cascade's carries as float16, as the
 reference's program does: the frame divided by its largest |value|, each
 smoothing pass's output and the vesselness accumulator are rounded to
@@ -18,6 +26,7 @@ not change when the frame is scaled.
 """
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -25,8 +34,10 @@ import numpy as np
 import torch
 
 from nellie_tpu_torch.kernels import eigen, filters, thresholds
+from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CudaKernel, check_error, on_card
 from nellie_tpu_torch.kernels._fp import exp, f32, fma, sqrt, sum_of_products
 from nellie_tpu_torch.kernels.hessian import (
+    _fuses_inner_gradient,
     hessian_unnormalized,
     largest_component,
     nonzero_or_one,
@@ -168,13 +179,173 @@ def vesselness_frame(frame: torch.Tensor, params: FrangiParams, apply_mask: bool
     return vessel, mask
 
 
+class _Geometry(ctypes.Structure):
+    """``csrc/frangi_tail.cu``'s ``Geometry``: the block's shape, the
+    spacing's constants, the last axis's fusion rule and pass 1's core box."""
+
+    _fields_ = [("ndim", ctypes.c_int), ("n", ctypes.c_int * 3), ("half", ctypes.c_float * 3),
+                ("inv", ctypes.c_float * 3), ("fuse_last", ctypes.c_int),
+                ("core_lo", ctypes.c_int * 3), ("core_hi", ctypes.c_int * 3)]
+
+
+def _core_box(block: torch.Tensor, core: torch.Tensor):
+    """([lo], [hi)) per axis of ``core``, a box view of the contiguous
+    ``block``."""
+    if not block.is_contiguous() or core.stride() != block.stride():
+        raise ValueError("the core is not a box of its contiguous block")
+    offset = core.storage_offset() - block.storage_offset()
+    lo = [int(v) for v in np.unravel_index(offset, tuple(block.shape))] if offset else \
+        [0] * block.ndim
+    return lo, [a + n for a, n in zip(lo, core.shape)]
+
+
+def tail_geometry(g: torch.Tensor, spacing, minor_extent, core: torch.Tensor) -> _Geometry:
+    """The kernel's view of block ``g``: its shape, per axis the Hessian's
+    constants f32(0.5 / spacing) and f32(1 / spacing) (the same as
+    ``hessian.gradient``'s f32(0.5 * (1 / spacing)) and f32(1 / spacing)),
+    whether the last axis fuses its inner gradient
+    (``hessian._fuses_inner_gradient``), and the core box of ``core``."""
+    geo = _Geometry()
+    geo.ndim = g.ndim
+    shape = list(g.shape) + [1] * (3 - g.ndim)
+    sp = [float(v) for v in spacing] + [1.0] * (3 - g.ndim)
+    for a in range(3):
+        geo.n[a] = shape[a]
+        geo.half[a] = f32(0.5 / sp[a])
+        geo.inv[a] = f32(1.0 / sp[a])
+        if f32(0.5 * (1.0 / sp[a])) != geo.half[a]:
+            raise ValueError(f"spacing {sp[a]}: the gradient's constants differ")
+    geo.fuse_last = int(_fuses_inner_gradient(g, g.ndim - 1, minor_extent))
+    lo, hi = _core_box(g, core)
+    for a in range(3):
+        geo.core_lo[a] = lo[a] if a < g.ndim else 0
+        geo.core_hi[a] = hi[a] if a < g.ndim else 1
+    return geo
+
+
+class _FrangiTailKernel(CudaKernel):
+    """The compiled per-scale Frangi tail (``csrc/frangi_tail.cu``): two
+    entry points, each launch counted."""
+
+    source = "frangi_tail.cu"
+    flags = (*BASE_FLAGS, "-fmad=false")
+
+    def bind(self, lib):
+        ptr = ctypes.c_void_p
+        lib.hessian_frob.argtypes = [ptr, ptr, ptr, ctypes.POINTER(_Geometry), ctypes.c_longlong,
+                                     ptr]
+        lib.hessian_frob.restype = ctypes.c_int
+        lib.frangi_response.argtypes = [ptr, ptr, ptr, ptr, ctypes.c_int, ptr,
+                                        ctypes.POINTER(_Geometry), ctypes.c_float,
+                                        ctypes.c_float, ctypes.c_longlong, ptr]
+        lib.frangi_response.restype = ctypes.c_int
+
+    @staticmethod
+    def _check(g):
+        if g.device.type != "cuda" or g.dtype != torch.float32 or not g.is_contiguous():
+            raise TypeError(f"frangi_tail takes a contiguous float32 CUDA block, not {g.dtype} "
+                            f"on {g.device}")
+        if g.ndim not in (2, 3) or g.numel() == 0:
+            raise ValueError(f"frangi_tail takes a 2D or 3D block, not {tuple(g.shape)}")
+
+    def hessian_frob(self, g: torch.Tensor, geo: _Geometry):
+        """Pass 1: (the unnormalised Frobenius norm, the largest |Hessian
+        component| over the core box as a 0-dim float32 tensor)."""
+        self._check(g)
+        lib = self._lib or self.build()
+        with self.on_device(g.device):
+            frob = torch.empty_like(g)
+            largest = torch.zeros((), dtype=torch.int32, device=g.device)
+            err = lib.hessian_frob(g.data_ptr(), frob.data_ptr(), largest.data_ptr(),
+                                   ctypes.byref(geo), g.numel(),
+                                   torch.cuda.current_stream().cuda_stream)
+        check_error("hessian_frob launch", err)
+        self.count_launch()
+        return frob, largest.view(torch.float32)
+
+    def frangi_response(self, g, geo, mask, gamma_sq, params: FrangiParams, vessel, all_mask):
+        """Pass 2, in place on ``vessel`` (the carry type) and ``all_mask``."""
+        self._check(g)
+        for name, t, dtype in (("vessel", vessel, (torch.float32, torch.float16)),
+                               ("all_mask", all_mask, (torch.bool,)),
+                               ("mask", mask if mask is not None else all_mask, (torch.bool,))):
+            if t.shape != g.shape or t.dtype not in dtype or not t.is_contiguous() \
+                    or t.device != g.device:
+                raise ValueError(f"frangi_tail: {name} {t.dtype} {tuple(t.shape)} on {t.device}")
+        gamma_sq = gamma_sq.to(device=g.device, dtype=torch.float32).contiguous()
+        lib = self._lib or self.build()
+        with self.on_device(g.device):
+            err = lib.frangi_response(
+                g.data_ptr(), mask.data_ptr() if mask is not None else None, gamma_sq.data_ptr(),
+                vessel.data_ptr(), int(vessel.dtype == torch.float16), all_mask.data_ptr(),
+                ctypes.byref(geo), f32(1.0 / params.alpha_sq), f32(1.0 / params.beta_sq),
+                g.numel(), torch.cuda.current_stream().cuda_stream)
+        check_error("frangi_response launch", err)
+        self.count_launch()
+
+
+FRANGI_TAIL_KERNEL = _FrangiTailKernel()
+
+
+def hessian_frob_plain(g: torch.Tensor, spacing, minor_extent, core):
+    """Pass 1 in plain torch: (the Hessian components, their unnormalised
+    Frobenius norm, the largest |component| over ``core(component)``)."""
+    h, frob = hessian_unnormalized(g, spacing, minor_extent)
+    return h, frob, largest_component({k: core(v) for k, v in h.items()})
+
+
+def frangi_response_plain(h, mask, gamma_sq, params: FrangiParams, vessel, all_mask):
+    """Pass 2 in plain torch: the eigenvalues and the response from the
+    components ``h``; returns the new (vessel, all_mask)."""
+    if "hzz" in h:
+        eigs = eigen.eigvalsh3(h["hxx"], h["hxy"], h["hxz"], h["hyy"], h["hyz"], h["hzz"])
+    else:
+        eigs = eigen.eigvalsh2(h["hxx"], h["hxy"], h["hyy"])
+    v = _frangi_response(eigs, gamma_sq, params)
+    if mask is not None:
+        v = torch.where(mask, v, torch.zeros_like(v))
+        all_mask = all_mask & mask
+    return torch.maximum(vessel, v.to(vessel.dtype)), all_mask
+
+
+def hessian_frob(g: torch.Tensor, spacing, minor_extent, core):
+    """Pass 1 of a scale's tail on block ``g``: (the components for
+    :func:`frangi_response`, or None where the kernel recomputes them; the
+    unnormalised Frobenius norm; the largest |component| over the core box,
+    ``core(g)``).  ``csrc/frangi_tail.cu`` on a CUDA block, or
+    :func:`hessian_frob_plain`."""
+    if not on_card(g, "frangi tail"):
+        return hessian_frob_plain(g, spacing, minor_extent, core)
+    frob, largest = FRANGI_TAIL_KERNEL.hessian_frob(
+        g, tail_geometry(g, spacing, minor_extent, core(g)))
+    return None, frob, largest
+
+
+def frangi_response(g, h, params: FrangiParams, minor_extent, mask, gamma_sq, vessel, all_mask):
+    """Pass 2 of a scale's tail on block ``g`` (``h`` from
+    :func:`hessian_frob`): returns (vessel, all_mask) after
+    ``vessel = max(vessel, response in the carry type)`` and
+    ``all_mask &= mask`` (``mask`` None: all true).  The kernel updates
+    both in place; the plain version returns new tensors."""
+    if not on_card(g, "frangi tail"):
+        if h is None:
+            h, _ = hessian_unnormalized(g, params.spacing, minor_extent)
+        return frangi_response_plain(h, mask, gamma_sq, params, vessel, all_mask)
+    geo = tail_geometry(g, params.spacing, minor_extent, g)
+    FRANGI_TAIL_KERNEL.frangi_response(g, geo, mask, gamma_sq, params, vessel, all_mask)
+    return vessel, all_mask
+
+
 def vesselness_blocks(blocks, params: FrangiParams, apply_mask: bool, stats):
     """:func:`vesselness_frame` of a frame given as blocks, each on its own
     device: every per-voxel step runs block by block, and the frame-wide
     reductions (the float16 carry's scale, γ, the Hessian's largest
     component, the Frobenius threshold) come from ``stats``
-    (:class:`WholeFrame` or a mesh's shard statistics).  Returns the lists
-    of vesselness and mask blocks."""
+    (:class:`WholeFrame` or a mesh's shard statistics).  A scale is, per
+    block, one 1-D correlation per axis (:func:`filters.correlate1d_traced`),
+    pass 1 of the tail (:func:`hessian_frob`), the statistics, and pass 2
+    (:func:`frangi_response`).  Returns the lists of vesselness and mask
+    blocks."""
     frames = [b.float() for b in blocks]
     carry = CARRY_DTYPES[params.carry_dtype]
     if carry != torch.float32:
@@ -184,32 +355,26 @@ def vesselness_blocks(blocks, params: FrangiParams, apply_mask: bool, stats):
         frames = [f / torch.clamp(m, min=EPS32) for f, m in zip(frames, scale)]
     ndim = frames[0].ndim
     kernel_stacks = _delta_kernels(params, ndim)
-    gauss = [f.to(carry) for f in frames]
+    gauss = [f.to(carry).float() for f in frames]  # float32 holding carry values
     vessel = [torch.zeros(f.shape, dtype=carry, device=f.device) for f in frames]
     all_mask = [torch.ones(f.shape, dtype=torch.bool, device=f.device) for f in frames]
     for i in range(len(params.sigmas)):
         for b, g in enumerate(gauss):
             for axis in range(ndim):
-                g = filters.correlate1d_traced(g.float(), kernel_stacks[axis][i], axis).to(carry)
-            gauss[b] = g.float()
+                g = filters.correlate1d_traced(g, kernel_stacks[axis][i], axis, carry)
+            gauss[b] = g
         gamma_sq = [2.0 * g * g for g in _gammas(gauss, params.max_threshold_samples, stats)]
-        hf = [hessian_unnormalized(g, params.spacing, stats.minor_extent) for g in gauss]
-        largest = stats.all_max([
-            largest_component({k: stats.core(b, v) for k, v in h.items()})
-            for b, (h, _) in enumerate(hf)])
-        frobs = [frob / nonzero_or_one(m) for (_, frob), m in zip(hf, largest)]
-        h_masks = (_frob_masks(frobs, params, stats) if apply_mask
-                   else [torch.ones_like(m) for m in all_mask])
-        for b, (h, _) in enumerate(hf):
-            if ndim == 2:
-                eigs = eigen.eigvalsh2(h["hxx"], h["hxy"], h["hyy"])
-            else:
-                eigs = eigen.eigvalsh3(h["hxx"], h["hxy"], h["hxz"], h["hyy"], h["hyz"],
-                                       h["hzz"])
-            v = _frangi_response(eigs, gamma_sq[b], params)
-            v = torch.where(h_masks[b], v, torch.zeros_like(v))
-            vessel[b] = torch.maximum(vessel[b], v.to(carry))
-            all_mask[b] = all_mask[b] & h_masks[b]
+        tails = [hessian_frob(g, params.spacing, stats.minor_extent,
+                              lambda v, b=b: stats.core(b, v)) for b, g in enumerate(gauss)]
+        largest = stats.all_max([m for _, _, m in tails])
+        frobs = [frob / nonzero_or_one(m) for (_, frob, _), m in zip(tails, largest)]
+        h_masks = (_frob_masks(frobs, params, stats) if apply_mask else [None] * len(gauss))
+        del frobs
+        for b, (h, _, _) in enumerate(tails):
+            vessel[b], all_mask[b] = frangi_response(gauss[b], h, params, stats.minor_extent,
+                                                     h_masks[b], gamma_sq[b], vessel[b],
+                                                     all_mask[b])
+        del tails, h_masks
     return [v.float() * m for v, m in zip(vessel, all_mask)], all_mask
 
 

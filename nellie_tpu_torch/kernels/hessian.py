@@ -11,7 +11,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
-from nellie_tpu_torch.kernels._fp import f32, fma, sqrt, sum_of_products
+from nellie_tpu_torch.kernels._fp import f32, flush, fma, sqrt
 
 
 def gradient(f: torch.Tensor, spacing: float, axis: int) -> torch.Tensor:
@@ -97,6 +97,33 @@ def nonzero_or_one(max_abs: torch.Tensor) -> torch.Tensor:
     return torch.where(max_abs > 0, max_abs, torch.ones_like(max_abs))
 
 
+def _flushed_sum_of_squares(comps):
+    """``c0² + c1² + ...`` in XLA's contraction order (``sum_of_products``),
+    each result flushed to zero where it is subnormal."""
+    if len(comps) == 1:
+        return flush(comps[0] * comps[0])
+    acc = flush(fma(comps[0], comps[0], flush(comps[1] * comps[1])))
+    for c in comps[2:]:
+        acc = flush(fma(c, c, acc))
+    return acc
+
+
+def frobenius_norm(h: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The Hessian's unnormalised Frobenius norm: the diagonal's and the
+    off-diagonal's sums of squares in XLA's order, the latter doubled, and
+    a correctly rounded root, so that the Frobenius mask, hence
+    im_preprocessed, follows the reference's.  The squares of a dim
+    frame's components reach the subnormal range, which XLA's CPU code
+    flushes to zero (``tests/test_torch_subnormals.py``): so does this."""
+    if "hzz" in h:
+        diag = _flushed_sum_of_squares([h["hxx"], h["hyy"], h["hzz"]])
+        off = _flushed_sum_of_squares([h["hxy"], h["hxz"], h["hyz"]])
+    else:
+        diag = _flushed_sum_of_squares([h["hxx"], h["hyy"]])
+        off = _flushed_sum_of_squares([h["hxy"]])
+    return sqrt(flush(diag + 2.0 * off))
+
+
 def hessian_unnormalized(
     image: torch.Tensor, spacing: Sequence[float], minor_extent=None
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
@@ -111,10 +138,7 @@ def hessian_unnormalized(
             "hxy": gradient(g0, spacing[1], 1),
             "hyy": _second_gradient(image, spacing[1], 1, minor_extent),
         }
-        # XLA's order and a correctly rounded root, so that the 2D
-        # Frobenius mask, hence im_preprocessed, follows the reference's
-        frob = sqrt(sum_of_products([(h["hxx"], h["hxx"]), (h["hyy"], h["hyy"])])
-                    + 2.0 * (h["hxy"] * h["hxy"]))
+        frob = frobenius_norm(h)
     elif image.ndim == 3:
         g0 = gradient(image, spacing[0], 0)
         g1 = gradient(image, spacing[1], 1)
@@ -126,9 +150,7 @@ def hessian_unnormalized(
             "hyz": gradient(g1, spacing[2], 2),
             "hzz": _second_gradient(image, spacing[2], 2, minor_extent),
         }
-        off = sum_of_products([(h["hxy"], h["hxy"]), (h["hxz"], h["hxz"]), (h["hyz"], h["hyz"])])
-        diag = sum_of_products([(h["hxx"], h["hxx"]), (h["hyy"], h["hyy"]), (h["hzz"], h["hzz"])])
-        frob = sqrt(diag + 2.0 * off)
+        frob = frobenius_norm(h)
     else:
         raise ValueError(f"unsupported number of dimensions: {image.ndim}")
     return h, frob

@@ -16,7 +16,7 @@ from math import comb
 
 import torch
 
-from nellie_tpu_torch.kernels._fp import contract, fma, log10
+from nellie_tpu_torch.kernels._fp import _TINY, contract, flush, fma, log10
 from nellie_tpu_torch.kernels._fp import pow as pow_f32
 
 
@@ -161,7 +161,9 @@ def masked_mean_variance(images: torch.Tensor) -> torch.Tensor:
     The variance cancels most of its digits, so the sums are taken in the
     reference's order: XLA's CPU reduction adds the voxels one by one in
     raster order (the squares with fused multiply-adds).  Each step adds
-    float64 terms into float32 sums, which rounds once as XLA does."""
+    float64 terms into float32 sums, which rounds once as XLA does, and
+    subnormal results are flushed as XLA's CPU code flushes them (the
+    voxels are intensities, never negative)."""
     n = images.shape[0]
     flat = images.reshape(n, -1).float()
     count = (flat != 0).sum(dim=1)
@@ -170,11 +172,16 @@ def masked_mean_variance(images: torch.Tensor) -> torch.Tensor:
     for start in range(0, flat.shape[1], _VOXEL_BLOCK):
         wide = flat[:, start:start + _VOXEL_BLOCK].T.double()
         terms = torch.stack([wide, wide * wide], dim=2)   # (voxels, N, 2)
+        # XLA flushes a subnormal sum to zero: a sum of non-negative terms
+        # stays 0 until a term reaches the smallest normal, and is normal
+        # from then on, so the terms before that one are dropped
+        normal = torch.cummax((terms.float() >= _TINY).int(), dim=0).values.bool()
+        terms = torch.where(normal | (sums != 0), terms, torch.zeros_like(terms))
         for k in range(terms.shape[0]):
             sums.add_(terms[k])
     total, total_sq = sums[:, 0], sums[:, 1]
-    mean = total / safe
-    var = (total_sq - total ** 2 / safe) / safe
+    mean = flush(total / safe)
+    var = flush(flush(total_sq - flush(flush(total ** 2) / safe)) / safe)
     zero = count == 0
     mean = torch.where(zero, torch.zeros_like(mean), mean)
     var = torch.where(zero, torch.zeros_like(var), var)

@@ -28,7 +28,7 @@ import torch
 
 from nellie_tpu_torch.device import resolve_device
 from nellie_tpu_torch.kernels._cuda import CudaKernel, check_error
-from nellie_tpu_torch.kernels._fp import row_sum_of_squares, sqrt
+from nellie_tpu_torch.kernels._fp import reduce_sum_of_squares, row_sum_of_squares, sqrt
 
 _PLAIN_CHUNK_ELEMS = 1 << 27  # bound on the (rows, M) distance block of the plain version
 
@@ -89,21 +89,24 @@ def launch_plan(n_q: int, n_r: int, sms: int = H100_SMS, resident_warps: int = 1
     return NNPlan(threads, q_tile, q_tiles, -(-n_r // split_len), split_len)
 
 
-def nn_argmin_plain(queries: torch.Tensor, refs: torch.Tensor):
+def nn_argmin_plain(queries: torch.Tensor, refs: torch.Tensor, fused_norms: bool = False):
     """The same formula in plain torch: ((Q,) float32 d², (Q,) int32 argmin).
 
     |q|² and |r|² round every square and add them left to right, as XLA
-    rounds the reference; the cross term is a float32 matmul (on the CPU a
-    chain of fused multiply-adds in coordinate order, as in the reference
-    and the kernel)."""
+    rounds the reference's ``nearest_neighbors``; with ``fused_norms`` each
+    square after the first goes into a fused multiply-add, as XLA rounds
+    them inside the reassigner's pair program.  The cross term is a float32
+    matmul (on the CPU a chain of fused multiply-adds in coordinate order,
+    as in the reference and the kernel)."""
     q = queries.float()
     r = refs.float()
-    r2 = row_sum_of_squares(r)
+    norms = reduce_sum_of_squares if fused_norms else row_sum_of_squares
+    r2 = norms(r)
     rows = max(1, _PLAIN_CHUNK_ELEMS // max(r.shape[0], 1))
     d2_out, idx_out = [], []
     for s in range(0, q.shape[0], rows):
         qc = q[s:s + rows]
-        q2 = row_sum_of_squares(qc)[:, None]
+        q2 = norms(qc)[:, None]
         d2 = (q2 + r2[None, :]) - 2.0 * (qc @ r.T)
         best, idx = d2.min(dim=1)
         d2_out.append(best)
@@ -123,7 +126,7 @@ class _NNKernel(CudaKernel):
 
     def bind(self, lib):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.nn_argmin_f32.argtypes = [ptr, ptr] + [i32] * 8 + [ptr] * 5
+        lib.nn_argmin_f32.argtypes = [ptr, ptr] + [i32] * 9 + [ptr] * 5
         lib.nn_argmin_f32.restype = i32
         lib.nn_argmin_info.argtypes = [i32] + [ctypes.POINTER(i32)] * 6
         lib.nn_argmin_info.restype = i32
@@ -151,7 +154,7 @@ class _NNKernel(CudaKernel):
         self._info[key] = info
         return info
 
-    def __call__(self, queries: torch.Tensor, refs: torch.Tensor):
+    def __call__(self, queries: torch.Tensor, refs: torch.Tensor, fused_norms: bool = False):
         if queries.dtype != torch.float32 or refs.dtype != torch.float32:
             raise TypeError("nn_argmin kernel takes float32 tensors")
         if queries.ndim != 2 or refs.ndim != 2 or queries.shape[1] != refs.shape[1]:
@@ -178,6 +181,7 @@ class _NNKernel(CudaKernel):
             idx = torch.empty(n_q, dtype=torch.int32, device=dev)
             err = lib.nn_argmin_f32(q.data_ptr(), r.data_ptr(), n_q, n_r, dim, plan.threads,
                                     plan.splits, plan.split_len, QPT, plan.r_tile,
+                                    int(bool(fused_norms)),
                                     packed.data_ptr(), keys.data_ptr(), d2.data_ptr(),
                                     idx.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         check_error("nn_argmin_f32 launch", err)
@@ -188,20 +192,20 @@ class _NNKernel(CudaKernel):
 NN_KERNEL = _NNKernel()
 
 
-def nn_argmin(queries: torch.Tensor, refs: torch.Tensor):
+def nn_argmin(queries: torch.Tensor, refs: torch.Tensor, fused_norms: bool = False):
     """((Q,) float32 minimum d², (Q,) int32 first argmin) of queries vs refs.
 
     CUDA tensors go to the hand-written kernel (or raise); CPU tensors to
-    :func:`nn_argmin_plain`.  Empty inputs give empty outputs (for an empty
+    :func:`nn_argmin_plain`; ``fused_norms`` as there.  Empty inputs give empty outputs (for an empty
     reference set: +inf distances and index 0)."""
     if queries.shape[0] == 0 or refs.shape[0] == 0:
         n = queries.shape[0]
         return (torch.full((n,), float("inf"), device=queries.device),
                 torch.zeros(n, dtype=torch.int32, device=queries.device))
     if queries.device.type == "cuda":
-        return NN_KERNEL(queries, refs)
+        return NN_KERNEL(queries, refs, fused_norms)
     if queries.device.type == "cpu":
-        return nn_argmin_plain(queries, refs)
+        return nn_argmin_plain(queries, refs, fused_norms)
     raise ValueError(f"nn_argmin: unsupported device {queries.device}")
 
 

@@ -29,7 +29,7 @@ from nellie_tpu_torch.utils.logger import logger
 from nellie_tpu_torch.device import resolve_device
 from nellie_tpu_torch.kernels import ccl
 from nellie_tpu_torch.kernels import thresholds as thr_k
-from nellie_tpu_torch.kernels._fp import f32, log10
+from nellie_tpu_torch.kernels._fp import f32, log10, pow as xla_pow
 from nellie_tpu_torch.kernels.filters import uniform_filter
 from nellie_tpu_torch.utils import adaptive_run
 
@@ -51,8 +51,10 @@ def _frangi_threshold_kernel(frangi_flat, gate_flat, gate_thresh, nbins, step):
     logv = log10(torch.where(frangi_flat > 0, frangi_flat, torch.ones_like(frangi_flat)))
     tri = thr_k.triangle_threshold(logv, valid, nbins)
     ots, _ = thr_k.otsu_threshold(logv, valid, nbins)
+    # the reference's 10.0 ** t is glibc's powf, as XLA's CPU code calls it;
+    # torch.pow is not, on the card (CUDA's powf) or on whole CPU tensors
     ten = torch.tensor(10.0, device=frangi_flat.device)
-    return torch.minimum(torch.pow(ten, tri), torch.pow(ten, ots)), bool(valid.any())
+    return torch.minimum(xla_pow(ten, tri), xla_pow(ten, ots)), bool(valid.any())
 
 
 def _intensity_otsu_kernel(frame_flat, nbins, step):

@@ -43,16 +43,33 @@ import torch
 from nellie_tpu_torch.io import ImInfo
 from nellie_tpu_torch.utils.logger import logger
 from nellie_tpu_torch.device import resolve_device
+from nellie_tpu_torch.kernels._fp import fma, reduce_sum_of_squares, sqrt
 from nellie_tpu_torch.kernels.nn import nearest_neighbors, nn_argmin
 from nellie_tpu_torch.kernels.voting import _vote_kernel, stable_lexsort
-from nellie_tpu_torch.stages.flow_interpolation import FlowInterpolator, _interp_all_kernel
+from nellie_tpu_torch.stages.flow_interpolation import (_INTERP_TILE, FlowInterpolator,
+                                                        _interp_all_kernel)
 from nellie_tpu_torch.utils import adaptive_run
 
 _SENTINEL = int(np.iinfo(np.int32).max)
 
 
-def _row_norm(diff: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt((diff * diff).sum(dim=1))
+def _pair_distance(moved: torch.Tensor, sp: torch.Tensor, matched: torch.Tensor) -> torch.Tensor:
+    """|moved * sp - matched| per row, as the reference's pair program
+    rounds it on the CPU (``scripts/xla_pair_distance_probe.py``).  XLA
+    recomputes the prediction ``moved * sp`` inside the distance's fusion,
+    and LLVM contracts it into the difference; the squares then add as
+    XLA's reduction loop adds them, and the root is correctly rounded.
+    Where the frame's table is one interpolation tile (the reference pads
+    it to a power of two, at least ``_INTERP_TILE`` rows), the fusion also
+    takes the flow's validity select and branches on it, and the last
+    axis's product reaches the subtraction through the branch's phi: it is
+    rounded first.  Over several tiles the loop is vectorised in one block
+    and every axis contracts."""
+    d = moved.shape[1]
+    contracted = d if moved.shape[0] > _INTERP_TILE else d - 1
+    diffs = [fma(moved[:, k], sp[0, k], -matched[:, k]) if k < contracted
+             else moved[:, k] * sp[0, k] - matched[:, k] for k in range(d)]
+    return sqrt(reduce_sum_of_squares(torch.stack(diffs, dim=1)))
 
 
 def _pair_match_kernel(cp, cp_scaled, cn, cn_scaled, origin_scaled, origin_post_scaled,
@@ -72,18 +89,18 @@ def _pair_match_kernel(cp, cp_scaled, cn, cn_scaled, origin_scaled, origin_post_
 
     # forward: predict t voxels into t+1, match against real t+1 voxels
     f_ok = ~torch.isnan(vec_f).any(dim=1)
-    pred_f = (cp + torch.nan_to_num(vec_f)) * sp
-    _, idx_f = nn_argmin(pred_f, cn_scaled)
+    moved_f = cp + torch.nan_to_num(vec_f)
+    _, idx_f = nn_argmin(moved_f * sp, cn_scaled, fused_norms=True)
     idx_f = idx_f.long()
-    d_f = _row_norm(pred_f - cn_scaled[idx_f])
+    d_f = _pair_distance(moved_f, sp, cn_scaled[idx_f])
     keep_f = f_ok & (d_f < match_max_d)
 
     # backward: predict t+1 voxels into t, match against real t voxels
     b_ok = ~torch.isnan(vec_b).any(dim=1)
-    pred_b = (cn - torch.nan_to_num(vec_b)) * sp
-    _, idx_b = nn_argmin(pred_b, cp_scaled)
+    moved_b = cn - torch.nan_to_num(vec_b)
+    _, idx_b = nn_argmin(moved_b * sp, cp_scaled, fused_norms=True)
     idx_b = idx_b.long()
-    d_b = _row_norm(pred_b - cp_scaled[idx_b])
+    d_b = _pair_distance(moved_b, sp, cp_scaled[idx_b])
     keep_b = b_ok & (d_b < match_max_d)
 
     src = torch.cat([torch.arange(npq, device=dev), idx_b])

@@ -1,0 +1,58 @@
+"""How ``kernels/_cuda.py::CudaKernel`` names a built library: a hash of
+the ``.cu`` source, of every ``csrc/`` header it includes by a quoted
+name, and of the flags, so that a change to any of them builds anew.  No
+``nvcc`` is needed: the name is computed before any build.
+"""
+import shutil
+
+import pytest
+
+from nellie_tpu_torch.kernels import _cuda, filters, frangi
+
+SOURCES = ["frangi_tail.cu", "gauss_axis.cu", "fma_f32.cu", "nn_argmin.cu", "ccl_union_find.cu",
+           "flow_interp.cu"]
+
+
+@pytest.fixture
+def csrc(tmp_path, monkeypatch):
+    """A copy of ``csrc/`` that the kernels read instead."""
+    copy = tmp_path / "csrc"
+    shutil.copytree(_cuda.CSRC, copy)
+    monkeypatch.setattr(_cuda, "CSRC", str(copy))
+    return copy
+
+
+def test_the_tail_includes_its_math_header():
+    assert [p.split("/")[-1] for p in frangi.FRANGI_TAIL_KERNEL.headers()] == ["xla_cpu_math.cuh"]
+    assert filters.GAUSS_AXIS_KERNEL.headers() == []
+
+
+def test_a_header_change_renames_the_library(csrc):
+    kernel = frangi._FrangiTailKernel()
+    before = kernel.library_path()
+    header = csrc / "xla_cpu_math.cuh"
+    header.write_text(header.read_text() + "\n// changed\n")
+    after = kernel.library_path()
+    assert after != before and after.startswith(_cuda.BUILD_DIR)
+    assert filters._GaussAxisKernel().library_path() == filters.GAUSS_AXIS_KERNEL.library_path()
+
+
+@pytest.mark.parametrize("source", SOURCES)
+def test_a_source_or_flag_change_renames_the_library(csrc, source):
+    class Kernel(_cuda.CudaKernel):
+        pass
+
+    Kernel.source = source
+    kernel = Kernel()
+    before = kernel.library_path()
+    assert before.split("/")[-1].startswith("lib" + source.rsplit(".", 1)[0] + "_")
+    Kernel.flags = (*_cuda.BASE_FLAGS, "-DSOMETHING")
+    flagged = kernel.library_path()
+    (csrc / source).write_text((csrc / source).read_text() + "\n// changed\n")
+    assert len({before, flagged, kernel.library_path()}) == 3
+
+
+def test_an_unrelated_header_does_not_rename(csrc):
+    before = frangi._FrangiTailKernel().library_path()
+    (csrc / "unused.cuh").write_text("// not included\n")
+    assert frangi._FrangiTailKernel().library_path() == before

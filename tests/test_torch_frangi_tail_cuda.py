@@ -1,0 +1,120 @@
+"""The hand-written CUDA Frangi tail against its plain versions.
+
+Needs a CUDA GPU and skips without one; imports no JAX.  On the card:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_frangi_tail_cuda.py
+
+(``--noconftest`` because ``tests/conftest.py`` imports JAX.)  On a CUDA
+block ``frangi.hessian_frob`` and ``frangi.frangi_response`` launch
+``kernels/csrc/frangi_tail.cu`` once each and equal
+``hessian_frob_plain`` and ``frangi_response_plain`` bit for bit (the
+Frobenius norm, the largest component, the vesselness in the carry type
+and the mask) on the card and on CPU copies: 2D and 3D, the float32 and
+float16 carries, a last axis of 128 (XLA's fusion rule), a core box,
+``apply_mask`` false and ``frob_thresh_division`` 0, a dim frame whose
+squares are subnormal, and extents of 1 to 3.  ``vesselness_frame`` on the
+card equals the CPU's, which is the JAX package's
+(``tests/test_torch_frangi_tail.py``).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from nellie_tpu_torch.kernels import frangi, hessian
+
+PARAMS = {3: frangi.FrangiParams(sigmas=(0.625, 0.8333, 1.0417, 1.25), spacing=(0.5, 0.2, 0.2),
+                                 z_ratio=2.5),
+          2: frangi.FrangiParams(sigmas=(0.5, 0.75, 1.0), spacing=(0.1, 0.1))}
+SHAPES = [(12, 48, 48), (7, 33, 128), (2, 3, 5), (1, 9, 9), (64, 128), (48, 96), (3, 2)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _same(got, want):
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype == torch.bool:
+        assert torch.equal(got, want)
+    else:
+        assert chip_smoke.same_bits(got.float().numpy(), want.float().numpy()).all()
+
+
+def _smoothed(shape, seed, scale=1.0):
+    return torch.from_numpy(chip_smoke.filter_frame(shape, seed=seed, smooth=True)
+                            * np.float32(scale))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("scale", [1.0, 1e-19])
+def test_hessian_frob(cuda, shape, scale):
+    g = _smoothed(shape, seed=sum(shape), scale=scale)
+    params = PARAMS[len(shape)]
+    core = (lambda v: v.narrow(0, 1, v.shape[0] - 2)) if shape[0] > 2 else (lambda v: v)
+    for minor in (None, 128):
+        before = frangi.FRANGI_TAIL_KERNEL.launches
+        h, frob, largest = frangi.hessian_frob(g.to(cuda), params.spacing, minor, core)
+        torch.cuda.synchronize()
+        assert h is None and frangi.FRANGI_TAIL_KERNEL.launches == before + 1
+        for dev in (cuda, "cpu"):
+            _, want_frob, want_largest = frangi.hessian_frob_plain(g.to(dev), params.spacing,
+                                                                   minor, core)
+            _same(frob, want_frob)
+            _same(largest, want_largest)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("carry", [torch.float32, torch.float16])
+def test_frangi_response(cuda, shape, carry):
+    g = _smoothed(shape, seed=3 + len(shape))
+    params = PARAMS[len(shape)]
+    rng = np.random.default_rng(1)
+    vessel = torch.from_numpy(rng.random(shape).astype(np.float32) * 0.01).to(carry)
+    all_mask = torch.from_numpy(rng.random(shape) < 0.9)
+    mask = torch.from_numpy(rng.random(shape) < 0.7)
+    gamma_sq = torch.tensor(np.float32(2.0 * 3.0 ** 2))
+    for m in (mask, None):
+        v_k, a_k = vessel.clone().to(cuda), all_mask.clone().to(cuda)
+        before = frangi.FRANGI_TAIL_KERNEL.launches
+        frangi.frangi_response(g.to(cuda), None, params, None, None if m is None else m.to(cuda),
+                               gamma_sq.to(cuda), v_k, a_k)
+        torch.cuda.synchronize()
+        assert frangi.FRANGI_TAIL_KERNEL.launches == before + 1
+        for dev in (cuda, "cpu"):
+            h, _ = hessian.hessian_unnormalized(g.to(dev), params.spacing)
+            v_p, a_p = frangi.frangi_response_plain(
+                h, None if m is None else m.to(dev), gamma_sq.to(dev), params,
+                vessel.to(dev), all_mask.to(dev))
+            _same(v_k, v_p)
+            _same(a_k, a_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(12, 48, 48), (7, 33, 128), (64, 128), (40, 128)])
+@pytest.mark.parametrize("variant", ["float32", "float16", "no_mask", "division_0", "dim"])
+def test_vesselness_frame_card_equals_cpu(cuda, shape, variant):
+    frame = torch.from_numpy(chip_smoke.filter_frame(shape, seed=11))
+    params = PARAMS[len(shape)]
+    if variant == "float16":
+        params = dataclasses.replace(params, carry_dtype="float16")
+    if variant == "division_0":
+        params = dataclasses.replace(params, frob_thresh_division=0.0)
+    if variant == "dim":
+        frame = frame * np.float32(1e-19)
+    apply_mask = variant != "no_mask"
+    before = frangi.FRANGI_TAIL_KERNEL.launches
+    v_k, m_k = frangi.vesselness_frame(frame.to(cuda), params, apply_mask)
+    assert frangi.FRANGI_TAIL_KERNEL.launches == before + 2 * len(params.sigmas)
+    v_p, m_p = frangi.vesselness_frame(frame, params, apply_mask)
+    _same(v_k, v_p)
+    _same(m_k, m_p)
+    assert variant == "dim" or float(v_p.max()) > 0
