@@ -15,7 +15,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    then holds its d2 bit for bit, and its indices, to the plain version on
    CPU copies at the split edges: 20,000 voxels each way, duplicates in
    other reference splits, d2 cancelling to <= 0, one query against 10**6
-   references, every width d from 1 to 8;
+   references, every width d from 1 to 8; in both rounding modes of the
+   norms where both run (square by square, and fused as the reassigner's
+   pair kernel asks, ``fused_norms=True``);
 4. drives ``nellie_tpu_torch.pipeline.run.run`` on a 3x64x256x256 uint16
    confocal-like time series (Filter -> ... -> VoxelReassigner ->
    Hierarchy, the first four as the fused chain, ``run``'s default),
@@ -28,9 +30,9 @@ Phases, each printing its own lines; any failure exits non-zero:
    order on every device), printing ``seg_fused`` beside the four stages'
    seconds, the device
    frame cache's peak and ``FusedSegmentation.run(fence_stages=True)``'s
-   seconds by stage; then checks the kernel again at
-   the shapes each of them gave it (bit for bit against the CPU) and
-   prints its time beside the plain version's, one PyTorch call's
+   seconds by stage; then checks the kernel again on the operands of the
+   largest call each of them made, in that call's rounding mode (bit for
+   bit against the CPU), and prints its time beside the plain version's, one PyTorch call's
    (``library_ms``: ``torch.cdist`` and ``min``, which the port never
    calls) and its bound (``bound_ms``) with the share of it reached;
 5. runs the same pipeline on a small input on the card and on the CPU and
@@ -120,13 +122,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    there is one and the bound, with the launches on the 3D and 2D
    main paths (counted in phases 4 and 6, set to 0 just before each run)
    and in phase 11.  The 1-D correlation (``kernels/csrc/gauss_axis.cu``)
-   and the Frangi tail's two passes (``kernels/csrc/frangi_tail.cu``), bit
-   for bit against their plain versions: the 3D and 2D main cascades'
-   taps with both carries, the LoG's, a dim block, a last axis of 128, a
-   core box, no mask, on synthetic frames (and CPU copies at small
-   shapes), then the largest call of each of phases 4, 6 and 11 on its
-   own operands, with their times beside the plain versions', the bound
-   and (the correlation) one cuDNN convolution;
+   and the Frangi tail's two passes (``kernels/csrc/frangi_tail.cu``),
+   called through their wrappers (``filters.correlate1d_traced`` and
+   ``_correlate1d``, ``frangi.hessian_frob`` and ``frangi_response``), bit
+   for bit against the plain versions (``correlate1d_traced_plain``,
+   ``_correlate1d_plain``, ``hessian_frob_plain``,
+   ``frangi_response_plain``) on the same arguments: the 3D and 2D main
+   cascades' taps with both carries, the LoG's, a dim block, a last axis
+   of 128, a core box, no mask, on synthetic frames (and CPU copies at
+   small shapes), then the largest call of each wrapper in phases 4, 6 and
+   11 on the caller's own arguments (weights, carry, spacing, minor
+   extent, core, mask), with their times beside the plain versions', the
+   bound and (the correlation) one cuDNN convolution.  ``max_abs_err`` is
+   the largest |kernel - plain| over the compared calls.  The multiply-add,
+   correlation and tail rows are timed on a cold L2 cache (flushed before
+   every call), so that the byte bounds at the memory rate hold;
 18. a real out-of-memory on the card: with most of the card's memory held
    by a ballast tensor, ``run`` on a 3D series whose full-frame working
    set passes the ladder's estimate but not the memory left, so the stage
@@ -257,17 +267,21 @@ def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-def check_case(name, q, r, nn):
-    d2_k, idx_k = nn.NN_KERNEL(q, r)
+def mode_name(fused_norms):
+    return "fused norms" if fused_norms else "rounded norms"
+
+
+def check_case(name, q, r, nn, fused_norms=False):
+    d2_k, idx_k = nn.NN_KERNEL(q, r, fused_norms)
     torch.cuda.synchronize()
-    d2_p, idx_p = nn.nn_argmin_plain(q, r)
+    d2_p, idx_p = nn.nn_argmin_plain(q, r, fused_norms)
     differ, bad = nn_mismatches(q, r, idx_k, idx_p)
     scale = (q.double() ** 2).sum(1) + (r.double()[idx_p.long()] ** 2).sum(1)
     d_err = (d2_k.double() - d2_p.double()).abs()
     d_bad = int((d_err > TIE_REL * scale + 1e-30).sum())
     max_abs = float(d_err.max())
     print(f"nn check {name}: Q={q.shape[0]} M={r.shape[0]} d={q.shape[1]} "
-          f"index differences {differ} (unexcused {bad}), d2 max abs err {max_abs:.3e} "
+          f"{mode_name(fused_norms)}, index differences {differ} (unexcused {bad}), d2 max abs err {max_abs:.3e} "
           f"(over tolerance {d_bad})", flush=True)
     if bad or d_bad:
         fail(f"nn kernel disagrees with its plain version on {name}")
@@ -285,16 +299,17 @@ def nn_bound(n_q, n_r, d):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def check_bitwise(name, q, r, nn):
-    """The kernel on the card against the plain version on CPU copies: d2
-    bit for bit and equal indices, or fail.  Returns the plain (d2, idx)."""
-    d2_k, idx_k = nn.NN_KERNEL(q, r)
+def check_bitwise(name, q, r, nn, fused_norms=False):
+    """The kernel on the card against the plain version on CPU copies, in
+    one rounding mode of the norms: d2 bit for bit and equal indices, or
+    fail.  Returns the plain (d2, idx)."""
+    d2_k, idx_k = nn.NN_KERNEL(q, r, fused_norms)
     d2_k, idx_k = d2_k.cpu(), idx_k.cpu()
-    d2_p, idx_p = nn.nn_argmin_plain(q.cpu(), r.cpu())
+    d2_p, idx_p = nn.nn_argmin_plain(q.cpu(), r.cpu(), fused_norms)
     bits = int((d2_k.view(torch.int32) != d2_p.view(torch.int32)).sum())
     moved = int((idx_k != idx_p).sum())
     print(f"nn bitwise {name}: Q={q.shape[0]} M={r.shape[0]} d={q.shape[1]} "
-          f"d2 differing in any bit {bits}, indices differing {moved}", flush=True)
+          f"{mode_name(fused_norms)}, d2 differing in any bit {bits}, indices differing {moved}", flush=True)
     if bits or moved:
         fail(f"nn kernel is not bitwise equal to the CPU plain version on {name}")
     return d2_p, idx_p
@@ -313,7 +328,9 @@ def phase_split_edges(nn):
              + torch.randn(n_q, d, generator=gen, device=dev)) * scale
         return q, r
 
-    check_bitwise("20000 voxels each way", *voxels(20000, 20000), nn)
+    q, r = voxels(20000, 20000)
+    for fused in (False, True):
+        check_bitwise("20000 voxels each way", q, r, nn, fused)
     q, base = voxels(5000, 20000)
     r = torch.cat([base, base, base])
     plan = nn.launch_plan(q.shape[0], r.shape[0])
@@ -325,6 +342,7 @@ def phase_split_edges(nn):
     q = torch.cat([r[torch.randperm(30000, generator=gen, device=dev)[:4000]],
                    torch.rand(1000, 3, generator=gen, device=dev) * 2000 + 3000])
     d2, _ = check_bitwise("queries on far references (cancellation)", q, r, nn)
+    check_bitwise("queries on far references (cancellation)", q, r, nn, fused_norms=True)
     negative, zero = int((d2[:4000] < 0).sum()), int((d2[:4000] == 0).sum())
     print(f"nn cancellation: of 4000 queries on a reference, d2 < 0 for {negative}, "
           f"== 0 for {zero}", flush=True)
@@ -332,7 +350,9 @@ def phase_split_edges(nn):
         fail("the cancellation case produced no negative or no zero d2")
     check_bitwise("one query", *voxels(1, 1_000_000), nn)
     for d in range(1, 9):
-        check_bitwise(f"width {d}", *voxels(3000, 7001, d), nn)
+        q, r = voxels(3000, 7001, d)
+        for fused in (False, True):
+            check_bitwise(f"width {d}", q, r, nn, fused)
 
 
 def phase_kernel(nn, gpu):
@@ -342,7 +362,8 @@ def phase_kernel(nn, gpu):
     for qn, mn, d in ((1, 1, 3), (37, 5, 3), (513, 2049, 3), (1000, 3001, 2), (700, 900, 8)):
         q = torch.rand(qn, d, generator=gen, device=dev) * 40
         r = torch.rand(mn, d, generator=gen, device=dev) * 40
-        max_abs = max(max_abs, check_case(f"ragged {qn}x{mn}", q, r, nn))
+        for fused in (False, True):
+            max_abs = max(max_abs, check_case(f"ragged {qn}x{mn}", q, r, nn, fused))
 
     # exact ties: integer grid references, queries at half-integer offsets
     g = torch.stack(torch.meshgrid(*[torch.arange(12, device=dev)] * 3, indexing="ij"), -1)
@@ -366,7 +387,8 @@ def phase_kernel(nn, gpu):
     vox = torch.rand(NN_MAIN_ROWS, 3, generator=gen, device=dev) * extent
     r = torch.floor(vox) * scale
     q = (vox + torch.randn(NN_MAIN_ROWS, 3, generator=gen, device=dev)) * scale
-    max_abs = max(max_abs, check_case(f"{NN_MAIN_ROWS} voxels", q, r, nn))
+    for fused in (False, True):
+        max_abs = max(max_abs, check_case(f"{NN_MAIN_ROWS} voxels", q, r, nn, fused))
     ms = time_ms(lambda: nn.NN_KERNEL(q, r), 10)
     on_device_ms = device_ms(lambda: nn.NN_KERNEL(q, r), 10)
     plain_ms = time_ms(lambda: nn.nn_argmin_plain(q, r), 2)
@@ -387,52 +409,48 @@ def library_nn(q, r):
     return torch.cdist(q, r, compute_mode="use_mm_for_euclid_dist").min(dim=1)
 
 
-def time_kernel_at(nn, gpu, name, q, r):
-    """Time the kernel on (q, r) beside the plain version and the library
-    call, then check it against the plain version on the card and bit for
-    bit on the CPU (after the timing, so that no CPU work overlaps it).
-    Returns the numbers of its ``paths`` entry."""
-    plain_ms = time_ms(lambda: nn.nn_argmin_plain(q, r), 5)
-    ms = time_ms(lambda: nn.NN_KERNEL(q, r), 20)
+def time_kernel_at(nn, gpu, name, q, r, fused_norms=False):
+    """Time the kernel on (q, r) in the caller's rounding mode of the norms
+    beside the plain version in that mode and the library call, then check
+    it against the plain version on the card and bit for bit on the CPU
+    (after the timing, so that no CPU work overlaps it).  Returns the
+    numbers of its ``paths`` entry."""
+    plain_ms = time_ms(lambda: nn.nn_argmin_plain(q, r, fused_norms), 5)
+    ms = time_ms(lambda: nn.NN_KERNEL(q, r, fused_norms), 20)
     matrix_bytes = 4 * q.shape[0] * r.shape[0]
     library_ms = (time_ms(lambda: library_nn(q, r), 5) if matrix_bytes <= LIBRARY_MAX_BYTES
                   else None)
-    ms_again = time_ms(lambda: nn.NN_KERNEL(q, r), 20)
-    on_device_ms = device_ms(lambda: nn.NN_KERNEL(q, r), 20)
+    ms_again = time_ms(lambda: nn.NN_KERNEL(q, r, fused_norms), 20)
+    on_device_ms = device_ms(lambda: nn.NN_KERNEL(q, r, fused_norms), 20)
     bound_ms, bound_by = nn_bound(q.shape[0], r.shape[0], q.shape[1])
     library = (f"{library_ms:.4f} ms" if library_ms is not None else
                f"not measured (its distance matrix would be {matrix_bytes / 1e9:.0f} GB)")
-    print(f"nn time at {name} {q.shape[0]}x{r.shape[0]}x{q.shape[1]}: kernel {ms:.4f} ms a call "
+    print(f"nn time at {name} {q.shape[0]}x{r.shape[0]}x{q.shape[1]} ({mode_name(fused_norms)}): "
+          f"kernel {ms:.4f} ms a call "
           f"(again {ms_again:.4f} ms; on the device {on_device_ms:.4f} ms), plain {plain_ms:.4f} ms, "
           f"library {library}, bound {bound_ms:.4f} ms ({bound_by}), "
           f"share {bound_ms / ms:.3f} [{gpu}]", flush=True)
-    max_abs = check_case(name, q, r, nn)
-    check_bitwise(name, q, r, nn)
-    return {"max_abs_err": max_abs, "ms": ms, "device_ms": on_device_ms, "plain_ms": plain_ms,
+    max_abs = check_case(name, q, r, nn, fused_norms)
+    check_bitwise(name, q, r, nn, fused_norms)
+    return {"fused_norms": fused_norms, "max_abs_err": max_abs, "ms": ms, "device_ms": on_device_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
 
-def phase_kernel_main_shapes(nn, gpu, im_info, tag=""):
-    """The kernel at the shapes a main path gave it.  The reassigner
-    matches the voxels of frame 0's objects (in microns) against those of
-    frame 1; the Hierarchy measures the border distance of frame 0's
-    skeleton and node voxels against its border voxels."""
-    labels = artifact(im_info, "im_instance_label")
-    branches = artifact(im_info, "im_skel_relabelled")
-    skel = artifact(im_info, "im_skel")
-    pixel_class = artifact(im_info, "im_pixel_class")
-    border = artifact(im_info, "im_border")
-    axes = ("Y", "X") if im_info.no_z else ("Z", "Y", "X")
-    scale = torch.tensor([im_info.dim_res[a] for a in axes], device="cuda")
-
-    def microns(mask):
-        return torch.from_numpy(np.argwhere(mask).astype(np.float32)).to("cuda") * scale
-
-    reassign = time_kernel_at(nn, gpu, f"the {tag}reassigner's frames 0->1",
-                              *[microns((labels[t] > 0) | (branches[t] > 0)) for t in (0, 1)])
-    hierarchy = time_kernel_at(nn, gpu, f"the {tag}Hierarchy's frame 0 border",
-                               microns((skel[0] > 0) | (pixel_class[0] > 0)), microns(border[0] > 0))
-    return reassign, hierarchy
+def phase_kernel_main_shapes(nn, gpu, nn_calls, tag=""):
+    """The kernel at the largest call each of its callers made on a main
+    path, on the operands and in the rounding mode of that call: the
+    reassigner's pair kernel matches the predictions of one frame's voxels
+    (in microns) against the next frame's voxels with fused norms; the
+    Hierarchy measures the border distance of a frame's skeleton and node
+    voxels against its border voxels with rounded ones."""
+    rows = []
+    for caller, what in (("reassign", "reassigner's largest match"),
+                         ("hierarchy", "Hierarchy's largest border match")):
+        if caller not in nn_calls:
+            fail(f"the {tag}main path made no nn call from the {caller} stage")
+        q, r, fused = nn_calls[caller]
+        rows.append(time_kernel_at(nn, gpu, f"the {tag}{what}", q, r, fused))
+    return tuple(rows)
 
 
 # ---------------------------------------------------------------------------
@@ -661,6 +679,7 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
     return launches, watch.launches, im_info, timings, {"launches": hand, "calls": calls.calls,
                                                         "fma_largest": calls.fma_largest,
                                                         "largest": calls.largest(),
+                                                        "nn": calls.nn_operands(),
                                                         "fma_by_caller": calls.fma_by_caller}
 
 
@@ -1591,30 +1610,6 @@ def filter_frame(shape, seed=0, smooth=False):
     return frame.astype(np.float32)
 
 
-def gauss_axis_model(x, taps, axis, round_half=False):
-    """``csrc/gauss_axis.cu`` in torch: each output reads tap k at the
-    reflected index i + offset_k (numpy's "symmetric") and sums
-    fma(x0, w0, x1 * w1), then fma(xk, wk, acc), rounding once a step;
-    optionally rounded through float16."""
-    from nellie_tpu_torch.kernels._fp import fma_plain
-
-    n = x.shape[axis]
-    i = torch.arange(n, device=x.device)
-
-    def at(offset):
-        m = torch.remainder(i + offset, 2 * n)
-        return torch.index_select(x, axis, torch.where(m < n, m, 2 * n - 1 - m))
-
-    (o0, w0), rest = taps[0], taps[1:]
-    if not rest:
-        acc = at(o0) * w0
-    else:
-        acc = fma_plain(at(o0), w0, at(rest[0][0]) * rest[0][1])
-        for o, w in rest[1:]:
-            acc = fma_plain(at(o), w, acc)
-    return acc.half().float() if round_half else acc
-
-
 def interp_inputs(n_q, n_m, d, seed=0):
     """Flow-interpolation inputs as a frame's flow gives them (numpy
     float32): anchors on a voxel grid in microns, vectors of whole voxel
@@ -1966,17 +1961,24 @@ class KernelCalls:
     """Within a ``with`` block, records the union-find and interpolation
     kernels' calls as (caller tag, arguments), keeping those for which
     ``keep(kernel name, tag, args)`` is true (tensors are cloned); the
-    largest call of ``fma_f32`` (its operands), of ``gauss_axis`` and of each
-    pass of ``frangi_tail`` (their inputs copied to the host, before the
-    call); and ``fma_f32``'s launches by calling function."""
+    largest call of ``fma_f32`` (its operands); the largest call of the nn
+    kernel from each caller tag (its operands and rounding mode); the
+    largest call of each of the Filter's kernel wrappers,
+    ``filters.correlate1d_traced`` and ``filters._correlate1d``,
+    ``frangi.hessian_frob`` and ``frangi.frangi_response``, with the
+    caller's own arguments (tensors copied to the host before the call);
+    and ``fma_f32``'s launches by calling function."""
+
+    WRAPPERS = {"correlate1d_traced": "filters", "_correlate1d": "filters",
+                "hessian_frob": "frangi", "frangi_response": "frangi"}
 
     def __init__(self, keep=lambda name, tag, args: True):
         self.keep = keep
         self.calls = {"ccl_union_find": [], "flow_interp": []}
         self.fma_largest = (0, None)  # (elements, operands) of the largest fma_f32 call
         self.fma_by_caller = {}
-        self.gauss_largest = (0, None)  # (elements, (x on the host, taps, axis, round_half))
-        self.tail_largest = {"hessian_frob": (0, None), "frangi_response": (0, None)}
+        self.nn_largest = {}  # caller tag: (Q * M, (queries, refs, fused_norms))
+        self.wrapper_largest = {name: (0, None) for name in self.WRAPPERS}
         self._saved = []
 
     def _patch(self, cls, name, wrapper):
@@ -1984,8 +1986,22 @@ class KernelCalls:
         setattr(cls, name, lambda kernel, *args, _o=original, **kw: wrapper(_o, kernel, *args, **kw))
         self._saved.append((cls, name, original))
 
+    def _record_wrapper(self, module, name):
+        """Replace ``module.name`` (the callers look it up there) by a
+        recorder of its largest call by the first argument's size."""
+        original = getattr(module, name)
+
+        def recorded(x, *args):
+            if x.device.type == "cuda" and x.numel() > self.wrapper_largest[name][0]:
+                host = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+                self.wrapper_largest[name] = (x.numel(), (x.cpu(),) + host)
+            return original(x, *args)
+
+        setattr(module, name, recorded)
+        self._saved.append((module, name, original))
+
     def __enter__(self):
-        from nellie_tpu_torch.kernels import _fp, ccl, filters, frangi
+        from nellie_tpu_torch.kernels import _fp, ccl, filters, frangi, nn
         from nellie_tpu_torch.stages import flow_interpolation as fi
 
         def fma_recorded(original, kernel, a, b, c):  # the operands themselves: their layout is timed
@@ -1996,24 +2012,18 @@ class KernelCalls:
                 self.fma_largest = (out.numel(), (a, b, c))
             return out
 
-        def gauss_recorded(original, kernel, x, taps, axis, round_half=False):
-            if x.numel() > self.gauss_largest[0]:
-                self.gauss_largest = (x.numel(), (x.cpu(), list(taps), axis, round_half))
-            return original(kernel, x, taps, axis, round_half)
-
-        def tail_recorded(name):
-            def recorded(original, kernel, g, geo, *rest):
-                if g.numel() > self.tail_largest[name][0]:
-                    copy = type(geo).from_buffer_copy(geo)
-                    host = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in rest)
-                    self.tail_largest[name] = (g.numel(), (g.cpu(), copy) + host)
-                return original(kernel, g, geo, *rest)
-            return recorded
+        def nn_recorded(original, kernel, queries, refs, fused_norms=False):
+            tag = caller_tag()
+            size = queries.shape[0] * refs.shape[0]
+            if size > self.nn_largest.get(tag, (0, None))[0]:
+                self.nn_largest[tag] = (size, (queries.clone(), refs.clone(), fused_norms))
+            return original(kernel, queries, refs, fused_norms)
 
         self._patch(_fp._FmaKernel, "__call__", fma_recorded)
-        self._patch(filters._GaussAxisKernel, "__call__", gauss_recorded)
-        for name in self.tail_largest:
-            self._patch(frangi._FrangiTailKernel, name, tail_recorded(name))
+        self._patch(nn._NNKernel, "__call__", nn_recorded)
+        modules = {"filters": filters, "frangi": frangi}
+        for name, module in self.WRAPPERS.items():
+            self._record_wrapper(modules[module], name)
 
         for name, cls in (("ccl_union_find", ccl._CCLKernel),
                           ("flow_interp", fi._FlowInterpKernel)):
@@ -2029,13 +2039,16 @@ class KernelCalls:
         return self
 
     def __exit__(self, *exc):
-        for cls, name, original in reversed(self._saved):
-            setattr(cls, name, original)
+        for owner, name, original in reversed(self._saved):
+            setattr(owner, name, original)
 
     def largest(self):
-        """The largest calls of the Filter's kernels and of fma_f32."""
-        return {"fma": self.fma_largest, "gauss_axis": self.gauss_largest,
-                "frangi_tail": dict(self.tail_largest)}
+        """The largest calls of the Filter's kernel wrappers and of fma_f32."""
+        return {"fma": self.fma_largest, **self.wrapper_largest}
+
+    def nn_operands(self):
+        """{caller tag: (queries, refs, fused_norms)} of the largest nn calls."""
+        return {tag: args for tag, (_, args) in self.nn_largest.items()}
 
 
 def check_fma_callers(what, by_caller, launches):
@@ -2116,6 +2129,64 @@ def kernel_times(fn, reps):
     times = [(time_ms(fn, reps), device_ms(fn, reps, required=False)) for _ in range(2)]
     return (min(t[0] for t in times),
             min((t[1] for t in times if t[1] is not None), default=None))
+
+
+L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2 cache
+
+
+def cold_times(fn, reps, on_device=True):
+    """(ms a call, ms on the device or None) of ``fn`` with the L2 cache
+    flushed before every call (a 256 MiB int16 buffer filled), so that
+    every operand comes from device memory as the bounds assume: CUDA
+    events around each call, and ``torch.profiler``'s kernel times less
+    the flushes' (told apart by their int16 fill kernel, which no wrapper
+    launches; skipped unless ``on_device``); the least of two rounds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(L2_FLUSH_BYTES // 2, dtype=torch.int16, device="cuda")
+
+    def flushed_calls():
+        for _ in range(reps):
+            flush.fill_(1)
+            fn()
+
+    def device_round():
+        """One profiled round's device ms a call, or None when the profiler
+        hands back no events or not one flush a call."""
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flushed_calls()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        flushes = [e for e in events if "FillFunctor<short>" in e.name]
+        if len(flushes) != reps or len(events) == reps:
+            return None
+        return sum(e.device_time for e in events if e not in flushes) / reps / 1e3
+
+    fn()
+    torch.cuda.synchronize()
+    per_call, device = [], []
+    for _ in range(2):
+        pairs = []
+        for _ in range(reps):
+            flush.fill_(1)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        per_call.append(sum(a.elapsed_time(b) for a, b in pairs) / reps)
+        for _ in range(3 if on_device else 0):  # the profiler now and then records nothing
+            ms = device_round()
+            if ms is not None:
+                device.append(ms)
+                break
+    del flush
+    if on_device and not device:
+        print("cold_times: the profiler gave no device time in three tries: not measured",
+              flush=True)
+    return min(per_call), min(device, default=None)
 
 
 def time_ccl(gpu, name, mask, connectivity):
@@ -2405,8 +2476,9 @@ def phase_fma_kernel(gpu, largest):
     broadcasting, and the largest call of each path on its own operands;
     then its time at those calls beside the plain version's, one PyTorch
     call's (``torch.addcmul`` or ``torch.add`` with ``alpha``: two
-    roundings; the port never calls them) and its bound.  Returns (rows,
-    max |kernel - plain| over every check)."""
+    roundings; the port never calls them) and its bound, each call on a
+    cold L2 cache (:func:`cold_times`).  Returns (rows, max |kernel -
+    plain| over every check)."""
     from nellie_tpu_torch.kernels import _fp
 
     ops = [torch.from_numpy(x).cuda() for x in fma_operands(1 << 22, seed=3)]
@@ -2429,23 +2501,24 @@ def phase_fma_kernel(gpu, largest):
         if args is None:
             fail(f"the {path} path made no fma_f32 call")
         worst = max(worst, check_fma(f"the {path} path's largest call", args))
-        plain_ms = time_ms(lambda: _fp.fma_plain(*args), 5)
-        ms, on_device = kernel_times(lambda: _fp.FMA_KERNEL(*args), 20)
+        plain_ms, _ = cold_times(lambda: _fp.fma_plain(*args), 5, on_device=False)
+        ms, on_device = cold_times(lambda: _fp.FMA_KERNEL(*args), 20)
         a, b, c = args
         if not isinstance(c, torch.Tensor):
-            library_ms = None
+            library = None
         elif isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
-            library_ms = time_ms(lambda: torch.addcmul(c, a, b), 20)
+            library = lambda: torch.addcmul(c, a, b)  # noqa: E731
         else:  # one factor a number: c + number * tensor
             tensor, number = (a, b) if isinstance(a, torch.Tensor) else (b, a)
-            library_ms = time_ms(lambda: torch.add(c, tensor, alpha=float(number)), 20)
+            library = lambda: torch.add(c, tensor, alpha=float(number))  # noqa: E731
+        library_ms = None if library is None else cold_times(library, 20, on_device=False)[0]
         bound_ms, bound_by = fma_bound(args, n)
         print(f"fma_f32 = plain version bit for bit, and its time, at the {path} path's "
               f"largest call ({n} elements, operand shapes "
               f"{[tuple(a.shape) if isinstance(a, torch.Tensor) else 'number' for a in args]}, "
               f"strides {[a.stride() if isinstance(a, torch.Tensor) else None for a in args]}): "
-              f"kernel {ms:.4f} ms a call (on the device {fmt_ms(on_device)}), plain "
-              f"{plain_ms:.4f} ms, library (addcmul or add) {fmt_ms(library_ms)}, bound "
+              f"kernel {ms:.4f} ms a call on a cold L2 (on the device {fmt_ms(on_device)}), "
+              f"plain {plain_ms:.4f} ms, library (addcmul or add) {fmt_ms(library_ms)}, bound "
               f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f} (on the device "
               f"{fmt_share(bound_ms, on_device)}) [{gpu}]", flush=True)
         rows[path] = {"elements": n, "ms": ms, "device_ms": on_device, "plain_ms": plain_ms,
@@ -2472,20 +2545,53 @@ def gauss_bound(x_numel):
     return 8 * x_numel / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
-def check_gauss(name, x, taps, axis, round_half, against_cpu=False):
-    """The kernel against ``gauss_axis_model`` (the plain versions' chain on
-    these taps; ``tests/test_torch_gauss_axis.py`` holds the model to the
-    plain versions) on the card, and on CPU copies; bit for bit."""
+def max_abs_diff(got, want):
+    """max |got - want| in float64 over the elements finite in both (0 for
+    booleans that are equal, 1 where they differ)."""
+    a, b = got.double().cpu(), want.double().cpu()
+    both = torch.isfinite(a) & torch.isfinite(b)
+    return float((a[both] - b[both]).abs().max()) if bool(both.any()) else 0.0
+
+
+def same_tensor(got, want):
+    """Equal dtype and shape, and equal bits (NaN where NaN)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if got.dtype == torch.bool:
+        return torch.equal(got.cpu(), want.cpu())
+    return bool(same_bits(got.float().cpu().numpy(), want.float().cpu().numpy()).all())
+
+
+def gauss_plain(which, x, args):
+    """What the wrapper ``filters.<which>`` computes, by the plain version:
+    ``correlate1d_traced_plain`` (weights, axis, carry: the result rounded
+    to the carry) or ``_correlate1d_plain`` (weights, axis)."""
     from nellie_tpu_torch.kernels import filters
 
-    got = filters.GAUSS_AXIS_KERNEL(x, taps, axis, round_half).cpu().numpy()
-    wants = [gauss_axis_model(x, taps, axis, round_half)]
-    if against_cpu:
-        wants.append(gauss_axis_model(x.cpu(), taps, axis, round_half))
-    for want in wants:
-        if not same_bits(got, want.cpu().numpy()).all():
-            fail(f"gauss_axis differs from its plain version on {name}")
-    return 0.0
+    if which == "_correlate1d":
+        return filters._correlate1d_plain(x, *args)
+    weights, axis, carry = args
+    out = filters.correlate1d_traced_plain(x, weights, axis)
+    return out.to(carry).float() if carry == torch.float16 else out
+
+
+def check_gauss(name, which, x, args, against_cpu=False):
+    """The wrapper ``filters.<which>`` on the card (one launch of the
+    kernel) against the plain version with the caller's own arguments, on
+    the card (and on CPU copies), bit for bit; returns max |kernel - plain|."""
+    from nellie_tpu_torch.kernels import filters
+
+    before = filters.GAUSS_AXIS_KERNEL.launches
+    got = getattr(filters, which)(x, *args)
+    if filters.GAUSS_AXIS_KERNEL.launches != before + 1:
+        fail(f"filters.{which} on {name} did not launch gauss_axis once")
+    worst = 0.0
+    for dev in ["cuda"] + (["cpu"] if against_cpu else []):
+        want = gauss_plain(which, x.to(dev), args)
+        if not same_tensor(got, want):
+            fail(f"gauss_axis ({which}) differs from its plain version on {name} ({dev})")
+        worst = max(worst, max_abs_diff(got, want))
+    return worst
 
 
 def library_correlation(x, taps, axis):
@@ -2508,53 +2614,70 @@ def library_correlation(x, taps, axis):
 
 
 def phase_gauss_kernel(gpu, largest):
-    """The 1-D correlation kernel against its plain version on the card:
-    the 3D and 2D main cascades' taps along every axis with both carries,
-    the LoG's, one tap, an axis shorter than the taps (also on CPU copies);
-    then the largest call of each path, bit for bit, with its times."""
+    """The 1-D correlation kernel through its wrappers
+    (``filters.correlate1d_traced``, ``filters._correlate1d``) against the
+    plain versions on the card: the 3D and 2D main cascades' taps along
+    every axis with both carries, the LoG's, one tap, an axis shorter than
+    the taps (also on CPU copies); then the largest call of each wrapper on
+    each path, on the caller's own arguments, bit for bit, with its times
+    on a cold L2 cache.  ``largest``: {path: {wrapper: (voxels, (x on the
+    host, arguments...)) or (0, None)}}.  Returns (rows, max |kernel -
+    plain| over every check)."""
     from nellie_tpu_torch.kernels import filters, frangi
 
-    cases = 0
+    cases, worst = 0, 0.0
     for shape in ((12, 48, 48), CCL_SHAPE_3D, (7, 33, 128), CCL_SHAPE_2D, (3, 200)):
         x = torch.from_numpy(filter_frame(shape, seed=len(shape))).cuda()
         small = x.numel() <= 1 << 16
         params = frangi.FrangiParams(**MAIN_FRANGI[2 if x.ndim == 2 else 3]) \
             if x.ndim > 1 else None
         for axis in range(x.ndim):
-            tap_sets = [(filters.traced_taps(w), h) for w in
-                        frangi._delta_kernels(params, x.ndim)[axis] for h in (False, True)]
-            tap_sets += [(filters.nonzero_taps(filters.gaussian_kernel1d(s, 4.0, order=o)), False)
-                         for s, o in ((1.0, 0), (1.0, 2), (2.5, 2))]
-            tap_sets += [([(0, 0.3)], False)]
-            for taps, half in tap_sets:
-                check_gauss(f"{shape} axis {axis}", x, taps, axis, half, against_cpu=small)
+            calls = [("correlate1d_traced", (w, axis, carry)) for w in
+                     frangi._delta_kernels(params, x.ndim)[axis]
+                     for carry in (torch.float32, torch.float16)]
+            calls += [("_correlate1d", (filters.gaussian_kernel1d(s, 4.0, order=o), axis))
+                      for s, o in ((1.0, 0), (1.0, 2), (2.5, 2))]
+            calls += [("_correlate1d", (np.array([0.3]), axis))]
+            for which, args in calls:
+                worst = max(worst, check_gauss(f"{shape} axis {axis}", which, x, args, small))
                 cases += 1
-    print(f"gauss_axis = plain version bit for bit on {cases} synthetic calls (the main "
-          "cascades' taps with both carries, the LoG's, one tap, an axis shorter than the taps; "
-          "CPU copies too at the small shapes)", flush=True)
+    print(f"gauss_axis (through correlate1d_traced and _correlate1d) = plain version bit for bit "
+          f"on {cases} synthetic calls (the main cascades' taps with both carries, the LoG's, "
+          "one tap, an axis shorter than the taps; CPU copies too at the small shapes)",
+          flush=True)
     rows = {}
-    for path, (n, args) in largest.items():
-        if args is None:
-            fail(f"the {path} path made no gauss_axis call")
-        x, taps, axis, half = args
-        x = x.cuda()
-        check_gauss(f"the {path} path's largest call", x, taps, axis, half)
-        plain_ms = time_ms(lambda: gauss_axis_model(x, taps, axis, half), 3)
-        ms, on_device = kernel_times(lambda: filters.GAUSS_AXIS_KERNEL(x, taps, axis, half), 20)
-        library_ms = time_ms(library_correlation(x, taps, axis), 20)
-        bound_ms, bound_by = gauss_bound(n)
-        print(f"gauss_axis = plain version bit for bit, and its time, at the {path} path's "
-              f"largest call ({tuple(x.shape)} along axis {axis}, {len(taps)} taps, float16 "
-              f"carry {half}): kernel {ms:.4f} ms a call (on the device {fmt_ms(on_device)}), "
-              f"plain {plain_ms:.4f} ms, library (cuDNN convolution of the padded input) "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), share "
-              f"{bound_ms / ms:.3f} (on the device {fmt_share(bound_ms, on_device)}) [{gpu}]",
-              flush=True)
-        rows[path] = {"shape": list(x.shape), "axis": axis, "taps": len(taps), "ms": ms,
-                      "device_ms": on_device, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "library_ms": library_ms}
-        del x
-    return rows, 0.0
+    for path, calls in largest.items():
+        for which, row in (("correlate1d_traced", path), ("_correlate1d", f"{path} LoG")):
+            n, recorded = calls[which]
+            if recorded is None:
+                if which == "correlate1d_traced":
+                    fail(f"the {path} path made no correlate1d_traced call")
+                continue
+            x, *args = recorded
+            x = x.cuda()
+            err = check_gauss(f"the {path} path's largest {which} call", which, x, args)
+            worst = max(worst, err)
+            wrapper = getattr(filters, which)
+            plain_ms, _ = cold_times(lambda: gauss_plain(which, x, args), 3, on_device=False)
+            ms, on_device = cold_times(lambda: wrapper(x, *args), 20)
+            taps = (filters.nonzero_taps(args[0]) if which == "_correlate1d"
+                    else filters.traced_taps(args[0]))
+            library_ms, _ = cold_times(library_correlation(x, taps, args[1]), 20, on_device=False)
+            bound_ms, bound_by = gauss_bound(n)
+            half = len(args) > 2 and args[2] == torch.float16
+            print(f"gauss_axis ({which}) = plain version bit for bit, and its time, at the "
+                  f"{path} path's largest call ({tuple(x.shape)} along axis {args[1]}, "
+                  f"{len(taps)} taps, float16 carry {half}): kernel {ms:.4f} ms a call on a "
+                  f"cold L2 (on the device {fmt_ms(on_device)}), plain {plain_ms:.4f} ms, "
+                  f"library (cuDNN convolution of the padded input) {library_ms:.4f} ms, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f} (on the device "
+                  f"{fmt_share(bound_ms, on_device)}) [{gpu}]", flush=True)
+            rows[row] = {"wrapper": which, "shape": list(x.shape), "axis": args[1],
+                         "taps": len(taps), "max_abs_err": err, "ms": ms,
+                         "device_ms": on_device, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": library_ms}
+            del x
+    return rows, worst
 
 
 def tail_bound(name, g, carry_bytes, active=None):
@@ -2577,144 +2700,141 @@ def tail_bound(name, g, carry_bytes, active=None):
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
-def tail_calls(g, spacing, minor, core_fn, mask_fraction=0.7, carry=torch.float32, seed=0):
-    """(pass 1 arguments, pass 2 arguments) of the kernel on block ``g``,
-    with a Frobenius mask of about ``mask_fraction`` true and a running
-    vessel of small values."""
+def tail_plain(name, g, args):
+    """What the wrapper ``frangi.<name>`` computes, by the plain version,
+    from the caller's own arguments: pass 1 ``hessian_frob_plain`` (spacing,
+    minor extent, core) as (frob, largest); pass 2 (components, params,
+    minor extent, mask, gamma_sq, vessel, all_mask) the components from
+    ``hessian.hessian_unnormalized`` and ``frangi_response_plain``."""
+    from nellie_tpu_torch.kernels import frangi, hessian
+
+    if name == "hessian_frob":
+        _, frob, largest = frangi.hessian_frob_plain(g, *args)
+        return frob, largest
+    _, params, minor, mask, gamma_sq, vessel, all_mask = args
+    h, _ = hessian.hessian_unnormalized(g, params.spacing, minor)
+    return frangi.frangi_response_plain(h, mask, gamma_sq, params, vessel, all_mask)
+
+
+def tail_kernel(name, g, args, copy=True):
+    """The wrapper ``frangi.<name>`` on the card: its outputs (pass 2 on
+    copies of ``vessel`` and ``all_mask``, or in place)."""
     from nellie_tpu_torch.kernels import frangi
 
+    if name == "hessian_frob":
+        _, frob, largest = frangi.hessian_frob(g, *args)
+        return frob, largest
+    if copy:
+        args = args[:5] + (args[5].clone(), args[6].clone())
+    return frangi.frangi_response(g, *args)
+
+
+def on_device_args(args, dev):
+    return tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
+
+
+def check_tail(what, name, g, args, against_cpu=False):
+    """One pass of the kernel through its wrapper (one launch) against the
+    plain version with the same arguments on the card (and on CPU copies),
+    bit for bit; returns max |kernel - plain| over its outputs."""
+    from nellie_tpu_torch.kernels import frangi
+
+    before = frangi.FRANGI_TAIL_KERNEL.launches
+    got = tail_kernel(name, g, args)
+    if frangi.FRANGI_TAIL_KERNEL.launches != before + 1:
+        fail(f"frangi.{name} on {what} did not launch frangi_tail once")
+    worst = 0.0
+    for dev in ["cuda"] + (["cpu"] if against_cpu else []):
+        want = tail_plain(name, g.to(dev), on_device_args(args, dev))
+        for a, b in zip(got, want):
+            if not same_tensor(a, b):
+                fail(f"frangi_tail {name} differs from its plain version on {what} ({dev})")
+            worst = max(worst, max_abs_diff(a, b))
+    return worst
+
+
+def synthetic_tail_args(g, params, minor, core, carry, mask_fraction=0.7, seed=0):
+    """The wrappers' arguments on block ``g`` as ``vesselness_blocks`` gives
+    them: (pass 1's, pass 2's), with a Frobenius mask of about
+    ``mask_fraction`` true and a running vessel of small values."""
     gen = torch.Generator(device=g.device).manual_seed(seed)
-    geo = frangi.tail_geometry(g, spacing, minor, core_fn(g))
     mask = torch.rand(g.shape, generator=gen, device=g.device) < mask_fraction
     vessel = (torch.rand(g.shape, generator=gen, device=g.device) * 0.01).to(carry)
     all_mask = torch.rand(g.shape, generator=gen, device=g.device) < 0.9
     gamma_sq = torch.tensor(np.float32(2.0 * 40.0 ** 2), device=g.device)
-    return (g, geo), (g, geo, mask, gamma_sq, vessel, all_mask)
-
-
-def run_tail_kernel(name, args, params, copy=True):
-    """One pass of the kernel (on copies of its in-place operands, or on
-    them: a second pass in place changes nothing); returns its outputs."""
-    from nellie_tpu_torch.kernels import frangi
-
-    k = frangi.FRANGI_TAIL_KERNEL
-    if name == "hessian_frob":
-        return k.hessian_frob(*args)
-    g, geo, mask, gamma_sq, vessel, all_mask = args
-    if copy:
-        vessel, all_mask = vessel.clone(), all_mask.clone()
-    k.frangi_response(g, geo, mask, gamma_sq, params, vessel, all_mask)
-    return vessel, all_mask
-
-
-def run_tail_plain(name, args, params, spacing, minor, core_box):
-    """The same pass by the plain version on the operands' device."""
-    from nellie_tpu_torch.kernels import frangi, hessian
-
-    if name == "hessian_frob":
-        g, _ = args
-        box = tuple(slice(a, b) for a, b in zip(*core_box))
-        _, frob, largest = frangi.hessian_frob_plain(g, spacing, minor, lambda v: v[box])
-        return frob, largest
-    g, _, mask, gamma_sq, vessel, all_mask = args
-    h, _ = hessian.hessian_unnormalized(g, spacing, minor)
-    return frangi.frangi_response_plain(h, mask, gamma_sq, params, vessel, all_mask)
-
-
-def geometry_of(geo):
-    """(spacing, minor extent for the fusion rule, core box) that give
-    ``geo`` back through ``frangi.tail_geometry``."""
-    ndim = geo.ndim
-    # 1 / f32(1 / s) in float64 gives back f32(1 / s) and f32(0.5 / s)
-    spacing = tuple(1.0 / float(geo.inv[a]) for a in range(ndim))
-    minor = 128 if geo.fuse_last else 1  # a frame width that fuses, or one that never does
-    core = ([geo.core_lo[a] for a in range(ndim)], [geo.core_hi[a] for a in range(ndim)])
-    return spacing, minor, core
-
-
-def check_tail(name, args, params, spacing, minor, core_box, against_cpu=False):
-    """One pass of the kernel against the plain version on the card (and on
-    CPU copies), bit for bit."""
-    got = [t.cpu() for t in run_tail_kernel(name, args, params)]
-    devices = ["cuda"] + (["cpu"] if against_cpu else [])
-    for dev in devices:
-        moved = tuple(a.to(dev) if isinstance(a, torch.Tensor) else a for a in args)
-        want = [t.cpu() for t in run_tail_plain(name, moved, params, spacing, minor, core_box)]
-        for a, b in zip(got, want):
-            same = torch.equal(a, b) if a.dtype == torch.bool else \
-                same_bits(a.float().numpy(), b.float().numpy()).all()
-            if not same or a.dtype != b.dtype:
-                fail(f"frangi_tail {name} differs from its plain version on {dev} at {name}")
+    return ((params.spacing, minor, core),
+            (None, params, minor, mask, gamma_sq, vessel, all_mask))
 
 
 def phase_tail_kernel(gpu, largest):
-    """The Frangi tail's two passes against their plain versions on the
-    card: synthetic smoothed blocks in 3D and 2D at the main shapes, a last
-    axis of 128, a core box, both carries, no mask, a dim block (also on CPU
-    copies at the small shapes); then the largest call of each path on its
-    own operands, bit for bit, with the times of both passes."""
+    """The Frangi tail's two passes through their wrappers
+    (``frangi.hessian_frob``, ``frangi.frangi_response``) against the plain
+    versions on the card: synthetic smoothed blocks in 3D and 2D at the main
+    shapes, a last axis of 128, a core box, both carries, no mask, a dim
+    block (also on CPU copies at the small shapes); then the largest call of
+    each pass on each path, on the caller's own arguments (spacing, minor
+    extent, core, params, mask), bit for bit, with their times on a cold L2
+    cache.  ``largest``: {path: {pass: (voxels, (block on the host,
+    arguments...))}}.  Returns (rows, max |kernel - plain| over every
+    check)."""
     from nellie_tpu_torch.kernels import frangi
 
-    cases = 0
+    cases, worst = 0, 0.0
+    core = lambda v: v.narrow(0, 1, v.shape[0] - 2)  # noqa: E731
     for shape, scale in (((12, 48, 48), 1.0), ((12, 48, 48), 1e-19), ((7, 33, 128), 1.0),
                          (CCL_SHAPE_3D, 1.0), ((64, 128), 1.0), (CCL_SHAPE_2D, 1.0)):
         g = torch.from_numpy(filter_frame(shape, seed=sum(shape), smooth=True)
                              * np.float32(scale)).cuda()
         params = frangi.FrangiParams(**MAIN_FRANGI[g.ndim])
         small = g.numel() <= 1 << 16
-        box = ([1] + [0] * (g.ndim - 1), [shape[0] - 1] + list(shape[1:]))
-        core_fn = lambda v: v.narrow(0, 1, v.shape[0] - 2)  # noqa: E731
         for carry in (torch.float32, torch.float16):
             for minor in ((None, 1) if shape[-1] == 128 else (None,)):
-                one, two = tail_calls(g, params.spacing, minor, core_fn, carry=carry)
-                check_tail("hessian_frob", one, params, params.spacing, minor, box, small)
-                check_tail("frangi_response", two, params, params.spacing, minor, box, small)
-                no_mask = two[:2] + (None,) + two[3:]
-                check_tail("frangi_response", no_mask, params, params.spacing, minor, box, small)
-                cases += 3
-    print(f"frangi_tail = plain version bit for bit on {cases} synthetic passes (3D and 2D, main "
-          "shapes, a last axis of 128, a core box, both carries, no mask, a dim block; CPU copies "
-          "too at the small shapes)", flush=True)
+                one, two = synthetic_tail_args(g, params, minor, core, carry)
+                no_mask = two[:3] + (None,) + two[4:]
+                for name, args in (("hessian_frob", one), ("frangi_response", two),
+                                   ("frangi_response", no_mask)):
+                    worst = max(worst, check_tail(f"{shape} x {scale}", name, g, args, small))
+                    cases += 1
+    print(f"frangi_tail (through hessian_frob and frangi_response) = plain version bit for bit "
+          f"on {cases} synthetic passes (3D and 2D, main shapes, a last axis of 128, a core box, "
+          "both carries, no mask, a dim block; CPU copies too at the small shapes)", flush=True)
     rows = {}
     for path, calls in largest.items():
         row = {}
         for name in ("hessian_frob", "frangi_response"):
-            n, args = calls[name]
-            if args is None:
-                fail(f"the {path} path made no frangi_tail {name} call")
-            g, geo, *rest = args
-            spacing, minor, box = geometry_of(geo)
-            params = frangi.FrangiParams(sigmas=(1.0,), spacing=spacing)
+            n, recorded = calls[name]
+            if recorded is None:
+                fail(f"the {path} path made no frangi.{name} call")
+            g, *args = recorded
+            g, args = g.cuda(), on_device_args(tuple(args), "cuda")
+            err = check_tail(f"the {path} path's largest call", name, g, args)
+            worst = max(worst, err)
+            plain_ms, _ = cold_times(lambda: tail_plain(name, g, args), 2, on_device=False)
+            ms, on_device = cold_times(lambda: tail_kernel(name, g, args, copy=False), 10)
+            active = carry_bytes = None
             if name == "frangi_response":
-                params = rest[2]
-                rest = rest[:2] + rest[3:]
-            args = (g.cuda(), geo) + tuple(a.cuda() if isinstance(a, torch.Tensor) else a
-                                           for a in rest)
-            check_tail(name, args, params, spacing, minor, box)
-            plain_ms = time_ms(lambda: run_tail_plain(name, args, params, spacing, minor, box), 2)
-            ms, on_device = kernel_times(lambda: run_tail_kernel(name, args, params, False), 10)
-            carry_bytes = 2 if name == "frangi_response" and args[4].dtype == torch.float16 else 4
-            active = None
-            if name == "frangi_response" and args[2] is not None:
-                active = int(args[2].sum())
-            bound_ms, bound_by = tail_bound(name, args[0], carry_bytes, active)
-            share_active = "" if active is None else f", {active / args[0].numel():.2%} in the mask"
+                carry_bytes = args[5].element_size()
+                active = None if args[3] is None else int(args[3].sum())
+            bound_ms, bound_by = tail_bound(name, g, carry_bytes, active)
+            share_active = "" if active is None else f", {active / g.numel():.2%} in the mask"
             print(f"frangi_tail {name} = plain version bit for bit, and its time, at the {path} "
-                  f"path's largest call ({tuple(args[0].shape)}{share_active}): kernel {ms:.4f} "
-                  f"ms a call (on "
-                  f"the device {fmt_ms(on_device)}), plain {plain_ms:.4f} ms, library none, "
-                  f"bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f} (on the "
-                  f"device {fmt_share(bound_ms, on_device)}) [{gpu}]", flush=True)
-            row[name] = {"shape": list(args[0].shape), "ms": ms, "device_ms": on_device,
-                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+                  f"path's largest call ({tuple(g.shape)}{share_active}): kernel {ms:.4f} ms a "
+                  f"call on a cold L2 (on the device {fmt_ms(on_device)}), plain "
+                  f"{plain_ms:.4f} ms, library none, bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"share {bound_ms / ms:.3f} (on the device "
+                  f"{fmt_share(bound_ms, on_device)}) [{gpu}]", flush=True)
+            row[name] = {"shape": list(g.shape), "max_abs_err": err, "ms": ms,
+                         "device_ms": on_device, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by}
+            del g, args
         both = lambda k: sum(r[k] for r in row.values())  # noqa: E731
         on_dev = [r["device_ms"] for r in row.values()]
-        rows[path] = dict(row, ms=both("ms"), plain_ms=both("plain_ms"),
-                          bound_ms=both("bound_ms"),
+        rows[path] = dict(row, max_abs_err=max(r["max_abs_err"] for r in row.values()),
+                          ms=both("ms"), plain_ms=both("plain_ms"), bound_ms=both("bound_ms"),
                           device_ms=None if None in on_dev else sum(on_dev),
                           bound_by=max(row.values(), key=lambda r: r["bound_ms"])["bound_by"],
                           library_ms=None)
-    return rows, 0.0
+    return rows, worst
 
 
 # ---------------------------------------------------------------------------
@@ -2856,13 +2976,13 @@ def main() -> None:
     try:
         launches, by_stage, im_info, timings, hand = phase_main_path(nn, gpu, root)
         phase_fused_vs_staged(gpu, root, MAIN_SHAPE, im_info, timings)
-        reassign, hierarchy = phase_kernel_main_shapes(nn, gpu, im_info)
+        reassign, hierarchy = phase_kernel_main_shapes(nn, gpu, hand["nn"])
         phase_small_parity(root, small_series(), "TZYX",
                            {"X": 0.2, "Y": 0.2, "Z": 0.5, "T": 1.0})
         _, by_stage_2d, im_info_2d, timings_2d, hand_2d = phase_main_path(
             nn, gpu, root, MAIN_SHAPE_2D, tag="2D ")
         phase_fused_vs_staged(gpu, root, MAIN_SHAPE_2D, im_info_2d, timings_2d, tag="2D ")
-        reassign_2d, hierarchy_2d = phase_kernel_main_shapes(nn, gpu, im_info_2d, tag="2D ")
+        reassign_2d, hierarchy_2d = phase_kernel_main_shapes(nn, gpu, hand_2d["nn"], tag="2D ")
         series_2d = small_series_2d()
         for data, axes, t_res in ((series_2d, "TYX", 1.0), (series_2d[0], "YX", None)):
             phase_small_parity(root, data, axes, {"X": 0.1, "Y": 0.1, "Z": None, "T": t_res},
@@ -2890,10 +3010,8 @@ def main() -> None:
                                                "capacity_1024": capacity["fma_largest"]})
     largest = {"3D": hand["largest"], "2D": hand_2d["largest"],
                "capacity_1024": capacity["largest"]}
-    gauss_rows, gauss_err = phase_gauss_kernel(
-        gpu, {path: calls["gauss_axis"] for path, calls in largest.items()})
-    tail_rows, tail_err = phase_tail_kernel(
-        gpu, {path: calls["frangi_tail"] for path, calls in largest.items()})
+    gauss_rows, gauss_err = phase_gauss_kernel(gpu, largest)
+    tail_rows, tail_err = phase_tail_kernel(gpu, largest)
     print(f"phase 17 (hand kernels against their plain bodies): "
           f"{time.perf_counter() - start:.1f} s", flush=True)
     root = tempfile.mkdtemp(prefix="nellie_port_oom_")

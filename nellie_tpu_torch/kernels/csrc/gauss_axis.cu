@@ -25,9 +25,10 @@
 // memory once, and every tap reads the tile: along an outer axis 32
 // neighbouring lines (one coalesced row of the inner extent a load) by 64
 // outputs, each thread 8 outputs of one line; along the last axis 256
-// outputs of one line, a thread each.  Shapes outside the tiles' limits
-// (a reach above 128, more than 65,535 outer lines) take a plain loop in
-// which each thread reads its taps from L1/L2.
+// outputs of one line, a thread each.  Blocks step over the grid's extent
+// where there are more lines or segments than it holds.  The taps reach at
+// most 128 voxels (the tiles' margin): the Gaussian and LoG taps of the
+// Filter and the Markers reach 4 sigma, far below that.
 //
 // The kernel allocates nothing and launches on the caller's stream; the C
 // entry point returns cudaGetLastError().
@@ -43,8 +44,7 @@ namespace {
 
 constexpr int MAX_TAPS = 256;
 constexpr int THREADS = 256;
-constexpr int BLOCKS_PER_SM = 8;
-constexpr int MAX_REACH = 128;        // the tiled kernels' largest |offset|
+constexpr int MAX_REACH = 128;        // the taps' largest |offset|: the tiles' margin
 constexpr int LINES = 32, SEG = 64;   // outer-axis tile: lines x outputs a line
 constexpr int ROW_SEG = THREADS;      // last-axis tile: outputs of one line
 
@@ -74,43 +74,32 @@ __device__ __forceinline__ float tap_sum(const Taps& taps, const At& at) {
   return ROUND_HALF ? __half2float(__float2half_rn(acc)) : acc;
 }
 
-template <typename Idx, bool ROUND_HALF>
-__global__ void __launch_bounds__(THREADS)
-correlate_kernel(const float* __restrict__ x, float* __restrict__ out, Idx total, Idx n,
-                 Idx inner, const Taps taps) {
-  const Idx step = static_cast<Idx>(gridDim.x) * THREADS;
-  for (Idx v = static_cast<Idx>(blockIdx.x) * THREADS + threadIdx.x; v < total; v += step) {
-    const Idx j = v % inner;
-    const Idx rest = v / inner;
-    const int i = static_cast<int>(rest % n);
-    const Idx base = (rest - i) * inner + j;  // (outer, 0, j)
-    out[v] = tap_sum<ROUND_HALF>(taps, [&](int k) {
-      return __ldg(x + base + static_cast<Idx>(reflect(i + taps.offset[k], static_cast<int>(n))) *
-                              inner);
-    });
-  }
-}
-
 // along an outer axis: block (LINES, THREADS / LINES), grid (inner tiles,
-// segments, outer)
+// segments, outer lines), the last two stepping over what the grid lacks
 template <bool ROUND_HALF>
 __global__ void __launch_bounds__(THREADS)
 outer_axis_kernel(const float* __restrict__ x, float* __restrict__ out, int n, long long inner,
-                  int reach, const Taps taps) {
+                  long long outer, int reach, const Taps taps) {
   __shared__ float tile[(SEG + 2 * MAX_REACH) * LINES];
   const long long j = static_cast<long long>(blockIdx.x) * LINES + threadIdx.x;
-  const int seg0 = blockIdx.y * SEG;
-  const long long line0 = static_cast<long long>(blockIdx.z) * n;  // (outer, 0)
   const int rows = SEG + 2 * reach;
-  for (int r = threadIdx.y; r < rows; r += blockDim.y)
-    tile[r * LINES + threadIdx.x] =
-        j < inner ? __ldg(x + (line0 + reflect(seg0 - reach + r, n)) * inner + j) : 0.f;
-  __syncthreads();
-  if (j >= inner) return;
-  for (int i = seg0 + threadIdx.y; i < seg0 + SEG && i < n; i += blockDim.y) {
-    const int base = i - seg0 + reach;
-    out[(line0 + i) * inner + j] = tap_sum<ROUND_HALF>(
-        taps, [&](int k) { return tile[(base + taps.offset[k]) * LINES + threadIdx.x]; });
+  const int segments = (n + SEG - 1) / SEG;
+  for (long long o = blockIdx.z; o < outer; o += gridDim.z) {
+    const long long line0 = o * n;  // (outer, 0)
+    for (int seg = blockIdx.y; seg < segments; seg += gridDim.y) {
+      const int seg0 = seg * SEG;
+      __syncthreads();  // the previous tile's reads are done
+      for (int r = threadIdx.y; r < rows; r += blockDim.y)
+        tile[r * LINES + threadIdx.x] =
+            j < inner ? __ldg(x + (line0 + reflect(seg0 - reach + r, n)) * inner + j) : 0.f;
+      __syncthreads();
+      if (j >= inner) continue;
+      for (int i = seg0 + threadIdx.y; i < seg0 + SEG && i < n; i += blockDim.y) {
+        const int base = i - seg0 + reach;
+        out[(line0 + i) * inner + j] = tap_sum<ROUND_HALF>(
+            taps, [&](int k) { return tile[(base + taps.offset[k]) * LINES + threadIdx.x]; });
+      }
+    }
   }
 }
 
@@ -134,34 +123,14 @@ last_axis_kernel(const float* __restrict__ x, float* __restrict__ out, int n, lo
   }
 }
 
-template <typename Idx>
-cudaError_t launch(const float* x, float* out, long long total, long long n, long long inner,
-                   const Taps& taps, bool round_half, cudaStream_t s) {
-  int device = 0, sms = 132;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  const long long blocks = (total + THREADS - 1) / THREADS;
-  const long long cap = static_cast<long long>(sms) * BLOCKS_PER_SM;
-  const int grid = static_cast<int>(blocks < cap ? blocks : cap);
-  if (round_half)
-    correlate_kernel<Idx, true><<<grid, THREADS, 0, s>>>(x, out, static_cast<Idx>(total),
-                                                         static_cast<Idx>(n),
-                                                         static_cast<Idx>(inner), taps);
-  else
-    correlate_kernel<Idx, false><<<grid, THREADS, 0, s>>>(x, out, static_cast<Idx>(total),
-                                                          static_cast<Idx>(n),
-                                                          static_cast<Idx>(inner), taps);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
 // x and out: total float32 voxels in C order, viewed as (outer, n, inner)
 // with the correlation along n; `count` taps (1 <= count <= 256) at input
-// offsets `offsets` with float32 `weights`; round_half: round each result
-// to float16 and back.
+// offsets `offsets` (each |offset| <= 128) with float32 `weights`;
+// round_half: round each result to float16 and back.
 int gauss_axis(const float* x, float* out, long long total, long long n, long long inner,
                int count, const int* offsets, const float* weights, int round_half,
                void* stream) {
@@ -177,37 +146,32 @@ int gauss_axis(const float* x, float* out, long long total, long long n, long lo
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int reach = 0;
   for (int k = 0; k < count; ++k) reach = std::max(reach, std::abs(offsets[k]));
+  if (reach > MAX_REACH) return static_cast<int>(cudaErrorInvalidValue);
   const long long outer = total / (n * inner);
-  if (reach <= MAX_REACH && inner > 1 && outer <= 65535) {
+  constexpr long long GRID_YZ = 65535;
+  if (inner > 1) {
+    const long long segments = (n + SEG - 1) / SEG;
     const dim3 grid(static_cast<unsigned>((inner + LINES - 1) / LINES),
-                    static_cast<unsigned>((n + SEG - 1) / SEG), static_cast<unsigned>(outer));
+                    static_cast<unsigned>(std::min(segments, GRID_YZ)),
+                    static_cast<unsigned>(std::min(outer, GRID_YZ)));
     const dim3 block(LINES, THREADS / LINES);
-    if (grid.y <= 65535) {
-      if (round_half)
-        outer_axis_kernel<true><<<grid, block, 0, s>>>(x, out, static_cast<int>(n), inner, reach,
-                                                       taps);
-      else
-        outer_axis_kernel<false><<<grid, block, 0, s>>>(x, out, static_cast<int>(n), inner,
-                                                        reach, taps);
-      return static_cast<int>(cudaGetLastError());
-    }
-  }
-  if (reach <= MAX_REACH && inner == 1) {
+    if (round_half)
+      outer_axis_kernel<true><<<grid, block, 0, s>>>(x, out, static_cast<int>(n), inner, outer,
+                                                     reach, taps);
+    else
+      outer_axis_kernel<false><<<grid, block, 0, s>>>(x, out, static_cast<int>(n), inner, outer,
+                                                      reach, taps);
+  } else {
     const dim3 grid(static_cast<unsigned>((n + ROW_SEG - 1) / ROW_SEG),
-                    static_cast<unsigned>(outer < 65535 ? outer : 65535));
+                    static_cast<unsigned>(std::min(outer, GRID_YZ)));
     if (round_half)
       last_axis_kernel<true><<<grid, THREADS, 0, s>>>(x, out, static_cast<int>(n), outer, reach,
                                                       taps);
     else
       last_axis_kernel<false><<<grid, THREADS, 0, s>>>(x, out, static_cast<int>(n), outer, reach,
                                                        taps);
-    return static_cast<int>(cudaGetLastError());
   }
-  // 32-bit indices while the loop counter cannot wrap
-  if (total < (1LL << 31))
-    return static_cast<int>(launch<unsigned int>(x, out, total, n, inner, taps, round_half, s));
-  return static_cast<int>(launch<unsigned long long>(x, out, total, n, inner, taps, round_half,
-                                                     s));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -120,6 +120,7 @@ class _GaussAxisKernel(CudaKernel):
     source = "gauss_axis.cu"
     flags = (*BASE_FLAGS, "-fmad=false")
     max_taps = 256
+    max_reach = 128  # the largest |offset|: the margin of the kernel's shared tiles
 
     def bind(self, lib):
         ptr = ctypes.c_void_p
@@ -136,6 +137,8 @@ class _GaussAxisKernel(CudaKernel):
             raise TypeError(f"gauss_axis takes a float32 CUDA tensor, not {x.dtype} on {x.device}")
         if not 1 <= len(taps) <= self.max_taps:
             raise ValueError(f"gauss_axis takes 1 to {self.max_taps} taps, not {len(taps)}")
+        if max(abs(int(o)) for o, _ in taps) > self.max_reach:
+            raise ValueError(f"gauss_axis taps reach at most {self.max_reach} voxels")
         axis = axis % x.ndim
         x = x.contiguous()
         out = torch.empty_like(x)

@@ -1,8 +1,7 @@
 """The 1-D correlation of the Filter's Gaussian cascade and of the LoG: the
 port's plain versions against the JAX package's, bit for bit on the CPU,
-and ``chip_smoke.gauss_axis_model`` (``csrc/gauss_axis.cu``'s loop: the
-tap list, the reflected index, the multiply-add chain) against the plain
-versions, so that the kernel's arithmetic is held on the CPU too (the
+and ``kernel_model`` (``csrc/gauss_axis.cu``'s loop: the tap list, the
+reflected index, the multiply-add chain) against the plain versions, so that the kernel's arithmetic is held on the CPU too (the
 kernel itself, on the card: ``tests/test_torch_gauss_axis_cuda.py``).
 
 The LoG is held where its taps are shorter than the axis, with the sigmas
@@ -30,6 +29,30 @@ PARAMS = {3: frangi.FrangiParams(sigmas=(0.625, 0.8333, 1.0417, 1.25), spacing=(
 SHAPES = [(12, 48, 48), (5, 16, 128), (64, 128), (3, 200)]
 LOG_SHAPES = [(12, 48, 48), (24, 32, 128), (64, 128)]  # every tap radius below the extent
 LOG_TAPS = [(1.0, 0), (1.0, 2), (2.5, 2), (0.3, 0)]
+
+
+def kernel_model(x, taps, axis, round_half=False):
+    """``csrc/gauss_axis.cu`` in torch: each output reads tap k at the
+    reflected index i + offset_k (numpy's "symmetric") and sums
+    fma(x0, w0, x1 * w1), then fma(xk, wk, acc), rounding once a step;
+    optionally rounded through float16."""
+    from nellie_tpu_torch.kernels._fp import fma_plain
+
+    n = x.shape[axis]
+    i = torch.arange(n, device=x.device)
+
+    def at(offset):
+        m = torch.remainder(i + offset, 2 * n)
+        return torch.index_select(x, axis, torch.where(m < n, m, 2 * n - 1 - m))
+
+    (o0, w0), rest = taps[0], taps[1:]
+    if not rest:
+        acc = at(o0) * w0
+    else:
+        acc = fma_plain(at(o0), w0, at(rest[0][0]) * rest[0][1])
+        for o, w in rest[1:]:
+            acc = fma_plain(at(o), w, acc)
+    return acc.half().float() if round_half else acc
 
 
 def assert_bitwise(got, want):
@@ -85,11 +108,11 @@ def test_kernel_model_equals_plain(frame, round_half):
         for w in frangi._delta_kernels(PARAMS[x.ndim], x.ndim)[axis]:
             want = filters.correlate1d_traced_plain(x, w, axis)
             want = want.half().float() if round_half else want
-            got = chip_smoke.gauss_axis_model(x, filters.traced_taps(w), axis, round_half)
+            got = kernel_model(x, filters.traced_taps(w), axis, round_half)
             assert_bitwise(got.numpy(), want.numpy())
         for sigma, order in LOG_TAPS:
             w = filters.gaussian_kernel1d(sigma, 4.0, order=order)
-            got = chip_smoke.gauss_axis_model(x, filters.nonzero_taps(w), axis)
+            got = kernel_model(x, filters.nonzero_taps(w), axis)
             assert_bitwise(got.numpy(), filters._correlate1d_plain(x, w, axis).numpy())
 
 

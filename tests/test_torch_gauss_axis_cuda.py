@@ -11,7 +11,7 @@ launch ``kernels/csrc/gauss_axis.cu`` once and equal
 card and on CPU copies: the cascade's per-scale taps (zeros kept) along
 every axis with the float32 and float16 carries, the LoG's taps (zeros
 skipped), one tap, extents shorter than the taps' radius, a last axis of 128 and more
-lines than the tiled kernels take, on ``chip_smoke.filter_frame`` frames.
+lines than the grid holds, on ``chip_smoke.filter_frame`` frames.
 """
 import numpy as np
 import pytest
@@ -78,8 +78,8 @@ def test_log_taps(cuda, shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", [(70000, 4, 2), (2, 3, 1)])
 def test_shapes_off_the_tiles(cuda, shape):
-    """More than 65,535 lines before the axis (the plain loop), and axes of
-    one voxel."""
+    """More than 65,535 lines before the axis (more than the grid holds:
+    its blocks step over them), and axes of one voxel."""
     x = torch.from_numpy(chip_smoke.filter_frame(shape, seed=9)).to(cuda)
     for axis in range(x.ndim):
         for taps in frangi._delta_kernels(PARAMS[3], 3)[axis]:
@@ -99,3 +99,5 @@ def test_gaussian_laplace_and_errors(cuda):
         filters.GAUSS_AXIS_KERNEL(x.double(), [(0, 1.0)], 0)
     with pytest.raises(ValueError):
         filters.GAUSS_AXIS_KERNEL(x, [(0, 1.0)] * 257, 0)
+    with pytest.raises(ValueError):  # beyond the tiles' margin
+        filters.GAUSS_AXIS_KERNEL(x, [(0, 1.0), (129, 0.5)], 0)

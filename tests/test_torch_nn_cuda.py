@@ -9,7 +9,10 @@ the random cases as in ``chip_smoke.py``: an index may differ only where
 the two candidates' float64 squared distances differ by at most
 1e-6 * (|q|^2 + |r|^2).  The bitwise cases hold the kernel's d2 to
 ``nn_argmin_plain`` on CPU copies of the inputs bit for bit, with equal
-indices: that is the output contract the port's parity rests on.
+indices: that is the output contract the port's parity rests on.  They
+run in both of the kernel's rounding modes: the norms rounded square by
+square (the Hierarchy, the low-memory reassigner) and fused
+(``fused_norms=True``, the reassigner's pair kernel).
 """
 import numpy as np
 import pytest
@@ -50,15 +53,15 @@ def _voxels(n_q, n_r, seed, d=3):
     return q, r
 
 
-def _assert_bitwise(q_np, r_np, dev):
-    """Kernel on the card vs the plain version on CPU copies: d2 bit for
-    bit, indices equal."""
+def _assert_bitwise(q_np, r_np, dev, fused_norms=False):
+    """Kernel on the card vs the plain version on CPU copies, in the same
+    rounding mode: d2 bit for bit, indices equal."""
     q, r = torch.from_numpy(q_np), torch.from_numpy(r_np)
     before = nn.NN_KERNEL.launches
-    d2_k, idx_k = nn.nn_argmin(q.to(dev), r.to(dev))
+    d2_k, idx_k = nn.nn_argmin(q.to(dev), r.to(dev), fused_norms=fused_norms)
     torch.cuda.synchronize()
     assert nn.NN_KERNEL.launches == before + 1
-    d2_p, idx_p = nn.nn_argmin_plain(q, r)
+    d2_p, idx_p = nn.nn_argmin_plain(q, r, fused_norms=fused_norms)
     assert torch.equal(d2_k.cpu().view(torch.int32), d2_p.view(torch.int32))
     assert torch.equal(idx_k.cpu(), idx_p)
     return d2_p, idx_p
@@ -81,16 +84,32 @@ def test_kernel_matches_plain(cuda, qn, mn, d):
     assert bool(((d2_k.double() - d2_p.double()).abs() <= TIE_REL * scale).all())
 
 
+MODES = pytest.mark.parametrize("fused_norms", [False, True], ids=["rounded", "fused"])
+
+
 @pytest.mark.gpu
+@MODES
 @pytest.mark.parametrize("qn,mn", [(20000, 20000), HIERARCHY_SHAPE, REASSIGN_SHAPE])
-def test_kernel_bitwise_equals_plain_on_cpu(cuda, qn, mn):
-    _assert_bitwise(*_voxels(qn, mn, seed=qn), cuda)
+def test_kernel_bitwise_equals_plain_on_cpu(cuda, qn, mn, fused_norms):
+    _assert_bitwise(*_voxels(qn, mn, seed=qn), cuda, fused_norms)
 
 
 @pytest.mark.gpu
+@MODES
 @pytest.mark.parametrize("d", range(1, 9))
-def test_kernel_bitwise_every_width(cuda, d):
-    _assert_bitwise(*_voxels(3000, 7001, seed=d, d=d), cuda)
+def test_kernel_bitwise_every_width(cuda, d, fused_norms):
+    _assert_bitwise(*_voxels(3000, 7001, seed=d, d=d), cuda, fused_norms)
+
+
+@pytest.mark.gpu
+def test_fused_norms_change_the_bits(cuda):
+    """The two modes are different functions: on the reassigner's shape
+    some d2 differ between them (else the fused cases above test nothing
+    of their own)."""
+    q, r = (torch.from_numpy(a) for a in _voxels(*REASSIGN_SHAPE, seed=5))
+    rounded, _ = nn.nn_argmin_plain(q, r)
+    fused, _ = nn.nn_argmin_plain(q, r, fused_norms=True)
+    assert int((rounded.view(torch.int32) != fused.view(torch.int32)).sum()) > 0
 
 
 @pytest.mark.gpu
@@ -118,6 +137,7 @@ def test_cancellation_to_nonpositive_d2(cuda):
     q = np.concatenate([r[rng.choice(len(r), 4000, replace=False)],
                         (rng.random((1000, 3)) * 2000 + 3000).astype(np.float32)])
     d2, _ = _assert_bitwise(q, r, cuda)
+    _assert_bitwise(q, r, cuda, fused_norms=True)
     assert int((d2[:4000] < 0).sum()) > 0 and int((d2[:4000] == 0).sum()) > 0
 
 

@@ -12,7 +12,10 @@ error.  ``dist`` decides ``keep``, the best pair per target and the vote
 weights, so it must be the reference's bit for bit: on the pair kernel
 (``dist`` on the rows with a flow, ``keep``, ``best_src``, ``best_ok``) and
 through the stage, fused and in low memory (the host path's float64
-votes), in 2D and 3D, on the CPU.
+votes), in 2D and 3D, on the CPU.  The pair kernel's cases put each
+frame's table within one interpolation tile (8192 rows), over it, and on
+either side of it: XLA rounds the last axis's product apart from the
+difference over one tile and contracts every axis over several.
 """
 import numpy as np
 import pytest
@@ -32,10 +35,10 @@ SPACING = {3: (0.5, 0.2, 0.2), 2: (0.2, 0.2)}
 MAX_D = 1.0
 
 
-def voxel_sets(shape, n, rng):
-    """Two sorted sets of n distinct voxels in ``shape``."""
+def voxel_sets(shape, sizes, rng):
+    """Sorted sets of distinct voxels in ``shape``, one of each size."""
     out = []
-    for _ in range(2):
+    for n in sizes:
         flat = np.sort(rng.choice(int(np.prod(shape)), n, replace=False))
         out.append(np.stack(np.unravel_index(flat, shape), 1))
     return out
@@ -89,14 +92,23 @@ def port_pair(c0, c1, anchors, vecs, costs, spacing):
     return tuple(a.numpy() for a in out) + (torch.cat(flowed).numpy(),)
 
 
-@pytest.fixture(scope="module", params=[3, 2], ids=["3d", "2d"])
+# (dimensions, voxels of frame t, voxels of frame t+1): each frame's table
+# within one interpolation tile (8192 rows), both over it, and one on each
+# side of the tile boundary
+PAIR_CASES = [(3, 3000, 3000), (2, 3000, 3000), (3, 9000, 9500), (2, 9500, 9000),
+              (3, 5000, 9000), (2, 9000, 5000)]
+
+
+@pytest.fixture(scope="module", params=PAIR_CASES, ids=lambda c: "{}d-{}-{}".format(*c))
 def pair(request):
-    d = request.param
-    rng = np.random.default_rng(d)
+    d, n0, n1 = request.param
+    rng = np.random.default_rng(d + n0 + n1)
     shape = (16, 48, 48) if d == 3 else (96, 96)
-    c0, c1 = voxel_sets(shape, 3000, rng)
+    if max(n0, n1) > _INTERP_TILE:
+        shape = (24, 64, 64) if d == 3 else (192, 192)
+    c0, c1 = voxel_sets(shape, (n0, n1), rng)
     spacing = np.asarray(SPACING[d])
-    args = (c0, c1, *integer_flows(c0, 300, rng), spacing)
+    args = (c0, c1, *integer_flows(c0, n0 // 10, rng), spacing)
     return reference_pair(*args), port_pair(*args)
 
 
