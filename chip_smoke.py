@@ -5,11 +5,12 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. the device: name, ``nvidia-smi`` name and power limit, torch/CUDA versions;
-2. builds the six CUDA kernels from the checkout (nearest neighbour,
+2. builds the eight CUDA kernels from the checkout (nearest neighbour,
    union-find, flow interpolation, fused multiply-add, the Gaussian
-   cascade's 1-D correlation and the Frangi tail; one nvcc each, in
-   parallel), times the builds and prints the nearest-neighbour kernel's
-   registers, spills and resident warps per SM;
+   cascade's 1-D correlation, the Frangi tail, Network's 3D thinning and
+   nearest seed; one nvcc each, in parallel), times the builds and prints
+   the nearest-neighbour kernel's registers, spills and resident warps per
+   SM;
 3. checks the kernel against its plain PyTorch version on the card (ragged
    shapes, exact ties on a grid, 150,000 voxels each way) and times both;
    then holds its d2 bit for bit, and its indices, to the plain version on
@@ -30,7 +31,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    order on every device), printing ``seg_fused`` beside the four stages'
    seconds, the device
    frame cache's peak and ``FusedSegmentation.run(fence_stages=True)``'s
-   seconds by stage; then checks the kernel again on the operands of the
+   seconds by stage (Network's on a line of its own, with the thinning and
+   nearest-seed kernels' launches); then checks the kernel again on the operands of the
    largest call each of them made, in that call's rounding mode (bit for
    bit against the CPU), and prints its time beside the plain version's, one PyTorch call's
    (``library_ms``: ``torch.cdist`` and ``min``, which the port never
@@ -133,7 +135,16 @@ Phases, each printing its own lines; any failure exits non-zero:
    small shapes), then the largest call of each wrapper in phases 4, 6 and
    11 on the caller's own arguments (weights, carry, spacing, minor
    extent, core, mask), with their times beside the plain versions', the
-   bound and (the correlation) one cuDNN convolution.  ``max_abs_err`` is
+   bound and (the correlation) one cuDNN convolution.  Network's 3D
+   thinning (``kernels/csrc/thin26.cu``, through ``skeleton.skeletonize_3d``)
+   and nearest seed (``kernels/csrc/nearest_seed.cu``, through
+   ``edt.nearest_seed``), exactly against ``skeletonize_3d_plain`` and
+   ``nearest_seed_plain``: ``thin_masks`` at three shapes (the thinning's
+   rounds, flag reads and sweeps also held to ``thin26_model``),
+   ``seed_inputs`` in 3D and 2D with and without objects and a search
+   radius, then Network's largest call on each main path with its own
+   operands, with their times on a cold L2, the plain bodies' and the byte
+   bounds of the passes each call runs.  ``max_abs_err`` is
    the largest |kernel - plain| over the compared calls.  The multiply-add,
    correlation and tail rows are timed on a cold L2 cache (flushed before
    every call), so that the byte bounds at the memory rate hold;
@@ -145,8 +156,8 @@ Phases, each printing its own lines; any failure exits non-zero:
    for low memory from the start.
 
 Phases 4 and 6 also print the hand kernels' launches by caller and
-``fma_f32``'s by calling function (failing if the Filter's arithmetic
-launched it), and phase 11 the same for capacity.
+``fma_f32``'s by calling function (failing if the Filter's arithmetic or
+Network's nearest seed launched it), and phase 11 the same for capacity.
 
 Phase 5 holds the flow costs card = CPU exactly (the Hu moments' powers
 round as XLA's CPU code rounds them, ``kernels/_fp.py::pow``).
@@ -392,21 +403,34 @@ def phase_kernel(nn, gpu):
     ms = time_ms(lambda: nn.NN_KERNEL(q, r), 10)
     on_device_ms = device_ms(lambda: nn.NN_KERNEL(q, r), 10)
     plain_ms = time_ms(lambda: nn.nn_argmin_plain(q, r), 2)
+    # chunks of 9 GB: cdist's GEMM output and its sum each take one
+    library_ms = time_ms(lambda: library_nn(q, r, 9e9), 2)
+    chunks = -(-NN_MAIN_ROWS // library_rows(r, 9e9))
     bound_ms, bound_by = nn_bound(NN_MAIN_ROWS, NN_MAIN_ROWS, 3)
     print(f"nn time at {NN_MAIN_ROWS}x{NN_MAIN_ROWS}x3: kernel {ms:.3f} ms a call (on the "
-          f"device {on_device_ms:.3f} ms), "
-          f"plain {plain_ms:.3f} ms, library not measured (its distance matrix would be "
-          f"{NN_MAIN_ROWS ** 2 * 4 / 1e9:.0f} GB), bound {bound_ms:.3f} ms ({bound_by}), "
+          f"device {on_device_ms:.3f} ms), plain {plain_ms:.3f} ms, library "
+          f"{library_ms:.3f} ms in {chunks} row chunks, bound {bound_ms:.3f} ms ({bound_by}), "
           f"share {bound_ms / ms:.3f} [{gpu}]", flush=True)
     phase_split_edges(nn)
     return max_abs
 
 
-def library_nn(q, r):
+def library_rows(r, max_bytes=LIBRARY_MAX_BYTES):
+    """Query rows a chunk of :func:`library_nn` takes against ``r``."""
+    return max(1, int(max_bytes // (4 * r.shape[0])))
+
+
+def library_nn(q, r, max_bytes=LIBRARY_MAX_BYTES):
     """One PyTorch call for the same function (the yardstick; the port
     never calls it): Euclidean distances through a GEMM, then the row
-    minimum and its index."""
-    return torch.cdist(q, r, compute_mode="use_mm_for_euclid_dist").min(dim=1)
+    minimum and its index; in chunks of rows whose distance matrix holds at
+    most ``max_bytes``."""
+    rows = library_rows(r, max_bytes)
+    parts = [torch.cdist(q[i:i + rows], r, compute_mode="use_mm_for_euclid_dist").min(dim=1)
+             for i in range(0, q.shape[0], rows)]
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([p.values for p in parts]), torch.cat([p.indices for p in parts])
 
 
 def time_kernel_at(nn, gpu, name, q, r, fused_norms=False):
@@ -417,14 +441,12 @@ def time_kernel_at(nn, gpu, name, q, r, fused_norms=False):
     numbers of its ``paths`` entry."""
     plain_ms = time_ms(lambda: nn.nn_argmin_plain(q, r, fused_norms), 5)
     ms = time_ms(lambda: nn.NN_KERNEL(q, r, fused_norms), 20)
-    matrix_bytes = 4 * q.shape[0] * r.shape[0]
-    library_ms = (time_ms(lambda: library_nn(q, r), 5) if matrix_bytes <= LIBRARY_MAX_BYTES
-                  else None)
+    chunks = -(-q.shape[0] // library_rows(r))
+    library_ms = time_ms(lambda: library_nn(q, r), 5)
     ms_again = time_ms(lambda: nn.NN_KERNEL(q, r, fused_norms), 20)
     on_device_ms = device_ms(lambda: nn.NN_KERNEL(q, r, fused_norms), 20)
     bound_ms, bound_by = nn_bound(q.shape[0], r.shape[0], q.shape[1])
-    library = (f"{library_ms:.4f} ms" if library_ms is not None else
-               f"not measured (its distance matrix would be {matrix_bytes / 1e9:.0f} GB)")
+    library = f"{library_ms:.4f} ms" + (f" in {chunks} row chunks" if chunks > 1 else "")
     print(f"nn time at {name} {q.shape[0]}x{r.shape[0]}x{q.shape[1]} ({mode_name(fused_norms)}): "
           f"kernel {ms:.4f} ms a call "
           f"(again {ms_again:.4f} ms; on the device {on_device_ms:.4f} ms), plain {plain_ms:.4f} ms, "
@@ -653,8 +675,15 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
     print(f"{tag}hand kernel launches on the main path: {json.dumps(hand)}, by caller "
           f"{json.dumps(by_caller)}", flush=True)
     check_fma_callers(tag + "main path", calls.fma_by_caller, hand["fma_f32"])
-    if min(hand.values()) == 0:
+    seed_dist = {c: n for c, n in calls.fma_by_caller.items() if c.startswith("edt.")}
+    if seed_dist:
+        fail(f"{tag}Network's nearest seed launched fma_f32: {json.dumps(seed_dist)}")
+    # 2D thinning is Zhang-Suen in plain torch: thin26 runs on the 3D path only
+    required = {k: n for k, n in hand.items() if k != "thin26" or len(shape) == 4}
+    if min(required.values()) == 0:
         fail(f"{tag}the main path never launched one of the hand kernels: {json.dumps(hand)}")
+    print(f"{tag}Network's kernels on the main path: thin26 {hand['thin26']} launches, "
+          f"nearest_seed {hand['nearest_seed']} launches", flush=True)
 
     tables = check_tables(im_info, skip_nodes=False)
     print(f"{tag}feature rows: " + ", ".join(f"{k} {len(v)}" for k, v in tables.items()),
@@ -743,6 +772,8 @@ def phase_fused_vs_staged(gpu, root, shape, fused_info, fused_timings, tag=""):
           + f" = {sum(per_stage.values()):.3f} s; fused stages fenced "
           + ", ".join(f"{k} {v:.3f}" for k, v in fenced.items())
           + f" s; device frame cache peak {cache.peak / 1e9:.3f} GB [{gpu}]", flush=True)
+    print(f"{tag}Network fenced in the fused chain: {fenced['network']:.3f} s [{gpu}]",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1589,6 +1620,154 @@ def ccl_masks(shape, seed=0):
     }
 
 
+def thin_masks(shape, seed=0):
+    """Masks for the 3D thinning at ``shape``, by name, as numpy bool
+    arrays: wavy tubes, blobs, a one-voxel sheet, noise, a cross touching
+    every face of the volume, empty and full."""
+    rng = np.random.default_rng(seed)
+    z, y, x = np.indices(shape, dtype=np.float64)
+    z_n, y_n, x_n = shape
+    tubes = ((y - 0.3 * y_n - 3 * np.sin(x / 4.0)) ** 2 + (z - z_n / 2) ** 2 < 5) | (
+        (x - 0.6 * x_n - 2 * np.cos(y / 3.0)) ** 2 + (z - z_n / 2 + 1) ** 2 < 4)
+    blobs = np.zeros(shape, bool)
+    for _ in range(4):
+        c = [rng.uniform(0, n) for n in shape]
+        blobs |= (z - c[0]) ** 2 + (y - c[1]) ** 2 + (x - c[2]) ** 2 < rng.uniform(4, 12)
+    sheet = np.zeros(shape, bool)
+    sheet[z_n // 2, 1:-1, 2:] = True
+    cz, cy, cx = z_n / 2 - 0.5, y_n / 2 - 0.5, x_n / 2 - 0.5
+    faces = ((np.abs(y - cy) < 2.5) & (np.abs(z - cz) < 1.5)) | (
+        (np.abs(x - cx) < 2.5) & (np.abs(z - cz) < 1.5)) | (
+        (np.abs(x - cx) < 1.5) & (np.abs(y - cy) < 2.5))
+    return {"tubes": tubes, "blobs": blobs, "sheet": sheet,
+            "noise": rng.random(shape) < 0.35, "every face": faces,
+            "empty": np.zeros(shape, bool), "full": np.ones(shape, bool)}
+
+
+THIN_DIRECTIONS = ((-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
+
+
+def thin26_model(mask, lut, rounds_per_read):
+    """``kernels/csrc/thin26.cu`` in numpy: the list of the starting
+    foreground, the border, select and commit kernels over it (each
+    writes only buffers it does not read), the host reading the rounds'
+    commit flags once every ``rounds_per_read`` rounds.  Returns (the
+    skeleton, (rounds, flag reads, sweeps)) as the C entry point counts
+    them.  ``lut``: the 2**23-byte table as uint8."""
+    from nellie_tpu_torch.kernels.simple_point import OFFSETS_26
+
+    fg = np.pad(np.asarray(mask, bool).astype(np.uint8), 1)  # outside the volume: 0
+    del_now, remaining = np.zeros_like(fg), np.zeros_like(fg)
+    z, y, x = (a + 1 for a in np.nonzero(mask))
+    parity = ((z - 1) % 2) * 4 + ((y - 1) % 2) * 2 + (x - 1) % 2
+
+    def at(buf, off):
+        return buf[z + off[0], y + off[1], x + off[2]]
+
+    def deletable():
+        code = np.zeros(z.shape, np.uint32)
+        for k, off in enumerate(OFFSETS_26):
+            code |= at(fg, off).astype(np.uint32) << np.uint32(k)
+        return (lut[code >> 3] >> (code & 7)) & 1
+
+    stats = [0, 0, 0]
+    changed = z.size > 0
+    while changed:
+        changed = False
+        stats[2] += 1
+        for d in THIN_DIRECTIONS:
+            remaining[z, y, x] = at(fg, (0, 0, 0)) & (1 - at(fg, d)) & deletable()
+            go = True
+            while go:
+                flags = []
+                for _ in range(rounds_per_read):
+                    del_now[z, y, x] = at(remaining, (0, 0, 0)) & at(fg, (0, 0, 0)) & deletable()
+                    dn = at(del_now, (0, 0, 0)).astype(bool)
+                    blocked = np.zeros(z.shape, bool)
+                    for off in OFFSETS_26:
+                        flip = ((abs(off[0]) % 2) << 2) | ((abs(off[1]) % 2) << 1) | abs(off[2]) % 2
+                        blocked |= at(del_now, off).astype(bool) & ((parity ^ flip) < parity)
+                    commit = dn & ~blocked
+                    remaining[z, y, x] = dn & blocked
+                    fg[z[commit], y[commit], x[commit]] = 0
+                    flags.append(bool(commit.any()))
+                stats[0] += rounds_per_read
+                stats[1] += 1
+                changed = changed or any(flags)
+                go = flags[-1]
+    return fg[1:-1, 1:-1, 1:-1].astype(bool), tuple(stats)
+
+
+def seed_inputs(shape, seed=0, seed_fraction=0.05):
+    """Object-constrained nearest-seed inputs at a 2D or 3D ``shape`` (numpy
+    int32): objects, the labelled components of dilated noise; seeds,
+    values 1-8 at a ``seed_fraction`` of the object voxels."""
+    from scipy import ndimage
+
+    rng = np.random.default_rng(seed)
+    mask = ndimage.binary_dilation(rng.random(shape) < 0.02, iterations=3)
+    objects, _ = ndimage.label(mask)
+    seeds = np.where((rng.random(shape) < seed_fraction) & mask,
+                     rng.integers(1, 9, shape), 0)
+    return seeds.astype(np.int32), objects.astype(np.int32)
+
+
+def nearest_seed_model(seeds, objects, sampling, max_radius_px=None, restrict=True):
+    """``kernels/csrc/nearest_seed.cu`` in torch on the CPU: one int32 index
+    a voxel in two buffers, one pass per (step, offset) reading one and
+    writing the other; a candidate's object read from the objects at its
+    source (the plain body carries it beside the index); the current
+    distance recomputed from the index; with ``restrict``, only the voxels
+    outside object 0 run when no seed lies in object 0.  Returns (labels,
+    distances) as the wrapper does."""
+    import itertools
+
+    from nellie_tpu_torch.kernels import _fp, edt
+
+    seeds = torch.as_tensor(seeds)
+    shape, ndim, n = tuple(seeds.shape), seeds.ndim, seeds.numel()
+    samp = [_fp.f32(s) for s in sampling]
+    strides = [int(np.prod(shape[a + 1:], dtype=np.int64)) for a in range(ndim)]
+    is_seed = seeds.reshape(-1) > 0
+    state = [torch.where(is_seed, torch.arange(n, dtype=torch.int32), -1) for _ in range(2)]
+    obj = None if objects is None else torch.as_tensor(objects).reshape(-1).to(torch.int32)
+    voxels = torch.arange(n)
+    if obj is not None and restrict and not bool((is_seed & (obj == 0)).any()):
+        voxels = torch.nonzero(obj != 0).reshape(-1)
+    coords = [torch.div(voxels, strides[a], rounding_mode="floor") % shape[a]
+              for a in range(ndim)]
+
+    def dist(c, idx):
+        q = [torch.div(idx.clamp(min=0), strides[a], rounding_mode="floor") % shape[a]
+             for a in range(ndim)]
+        diffs = [((c[a] - q[a]).to(torch.int32).float() * samp[a],) * 2 for a in range(ndim)]
+        return torch.where(idx >= 0, _fp.sum_of_products(diffs), float("inf"))
+
+    cur = 0
+    for step in edt.jump_steps(shape, max_radius_px):
+        for off in itertools.product((-1, 0, 1), repeat=ndim):
+            if not any(off):
+                continue
+            src, dst = state[cur], state[1 - cur]
+            target = [c + o * step for c, o in zip(coords, off)]
+            inside = torch.ones(voxels.shape, dtype=torch.bool)
+            for a in range(ndim):
+                inside &= (target[a] >= 0) & (target[a] < shape[a])
+            source = sum(t.clamp(0, shape[a] - 1) * strides[a] for a, t in enumerate(target))
+            cand = torch.where(inside, src[source], -1)
+            ok = cand >= 0
+            if obj is not None:
+                ok &= obj[source] == obj[voxels]
+            mine = src[voxels]
+            take = torch.where(ok, dist(coords, cand), float("inf")) < dist(coords, mine)
+            dst[voxels] = torch.where(take, cand, mine)
+            cur = 1 - cur
+    idx = state[cur]
+    every = [torch.div(torch.arange(n), strides[a], rounding_mode="floor") % shape[a]
+             for a in range(ndim)]
+    return (edt._seed_values(seeds, idx), _fp.sqrt(dist(every, idx)).reshape(shape))
+
+
 def filter_frame(shape, seed=0, smooth=False):
     """A float32 frame for the Filter's kernels: a few bright wavy tubes on
     N(100, 8) noise, any shape of 1 to 3 axes; ``smooth`` passes it through
@@ -1965,12 +2144,15 @@ class KernelCalls:
     kernel from each caller tag (its operands and rounding mode); the
     largest call of each of the Filter's kernel wrappers,
     ``filters.correlate1d_traced`` and ``filters._correlate1d``,
-    ``frangi.hessian_frob`` and ``frangi.frangi_response``, with the
-    caller's own arguments (tensors copied to the host before the call);
+    ``frangi.hessian_frob`` and ``frangi.frangi_response``, and of
+    Network's, ``skeleton.skeletonize_3d`` and ``edt.nearest_seed``, with
+    the caller's own arguments (tensors copied to the host before the call;
+    the first of equal sizes);
     and ``fma_f32``'s launches by calling function."""
 
     WRAPPERS = {"correlate1d_traced": "filters", "_correlate1d": "filters",
-                "hessian_frob": "frangi", "frangi_response": "frangi"}
+                "hessian_frob": "frangi", "frangi_response": "frangi",
+                "skeletonize_3d": "skeleton", "nearest_seed": "edt"}
 
     def __init__(self, keep=lambda name, tag, args: True):
         self.keep = keep
@@ -2001,7 +2183,7 @@ class KernelCalls:
         self._saved.append((module, name, original))
 
     def __enter__(self):
-        from nellie_tpu_torch.kernels import _fp, ccl, filters, frangi, nn
+        from nellie_tpu_torch.kernels import _fp, ccl, edt, filters, frangi, nn, skeleton
         from nellie_tpu_torch.stages import flow_interpolation as fi
 
         def fma_recorded(original, kernel, a, b, c):  # the operands themselves: their layout is timed
@@ -2021,7 +2203,7 @@ class KernelCalls:
 
         self._patch(_fp._FmaKernel, "__call__", fma_recorded)
         self._patch(nn._NNKernel, "__call__", nn_recorded)
-        modules = {"filters": filters, "frangi": frangi}
+        modules = {"filters": filters, "frangi": frangi, "skeleton": skeleton, "edt": edt}
         for name, module in self.WRAPPERS.items():
             self._record_wrapper(modules[module], name)
 
@@ -2043,7 +2225,8 @@ class KernelCalls:
             setattr(owner, name, original)
 
     def largest(self):
-        """The largest calls of the Filter's kernel wrappers and of fma_f32."""
+        """The largest calls of the Filter's and Network's kernel wrappers
+        and of fma_f32."""
         return {"fma": self.fma_largest, **self.wrapper_largest}
 
     def nn_operands(self):
@@ -2065,12 +2248,13 @@ def check_fma_callers(what, by_caller, launches):
 
 
 def hand_counts():
-    from nellie_tpu_torch.kernels import _fp, ccl, filters, frangi
+    from nellie_tpu_torch.kernels import _fp, ccl, edt, filters, frangi, skeleton
     from nellie_tpu_torch.stages import flow_interpolation as fi
 
     return {"ccl_union_find": ccl.CCL_KERNEL, "flow_interp": fi.FLOW_INTERP_KERNEL,
             "fma_f32": _fp.FMA_KERNEL, "gauss_axis": filters.GAUSS_AXIS_KERNEL,
-            "frangi_tail": frangi.FRANGI_TAIL_KERNEL}
+            "frangi_tail": frangi.FRANGI_TAIL_KERNEL, "thin26": skeleton.THIN26_KERNEL,
+            "nearest_seed": edt.NEAREST_SEED_KERNEL}
 
 
 def reset_hand_counts():
@@ -2475,8 +2659,8 @@ def phase_fma_kernel(gpu, largest):
     narrowed views along every axis, numbers, 0-dim tensors and
     broadcasting, and the largest call of each path on its own operands;
     then its time at those calls beside the plain version's, one PyTorch
-    call's (``torch.addcmul`` or ``torch.add`` with ``alpha``: two
-    roundings; the port never calls them) and its bound, each call on a
+    call's (``torch.addcmul``, numbers as 0-dim tensors: two roundings;
+    the port never calls it) and its bound, each call on a
     cold L2 cache (:func:`cold_times`).  Returns (rows, max |kernel -
     plain| over every check)."""
     from nellie_tpu_torch.kernels import _fp
@@ -2503,22 +2687,17 @@ def phase_fma_kernel(gpu, largest):
         worst = max(worst, check_fma(f"the {path} path's largest call", args))
         plain_ms, _ = cold_times(lambda: _fp.fma_plain(*args), 5, on_device=False)
         ms, on_device = cold_times(lambda: _fp.FMA_KERNEL(*args), 20)
-        a, b, c = args
-        if not isinstance(c, torch.Tensor):
-            library = None
-        elif isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
-            library = lambda: torch.addcmul(c, a, b)  # noqa: E731
-        else:  # one factor a number: c + number * tensor
-            tensor, number = (a, b) if isinstance(a, torch.Tensor) else (b, a)
-            library = lambda: torch.add(c, tensor, alpha=float(number))  # noqa: E731
-        library_ms = None if library is None else cold_times(library, 20, on_device=False)[0]
+        # the numbers as 0-d float32 tensors on the card
+        a, b, c = (v if isinstance(v, torch.Tensor) else
+                   torch.tensor(np.float32(v), device="cuda") for v in args)
+        library_ms = cold_times(lambda: torch.addcmul(c, a, b), 20, on_device=False)[0]
         bound_ms, bound_by = fma_bound(args, n)
         print(f"fma_f32 = plain version bit for bit, and its time, at the {path} path's "
               f"largest call ({n} elements, operand shapes "
               f"{[tuple(a.shape) if isinstance(a, torch.Tensor) else 'number' for a in args]}, "
               f"strides {[a.stride() if isinstance(a, torch.Tensor) else None for a in args]}): "
               f"kernel {ms:.4f} ms a call on a cold L2 (on the device {fmt_ms(on_device)}), "
-              f"plain {plain_ms:.4f} ms, library (addcmul or add) {fmt_ms(library_ms)}, bound "
+              f"plain {plain_ms:.4f} ms, library (addcmul) {fmt_ms(library_ms)}, bound "
               f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f} (on the device "
               f"{fmt_share(bound_ms, on_device)}) [{gpu}]", flush=True)
         rows[path] = {"elements": n, "ms": ms, "device_ms": on_device, "plain_ms": plain_ms,
@@ -2705,14 +2884,15 @@ def tail_plain(name, g, args):
     from the caller's own arguments: pass 1 ``hessian_frob_plain`` (spacing,
     minor extent, core) as (frob, largest); pass 2 (components, params,
     minor extent, mask, gamma_sq, vessel, all_mask) the components from
-    ``hessian.hessian_unnormalized`` and ``frangi_response_plain``."""
+    ``hessian.hessian_unnormalized`` (with no mask, as the program without
+    the Frobenius mask rounds them) and ``frangi_response_plain``."""
     from nellie_tpu_torch.kernels import frangi, hessian
 
     if name == "hessian_frob":
         _, frob, largest = frangi.hessian_frob_plain(g, *args)
         return frob, largest
     _, params, minor, mask, gamma_sq, vessel, all_mask = args
-    h, _ = hessian.hessian_unnormalized(g, params.spacing, minor)
+    h, _ = hessian.hessian_unnormalized(g, params.spacing, minor, masked=mask is not None)
     return frangi.frangi_response_plain(h, mask, gamma_sq, params, vessel, all_mask)
 
 
@@ -2837,6 +3017,178 @@ def phase_tail_kernel(gpu, largest):
     return rows, worst
 
 
+def thin_bound(n_voxels, n_list, rounds, sweeps):
+    """(bound_ms, "bytes") of one thinning: the mask read and the skeleton
+    written once (1 byte a voxel each), and what each pass of the loop must
+    move over the starting foreground's ``n_list`` voxels, for the
+    ``rounds`` the data needs (the plain body's): a direction's border pass
+    reads fg and writes the candidates (2 bytes), a round reads fg and the
+    candidates and writes del_now (3), then reads del_now and writes fg and
+    the candidates (3); at the memory rate."""
+    nbytes = 2 * n_voxels + n_list * (2 * 6 * sweeps + 6 * rounds)
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def check_thin(what, mask, lut):
+    """The kernel through ``skeleton.skeletonize_3d`` (one launch) against
+    ``skeletonize_3d_plain`` on the card, exactly; returns (max |kernel -
+    plain|, the kernel's (rounds, flag reads, sweeps))."""
+    from nellie_tpu_torch.kernels import skeleton
+
+    before = skeleton.THIN26_KERNEL.launches
+    got = skeleton.skeletonize_3d(mask, lut)
+    stats = skeleton.THIN26_KERNEL.last_stats
+    if skeleton.THIN26_KERNEL.launches != before + 1:
+        fail(f"skeletonize_3d on {what} did not launch thin26 once")
+    want = skeleton.skeletonize_3d_plain(mask, lut)
+    if not same_tensor(got, want):
+        fail(f"thin26 differs from its plain body on {what} in "
+             f"{int((got.cpu() != want.cpu()).sum())} voxels")
+    return max_abs_diff(got.int(), want.int()), stats
+
+
+def phase_thin_kernel(gpu, largest):
+    """The 3D thinning kernel through ``skeleton.skeletonize_3d`` against
+    ``skeletonize_3d_plain`` on the card: ``thin_masks`` at three shapes
+    (its rounds, flag reads and sweeps also held to ``thin26_model``), then
+    Network's largest call on the 3D path on its own mask and table,
+    exactly, with its times on a cold L2 cache.  ``largest``: {path:
+    (voxels, (mask on the host, table)) or (0, None)}.  Returns (rows, max
+    |kernel - plain| over every check)."""
+    from nellie_tpu_torch.kernels import skeleton
+    from nellie_tpu_torch.kernels.simple_point import get_simple26_lut
+
+    lut = skeleton.simple26_lut("cuda")
+    table = get_simple26_lut()
+    cases, worst = 0, 0.0
+    for shape in ((10, 18, 20), (9, 17, 21), (3, 40, 33)):
+        for name, m in thin_masks(shape, seed=sum(shape)).items():
+            err, stats = check_thin(f"{name} {shape}", torch.from_numpy(m).cuda(), lut)
+            _, want = thin26_model(m, table, skeleton.ROUNDS_PER_READ)
+            if stats != want:
+                fail(f"thin26 on {name} {shape}: rounds, reads, sweeps {stats}, the model's {want}")
+            worst = max(worst, err)
+            cases += 1
+    print(f"thin26 (through skeletonize_3d) = plain body exactly on {cases} synthetic masks "
+          "(tubes, blobs, a sheet, noise, a cross on every face, empty, full; rounds, flag reads "
+          "and sweeps as thin26_model's)", flush=True)
+    rows = {}
+    for path, (n, recorded) in largest.items():
+        if recorded is None:
+            fail(f"the {path} path made no skeletonize_3d call")
+        mask, table_used = recorded
+        mask, table_used = mask.cuda(), table_used.cuda()
+        err, (rounds_k, reads, sweeps) = check_thin(f"the {path} path's largest call", mask,
+                                                    table_used)
+        worst = max(worst, err)
+        once = skeleton.THIN26_KERNEL(mask, table_used, rounds_per_read=1)
+        rounds, _, _ = skeleton.THIN26_KERNEL.last_stats
+        if not torch.equal(once, skeleton.skeletonize_3d(mask, table_used)):
+            fail("thin26 with one round a read differs from its default")
+        n_list = int(mask.sum())
+        plain_ms, _ = cold_times(lambda: skeleton.skeletonize_3d_plain(mask, table_used), 2,
+                                 on_device=False)
+        ms, on_device = cold_times(lambda: skeleton.skeletonize_3d(mask, table_used), 5)
+        bound_ms, bound_by = thin_bound(n, n_list, rounds, sweeps)
+        print(f"thin26 = plain body exactly, and its time, at the {path} path's largest call "
+              f"({tuple(mask.shape)}, {n_list} foreground voxels, {sweeps} sweeps, {rounds} "
+              f"rounds needed, {rounds_k} run in {reads} flag reads): kernel {ms:.4f} ms a call "
+              f"on a cold L2 (on the device {fmt_ms(on_device)}), plain {plain_ms:.4f} ms, "
+              f"library none, bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f} "
+              f"(on the device {fmt_share(bound_ms, on_device)}) [{gpu}]", flush=True)
+        rows[path] = {"shape": list(mask.shape), "foreground": n_list, "sweeps": sweeps,
+                      "rounds": rounds, "rounds_run": rounds_k, "flag_reads": reads,
+                      "max_abs_err": err, "ms": ms, "device_ms": on_device,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": None}
+        del mask, table_used
+    return rows, worst
+
+
+def seed_bound(n_voxels, work, ndim, n_steps, has_obj):
+    """(bound_ms, "bytes") of one nearest seed: each (step, offset) pass
+    reads the state at each of the ``work`` voxels that run and at its
+    source and writes it (12 bytes), and the objects at both (8 more); the
+    seeds read and the labels and distances written once (12 bytes a
+    voxel); at the memory rate."""
+    passes = n_steps * (3 ** ndim - 1)
+    nbytes = passes * work * (12 + (8 if has_obj else 0)) + 12 * n_voxels
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def check_seed(what, args):
+    """The kernel through ``edt.nearest_seed`` (one launch, no
+    ``fma_f32``) against ``nearest_seed_plain`` on the card: labels
+    exactly, distances bit for bit; returns max |kernel - plain| over the
+    labels and the finite distances."""
+    from nellie_tpu_torch.kernels import _fp, edt
+
+    before, fma = edt.NEAREST_SEED_KERNEL.launches, _fp.FMA_KERNEL.launches
+    labels, dist = edt.nearest_seed(*args)
+    if edt.NEAREST_SEED_KERNEL.launches != before + 1 or _fp.FMA_KERNEL.launches != fma:
+        fail(f"nearest_seed on {what} did not launch its kernel once, or launched fma_f32")
+    want = edt.nearest_seed_plain(*args)
+    if not (torch.equal(labels, want[0]) and same_tensor(dist, want[1])):
+        fail(f"nearest_seed differs from its plain body on {what}")
+    return max(max_abs_diff(labels, want[0]), max_abs_diff(dist, want[1]))
+
+
+def phase_seed_kernel(gpu, largest):
+    """The nearest-seed kernel through ``edt.nearest_seed`` against
+    ``nearest_seed_plain`` on the card: ``seed_inputs`` in 3D and 2D with
+    and without objects, ``max_radius_px`` set and unset, seeds in object 0;
+    then Network's largest call on each main path on its own seeds,
+    objects and sampling, with its times on a cold L2 cache.  ``largest``:
+    {path: (voxels, (seeds, objects, sampling) on the host) or (0, None)}.
+    Returns (rows, max |kernel - plain| over every check)."""
+    from nellie_tpu_torch.kernels import edt
+
+    cases, worst = 0, 0.0
+    for shape, sampling in (((10, 24, 28), (0.5, 0.2, 0.2)), ((40, 44), (0.5, 0.2)),
+                            ((64, 256, 256), (0.5, 0.2, 0.2))):
+        seeds, objects = seed_inputs(shape, seed=len(shape), seed_fraction=0.01)
+        in_zero = np.where((objects == 0) & (np.random.default_rng(1).random(shape) < 0.002),
+                           9, seeds).astype(np.int32)
+        for s, o in ((seeds, objects), (seeds, None), (in_zero, objects)):
+            for radius in (None, 3):
+                args = (torch.from_numpy(s).cuda(),
+                        None if o is None else torch.from_numpy(o).cuda(), sampling, radius)
+                worst = max(worst, check_seed(f"{shape} radius {radius}", args))
+                cases += 1
+    print(f"nearest_seed = plain body (labels exactly, distances bit for bit) on {cases} "
+          "synthetic calls (3D and 2D, with and without objects, max_radius_px 3 and none, "
+          "seeds in object 0)", flush=True)
+    rows = {}
+    for path, (n, recorded) in largest.items():
+        if recorded is None:
+            fail(f"the {path} path made no nearest_seed call")
+        seeds, objects, *rest = recorded
+        args = (seeds.cuda(), None if objects is None else objects.cuda(), *rest)
+        err = check_seed(f"the {path} path's largest call", args)
+        worst = max(worst, err)
+        sampling = rest[0] if rest else None
+        radius = rest[1] if len(rest) > 1 else None
+        steps = edt.jump_steps(tuple(seeds.shape), radius)
+        work = n
+        if objects is not None and not bool(((seeds > 0) & (objects == 0)).any()):
+            work = int((objects != 0).sum())
+        plain_ms, _ = cold_times(lambda: edt.nearest_seed_plain(*args), 2, on_device=False)
+        ms, on_device = cold_times(lambda: edt.nearest_seed(*args), 10)
+        bound_ms, bound_by = seed_bound(n, work, seeds.ndim, len(steps), objects is not None)
+        print(f"nearest_seed = plain body bit for bit, and its time, at the {path} path's "
+              f"largest call ({tuple(seeds.shape)}, sampling {sampling}, {work} voxels run, "
+              f"{len(steps)} steps): kernel {ms:.4f} ms a call on a cold L2 (on the device "
+              f"{fmt_ms(on_device)}), plain {plain_ms:.4f} ms, library none, bound "
+              f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f} (on the device "
+              f"{fmt_share(bound_ms, on_device)}) [{gpu}]", flush=True)
+        rows[path] = {"shape": list(seeds.shape), "voxels_run": work, "steps": len(steps),
+                      "max_abs_err": err, "ms": ms, "device_ms": on_device,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": None}
+        del args
+    return rows, worst
+
+
 # ---------------------------------------------------------------------------
 # phase 18: a real out-of-memory on the card
 # ---------------------------------------------------------------------------
@@ -2938,7 +3290,7 @@ def compare_tables(got, want, headers, skip):
 
 
 def build_kernels():
-    """Build the six CUDA kernels from the checkout, one nvcc each, all
+    """Build the eight CUDA kernels from the checkout, one nvcc each, all
     started together; print the seconds."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -3012,6 +3364,9 @@ def main() -> None:
                "capacity_1024": capacity["largest"]}
     gauss_rows, gauss_err = phase_gauss_kernel(gpu, largest)
     tail_rows, tail_err = phase_tail_kernel(gpu, largest)
+    thin_rows, thin_err = phase_thin_kernel(gpu, {"3D": hand["largest"]["skeletonize_3d"]})
+    seed_rows, seed_err = phase_seed_kernel(gpu, {"3D": hand["largest"]["nearest_seed"],
+                                                  "2D": hand_2d["largest"]["nearest_seed"]})
     print(f"phase 17 (hand kernels against their plain bodies): "
           f"{time.perf_counter() - start:.1f} s", flush=True)
     root = tempfile.mkdtemp(prefix="nellie_port_oom_")
@@ -3074,6 +3429,18 @@ def main() -> None:
          "launches": hand["launches"]["frangi_tail"], "max_abs_err": tail_err,
          **{k: tail_rows["3D"][k] for k in keys},
          "launches_by_path": launches_by_path["frangi_tail"], "paths": tail_rows},
+        {"name": "thin26", "route": "cuda",
+         "source": "nellie_tpu_torch/kernels/csrc/thin26.cu",
+         "replaces": "nellie_tpu/kernels/skeleton.py:213",
+         "launches": hand["launches"]["thin26"], "max_abs_err": thin_err,
+         **{k: thin_rows["3D"][k] for k in keys},
+         "launches_by_path": launches_by_path["thin26"], "paths": thin_rows},
+        {"name": "nearest_seed", "route": "cuda",
+         "source": "nellie_tpu_torch/kernels/csrc/nearest_seed.cu",
+         "replaces": "nellie_tpu/kernels/edt.py:73",
+         "launches": hand["launches"]["nearest_seed"], "max_abs_err": seed_err,
+         **{k: seed_rows["3D"][k] for k in keys},
+         "launches_by_path": launches_by_path["nearest_seed"], "paths": seed_rows},
     ]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -28,8 +28,11 @@
 // rounded to float32), the transcendentals are xla_cpu_math.cuh's.  The
 // Hessian follows np.gradient (central inside, one-sided at the block's
 // edges) and XLA's fusion of the second derivative along an axis
-// (hessian.py::_second_gradient; the wrapper passes the last axis's rule,
-// hessian._fuses_inner_gradient).  Subnormals are kept except in the
+// (hessian.py::_second_gradient: every diagonal component's edge
+// differences contracted; the wrapper passes each axis's rule for the whole
+// inner gradient, hessian.fused_axes, which differs between the program
+// with the Frobenius mask and the one without: pass 2 with no mask takes
+// the latter).  Subnormals are kept except in the
 // Frobenius norm's sums, which XLA's CPU code flushes and the plain version
 // flushes too (hessian.frobenius_norm); NaN propagates as in torch
 // (torch.maximum, torch.clamp), and the response's NaN and infinities
@@ -68,7 +71,8 @@ struct Geometry {
   int n[3];           // 3D: (z, y, x); 2D: (y, x, 1)
   float half[3];      // f32(0.5 / spacing) per axis
   float inv[3];       // f32(1 / spacing) per axis
-  int fuse_last;      // the last axis's second derivative fuses its inner gradient
+  int fuse[3];        // per axis, whether its diagonal component fuses its whole inner
+                      // gradient (every difference contracted, not the edges' alone)
   int core_lo[3], core_hi[3];  // pass 1's reduction box, [lo, hi) per axis
 };
 
@@ -128,13 +132,15 @@ __device__ __forceinline__ Hessian hessian3(const At& at, const Geometry& geo, i
     return grad([&](int q) { return at(a, q, c); }, b, n1, geo.half[1], geo.inv[1]);
   };
   Hessian h;
-  h.xx = grad([&](int q) { return g0(q, j, k); }, i, n0, geo.half[0], geo.inv[0]);
+  h.xx = second([&](int q) { return at(q, j, k); }, i, n0, geo.half[0], geo.inv[0],
+                geo.fuse[0] != 0);
   h.xy = grad([&](int q) { return g0(i, q, k); }, j, n1, geo.half[1], geo.inv[1]);
   h.xz = grad([&](int q) { return g0(i, j, q); }, k, n2, geo.half[2], geo.inv[2]);
-  h.yy = second([&](int q) { return at(i, q, k); }, j, n1, geo.half[1], geo.inv[1], false);
+  h.yy = second([&](int q) { return at(i, q, k); }, j, n1, geo.half[1], geo.inv[1],
+                geo.fuse[1] != 0);
   h.yz = grad([&](int q) { return g1(i, j, q); }, k, n2, geo.half[2], geo.inv[2]);
   h.zz = second([&](int q) { return at(i, j, q); }, k, n2, geo.half[2], geo.inv[2],
-                geo.fuse_last != 0);
+                geo.fuse[2] != 0);
   return h;
 }
 
@@ -145,10 +151,11 @@ __device__ __forceinline__ Hessian hessian2(const At& at, const Geometry& geo, i
     return grad([&](int q) { return at(q, b); }, a, n0, geo.half[0], geo.inv[0]);
   };
   Hessian h;
-  h.xx = grad([&](int q) { return g0(q, j); }, i, n0, geo.half[0], geo.inv[0]);
+  h.xx = second([&](int q) { return at(q, j); }, i, n0, geo.half[0], geo.inv[0],
+                geo.fuse[0] != 0);
   h.xy = grad([&](int q) { return g0(i, q); }, j, n1, geo.half[1], geo.inv[1]);
   h.yy = second([&](int q) { return at(i, q); }, j, n1, geo.half[1], geo.inv[1],
-                geo.fuse_last != 0);
+                geo.fuse[1] != 0);
   h.xz = h.yz = h.zz = 0.f;
   return h;
 }
@@ -217,14 +224,19 @@ __device__ __forceinline__ Hessian hessian3_interior(const float* p, const Geome
   auto g0 = [&](int da, int db, int dc) { return d(f(da + 1, db, dc), f(da - 1, db, dc), h0); };
   auto g1 = [&](int da, int db, int dc) { return d(f(da, db + 1, dc), f(da, db - 1, dc), h1); };
   auto g2 = [&](int dc) { return d(f(0, 0, dc + 1), f(0, 0, dc - 1), h2); };
+  // an interior difference with the whole inner gradient fused
+  auto fused = [](float hi, float lo, float g_lo, float half) {
+    return __fmul_rn(__fmaf_rn(__fsub_rn(hi, lo), half, -g_lo), half);
+  };
   Hessian h;
-  h.xx = d(g0(1, 0, 0), g0(-1, 0, 0), h0);
+  h.xx = geo.fuse[0] ? fused(f(2, 0, 0), f(0, 0, 0), g0(-1, 0, 0), h0)
+                          : d(g0(1, 0, 0), g0(-1, 0, 0), h0);
   h.xy = d(g0(0, 1, 0), g0(0, -1, 0), h1);
   h.xz = d(g0(0, 0, 1), g0(0, 0, -1), h2);
-  h.yy = d(g1(0, 1, 0), g1(0, -1, 0), h1);
+  h.yy = geo.fuse[1] ? fused(f(0, 2, 0), f(0, 0, 0), g1(0, -1, 0), h1)
+                          : d(g1(0, 1, 0), g1(0, -1, 0), h1);
   h.yz = d(g1(0, 0, 1), g1(0, 0, -1), h2);
-  h.zz = geo.fuse_last ? __fmul_rn(__fmaf_rn(__fsub_rn(f(0, 0, 2), f(0, 0, 0)), h2, -g2(-1)), h2)
-                       : d(g2(1), g2(-1), h2);
+  h.zz = geo.fuse[2] ? fused(f(0, 0, 2), f(0, 0, 0), g2(-1), h2) : d(g2(1), g2(-1), h2);
   return h;
 }
 
@@ -234,11 +246,13 @@ __device__ __forceinline__ Hessian hessian2_interior(const float* p, const Geome
   auto d = [](float hi, float lo, float half) { return __fmul_rn(__fsub_rn(hi, lo), half); };
   auto g0 = [&](int da, int db) { return d(f(da + 1, db), f(da - 1, db), h0); };
   auto g1 = [&](int db) { return d(f(0, db + 1), f(0, db - 1), h1); };
+  auto fused = [](float hi, float lo, float g_lo, float half) {
+    return __fmul_rn(__fmaf_rn(__fsub_rn(hi, lo), half, -g_lo), half);
+  };
   Hessian h;
-  h.xx = d(g0(1, 0), g0(-1, 0), h0);
+  h.xx = geo.fuse[0] ? fused(f(2, 0), f(0, 0), g0(-1, 0), h0) : d(g0(1, 0), g0(-1, 0), h0);
   h.xy = d(g0(0, 1), g0(0, -1), h1);
-  h.yy = geo.fuse_last ? __fmul_rn(__fmaf_rn(__fsub_rn(f(0, 2), f(0, 0)), h1, -g1(-1)), h1)
-                       : d(g1(1), g1(-1), h1);
+  h.yy = geo.fuse[1] ? fused(f(0, 2), f(0, 0), g1(-1), h1) : d(g1(1), g1(-1), h1);
   h.xz = h.yz = h.zz = 0.f;
   return h;
 }

@@ -14,7 +14,13 @@
 //
 // over the taps the caller lists (every tap of a traced kernel, zeros
 // included; only the nonzero ones for _correlate1d; a single tap is one
-// product).  Built with -fmad=false and without fast math, so the product
+// product).  Where the reflected taps reach past the far end of a short
+// axis, two taps of one output can read the same element with weights of
+// the same magnitude; XLA's CPU code then computes that product once and
+// never contracts it (filters.py::shared_products).  For _correlate1d the
+// caller passes those taps as a table of flags a position (n x count
+// bytes, or null where there are none), and a flagged product is rounded
+// and added (filters.py::_tap_chain).  Built with -fmad=false and without fast math, so the product
 // x[k1] * w1 is rounded and every other step is the written __fmaf_rn.
 // The result is rounded to float16 and back when the cascade's carry is
 // float16 (the plain version's .to(float16).float()), and stored as
@@ -62,14 +68,29 @@ __device__ __forceinline__ int reflect(int idx, int n) {
 }
 
 // The tap sum of one output from a reader of its taps' inputs
+// The taps' sum at one output; shared: that output position's flags of
+// the taps whose product is computed once (null: none)
 template <bool ROUND_HALF, class At>
-__device__ __forceinline__ float tap_sum(const Taps& taps, const At& at) {
+__device__ __forceinline__ float tap_sum(const Taps& taps, const At& at,
+                                         const uint8_t* __restrict__ shared) {
   float acc;
   if (taps.count == 1) {
     acc = __fmul_rn(at(0), taps.weight[0]);
-  } else {
+  } else if (shared == nullptr) {
     acc = __fmaf_rn(at(0), taps.weight[0], __fmul_rn(at(1), taps.weight[1]));
     for (int k = 2; k < taps.count; ++k) acc = __fmaf_rn(at(k), taps.weight[k], acc);
+  } else {
+    const float p0 = __fmul_rn(at(0), taps.weight[0]);
+    const float p1 = __fmul_rn(at(1), taps.weight[1]);
+    if (shared[0] && shared[1])
+      acc = __fadd_rn(p0, p1);
+    else if (shared[0])
+      acc = __fmaf_rn(at(1), taps.weight[1], p0);
+    else
+      acc = __fmaf_rn(at(0), taps.weight[0], p1);
+    for (int k = 2; k < taps.count; ++k)
+      acc = shared[k] ? __fadd_rn(acc, __fmul_rn(at(k), taps.weight[k]))
+                      : __fmaf_rn(at(k), taps.weight[k], acc);
   }
   return ROUND_HALF ? __half2float(__float2half_rn(acc)) : acc;
 }
@@ -79,7 +100,8 @@ __device__ __forceinline__ float tap_sum(const Taps& taps, const At& at) {
 template <bool ROUND_HALF>
 __global__ void __launch_bounds__(THREADS)
 outer_axis_kernel(const float* __restrict__ x, float* __restrict__ out, int n, long long inner,
-                  long long outer, int reach, const Taps taps) {
+                  long long outer, int reach, const Taps taps,
+                  const uint8_t* __restrict__ shared) {
   __shared__ float tile[(SEG + 2 * MAX_REACH) * LINES];
   const long long j = static_cast<long long>(blockIdx.x) * LINES + threadIdx.x;
   const int rows = SEG + 2 * reach;
@@ -97,7 +119,8 @@ outer_axis_kernel(const float* __restrict__ x, float* __restrict__ out, int n, l
       for (int i = seg0 + threadIdx.y; i < seg0 + SEG && i < n; i += blockDim.y) {
         const int base = i - seg0 + reach;
         out[(line0 + i) * inner + j] = tap_sum<ROUND_HALF>(
-            taps, [&](int k) { return tile[(base + taps.offset[k]) * LINES + threadIdx.x]; });
+            taps, [&](int k) { return tile[(base + taps.offset[k]) * LINES + threadIdx.x]; },
+            shared ? shared + static_cast<long long>(i) * taps.count : nullptr);
       }
     }
   }
@@ -107,7 +130,7 @@ outer_axis_kernel(const float* __restrict__ x, float* __restrict__ out, int n, l
 template <bool ROUND_HALF>
 __global__ void __launch_bounds__(THREADS)
 last_axis_kernel(const float* __restrict__ x, float* __restrict__ out, int n, long long lines,
-                 int reach, const Taps taps) {
+                 int reach, const Taps taps, const uint8_t* __restrict__ shared) {
   __shared__ float tile[ROW_SEG + 2 * MAX_REACH];
   const int seg0 = blockIdx.x * ROW_SEG;
   for (long long line = blockIdx.y; line < lines; line += gridDim.y) {
@@ -119,7 +142,8 @@ last_axis_kernel(const float* __restrict__ x, float* __restrict__ out, int n, lo
     const int i = seg0 + threadIdx.x;
     if (i < n)
       out[line * n + i] = tap_sum<ROUND_HALF>(
-          taps, [&](int k) { return tile[threadIdx.x + reach + taps.offset[k]]; });
+          taps, [&](int k) { return tile[threadIdx.x + reach + taps.offset[k]]; },
+          shared ? shared + static_cast<long long>(i) * taps.count : nullptr);
   }
 }
 
@@ -131,9 +155,11 @@ extern "C" {
 // with the correlation along n; `count` taps (1 <= count <= 256) at input
 // offsets `offsets` (each |offset| <= 128) with float32 `weights`;
 // round_half: round each result to float16 and back.
+// shared: device flags (n x count bytes) of the taps whose product is
+// computed once at each output position, or null
 int gauss_axis(const float* x, float* out, long long total, long long n, long long inner,
                int count, const int* offsets, const float* weights, int round_half,
-               void* stream) {
+               const uint8_t* shared, void* stream) {
   if (total < 1 || n < 1 || inner < 1 || total % (n * inner) != 0 || count < 1 ||
       count > MAX_TAPS || n > (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -157,19 +183,19 @@ int gauss_axis(const float* x, float* out, long long total, long long n, long lo
     const dim3 block(LINES, THREADS / LINES);
     if (round_half)
       outer_axis_kernel<true><<<grid, block, 0, s>>>(x, out, static_cast<int>(n), inner, outer,
-                                                     reach, taps);
+                                                     reach, taps, shared);
     else
       outer_axis_kernel<false><<<grid, block, 0, s>>>(x, out, static_cast<int>(n), inner, outer,
-                                                      reach, taps);
+                                                      reach, taps, shared);
   } else {
     const dim3 grid(static_cast<unsigned>((n + ROW_SEG - 1) / ROW_SEG),
                     static_cast<unsigned>(std::min(outer, GRID_YZ)));
     if (round_half)
       last_axis_kernel<true><<<grid, THREADS, 0, s>>>(x, out, static_cast<int>(n), outer, reach,
-                                                      taps);
+                                                      taps, shared);
     else
       last_axis_kernel<false><<<grid, THREADS, 0, s>>>(x, out, static_cast<int>(n), outer, reach,
-                                                       taps);
+                                                       taps, shared);
   }
   return static_cast<int>(cudaGetLastError());
 }

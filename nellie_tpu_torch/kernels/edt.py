@@ -7,17 +7,24 @@ Port of ``nellie_tpu/kernels/edt.py``:
 * ``nearest_seed`` (``:72``) keeps the reference's jump flooding with the
   same JFA+1 step schedule, offset order and strict-``<`` updates, so that
   its rare approximate answers are the reference's too.  An exact nearest
-  seed is later work (ROADMAP).
+  seed is later work (ROADMAP).  On a CUDA tensor it launches the
+  hand-written kernel ``csrc/nearest_seed.cu`` (built for ``sm_90a`` with
+  ``nvcc`` on first use, bound through ``ctypes``; one C call runs every
+  step), or raises; on a CPU tensor it runs :func:`nearest_seed_plain`.
+  ``NEAREST_SEED_KERNEL.launches`` counts the kernel's calls.
 """
 from __future__ import annotations
 
+import ctypes
 import itertools
 import math
 from typing import Optional, Tuple
 
 import torch
 
+from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CudaKernel, check_error, on_card
 from nellie_tpu_torch.kernels._fp import f32, sqrt, sum_of_products
+from nellie_tpu_torch.kernels.ccl import MAX_VOXELS  # int32 indices
 from nellie_tpu_torch.kernels.filters import pad_constant
 
 
@@ -25,28 +32,32 @@ def _offsets(ndim: int):
     return [o for o in itertools.product((-1, 0, 1), repeat=ndim) if any(v != 0 for v in o)]
 
 
-def nearest_seed(
+def jump_steps(shape, max_radius_px: Optional[int] = None):
+    """The JFA+1 schedule: 2**(n-1), ..., 2, 1 and one more 1, with
+    n = ceil(log2(max(reach, 2))), reach the longest axis or
+    ``max_radius_px + 1``, the smaller."""
+    reach = max(shape)
+    if max_radius_px is not None:
+        reach = min(reach, int(max_radius_px) + 1)
+    n_steps = max(1, int(math.ceil(math.log2(max(reach, 2)))))
+    return [1 << (n_steps - 1 - i) for i in range(n_steps)] + [1]
+
+
+def nearest_seed_plain(
     seed_labels: torch.Tensor,
     obj_labels: Optional[torch.Tensor] = None,
     sampling: Tuple[float, ...] = None,
     max_radius_px: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-voxel nearest seed by JFA+1.
-
-    Returns (labels, distances): the nearest seed's value (0 where none is
-    reachable) and the physical distance to it (+inf where none).  With
-    ``obj_labels`` a voxel only accepts seeds of its own object."""
+    """:func:`nearest_seed` in plain torch: rolled copies of the state, one
+    set of torch ops per step and offset."""
     shape = tuple(seed_labels.shape)
     ndim = len(shape)
     dev = seed_labels.device
     if sampling is None:
         sampling = (1.0,) * ndim
     samp = [f32(s) for s in sampling]
-    reach = max(shape)
-    if max_radius_px is not None:
-        reach = min(reach, int(max_radius_px) + 1)
-    n_steps = max(1, int(math.ceil(math.log2(max(reach, 2)))))
-    steps = [1 << (n_steps - 1 - i) for i in range(n_steps)] + [1]
+    steps = jump_steps(shape, max_radius_px)
 
     coords = [torch.arange(s, device=dev, dtype=torch.int32).reshape(
         [s if a == ax else 1 for a in range(ndim)]) for ax, s in enumerate(shape)]
@@ -97,9 +108,96 @@ def nearest_seed(
                 obj = torch.where(take, cand_obj, obj)
             cur_d = torch.where(take, cand_d, cur_d)
 
-    valid = idx >= 0
-    labels = torch.where(valid, seed_labels.reshape(-1)[torch.clamp(idx, min=0).long()], 0)
-    return labels, sqrt(seed_dist(idx))
+    return _seed_values(seed_labels, idx), sqrt(seed_dist(idx))
+
+
+def _seed_values(seed_labels: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Each voxel's seed value at flat index ``idx``, 0 where ``idx < 0``."""
+    idx = idx.reshape(seed_labels.shape)
+    return torch.where(idx >= 0, seed_labels.reshape(-1)[torch.clamp(idx, min=0).long()], 0)
+
+
+class _NearestSeedKernel(CudaKernel):
+    """The compiled jump flooding (``csrc/nearest_seed.cu``), built once per
+    process, with a launch count."""
+
+    source = "nearest_seed.cu"
+    flags = (*BASE_FLAGS, "-fmad=false")
+
+    def bind(self, lib):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.nearest_seed.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ctypes.POINTER(i32),
+                                     ctypes.POINTER(ctypes.c_float), ctypes.POINTER(i32), i32,
+                                     ptr, ctypes.POINTER(i32), ptr]
+        lib.nearest_seed.restype = i32
+
+    def __call__(self, seed_labels, obj_labels=None, sampling=None, max_radius_px=None):
+        shape = tuple(seed_labels.shape)
+        ndim = len(shape)
+        if seed_labels.device.type != "cuda" or not 1 <= ndim <= 3:
+            raise TypeError(f"nearest_seed takes a CUDA tensor of 1 to 3 axes, not {ndim} on "
+                            f"{seed_labels.device}")
+        if obj_labels is not None and (obj_labels.shape != seed_labels.shape
+                                       or obj_labels.device != seed_labels.device):
+            raise ValueError("nearest_seed: obj_labels must match seed_labels' shape and device")
+        n = seed_labels.numel()
+        if n > MAX_VOXELS:
+            raise ValueError(f"{n} voxels: the nearest-seed kernel's int32 indices take at most "
+                             f"{MAX_VOXELS}")
+        dev = seed_labels.device
+        if sampling is None:
+            sampling = (1.0,) * ndim
+        if n == 0:
+            return (torch.zeros_like(seed_labels),
+                    torch.empty(shape, dtype=torch.float32, device=dev))
+        steps = jump_steps(shape, max_radius_px)
+        lib = self._lib or self.build()
+        with self.on_device(dev):
+            is_seed = seed_labels > 0
+            flat = torch.arange(n, dtype=torch.int32, device=dev).reshape(shape)
+            idx_a = torch.where(is_seed, flat, -1).to(torch.int32).contiguous()
+            idx_b = idx_a.clone()
+            obj = voxels = None
+            if obj_labels is not None:
+                obj = obj_labels.to(torch.int32).contiguous()
+                # the voxels of object 0 never take a seed when none lies in
+                # object 0: only the others run
+                if not bool((is_seed & (obj == 0)).any()):
+                    voxels = torch.nonzero((obj != 0).reshape(-1)).reshape(-1).to(torch.int32)
+            dist = torch.empty(shape, dtype=torch.float32, device=dev)
+            result = ctypes.c_int(0)
+            err = lib.nearest_seed(
+                idx_a.data_ptr(), idx_b.data_ptr(), None if obj is None else obj.data_ptr(),
+                None if voxels is None else voxels.data_ptr(),
+                0 if voxels is None else voxels.numel(), ndim, (ctypes.c_int * 3)(*shape),
+                (ctypes.c_float * 3)(*(f32(s) for s in sampling)),
+                (ctypes.c_int * len(steps))(*steps), len(steps), dist.data_ptr(),
+                ctypes.byref(result), torch.cuda.current_stream().cuda_stream)
+            check_error("nearest_seed launch", err)
+            self.count_launch()
+            idx = idx_b if result.value else idx_a
+            return _seed_values(seed_labels, idx), dist
+
+
+NEAREST_SEED_KERNEL = _NearestSeedKernel()
+
+
+def nearest_seed(
+    seed_labels: torch.Tensor,
+    obj_labels: Optional[torch.Tensor] = None,
+    sampling: Tuple[float, ...] = None,
+    max_radius_px: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-voxel nearest seed by JFA+1.
+
+    Returns (labels, distances): the nearest seed's value (0 where none is
+    reachable) and the physical distance to it (+inf where none).  With
+    ``obj_labels`` a voxel only accepts seeds of its own object.  A CUDA
+    tensor goes to the hand-written kernel (or raises), a CPU tensor to
+    :func:`nearest_seed_plain`."""
+    if on_card(seed_labels, "nearest_seed"):
+        return NEAREST_SEED_KERNEL(seed_labels, obj_labels, sampling, max_radius_px)
+    return nearest_seed_plain(seed_labels, obj_labels, sampling, max_radius_px)
 
 
 def _minplus_axis(f_sq: torch.Tensor, axis: int, radius: int, s: float) -> torch.Tensor:

@@ -16,6 +16,7 @@ dtype.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -75,8 +76,58 @@ def pad_constant(x: torch.Tensor, axis: int, before: int, after: int, value) -> 
     return torch.cat([x.new_full(shape_b, value), x, x.new_full(shape_a, value)], dim=axis)
 
 
+def shared_products(n: int, taps, last_axis: bool = False):
+    """Which taps' products XLA's CPU code computes once for two taps.
+
+    A correlation with constant weights is one fused loop; where two taps
+    of one output position read the same element (possible only where the
+    reflected taps reach past the axis's far end) with weights of the same
+    magnitude, LLVM computes their product once, and a product with two
+    uses is never contracted into a fused multiply-add.  Along a last axis
+    of 2 points the loop over a line is unrolled, so a product is shared
+    between the two outputs too.  Returns the (n, len(taps)) bool table of
+    such taps for an axis of ``n`` points and ``taps`` as (input offset,
+    float32 weight), or None where no position has one; read only."""
+    return _shared_products(int(n), tuple((int(o), float(w)) for o, w in taps), bool(last_axis))
+
+
+@functools.lru_cache(maxsize=256)  # the same axes and taps recur every frame
+def _shared_products(n: int, taps: tuple, last_axis: bool):
+    offsets = np.array([o for o, _ in taps])
+    magnitude = np.abs(np.array([w for _, w in taps], np.float32))
+    m = np.remainder(np.arange(n)[:, None] + offsets[None, :], 2 * n)
+    source = np.where(m < n, m, 2 * n - 1 - m)
+    key = source * len(taps) + np.unique(magnitude, return_inverse=True)[1][None, :]
+    if last_axis and n <= 2:
+        _, inverse, counts = np.unique(key, return_inverse=True, return_counts=True)
+        shared = counts[inverse.reshape(key.shape)] > 1
+    else:
+        shared = (key[:, :, None] == key[:, None, :]).sum(axis=2) > 1
+    return shared if shared.any() else None
+
+
+def _tap_chain(reads, weights, shared=None) -> torch.Tensor:
+    """``sum(read_k * w_k)`` in XLA's order: the left product of the first
+    add contracted, then a fused multiply-add a tap; a product flagged in
+    ``shared`` is rounded and added (and for the first add the other one
+    is contracted, or neither)."""
+    if len(reads) == 1:
+        return reads[0] * weights[0]
+    shared = [False] * len(reads) if shared is None else list(shared)
+    if shared[0] and shared[1]:
+        out = reads[0] * weights[0] + reads[1] * weights[1]
+    elif shared[0]:
+        out = fma(reads[1], weights[1], reads[0] * weights[0])
+    else:
+        out = fma(reads[0], weights[0], reads[1] * weights[1])
+    for r, w, sh in zip(reads[2:], weights[2:], shared[2:]):
+        out = out + r * w if sh else fma(r, w, out)
+    return out
+
+
 def _correlate1d_plain(x: torch.Tensor, weights: np.ndarray, axis: int) -> torch.Tensor:
-    """Correlate along ``axis`` with scipy 'reflect' edges; zero taps skipped."""
+    """Correlate along ``axis`` with scipy 'reflect' edges; zero taps
+    skipped; products shared as :func:`shared_products` finds them."""
     radius = len(weights) // 2
     if radius == 0:
         return x * f32(weights[0])
@@ -85,13 +136,14 @@ def _correlate1d_plain(x: torch.Tensor, weights: np.ndarray, axis: int) -> torch
     terms = [(k, f32(w)) for k, w in enumerate(weights) if float(w) != 0.0]
     if not terms:
         return torch.zeros_like(x)
-    (k0, w0), rest = terms[0], terms[1:]
-    if not rest:
-        return xp.narrow(axis, k0, n) * w0
-    (k1, w1), rest = rest[0], rest[1:]
-    out = fma(xp.narrow(axis, k0, n), w0, xp.narrow(axis, k1, n) * w1)
-    for k, w in rest:
-        out = fma(xp.narrow(axis, k, n), w, out)
+    ws = [w for _, w in terms]
+    out = _tap_chain([xp.narrow(axis, k, n) for k, _ in terms], ws)
+    shared = shared_products(n, [(k - radius, w) for k, w in terms], axis % x.ndim == x.ndim - 1)
+    if shared is not None:
+        for i in np.flatnonzero(shared.any(axis=1)):
+            i = int(i)
+            out.narrow(axis, i, 1).copy_(_tap_chain(
+                [xp.narrow(axis, i + k, 1) for k, _ in terms], ws, shared[i]))
     return out
 
 
@@ -125,14 +177,17 @@ class _GaussAxisKernel(CudaKernel):
     def bind(self, lib):
         ptr = ctypes.c_void_p
         lib.gauss_axis.argtypes = [ptr, ptr, ctypes.c_longlong, ctypes.c_longlong,
-                                   ctypes.c_longlong, ctypes.c_int, ptr, ptr, ctypes.c_int, ptr]
+                                   ctypes.c_longlong, ctypes.c_int, ptr, ptr, ctypes.c_int, ptr,
+                                   ptr]
         lib.gauss_axis.restype = ctypes.c_int
 
-    def __call__(self, x: torch.Tensor, taps, axis: int, round_half: bool = False) -> torch.Tensor:
+    def __call__(self, x: torch.Tensor, taps, axis: int, round_half: bool = False,
+                 shared=None) -> torch.Tensor:
         """The correlation of the float32 CUDA tensor ``x`` along ``axis``
         over ``taps``, (input offset, float32 weight) pairs in summation
         order, as a new float32 tensor (each value rounded through float16
-        with ``round_half``)."""
+        with ``round_half``); ``shared``: :func:`shared_products`' table for
+        the axis, or None."""
         if x.device.type != "cuda" or x.dtype != torch.float32:
             raise TypeError(f"gauss_axis takes a float32 CUDA tensor, not {x.dtype} on {x.device}")
         if not 1 <= len(taps) <= self.max_taps:
@@ -150,8 +205,14 @@ class _GaussAxisKernel(CudaKernel):
         weights = (ctypes.c_float * len(taps))(*(float(w) for _, w in taps))
         lib = self._lib or self.build()
         with self.on_device(x.device):
+            if shared is not None:
+                if shared.shape != (n, len(taps)):
+                    raise ValueError(f"gauss_axis: a shared table of {shared.shape}, not "
+                                     f"{(n, len(taps))}")
+                shared = torch.from_numpy(np.ascontiguousarray(shared, np.uint8)).to(x.device)
             err = lib.gauss_axis(x.data_ptr(), out.data_ptr(), x.numel(), n, inner, len(taps),
                                  offsets, weights, int(bool(round_half)),
+                                 None if shared is None else shared.data_ptr(),
                                  torch.cuda.current_stream().cuda_stream)
         check_error("gauss_axis launch", err)
         self.count_launch()
@@ -186,7 +247,11 @@ def _correlate1d(x: torch.Tensor, weights: np.ndarray, axis: int) -> torch.Tenso
     if not on_card(x, "_correlate1d"):
         return _correlate1d_plain(x, weights, axis)
     taps = nonzero_taps(weights)
-    return GAUSS_AXIS_KERNEL(x, taps, axis) if taps else torch.zeros_like(x)
+    if not taps:
+        return torch.zeros_like(x)
+    axis = axis % x.ndim
+    return GAUSS_AXIS_KERNEL(x, taps, axis,
+                             shared=shared_products(x.shape[axis], taps, axis == x.ndim - 1))
 
 
 def correlate1d_traced(x: torch.Tensor, weights: np.ndarray, axis: int,

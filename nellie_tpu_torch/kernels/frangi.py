@@ -37,7 +37,7 @@ from nellie_tpu_torch.kernels import eigen, filters, thresholds
 from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CudaKernel, check_error, on_card
 from nellie_tpu_torch.kernels._fp import exp, f32, fma, sqrt, sum_of_products
 from nellie_tpu_torch.kernels.hessian import (
-    _fuses_inner_gradient,
+    fused_axes,
     hessian_unnormalized,
     largest_component,
     nonzero_or_one,
@@ -184,7 +184,7 @@ class _Geometry(ctypes.Structure):
     spacing's constants, the last axis's fusion rule and pass 1's core box."""
 
     _fields_ = [("ndim", ctypes.c_int), ("n", ctypes.c_int * 3), ("half", ctypes.c_float * 3),
-                ("inv", ctypes.c_float * 3), ("fuse_last", ctypes.c_int),
+                ("inv", ctypes.c_float * 3), ("fuse", ctypes.c_int * 3),
                 ("core_lo", ctypes.c_int * 3), ("core_hi", ctypes.c_int * 3)]
 
 
@@ -199,12 +199,14 @@ def _core_box(block: torch.Tensor, core: torch.Tensor):
     return lo, [a + n for a, n in zip(lo, core.shape)]
 
 
-def tail_geometry(g: torch.Tensor, spacing, minor_extent, core: torch.Tensor) -> _Geometry:
+def tail_geometry(g: torch.Tensor, spacing, minor_extent, core: torch.Tensor,
+                  masked: bool = True) -> _Geometry:
     """The kernel's view of block ``g``: its shape, per axis the Hessian's
     constants f32(0.5 / spacing) and f32(1 / spacing) (the same as
     ``hessian.gradient``'s f32(0.5 * (1 / spacing)) and f32(1 / spacing)),
-    whether the last axis fuses its inner gradient
-    (``hessian._fuses_inner_gradient``), and the core box of ``core``."""
+    whether each diagonal component fuses its whole inner gradient in the
+    program with the Frobenius mask or without (``hessian.fused_axes``),
+    and the core box of ``core``."""
     geo = _Geometry()
     geo.ndim = g.ndim
     shape = list(g.shape) + [1] * (3 - g.ndim)
@@ -215,7 +217,8 @@ def tail_geometry(g: torch.Tensor, spacing, minor_extent, core: torch.Tensor) ->
         geo.inv[a] = f32(1.0 / sp[a])
         if f32(0.5 * (1.0 / sp[a])) != geo.half[a]:
             raise ValueError(f"spacing {sp[a]}: the gradient's constants differ")
-    geo.fuse_last = int(_fuses_inner_gradient(g, g.ndim - 1, minor_extent))
+    for a, fused in enumerate(fused_axes(g, minor_extent, masked)):
+        geo.fuse[a] = int(fused)
     lo, hi = _core_box(g, core)
     for a in range(3):
         geo.core_lo[a] = lo[a] if a < g.ndim else 0
@@ -325,13 +328,15 @@ def frangi_response(g, h, params: FrangiParams, minor_extent, mask, gamma_sq, ve
     """Pass 2 of a scale's tail on block ``g`` (``h`` from
     :func:`hessian_frob`): returns (vessel, all_mask) after
     ``vessel = max(vessel, response in the carry type)`` and
-    ``all_mask &= mask`` (``mask`` None: all true).  The kernel updates
-    both in place; the plain version returns new tensors."""
+    ``all_mask &= mask`` (``mask`` None: all true, the program without the
+    Frobenius mask, whose components round otherwise: they are computed
+    here, ``h`` unused).  The kernel updates both in place; the plain
+    version returns new tensors."""
     if not on_card(g, "frangi tail"):
-        if h is None:
-            h, _ = hessian_unnormalized(g, params.spacing, minor_extent)
+        if h is None or mask is None:
+            h, _ = hessian_unnormalized(g, params.spacing, minor_extent, masked=mask is not None)
         return frangi_response_plain(h, mask, gamma_sq, params, vessel, all_mask)
-    geo = tail_geometry(g, params.spacing, minor_extent, g)
+    geo = tail_geometry(g, params.spacing, minor_extent, g, masked=mask is not None)
     FRANGI_TAIL_KERNEL.frangi_response(g, geo, mask, gamma_sq, params, vessel, all_mask)
     return vessel, all_mask
 
@@ -364,12 +369,18 @@ def vesselness_blocks(blocks, params: FrangiParams, apply_mask: bool, stats):
                 g = filters.correlate1d_traced(g, kernel_stacks[axis][i], axis, carry)
             gauss[b] = g
         gamma_sq = [2.0 * g * g for g in _gammas(gauss, params.max_threshold_samples, stats)]
-        tails = [hessian_frob(g, params.spacing, stats.minor_extent,
-                              lambda v, b=b: stats.core(b, v)) for b, g in enumerate(gauss)]
-        largest = stats.all_max([m for _, _, m in tails])
-        frobs = [frob / nonzero_or_one(m) for (_, frob, _), m in zip(tails, largest)]
-        h_masks = (_frob_masks(frobs, params, stats) if apply_mask else [None] * len(gauss))
-        del frobs
+        if apply_mask:
+            tails = [hessian_frob(g, params.spacing, stats.minor_extent,
+                                  lambda v, b=b: stats.core(b, v)) for b, g in enumerate(gauss)]
+            largest = stats.all_max([m for _, _, m in tails])
+            frobs = [frob / nonzero_or_one(m) for (_, frob, _), m in zip(tails, largest)]
+            h_masks = _frob_masks(frobs, params, stats)
+            del frobs
+        else:
+            # no Frobenius norm: pass 2 computes the components as the
+            # program without the mask rounds them
+            tails = [(None, None, None)] * len(gauss)
+            h_masks = [None] * len(gauss)
         for b, (h, _, _) in enumerate(tails):
             vessel[b], all_mask[b] = frangi_response(gauss[b], h, params, stats.minor_extent,
                                                      h_masks[b], gamma_sq[b], vessel[b],
@@ -391,7 +402,9 @@ def log_blob_response(frame: torch.Tensor, mask: torch.Tensor, params: FrangiPar
     lap = None
     for sigma in params.sigmas:
         cur = -filters.gaussian_laplace(frame, params.sigma_vec(sigma)) * f32(float(sigma) ** 2)
-        cur = cur * mask
+        # XLA turns the product with the converted mask into a select: +0
+        # outside the mask, never -0
+        cur = torch.where(mask.bool(), cur, torch.zeros_like(cur))
         lap = cur if lap is None else torch.maximum(lap, cur)
     return torch.clamp(lap, min=0.0)
 

@@ -31,7 +31,8 @@ def gradient(f: torch.Tensor, spacing: float, axis: int) -> torch.Tensor:
 _XLA_MINOR_CONCAT_LIMIT = 128
 
 
-def _fuses_inner_gradient(f: torch.Tensor, axis: int, minor_extent=None) -> bool:
+def _fuses_inner_gradient(f: torch.Tensor, axis: int, minor_extent=None,
+                          masked: bool = True) -> bool:
     """Whether XLA fuses the whole inner gradient into the outer one, as
     it compiles the reference's Frangi scale body (2D and 3D).
 
@@ -40,23 +41,36 @@ def _fuses_inner_gradient(f: torch.Tensor, axis: int, minor_extent=None) -> bool
     below the limit; and while the Hessian components' own concatenations
     (n elements) are fusible too, they enter the same consumer first and
     its code duplication is then too high to take the inner gradient in.
-    So only a minor axis of exactly the limit fuses it:
-    ``scripts/xla_fusion_probe.py`` finds it at a last axis of 128 alone
-    among 2 to 520 (Z, Y = 12, 48), and at 128 for every Z and Y it tried
-    (1 to 256), in 2D as in 3D.  ``minor_extent``: the whole frame's
-    last-axis width, when ``f`` is a block of it (the rule is the frame's)."""
-    n = f.shape[axis] if minor_extent is None else int(minor_extent)
+    So with the Frobenius mask (``masked``) only a minor axis of exactly
+    the limit fuses it: ``scripts/xla_fusion_probe.py`` finds it at a last
+    axis of 128 alone among 2 to 520 (Z, Y = 12, 48), and at 128 for every
+    Z and Y it tried (1 to 256), in 2D as in 3D.  Without the mask
+    (``vesselness_frame(..., apply_mask=False)``) no Frobenius norm reads
+    the components, so every axis fuses it but a minor one of more than
+    the limit (``scripts/xla_unmasked_probe.py``).  ``minor_extent``: the
+    whole frame's last-axis width, when ``f`` is a block of it (the rule
+    is the frame's)."""
+    n = f.shape[axis] if minor_extent is None or axis != f.ndim - 1 else int(minor_extent)
+    if not masked:
+        return axis != f.ndim - 1 or n - 1 < _XLA_MINOR_CONCAT_LIMIT
     return axis == f.ndim - 1 and n - 1 < _XLA_MINOR_CONCAT_LIMIT <= n
 
 
+def fused_axes(f: torch.Tensor, minor_extent=None, masked: bool = True):
+    """Per axis, whether its diagonal component fuses the whole inner
+    gradient (:func:`_fuses_inner_gradient`); every axis's edge
+    differences are contracted either way (:func:`_second_gradient`)."""
+    return [_fuses_inner_gradient(f, axis, minor_extent, masked) for axis in range(f.ndim)]
+
+
 def _second_gradient(f: torch.Tensor, spacing: float, axis: int,
-                     minor_extent=None) -> torch.Tensor:
-    """``gradient(gradient(f))`` along one axis as XLA rounds the 2D
-    ``hyy`` and the 3D ``hyy`` and ``hzz``: it fuses the inner gradient's
-    edge values into the outer gradient, whose two edge differences then
-    take their left product into a fused multiply-add.  Where it fuses
-    the whole inner gradient (:func:`_fuses_inner_gradient`), every
-    interior difference takes its left product into one as well."""
+                     minor_extent=None, masked: bool = True) -> torch.Tensor:
+    """``gradient(gradient(f))`` along one axis as XLA rounds every
+    diagonal component (``hxx``, ``hyy``, ``hzz``): it fuses the inner
+    gradient's edge values into the outer gradient, whose two edge
+    differences then take their left product into a fused multiply-add.
+    Where it fuses the whole inner gradient (:func:`_fuses_inner_gradient`),
+    every interior difference takes its left product into one as well."""
     g = gradient(f, spacing, axis)
     out = gradient(g, spacing, axis)
     n = f.shape[axis]
@@ -68,7 +82,7 @@ def _second_gradient(f: torch.Tensor, spacing: float, axis: int,
     last = fma(f.narrow(axis, n - 1, 1) - f.narrow(axis, n - 2, 1), inv,
                -g.narrow(axis, n - 2, 1)) * inv
     interior = out.narrow(axis, 1, n - 2)
-    if _fuses_inner_gradient(f, axis, minor_extent) and n > 3:
+    if _fuses_inner_gradient(f, axis, minor_extent, masked) and n > 3:
         # g[i + 1] = diff[i + 1] * coefficient, contracted into g[i + 1] - g[i - 1]
         diff = torch.cat([f.narrow(axis, 3, n - 3) - f.narrow(axis, 1, n - 3),
                           f.narrow(axis, n - 1, 1) - f.narrow(axis, n - 2, 1)], dim=axis)
@@ -125,30 +139,33 @@ def frobenius_norm(h: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def hessian_unnormalized(
-    image: torch.Tensor, spacing: Sequence[float], minor_extent=None
+    image: torch.Tensor, spacing: Sequence[float], minor_extent=None, masked: bool = True
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """The components and the Frobenius norm before its division by the
-    largest |component|; ``minor_extent`` as for :func:`_fuses_inner_gradient`."""
+    largest |component|; ``minor_extent`` as for :func:`_fuses_inner_gradient`.
+    ``masked``: the components as the program with the Frobenius mask
+    rounds them (the Filter's); without it XLA fuses the whole inner
+    gradient of every diagonal component but along a minor axis of more
+    than 128 (:func:`_fuses_inner_gradient`)."""
     spacing = tuple(float(s) for s in spacing)
     if image.ndim == 2:
         g0 = gradient(image, spacing[0], 0)
-        g1 = gradient(image, spacing[1], 1)
         h = {
-            "hxx": gradient(g0, spacing[0], 0),
+            "hxx": _second_gradient(image, spacing[0], 0, minor_extent, masked),
             "hxy": gradient(g0, spacing[1], 1),
-            "hyy": _second_gradient(image, spacing[1], 1, minor_extent),
+            "hyy": _second_gradient(image, spacing[1], 1, minor_extent, masked),
         }
         frob = frobenius_norm(h)
     elif image.ndim == 3:
         g0 = gradient(image, spacing[0], 0)
         g1 = gradient(image, spacing[1], 1)
         h = {
-            "hxx": gradient(g0, spacing[0], 0),
+            "hxx": _second_gradient(image, spacing[0], 0, minor_extent, masked),
             "hxy": gradient(g0, spacing[1], 1),
             "hxz": gradient(g0, spacing[2], 2),
-            "hyy": _second_gradient(image, spacing[1], 1, minor_extent),
+            "hyy": _second_gradient(image, spacing[1], 1, minor_extent, masked),
             "hyz": gradient(g1, spacing[2], 2),
-            "hzz": _second_gradient(image, spacing[2], 2, minor_extent),
+            "hzz": _second_gradient(image, spacing[2], 2, minor_extent, masked),
         }
         frob = frobenius_norm(h)
     else:

@@ -6,7 +6,11 @@ backend, the LUT (``_deletable``, ``:53``): each voxel's 26 neighbour
 occupancies are packed into a 26-bit code and looked up in the 8 MiB
 Bertrand–Malandain table (:mod:`nellie_tpu_torch.kernels.simple_point`).  The
 reference shows that its three backends agree
-(``tests/test_skeleton_backends.py``).
+(``tests/test_skeleton_backends.py``).  On a CUDA tensor it launches the
+hand-written kernel ``csrc/thin26.cu`` (built for ``sm_90a`` with ``nvcc``
+on first use, bound through ``ctypes``), or raises; on a CPU tensor it runs
+:func:`skeletonize_3d_plain`.  ``THIN26_KERNEL.launches`` counts the
+kernel's calls (one C call runs the whole loop).
 
 The sweep is the reference's exactly: six border directions per outer
 iteration; within a direction the candidates are fixed to the border
@@ -20,8 +24,12 @@ until a pass deletes nothing.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from nellie_tpu_torch.kernels._cuda import CudaKernel, check_error, on_card
+from nellie_tpu_torch.kernels.ccl import MAX_VOXELS  # int32 indices
 from nellie_tpu_torch.kernels.filters import shift_fill
 from nellie_tpu_torch.kernels.simple_point import OFFSETS_26, get_simple26_lut
 
@@ -58,14 +66,10 @@ def simple26_lut(device) -> torch.Tensor:
     return torch.from_numpy(get_simple26_lut()).to(device)
 
 
-def skeletonize_3d(mask: torch.Tensor, lut: torch.Tensor = None) -> torch.Tensor:
-    """3D curve thinning; preserves 26-connectivity of the foreground and
-    6-topology of the background.  ``lut`` is :func:`simple26_lut` on the
-    mask's device (loaded here when not given)."""
-    if lut is None:
-        lut = simple26_lut(mask.device)
-    shape = mask.shape
-    dev = mask.device
+def lower_parity(shape, dev):
+    """For each of ``OFFSETS_26``: whether the voxel at that offset has a
+    lower parity index than the voxel itself, parity = (z%2)*4 + (y%2)*2 +
+    x%2 (a neighbour's is the parity xor the offset's odd axes)."""
     iz = torch.arange(shape[0], device=dev).reshape(-1, 1, 1) % 2
     iy = torch.arange(shape[1], device=dev).reshape(1, -1, 1) % 2
     ix = torch.arange(shape[2], device=dev).reshape(1, 1, -1) % 2
@@ -74,19 +78,39 @@ def skeletonize_3d(mask: torch.Tensor, lut: torch.Tensor = None) -> torch.Tensor
     for off in OFFSETS_26:
         flip = ((abs(off[0]) % 2) << 2) | ((abs(off[1]) % 2) << 1) | (abs(off[2]) % 2)
         lower.append((parity ^ flip) < parity)
+    return lower
+
+
+def border_candidates(fg, d, lut):
+    """Direction ``d``'s candidates: deletable voxels of the border
+    ``fg & ~fg(v + d)``, outside the volume counting as background."""
+    return _deletable(fg, lut, fg & ~_shift3(fg, _DIRECTIONS[d], False))
+
+
+def thin_round(fg, remaining, lut, lower):
+    """One round: (fg, remaining, commit) after committing the deletable
+    ``remaining`` voxels that no 26-neighbour of lower parity blocks."""
+    del_now = _deletable(fg, lut, remaining)
+    blocked = torch.zeros_like(del_now)
+    for off, low in zip(OFFSETS_26, lower):
+        blocked = blocked | (_shift3(del_now, off, False) & low)
+    commit = del_now & ~blocked
+    return fg & ~commit, del_now & ~commit, commit
+
+
+def skeletonize_3d_plain(mask: torch.Tensor, lut: torch.Tensor = None) -> torch.Tensor:
+    """:func:`skeletonize_3d` in plain torch: each round packs the codes
+    from 26 shifted copies, gathers from the table and reads the commit
+    flag on the host."""
+    if lut is None:
+        lut = simple26_lut(mask.device)
+    lower = lower_parity(mask.shape, mask.device)
 
     def one_direction(fg, d):
-        border = fg & ~_shift3(fg, _DIRECTIONS[d], False)
-        remaining = _deletable(fg, lut, border)
+        remaining = border_candidates(fg, d, lut)
         go = bool(remaining.any())
         while go:
-            del_now = _deletable(fg, lut, remaining)
-            blocked = torch.zeros_like(del_now)
-            for off, low in zip(OFFSETS_26, lower):
-                blocked = blocked | (_shift3(del_now, off, False) & low)
-            commit = del_now & ~blocked
-            fg = fg & ~commit
-            remaining = del_now & ~commit
+            fg, remaining, commit = thin_round(fg, remaining, lut, lower)
             go = bool(commit.any())
         return fg
 
@@ -98,6 +122,73 @@ def skeletonize_3d(mask: torch.Tensor, lut: torch.Tensor = None) -> torch.Tensor
         if torch.equal(new, fg):
             return new
         fg = new
+
+
+ROUNDS_PER_READ = 4  # the kernel's rounds between two host reads of its commit flags
+
+
+class _Thin26Kernel(CudaKernel):
+    """The compiled thinning (``csrc/thin26.cu``), built once per process,
+    with a launch count and the last call's (rounds, flag reads, sweeps)."""
+
+    source = "thin26.cu"
+
+    def __init__(self):
+        super().__init__()
+        self.last_stats = (0, 0, 0)
+
+    def bind(self, lib):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.thin26.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                               ctypes.POINTER(ctypes.c_longlong), ptr]
+        lib.thin26.restype = i32
+
+    def __call__(self, mask: torch.Tensor, lut: torch.Tensor,
+                 rounds_per_read: int = ROUNDS_PER_READ) -> torch.Tensor:
+        if mask.device.type != "cuda" or mask.ndim != 3:
+            raise TypeError(f"thin26 takes a 3D CUDA tensor, not {mask.ndim}D on {mask.device}")
+        if lut.device != mask.device or lut.dtype != torch.uint8 or lut.numel() != 1 << 23:
+            raise ValueError("thin26 takes the 2**23-byte uint8 table on the mask's device")
+        n = mask.numel()
+        if n > MAX_VOXELS:
+            raise ValueError(f"{n} voxels: the thinning kernel's int32 indices take at most "
+                             f"{MAX_VOXELS}")
+        dev = mask.device
+        lut = lut.contiguous()
+        fg = mask.to(torch.bool).contiguous().clone()
+        if n == 0:
+            return fg
+        lib = self._lib or self.build()
+        with self.on_device(dev):
+            voxels = torch.nonzero(fg.reshape(-1)).reshape(-1).to(torch.int32)
+            del_now = torch.zeros(fg.shape, dtype=torch.uint8, device=dev)
+            remaining = torch.zeros(fg.shape, dtype=torch.uint8, device=dev)
+            flags = torch.empty(rounds_per_read, dtype=torch.int32, device=dev)
+            stats = (ctypes.c_longlong * 3)()
+            err = lib.thin26(fg.data_ptr(), voxels.data_ptr(), voxels.numel(), del_now.data_ptr(),
+                             remaining.data_ptr(), flags.data_ptr(), lut.data_ptr(),
+                             *fg.shape, rounds_per_read, stats,
+                             torch.cuda.current_stream().cuda_stream)
+        check_error("thin26 launch", err)
+        self.count_launch()
+        self.last_stats = tuple(stats)
+        return fg
+
+
+THIN26_KERNEL = _Thin26Kernel()
+
+
+def skeletonize_3d(mask: torch.Tensor, lut: torch.Tensor = None) -> torch.Tensor:
+    """3D curve thinning; preserves 26-connectivity of the foreground and
+    6-topology of the background.  ``lut`` is :func:`simple26_lut` on the
+    mask's device (loaded here when not given).  A CUDA tensor goes to the
+    hand-written kernel (or raises), a CPU tensor to
+    :func:`skeletonize_3d_plain`."""
+    if lut is None:
+        lut = simple26_lut(mask.device)
+    if on_card(mask, "skeletonize_3d"):
+        return THIN26_KERNEL(mask, lut)
+    return skeletonize_3d_plain(mask, lut)
 
 
 # P2..P9 clockwise from north, offsets (dy, dx)

@@ -11,7 +11,8 @@ block ``frangi.hessian_frob`` and ``frangi.frangi_response`` launch
 Frobenius norm, the largest component, the vesselness in the carry type
 and the mask) on the card and on CPU copies: 2D and 3D, the float32 and
 float16 carries, a last axis of 128 (XLA's fusion rule), a core box,
-``apply_mask`` false and ``frob_thresh_division`` 0, a dim frame whose
+``apply_mask`` false (that program's own components, and no pass 1) and
+``frob_thresh_division`` 0, a dim frame whose
 squares are subnormal, and extents of 1 to 3.  ``vesselness_frame`` on the
 card equals the CPU's, which is the JAX package's
 (``tests/test_torch_frangi_tail.py``).
@@ -90,7 +91,8 @@ def test_frangi_response(cuda, shape, carry):
         torch.cuda.synchronize()
         assert frangi.FRANGI_TAIL_KERNEL.launches == before + 1
         for dev in (cuda, "cpu"):
-            h, _ = hessian.hessian_unnormalized(g.to(dev), params.spacing)
+            # no mask: the components of the program without the Frobenius mask
+            h, _ = hessian.hessian_unnormalized(g.to(dev), params.spacing, masked=m is not None)
             v_p, a_p = frangi.frangi_response_plain(
                 h, None if m is None else m.to(dev), gamma_sq.to(dev), params,
                 vessel.to(dev), all_mask.to(dev))
@@ -113,7 +115,9 @@ def test_vesselness_frame_card_equals_cpu(cuda, shape, variant):
     apply_mask = variant != "no_mask"
     before = frangi.FRANGI_TAIL_KERNEL.launches
     v_k, m_k = frangi.vesselness_frame(frame.to(cuda), params, apply_mask)
-    assert frangi.FRANGI_TAIL_KERNEL.launches == before + 2 * len(params.sigmas)
+    # without the mask a scale needs no Frobenius norm, so no pass 1
+    passes = 2 if apply_mask else 1
+    assert frangi.FRANGI_TAIL_KERNEL.launches == before + passes * len(params.sigmas)
     v_p, m_p = frangi.vesselness_frame(frame, params, apply_mask)
     _same(v_k, v_p)
     _same(m_k, m_p)

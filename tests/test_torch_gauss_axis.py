@@ -5,10 +5,11 @@ reflected index, the multiply-add chain) against the plain versions, so that the
 kernel itself, on the card: ``tests/test_torch_gauss_axis_cuda.py``).
 
 The LoG is held where its taps are shorter than the axis, with the sigmas
-of ``test_torch_segmentation.test_filters_bitwise`` and others that agree.
-Jitted alone, XLA rounds ``_correlate1d`` differently where its reflected
-taps reach past the axis's extent, and ``gaussian_laplace`` with some
-sigmas (0.4, 1, 1 or 1, 2, 2 in 3D); ROADMAP Queue 3 lists it.
+of ``test_torch_segmentation.test_filters_bitwise`` and others that agree;
+where its reflected taps reach past the axis's extent, in
+``tests/test_torch_log_programs.py``.  Jitted alone, ``gaussian_laplace``
+with a sigma of exactly 1 along an axis (0.4, 1, 1 or 1, 2, 2 in 3D)
+rounds otherwise; ROADMAP Queue 3 lists it.
 """
 import numpy as np
 import pytest
@@ -31,11 +32,14 @@ LOG_SHAPES = [(12, 48, 48), (24, 32, 128), (64, 128)]  # every tap radius below 
 LOG_TAPS = [(1.0, 0), (1.0, 2), (2.5, 2), (0.3, 0)]
 
 
-def kernel_model(x, taps, axis, round_half=False):
+def kernel_model(x, taps, axis, round_half=False, shared=None):
     """``csrc/gauss_axis.cu`` in torch: each output reads tap k at the
     reflected index i + offset_k (numpy's "symmetric") and sums
-    fma(x0, w0, x1 * w1), then fma(xk, wk, acc), rounding once a step;
-    optionally rounded through float16."""
+    fma(x0, w0, x1 * w1), then fma(xk, wk, acc), rounding once a step; at
+    the positions where ``shared`` (``filters.shared_products``' table)
+    flags a tap, its product is rounded and added (for the first add the
+    other product is contracted, or neither); optionally rounded through
+    float16."""
     from nellie_tpu_torch.kernels._fp import fma_plain
 
     n = x.shape[axis]
@@ -45,13 +49,22 @@ def kernel_model(x, taps, axis, round_half=False):
         m = torch.remainder(i + offset, 2 * n)
         return torch.index_select(x, axis, torch.where(m < n, m, 2 * n - 1 - m))
 
+    def flag(k):  # tap k's flags broadcast along the axis
+        col = torch.zeros(n, dtype=torch.bool) if shared is None else \
+            torch.from_numpy(np.ascontiguousarray(shared[:, k]))
+        return col.reshape([n if a == axis else 1 for a in range(x.ndim)])
+
     (o0, w0), rest = taps[0], taps[1:]
     if not rest:
         acc = at(o0) * w0
     else:
-        acc = fma_plain(at(o0), w0, at(rest[0][0]) * rest[0][1])
-        for o, w in rest[1:]:
-            acc = fma_plain(at(o), w, acc)
+        (o1, w1) = rest[0]
+        p0, p1 = at(o0) * w0, at(o1) * w1
+        acc = torch.where(flag(0) & flag(1), p0 + p1,
+                          torch.where(flag(0), fma_plain(at(o1), w1, p0),
+                                      fma_plain(at(o0), w0, p1)))
+        for k, (o, w) in enumerate(rest[1:], start=2):
+            acc = torch.where(flag(k), acc + at(o) * w, fma_plain(at(o), w, acc))
     return acc.half().float() if round_half else acc
 
 
@@ -112,7 +125,10 @@ def test_kernel_model_equals_plain(frame, round_half):
             assert_bitwise(got.numpy(), want.numpy())
         for sigma, order in LOG_TAPS:
             w = filters.gaussian_kernel1d(sigma, 4.0, order=order)
-            got = kernel_model(x, filters.nonzero_taps(w), axis)
+            taps = filters.nonzero_taps(w)
+            got = kernel_model(x, taps, axis,
+                               shared=filters.shared_products(x.shape[axis], taps,
+                                                              axis == x.ndim - 1))
             assert_bitwise(got.numpy(), filters._correlate1d_plain(x, w, axis).numpy())
 
 
