@@ -140,11 +140,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    and nearest seed (``kernels/csrc/nearest_seed.cu``, through
    ``edt.nearest_seed``), exactly against ``skeletonize_3d_plain`` and
    ``nearest_seed_plain``: ``thin_masks`` at three shapes (the thinning's
-   rounds, flag reads and sweeps also held to ``thin26_model``),
-   ``seed_inputs`` in 3D and 2D with and without objects and a search
-   radius, then Network's largest call on each main path with its own
-   operands, with their times on a cold L2, the plain bodies' and the byte
-   bounds of the passes each call runs.  ``max_abs_err`` is
+   rounds, flag reads, sweeps and CUDA kernels also held to
+   ``thin26_model``), ``seed_inputs`` in 3D and 2D with and without
+   objects and a search radius (each call's CUDA kernels held to
+   ``seed_work``'s), then Network's largest call on each main path with its
+   own operands, with their times on a cold L2, the plain bodies' and the
+   byte bounds of each call's inputs read and outputs written once; both
+   rows also give the CUDA kernels that the main paths' calls launched
+   (``kernel_launches``: one call runs the whole loop).  ``max_abs_err`` is
    the largest |kernel - plain| over the compared calls.  The multiply-add,
    correlation and tail rows are timed on a cold L2 cache (flushed before
    every call), so that the byte bounds at the memory rate hold;
@@ -637,6 +640,7 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
         im_info, timings = run(fi, device="cuda", return_timings=True)
     launches = nn.NN_KERNEL.launches
     hand = read_hand_counts()
+    kernel_launches = read_kernel_launches()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     for stage, seconds in timings.items():
         print(f"{tag}stage {stage}: {seconds:.3f} s [{gpu}]", flush=True)
@@ -682,8 +686,9 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
     required = {k: n for k, n in hand.items() if k != "thin26" or len(shape) == 4}
     if min(required.values()) == 0:
         fail(f"{tag}the main path never launched one of the hand kernels: {json.dumps(hand)}")
-    print(f"{tag}Network's kernels on the main path: thin26 {hand['thin26']} launches, "
-          f"nearest_seed {hand['nearest_seed']} launches", flush=True)
+    print(f"{tag}Network's kernels on the main path: thin26 {hand['thin26']} calls "
+          f"({kernel_launches['thin26']} CUDA kernels), nearest_seed {hand['nearest_seed']} "
+          f"calls ({kernel_launches['nearest_seed']} CUDA kernels)", flush=True)
 
     tables = check_tables(im_info, skip_nodes=False)
     print(f"{tag}feature rows: " + ", ".join(f"{k} {len(v)}" for k, v in tables.items()),
@@ -705,7 +710,9 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
     if sorted(adjacency) != ["b_o", "n_b", "n_o", "v_b", "v_n", "v_o"] or any(
             len(v) != shape[0] for v in adjacency.values()):
         fail("adjacency_maps.pkl lacks a key or a frame")
-    return launches, watch.launches, im_info, timings, {"launches": hand, "calls": calls.calls,
+    return launches, watch.launches, im_info, timings, {"launches": hand,
+                                                        "kernel_launches": kernel_launches,
+                                                        "calls": calls.calls,
                                                         "fma_largest": calls.fma_largest,
                                                         "largest": calls.largest(),
                                                         "nn": calls.nn_operands(),
@@ -1652,8 +1659,8 @@ def thin26_model(mask, lut, rounds_per_read):
     foreground, the border, select and commit kernels over it (each
     writes only buffers it does not read), the host reading the rounds'
     commit flags once every ``rounds_per_read`` rounds.  Returns (the
-    skeleton, (rounds, flag reads, sweeps)) as the C entry point counts
-    them.  ``lut``: the 2**23-byte table as uint8."""
+    skeleton, (rounds, flag reads, sweeps, kernels launched)) as the C
+    entry point counts them.  ``lut``: the 2**23-byte table as uint8."""
     from nellie_tpu_torch.kernels.simple_point import OFFSETS_26
 
     fg = np.pad(np.asarray(mask, bool).astype(np.uint8), 1)  # outside the volume: 0
@@ -1670,13 +1677,14 @@ def thin26_model(mask, lut, rounds_per_read):
             code |= at(fg, off).astype(np.uint32) << np.uint32(k)
         return (lut[code >> 3] >> (code & 7)) & 1
 
-    stats = [0, 0, 0]
+    stats = [0, 0, 0, 0]
     changed = z.size > 0
     while changed:
         changed = False
         stats[2] += 1
         for d in THIN_DIRECTIONS:
             remaining[z, y, x] = at(fg, (0, 0, 0)) & (1 - at(fg, d)) & deletable()
+            stats[3] += 1
             go = True
             while go:
                 flags = []
@@ -1693,6 +1701,7 @@ def thin26_model(mask, lut, rounds_per_read):
                     flags.append(bool(commit.any()))
                 stats[0] += rounds_per_read
                 stats[1] += 1
+                stats[3] += 2 * rounds_per_read
                 changed = changed or any(flags)
                 go = flags[-1]
     return fg[1:-1, 1:-1, 1:-1].astype(bool), tuple(stats)
@@ -1710,62 +1719,6 @@ def seed_inputs(shape, seed=0, seed_fraction=0.05):
     seeds = np.where((rng.random(shape) < seed_fraction) & mask,
                      rng.integers(1, 9, shape), 0)
     return seeds.astype(np.int32), objects.astype(np.int32)
-
-
-def nearest_seed_model(seeds, objects, sampling, max_radius_px=None, restrict=True):
-    """``kernels/csrc/nearest_seed.cu`` in torch on the CPU: one int32 index
-    a voxel in two buffers, one pass per (step, offset) reading one and
-    writing the other; a candidate's object read from the objects at its
-    source (the plain body carries it beside the index); the current
-    distance recomputed from the index; with ``restrict``, only the voxels
-    outside object 0 run when no seed lies in object 0.  Returns (labels,
-    distances) as the wrapper does."""
-    import itertools
-
-    from nellie_tpu_torch.kernels import _fp, edt
-
-    seeds = torch.as_tensor(seeds)
-    shape, ndim, n = tuple(seeds.shape), seeds.ndim, seeds.numel()
-    samp = [_fp.f32(s) for s in sampling]
-    strides = [int(np.prod(shape[a + 1:], dtype=np.int64)) for a in range(ndim)]
-    is_seed = seeds.reshape(-1) > 0
-    state = [torch.where(is_seed, torch.arange(n, dtype=torch.int32), -1) for _ in range(2)]
-    obj = None if objects is None else torch.as_tensor(objects).reshape(-1).to(torch.int32)
-    voxels = torch.arange(n)
-    if obj is not None and restrict and not bool((is_seed & (obj == 0)).any()):
-        voxels = torch.nonzero(obj != 0).reshape(-1)
-    coords = [torch.div(voxels, strides[a], rounding_mode="floor") % shape[a]
-              for a in range(ndim)]
-
-    def dist(c, idx):
-        q = [torch.div(idx.clamp(min=0), strides[a], rounding_mode="floor") % shape[a]
-             for a in range(ndim)]
-        diffs = [((c[a] - q[a]).to(torch.int32).float() * samp[a],) * 2 for a in range(ndim)]
-        return torch.where(idx >= 0, _fp.sum_of_products(diffs), float("inf"))
-
-    cur = 0
-    for step in edt.jump_steps(shape, max_radius_px):
-        for off in itertools.product((-1, 0, 1), repeat=ndim):
-            if not any(off):
-                continue
-            src, dst = state[cur], state[1 - cur]
-            target = [c + o * step for c, o in zip(coords, off)]
-            inside = torch.ones(voxels.shape, dtype=torch.bool)
-            for a in range(ndim):
-                inside &= (target[a] >= 0) & (target[a] < shape[a])
-            source = sum(t.clamp(0, shape[a] - 1) * strides[a] for a, t in enumerate(target))
-            cand = torch.where(inside, src[source], -1)
-            ok = cand >= 0
-            if obj is not None:
-                ok &= obj[source] == obj[voxels]
-            mine = src[voxels]
-            take = torch.where(ok, dist(coords, cand), float("inf")) < dist(coords, mine)
-            dst[voxels] = torch.where(take, cand, mine)
-            cur = 1 - cur
-    idx = state[cur]
-    every = [torch.div(torch.arange(n), strides[a], rounding_mode="floor") % shape[a]
-             for a in range(ndim)]
-    return (edt._seed_values(seeds, idx), _fp.sqrt(dist(every, idx)).reshape(shape))
 
 
 def filter_frame(shape, seed=0, smooth=False):
@@ -2260,10 +2213,20 @@ def hand_counts():
 def reset_hand_counts():
     for kernel in hand_counts().values():
         kernel.launches = 0
+        if hasattr(kernel, "kernel_launches"):
+            kernel.kernel_launches = 0
 
 
 def read_hand_counts():
     return {name: kernel.launches for name, kernel in hand_counts().items()}
+
+
+def read_kernel_launches():
+    """The CUDA kernels launched by the wrappers whose one call launches
+    many (``thin26``, ``nearest_seed``); every other wrapper's call
+    launches one kernel."""
+    return {name: kernel.kernel_launches for name, kernel in hand_counts().items()
+            if hasattr(kernel, "kernel_launches")}
 
 
 def scipy_roots(mask, connectivity):
@@ -2392,7 +2355,7 @@ def time_ccl(gpu, name, mask, connectivity):
 
 
 def fmt_share(bound_ms, ms):
-    return "not measured" if ms is None else f"{bound_ms / ms:.3f}"
+    return "not measured" if ms is None else f"{bound_ms / ms:.4g}"
 
 
 def ccl_rows(recorded, capacity_calls):
@@ -3017,29 +2980,26 @@ def phase_tail_kernel(gpu, largest):
     return rows, worst
 
 
-def thin_bound(n_voxels, n_list, rounds, sweeps):
+def thin_bound(n_voxels):
     """(bound_ms, "bytes") of one thinning: the mask read and the skeleton
-    written once (1 byte a voxel each), and what each pass of the loop must
-    move over the starting foreground's ``n_list`` voxels, for the
-    ``rounds`` the data needs (the plain body's): a direction's border pass
-    reads fg and writes the candidates (2 bytes), a round reads fg and the
-    candidates and writes del_now (3), then reads del_now and writes fg and
-    the candidates (3); at the memory rate."""
-    nbytes = 2 * n_voxels + n_list * (2 * 6 * sweeps + 6 * rounds)
-    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+    written once, one byte a voxel each, at the memory rate.  The state
+    that the loop's passes touch between them (the foreground's list and
+    three byte buffers) stays in the L2 and is not counted."""
+    return 2 * n_voxels / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
 def check_thin(what, mask, lut):
     """The kernel through ``skeleton.skeletonize_3d`` (one launch) against
     ``skeletonize_3d_plain`` on the card, exactly; returns (max |kernel -
-    plain|, the kernel's (rounds, flag reads, sweeps))."""
+    plain|, the kernel's (rounds, flag reads, sweeps, kernels launched))."""
     from nellie_tpu_torch.kernels import skeleton
 
-    before = skeleton.THIN26_KERNEL.launches
+    kernel = skeleton.THIN26_KERNEL
+    before, kernels_before = kernel.launches, kernel.kernel_launches
     got = skeleton.skeletonize_3d(mask, lut)
-    stats = skeleton.THIN26_KERNEL.last_stats
-    if skeleton.THIN26_KERNEL.launches != before + 1:
-        fail(f"skeletonize_3d on {what} did not launch thin26 once")
+    stats = kernel.last_stats
+    if kernel.launches != before + 1 or kernel.kernel_launches != kernels_before + stats[3]:
+        fail(f"skeletonize_3d on {what} did not launch thin26 once, or miscounted its kernels")
     want = skeleton.skeletonize_3d_plain(mask, lut)
     if not same_tensor(got, want):
         fail(f"thin26 differs from its plain body on {what} in "
@@ -3050,9 +3010,9 @@ def check_thin(what, mask, lut):
 def phase_thin_kernel(gpu, largest):
     """The 3D thinning kernel through ``skeleton.skeletonize_3d`` against
     ``skeletonize_3d_plain`` on the card: ``thin_masks`` at three shapes
-    (its rounds, flag reads and sweeps also held to ``thin26_model``), then
-    Network's largest call on the 3D path on its own mask and table,
-    exactly, with its times on a cold L2 cache.  ``largest``: {path:
+    (its rounds, flag reads, sweeps and kernels launched also held to
+    ``thin26_model``), then Network's largest call on the 3D path on its
+    own mask and table, exactly, with its times on a cold L2 cache.  ``largest``: {path:
     (voxels, (mask on the host, table)) or (0, None)}.  Returns (rows, max
     |kernel - plain| over every check)."""
     from nellie_tpu_torch.kernels import skeleton
@@ -3066,38 +3026,35 @@ def phase_thin_kernel(gpu, largest):
             err, stats = check_thin(f"{name} {shape}", torch.from_numpy(m).cuda(), lut)
             _, want = thin26_model(m, table, skeleton.ROUNDS_PER_READ)
             if stats != want:
-                fail(f"thin26 on {name} {shape}: rounds, reads, sweeps {stats}, the model's {want}")
+                fail(f"thin26 on {name} {shape}: rounds, reads, sweeps, kernels {stats}, the "
+                     f"model's {want}")
             worst = max(worst, err)
             cases += 1
     print(f"thin26 (through skeletonize_3d) = plain body exactly on {cases} synthetic masks "
-          "(tubes, blobs, a sheet, noise, a cross on every face, empty, full; rounds, flag reads "
-          "and sweeps as thin26_model's)", flush=True)
+          "(tubes, blobs, a sheet, noise, a cross on every face, empty, full; rounds, flag reads, "
+          "sweeps and kernels launched as thin26_model's)", flush=True)
     rows = {}
     for path, (n, recorded) in largest.items():
         if recorded is None:
             fail(f"the {path} path made no skeletonize_3d call")
         mask, table_used = recorded
         mask, table_used = mask.cuda(), table_used.cuda()
-        err, (rounds_k, reads, sweeps) = check_thin(f"the {path} path's largest call", mask,
-                                                    table_used)
+        err, (rounds, reads, sweeps, kernels) = check_thin(f"the {path} path's largest call",
+                                                           mask, table_used)
         worst = max(worst, err)
-        once = skeleton.THIN26_KERNEL(mask, table_used, rounds_per_read=1)
-        rounds, _, _ = skeleton.THIN26_KERNEL.last_stats
-        if not torch.equal(once, skeleton.skeletonize_3d(mask, table_used)):
-            fail("thin26 with one round a read differs from its default")
         n_list = int(mask.sum())
         plain_ms, _ = cold_times(lambda: skeleton.skeletonize_3d_plain(mask, table_used), 2,
                                  on_device=False)
         ms, on_device = cold_times(lambda: skeleton.skeletonize_3d(mask, table_used), 5)
-        bound_ms, bound_by = thin_bound(n, n_list, rounds, sweeps)
+        bound_ms, bound_by = thin_bound(n)
         print(f"thin26 = plain body exactly, and its time, at the {path} path's largest call "
               f"({tuple(mask.shape)}, {n_list} foreground voxels, {sweeps} sweeps, {rounds} "
-              f"rounds needed, {rounds_k} run in {reads} flag reads): kernel {ms:.4f} ms a call "
-              f"on a cold L2 (on the device {fmt_ms(on_device)}), plain {plain_ms:.4f} ms, "
-              f"library none, bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f} "
+              f"rounds in {reads} flag reads, {kernels} CUDA kernels a call): kernel {ms:.4f} ms "
+              f"a call on a cold L2 (on the device {fmt_ms(on_device)}), plain {plain_ms:.4f} ms, "
+              f"library none, bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.4g} "
               f"(on the device {fmt_share(bound_ms, on_device)}) [{gpu}]", flush=True)
         rows[path] = {"shape": list(mask.shape), "foreground": n_list, "sweeps": sweeps,
-                      "rounds": rounds, "rounds_run": rounds_k, "flag_reads": reads,
+                      "rounds": rounds, "flag_reads": reads, "kernels_a_call": kernels,
                       "max_abs_err": err, "ms": ms, "device_ms": on_device,
                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                       "library_ms": None}
@@ -3105,28 +3062,48 @@ def phase_thin_kernel(gpu, largest):
     return rows, worst
 
 
-def seed_bound(n_voxels, work, ndim, n_steps, has_obj):
-    """(bound_ms, "bytes") of one nearest seed: each (step, offset) pass
-    reads the state at each of the ``work`` voxels that run and at its
-    source and writes it (12 bytes), and the objects at both (8 more); the
-    seeds read and the labels and distances written once (12 bytes a
-    voxel); at the memory rate."""
-    passes = n_steps * (3 ** ndim - 1)
-    nbytes = passes * work * (12 + (8 if has_obj else 0)) + 12 * n_voxels
+def seed_bound(seeds, objects):
+    """(bound_ms, "bytes") of one nearest seed: the seeds and the objects
+    read and the labels (the seeds' type) and the float32 distances written
+    once, at the memory rate.  The state that the passes touch between them
+    (two int32 buffers) is not counted."""
+    nbytes = seeds.numel() * (2 * seeds.element_size() + 4)
+    if objects is not None:
+        nbytes += objects.numel() * objects.element_size()
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def seed_work(seeds, objects, max_radius_px):
+    """(the voxels that run, the CUDA kernels launched) of one nearest
+    seed: the voxels outside object 0 when objects are given and no seed
+    lies in object 0, else every voxel; one kernel a step and offset when
+    any voxel runs, and the distance's."""
+    from nellie_tpu_torch.kernels import edt
+
+    work = seeds.numel()
+    if objects is not None and not bool(((seeds > 0) & (objects == 0)).any()):
+        work = int((objects != 0).sum())
+    steps = len(edt.jump_steps(tuple(seeds.shape), max_radius_px))
+    passes = steps * (3 ** seeds.ndim - 1) if work > 0 else 0
+    return work, passes + 1
+
+
 def check_seed(what, args):
-    """The kernel through ``edt.nearest_seed`` (one launch, no
-    ``fma_f32``) against ``nearest_seed_plain`` on the card: labels
-    exactly, distances bit for bit; returns max |kernel - plain| over the
-    labels and the finite distances."""
+    """The kernel through ``edt.nearest_seed`` (one launch of
+    ``seed_work``'s kernels, no ``fma_f32``) against ``nearest_seed_plain``
+    on the card: labels exactly, distances bit for bit; returns max |kernel
+    - plain| over the labels and the finite distances."""
     from nellie_tpu_torch.kernels import _fp, edt
 
-    before, fma = edt.NEAREST_SEED_KERNEL.launches, _fp.FMA_KERNEL.launches
+    kernel = edt.NEAREST_SEED_KERNEL
+    before, kernels_before = kernel.launches, kernel.kernel_launches
+    fma = _fp.FMA_KERNEL.launches
     labels, dist = edt.nearest_seed(*args)
-    if edt.NEAREST_SEED_KERNEL.launches != before + 1 or _fp.FMA_KERNEL.launches != fma:
-        fail(f"nearest_seed on {what} did not launch its kernel once, or launched fma_f32")
+    _, kernels = seed_work(args[0], args[1], args[3] if len(args) > 3 else None)
+    if (kernel.launches != before + 1 or _fp.FMA_KERNEL.launches != fma
+            or kernel.kernel_launches != kernels_before + kernels):
+        fail(f"nearest_seed on {what} did not launch its kernel once with {kernels} CUDA "
+             f"kernels, or launched fma_f32")
     want = edt.nearest_seed_plain(*args)
     if not (torch.equal(labels, want[0]) and same_tensor(dist, want[1])):
         fail(f"nearest_seed differs from its plain body on {what}")
@@ -3159,7 +3136,7 @@ def phase_seed_kernel(gpu, largest):
           "synthetic calls (3D and 2D, with and without objects, max_radius_px 3 and none, "
           "seeds in object 0)", flush=True)
     rows = {}
-    for path, (n, recorded) in largest.items():
+    for path, (_, recorded) in largest.items():
         if recorded is None:
             fail(f"the {path} path made no nearest_seed call")
         seeds, objects, *rest = recorded
@@ -3169,19 +3146,18 @@ def phase_seed_kernel(gpu, largest):
         sampling = rest[0] if rest else None
         radius = rest[1] if len(rest) > 1 else None
         steps = edt.jump_steps(tuple(seeds.shape), radius)
-        work = n
-        if objects is not None and not bool(((seeds > 0) & (objects == 0)).any()):
-            work = int((objects != 0).sum())
+        work, kernels = seed_work(seeds, objects, radius)
         plain_ms, _ = cold_times(lambda: edt.nearest_seed_plain(*args), 2, on_device=False)
         ms, on_device = cold_times(lambda: edt.nearest_seed(*args), 10)
-        bound_ms, bound_by = seed_bound(n, work, seeds.ndim, len(steps), objects is not None)
+        bound_ms, bound_by = seed_bound(seeds, objects)
         print(f"nearest_seed = plain body bit for bit, and its time, at the {path} path's "
               f"largest call ({tuple(seeds.shape)}, sampling {sampling}, {work} voxels run, "
-              f"{len(steps)} steps): kernel {ms:.4f} ms a call on a cold L2 (on the device "
-              f"{fmt_ms(on_device)}), plain {plain_ms:.4f} ms, library none, bound "
-              f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f} (on the device "
-              f"{fmt_share(bound_ms, on_device)}) [{gpu}]", flush=True)
+              f"{len(steps)} steps, {kernels} CUDA kernels a call): kernel {ms:.4f} ms a call "
+              f"on a cold L2 (on the device {fmt_ms(on_device)}), plain {plain_ms:.4f} ms, "
+              f"library none, bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.4g} "
+              f"(on the device {fmt_share(bound_ms, on_device)}) [{gpu}]", flush=True)
         rows[path] = {"shape": list(seeds.shape), "voxels_run": work, "steps": len(steps),
+                      "kernels_a_call": kernels,
                       "max_abs_err": err, "ms": ms, "device_ms": on_device,
                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                       "library_ms": None}
@@ -3389,6 +3365,9 @@ def main() -> None:
                         for name in hand["launches"]}
     for name in ("ccl_union_find", "fma_f32", "gauss_axis", "frangi_tail"):
         launches_by_path[name]["capacity_1024"] = capacity["launches"][name]
+    # a call of thin26 or nearest_seed launches many CUDA kernels
+    kernel_launches_by_path = {name: {"3D": n, "2D": hand_2d["kernel_launches"][name]}
+                               for name, n in hand["kernel_launches"].items()}
     fma_by_caller = {"3D": hand["fma_by_caller"], "2D": hand_2d["fma_by_caller"],
                      "capacity_1024": capacity["fma_by_caller"]}
     print(json.dumps({"kernels": [
@@ -3434,13 +3413,18 @@ def main() -> None:
          "replaces": "nellie_tpu/kernels/skeleton.py:213",
          "launches": hand["launches"]["thin26"], "max_abs_err": thin_err,
          **{k: thin_rows["3D"][k] for k in keys},
-         "launches_by_path": launches_by_path["thin26"], "paths": thin_rows},
+         "launches_by_path": launches_by_path["thin26"],
+         "kernel_launches": hand["kernel_launches"]["thin26"],
+         "kernel_launches_by_path": kernel_launches_by_path["thin26"], "paths": thin_rows},
         {"name": "nearest_seed", "route": "cuda",
          "source": "nellie_tpu_torch/kernels/csrc/nearest_seed.cu",
          "replaces": "nellie_tpu/kernels/edt.py:73",
          "launches": hand["launches"]["nearest_seed"], "max_abs_err": seed_err,
          **{k: seed_rows["3D"][k] for k in keys},
-         "launches_by_path": launches_by_path["nearest_seed"], "paths": seed_rows},
+         "launches_by_path": launches_by_path["nearest_seed"],
+         "kernel_launches": hand["kernel_launches"]["nearest_seed"],
+         "kernel_launches_by_path": kernel_launches_by_path["nearest_seed"],
+         "paths": seed_rows},
     ]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

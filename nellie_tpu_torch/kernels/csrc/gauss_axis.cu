@@ -67,7 +67,6 @@ __device__ __forceinline__ int reflect(int idx, int n) {
   return m < n ? m : period - 1 - m;
 }
 
-// The tap sum of one output from a reader of its taps' inputs
 // The taps' sum at one output; shared: that output position's flags of
 // the taps whose product is computed once (null: none)
 template <bool ROUND_HALF, class At>

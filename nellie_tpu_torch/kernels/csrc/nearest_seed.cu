@@ -41,7 +41,8 @@
 // buffers.
 //
 // The kernels allocate nothing; the C entry point returns the first CUDA
-// error and says which buffer holds the result.
+// error, says which buffer holds the result and counts the kernels it
+// launched.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -132,10 +133,10 @@ extern "C" {
 // int32 voxels that run (n_list of them) or null for every voxel; steps:
 // the n_steps jump lengths (host).  dist: float32 out, the root of the
 // distance to the final seed.  *result is set to 0 or 1: the buffer (a or b)
-// that holds the final state.
+// that holds the final state; *launched to the number of kernels launched.
 int nearest_seed(void* idx_a, void* idx_b, const void* obj, const void* list, int n_list,
                  int ndim, const int* shape, const float* sampling, const int* steps,
-                 int n_steps, void* dist, int* result, void* stream) {
+                 int n_steps, void* dist, int* result, int* launched, void* stream) {
   if (ndim < 1 || ndim > 3 || n_steps < 0) return (int)cudaErrorInvalidValue;
   Grid g;
   g.ndim = ndim;
@@ -157,6 +158,7 @@ int nearest_seed(void* idx_a, void* idx_b, const void* obj, const void* list, in
   cudaStream_t s = (cudaStream_t)stream;
   int* bufs[2] = {(int*)idx_a, (int*)idx_b};
   int cur = 0;
+  *launched = 0;
   cudaError_t err;
   if (work > 0) {
     const int blocks = (work + THREADS - 1) / THREADS;
@@ -170,12 +172,14 @@ int nearest_seed(void* idx_a, void* idx_b, const void* obj, const void* list, in
                                                   (const int*)obj, g, o0 * step, o1 * step,
                                                   o2 * step);
             if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+            ++*launched;
             cur = 1 - cur;
           }
     }
   }
   jfa_distance<<<(n + THREADS - 1) / THREADS, THREADS, 0, s>>>(bufs[cur], (float*)dist, n, g);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ++*launched;
   *result = cur;
   return (int)cudaSuccess;
 }

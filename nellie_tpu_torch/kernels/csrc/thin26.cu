@@ -45,7 +45,9 @@
 // nothing; the sweep changed the volume if any of its rounds committed.
 //
 // The kernels allocate nothing; the C entry point returns the first CUDA
-// error, and counts its rounds, flag reads and sweeps into `stats`.
+// error, and counts its rounds, flag reads, sweeps and kernel launches
+// (six border passes a sweep and two a round; the flag memsets, one a read,
+// are left out) into `stats`.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -179,7 +181,8 @@ extern "C" {
 // order) in place.  list: the int32 linear indices of fg's n voxels that are
 // set on entry; del_now and remaining: byte scratch of the volume's size,
 // zero on entry; flags: int32 device scratch of rounds_per_read values; lut:
-// the 2**23-byte table.  stats (host, 3 values): rounds, flag reads, sweeps.
+// the 2**23-byte table.  stats (host, 4 values): rounds, flag reads, sweeps,
+// kernels launched.
 int thin26(void* fg, const void* list, int n, void* del_now, void* remaining, void* flags,
            const void* lut, int depth, int height, int width, int rounds_per_read,
            long long* stats, void* stream) {
@@ -187,7 +190,7 @@ int thin26(void* fg, const void* list, int n, void* del_now, void* remaining, vo
   if (depth < 1 || height < 1 || width < 1 || voxels > 2147483647LL || n < 0 ||
       rounds_per_read < 1 || rounds_per_read > MAX_ROUNDS_PER_READ)
     return (int)cudaErrorInvalidValue;
-  stats[0] = stats[1] = stats[2] = 0;
+  stats[0] = stats[1] = stats[2] = stats[3] = 0;
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   uint8_t* f = (uint8_t*)fg;
@@ -208,6 +211,7 @@ int thin26(void* fg, const void* list, int n, void* del_now, void* remaining, vo
       thin_border<<<blocks, THREADS, 0, s>>>(l, n, f, table, rem, g, DIRECTIONS[d][0],
                                              DIRECTIONS[d][1], DIRECTIONS[d][2]);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      ++stats[3];
       bool go = true;
       while (go) {
         if ((err = cudaMemsetAsync(flag, 0, sizeof(int) * rounds_per_read, s)) != cudaSuccess)
@@ -218,6 +222,7 @@ int thin26(void* fg, const void* list, int n, void* del_now, void* remaining, vo
           if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
         }
         stats[0] += rounds_per_read;
+        stats[3] += 2 * rounds_per_read;
         if ((err = cudaMemcpyAsync(host, flag, sizeof(int) * rounds_per_read,
                                    cudaMemcpyDeviceToHost, s)) != cudaSuccess)
           return (int)err;

@@ -11,7 +11,9 @@ Port of ``nellie_tpu/kernels/edt.py``:
   hand-written kernel ``csrc/nearest_seed.cu`` (built for ``sm_90a`` with
   ``nvcc`` on first use, bound through ``ctypes``; one C call runs every
   step), or raises; on a CPU tensor it runs :func:`nearest_seed_plain`.
-  ``NEAREST_SEED_KERNEL.launches`` counts the kernel's calls.
+  ``NEAREST_SEED_KERNEL.launches`` counts the wrapper's calls and
+  ``NEAREST_SEED_KERNEL.kernel_launches`` the CUDA kernels those calls
+  launched (one a step and offset, and the distance's).
 """
 from __future__ import annotations
 
@@ -119,16 +121,20 @@ def _seed_values(seed_labels: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 class _NearestSeedKernel(CudaKernel):
     """The compiled jump flooding (``csrc/nearest_seed.cu``), built once per
-    process, with a launch count."""
+    process, with a launch count and a count of the CUDA kernels launched."""
 
     source = "nearest_seed.cu"
     flags = (*BASE_FLAGS, "-fmad=false")
+
+    def __init__(self):
+        super().__init__()
+        self.kernel_launches = 0
 
     def bind(self, lib):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.nearest_seed.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ctypes.POINTER(i32),
                                      ctypes.POINTER(ctypes.c_float), ctypes.POINTER(i32), i32,
-                                     ptr, ctypes.POINTER(i32), ptr]
+                                     ptr, ctypes.POINTER(i32), ctypes.POINTER(i32), ptr]
         lib.nearest_seed.restype = i32
 
     def __call__(self, seed_labels, obj_labels=None, sampling=None, max_radius_px=None):
@@ -165,16 +171,19 @@ class _NearestSeedKernel(CudaKernel):
                 if not bool((is_seed & (obj == 0)).any()):
                     voxels = torch.nonzero((obj != 0).reshape(-1)).reshape(-1).to(torch.int32)
             dist = torch.empty(shape, dtype=torch.float32, device=dev)
-            result = ctypes.c_int(0)
+            result, launched = ctypes.c_int(0), ctypes.c_int(0)
             err = lib.nearest_seed(
                 idx_a.data_ptr(), idx_b.data_ptr(), None if obj is None else obj.data_ptr(),
                 None if voxels is None else voxels.data_ptr(),
                 0 if voxels is None else voxels.numel(), ndim, (ctypes.c_int * 3)(*shape),
                 (ctypes.c_float * 3)(*(f32(s) for s in sampling)),
                 (ctypes.c_int * len(steps))(*steps), len(steps), dist.data_ptr(),
-                ctypes.byref(result), torch.cuda.current_stream().cuda_stream)
+                ctypes.byref(result), ctypes.byref(launched),
+                torch.cuda.current_stream().cuda_stream)
             check_error("nearest_seed launch", err)
-            self.count_launch()
+            with self._lock:
+                self.count_launch()
+                self.kernel_launches += launched.value
             idx = idx_b if result.value else idx_a
             return _seed_values(seed_labels, idx), dist
 

@@ -10,7 +10,8 @@ reference shows that its three backends agree
 hand-written kernel ``csrc/thin26.cu`` (built for ``sm_90a`` with ``nvcc``
 on first use, bound through ``ctypes``), or raises; on a CPU tensor it runs
 :func:`skeletonize_3d_plain`.  ``THIN26_KERNEL.launches`` counts the
-kernel's calls (one C call runs the whole loop).
+wrapper's calls (one C call runs the whole loop) and
+``THIN26_KERNEL.kernel_launches`` the CUDA kernels those calls launched.
 
 The sweep is the reference's exactly: six border directions per outer
 iteration; within a direction the candidates are fixed to the border
@@ -129,13 +130,15 @@ ROUNDS_PER_READ = 4  # the kernel's rounds between two host reads of its commit 
 
 class _Thin26Kernel(CudaKernel):
     """The compiled thinning (``csrc/thin26.cu``), built once per process,
-    with a launch count and the last call's (rounds, flag reads, sweeps)."""
+    with a launch count, a count of the CUDA kernels launched and the last
+    call's (rounds, flag reads, sweeps, kernels launched)."""
 
     source = "thin26.cu"
 
     def __init__(self):
         super().__init__()
-        self.last_stats = (0, 0, 0)
+        self.kernel_launches = 0
+        self.last_stats = (0, 0, 0, 0)
 
     def bind(self, lib):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -164,14 +167,16 @@ class _Thin26Kernel(CudaKernel):
             del_now = torch.zeros(fg.shape, dtype=torch.uint8, device=dev)
             remaining = torch.zeros(fg.shape, dtype=torch.uint8, device=dev)
             flags = torch.empty(rounds_per_read, dtype=torch.int32, device=dev)
-            stats = (ctypes.c_longlong * 3)()
+            stats = (ctypes.c_longlong * 4)()
             err = lib.thin26(fg.data_ptr(), voxels.data_ptr(), voxels.numel(), del_now.data_ptr(),
                              remaining.data_ptr(), flags.data_ptr(), lut.data_ptr(),
                              *fg.shape, rounds_per_read, stats,
                              torch.cuda.current_stream().cuda_stream)
         check_error("thin26 launch", err)
-        self.count_launch()
-        self.last_stats = tuple(stats)
+        with self._lock:
+            self.count_launch()
+            self.kernel_launches += stats[3]
+            self.last_stats = tuple(stats)
         return fg
 
 

@@ -13,7 +13,7 @@ derivative alone takes three: interior and two edges), so each
 difference of two inner-gradient values sees both products and LLVM
 contracts the left one into a fused multiply-add.  Prints one JSON line per
 shape and program with the axes where that happens.  The port's
-``hessian.second_derivative_modes`` (``_fuses_inner_gradient``) mirrors
+``hessian.fused_axes`` (``_fuses_inner_gradient``) mirrors
 these lines: with the mask only a last axis of exactly 128; without it
 every axis but a last one longer than 128.
 """

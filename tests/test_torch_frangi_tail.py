@@ -113,7 +113,7 @@ def test_vesselness_without_the_mask():
     """``apply_mask=False``: the mask is all true, more voxels respond, and
     the vesselness is the reference's program without the mask bit for
     bit.  That program rounds the diagonal components otherwise
-    (``hessian.second_derivative_modes``), so inside the mask its response
+    (``hessian.fused_axes``), so inside the mask its response
     may fall an ulp below the masked one's, in the reference's too."""
     frame = cascade_frame((12, 48, 48))
     params = frangi.FrangiParams(**PARAMS[3])

@@ -6,11 +6,13 @@ reference's jitted ``nearest_seed`` (JFA+1) with labels exact and
 distances bit for bit: 2D and 3D, anisotropic sampling (0.5, 0.2, 0.2) and
 (0.5, 0.2), with and without objects, ``max_radius_px`` set and unset,
 seeds in object 0, and ties (seeds on a lattice at unit sampling).
-``chip_smoke.nearest_seed_model`` (``kernels/csrc/nearest_seed.cu`` in
+``nearest_seed_model`` (``kernels/csrc/nearest_seed.cu`` in
 torch: one index a voxel in two buffers, the candidate's object read at its
 source, the voxels of object 0 left out when no seed lies there) equals the
 plain body, restricted and dense.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -19,8 +21,61 @@ import jax.numpy as jnp
 
 import chip_smoke
 from nellie_tpu.kernels import edt as j_edt
-from nellie_tpu_torch.kernels import edt
+from nellie_tpu_torch.kernels import _fp, edt
 from torch_port_data import one_torch_thread  # noqa: F401  (module fixture)
+
+
+def nearest_seed_model(seeds, objects, sampling, max_radius_px=None, restrict=True):
+    """``kernels/csrc/nearest_seed.cu`` in torch on the CPU: one int32 index
+    a voxel in two buffers, one pass per (step, offset) reading one and
+    writing the other; a candidate's object read from the objects at its
+    source (the plain body carries it beside the index); the current
+    distance recomputed from the index; with ``restrict``, only the voxels
+    outside object 0 run when no seed lies in object 0.  Returns (labels,
+    distances) as the wrapper does."""
+    seeds = torch.as_tensor(seeds)
+    shape, ndim, n = tuple(seeds.shape), seeds.ndim, seeds.numel()
+    samp = [_fp.f32(s) for s in sampling]
+    strides = [int(np.prod(shape[a + 1:], dtype=np.int64)) for a in range(ndim)]
+    is_seed = seeds.reshape(-1) > 0
+    state = [torch.where(is_seed, torch.arange(n, dtype=torch.int32), -1) for _ in range(2)]
+    obj = None if objects is None else torch.as_tensor(objects).reshape(-1).to(torch.int32)
+    voxels = torch.arange(n)
+    if obj is not None and restrict and not bool((is_seed & (obj == 0)).any()):
+        voxels = torch.nonzero(obj != 0).reshape(-1)
+    coords = [torch.div(voxels, strides[a], rounding_mode="floor") % shape[a]
+              for a in range(ndim)]
+
+    def dist(c, idx):
+        q = [torch.div(idx.clamp(min=0), strides[a], rounding_mode="floor") % shape[a]
+             for a in range(ndim)]
+        diffs = [((c[a] - q[a]).to(torch.int32).float() * samp[a],) * 2 for a in range(ndim)]
+        return torch.where(idx >= 0, _fp.sum_of_products(diffs), float("inf"))
+
+    cur = 0
+    for step in edt.jump_steps(shape, max_radius_px):
+        for off in itertools.product((-1, 0, 1), repeat=ndim):
+            if not any(off):
+                continue
+            src, dst = state[cur], state[1 - cur]
+            target = [c + o * step for c, o in zip(coords, off)]
+            inside = torch.ones(voxels.shape, dtype=torch.bool)
+            for a in range(ndim):
+                inside &= (target[a] >= 0) & (target[a] < shape[a])
+            source = sum(t.clamp(0, shape[a] - 1) * strides[a] for a, t in enumerate(target))
+            cand = torch.where(inside, src[source], -1)
+            ok = cand >= 0
+            if obj is not None:
+                ok &= obj[source] == obj[voxels]
+            mine = src[voxels]
+            take = torch.where(ok, dist(coords, cand), float("inf")) < dist(coords, mine)
+            dst[voxels] = torch.where(take, cand, mine)
+            cur = 1 - cur
+    idx = state[cur]
+    every = [torch.div(torch.arange(n), strides[a], rounding_mode="floor") % shape[a]
+             for a in range(ndim)]
+    return (edt._seed_values(seeds, idx), _fp.sqrt(dist(every, idx)).reshape(shape))
+
 
 SAMPLING = {3: (0.5, 0.2, 0.2), 2: (0.5, 0.2)}
 SHAPES = {3: (10, 24, 28), 2: (40, 44)}
@@ -83,7 +138,7 @@ def test_plain_equals_reference(results, name, ndim, radius):
 @pytest.mark.parametrize("name,ndim,radius", CASES)
 def test_kernel_model_equals_plain(results, name, ndim, radius, restrict):
     (seeds, objects, sampling), want = results[(name, ndim, radius)]
-    got = chip_smoke.nearest_seed_model(seeds, objects, sampling, radius, restrict)
+    got = nearest_seed_model(seeds, objects, sampling, radius, restrict)
     _assert_same(got, want, f"{name} {ndim}D radius {radius} restrict {restrict}")
 
 
@@ -108,7 +163,7 @@ def test_no_seeds_and_every_voxel_a_seed(ndim):
                                       SAMPLING[ndim])
         got = j_edt.nearest_seed(jnp.asarray(seeds), jnp.asarray(objects), SAMPLING[ndim], None)
         _assert_same(got, want, "reference")
-        _assert_same(chip_smoke.nearest_seed_model(seeds, objects, SAMPLING[ndim]), want, "model")
+        _assert_same(nearest_seed_model(seeds, objects, SAMPLING[ndim]), want, "model")
         if seeds.any():
             np.testing.assert_array_equal(want[0].numpy(), seeds)
             assert not want[1].numpy().any()

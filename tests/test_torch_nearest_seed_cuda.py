@@ -6,7 +6,8 @@ Needs a CUDA GPU and skips without one; imports no JAX.  On the card:
 
 (``--noconftest`` because ``tests/conftest.py`` imports JAX.)
 ``edt.nearest_seed`` on a CUDA tensor launches ``kernels/csrc/nearest_seed.cu``
-once (no ``fma_f32``) and equals ``nearest_seed_plain`` with labels exact
+once (no ``fma_f32``; the CUDA kernels counted as ``chip_smoke.seed_work``
+says) and equals ``nearest_seed_plain`` with labels exact
 and distances bit for bit, on the card and on CPU copies: 2D and 3D,
 anisotropic sampling, with and without objects, ``max_radius_px`` set and
 unset, seeds in object 0, ties on a lattice, and the main paths' frame
@@ -32,10 +33,12 @@ def cuda():
 def _check(seeds_np, objects_np, sampling, radius, dev, against_cpu=True):
     seeds = torch.from_numpy(seeds_np).to(dev)
     objects = None if objects_np is None else torch.from_numpy(objects_np).to(dev)
-    before, fma = edt.NEAREST_SEED_KERNEL.launches, _fp.FMA_KERNEL.launches
+    kernel = edt.NEAREST_SEED_KERNEL
+    before, kernels, fma = kernel.launches, kernel.kernel_launches, _fp.FMA_KERNEL.launches
     labels, dist = edt.nearest_seed(seeds, objects, sampling, radius)
     torch.cuda.synchronize()
-    assert edt.NEAREST_SEED_KERNEL.launches == before + 1 and _fp.FMA_KERNEL.launches == fma
+    assert kernel.launches == before + 1 and _fp.FMA_KERNEL.launches == fma
+    assert kernel.kernel_launches == kernels + chip_smoke.seed_work(seeds, objects, radius)[1]
     assert labels.dtype == seeds.dtype and dist.dtype == torch.float32
     for where in [dev] + (["cpu"] if against_cpu else []):
         want = edt.nearest_seed_plain(seeds.to(where), None if objects is None

@@ -69,9 +69,9 @@ def test_masks_thin(masks, plain):
 def test_kernel_model_equals_plain(masks, plain, shape, rounds_per_read):
     lut = get_simple26_lut()
     for name, m in masks[shape].items():
-        got, (rounds, reads, sweeps) = chip_smoke.thin26_model(m, lut, rounds_per_read)
+        got, (rounds, reads, sweeps, kernels) = chip_smoke.thin26_model(m, lut, rounds_per_read)
         np.testing.assert_array_equal(got, plain[(shape, name)], err_msg=name)
-        assert rounds == reads * rounds_per_read
+        assert rounds == reads * rounds_per_read and kernels == 6 * sweeps + 2 * rounds
         assert (sweeps == 0) == (not m.any())
 
 

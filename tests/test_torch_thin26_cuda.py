@@ -10,7 +10,8 @@ Needs a CUDA GPU and skips without one; imports no JAX.  On the card:
 ``skeletonize_3d_plain`` exactly, on the card and on CPU copies, on
 ``chip_smoke.thin_masks`` at even, odd and thin shapes and on the 3D main
 path's frame (64x256x256, six tubes masked at 300); its rounds, flag
-reads and sweeps are ``chip_smoke.thin26_model``'s.
+reads, sweeps and CUDA kernels are ``chip_smoke.thin26_model``'s, and
+``THIN26_KERNEL.kernel_launches`` grows by the call's CUDA kernels.
 """
 import numpy as np
 import pytest
@@ -33,13 +34,15 @@ def cuda():
 def _check(mask_np, dev, model=True):
     mask = torch.from_numpy(mask_np).to(dev)
     lut = skeleton.simple26_lut(dev)
-    before, fma = skeleton.THIN26_KERNEL.launches, _fp.FMA_KERNEL.launches
+    kernel = skeleton.THIN26_KERNEL
+    before, kernels, fma = kernel.launches, kernel.kernel_launches, _fp.FMA_KERNEL.launches
     got = skeleton.skeletonize_3d(mask, lut)
     torch.cuda.synchronize()
-    assert skeleton.THIN26_KERNEL.launches == before + 1 and _fp.FMA_KERNEL.launches == fma
+    assert kernel.launches == before + 1 and _fp.FMA_KERNEL.launches == fma
     assert got.dtype == torch.bool and got.device.type == "cuda" and got.shape == mask.shape
     assert torch.equal(got, skeleton.skeletonize_3d_plain(mask, lut))
-    stats = skeleton.THIN26_KERNEL.last_stats
+    stats = kernel.last_stats
+    assert kernel.kernel_launches == kernels + stats[3]
     if model:
         want, want_stats = chip_smoke.thin26_model(mask_np, get_simple26_lut(),
                                                    skeleton.ROUNDS_PER_READ)
@@ -58,8 +61,9 @@ def test_masks(cuda, shape):
 @pytest.mark.gpu
 def test_main_path_frame(cuda):
     mask = chip_smoke.make_frame((64, 256, 256)) > 300
-    got, (rounds, reads, sweeps) = _check(mask, cuda, model=False)
+    got, (rounds, reads, sweeps, kernels) = _check(mask, cuda, model=False)
     assert 0 < int(got.sum()) < int(mask.sum()) and rounds == reads * skeleton.ROUNDS_PER_READ
+    assert kernels == 6 * sweeps + 2 * rounds
 
 
 @pytest.mark.gpu
@@ -76,3 +80,18 @@ def test_refuses_bad_tables(cuda):
     mask = torch.zeros((3, 4, 5), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
         skeleton.skeletonize_3d(mask, torch.zeros(16, dtype=torch.uint8, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rounds_per_read", [1, 7])
+def test_rounds_per_read(cuda, rounds_per_read):
+    """Reading the commit flags every round or every seven rounds gives
+    the same skeleton, with the rounds, reads and kernels of the model."""
+    lut = skeleton.simple26_lut(cuda)
+    table = get_simple26_lut()
+    for name, m in chip_smoke.thin_masks((9, 17, 21), seed=47).items():
+        got = skeleton.THIN26_KERNEL(torch.from_numpy(m).to(cuda), lut,
+                                     rounds_per_read=rounds_per_read)
+        want, want_stats = chip_smoke.thin26_model(m, table, rounds_per_read)
+        assert np.array_equal(got.cpu().numpy(), want), name
+        assert skeleton.THIN26_KERNEL.last_stats == want_stats, name

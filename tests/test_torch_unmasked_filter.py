@@ -4,7 +4,7 @@
 no Frobenius norm reading the Hessian components, XLA fuses each diagonal
 component's inner gradient whole (every axis, but a minor axis of more than
 128), so their differences round as fused multiply-adds where the masked
-program's do not (``hessian.second_derivative_modes``,
+program's do not (``hessian.fused_axes``,
 ``scripts/xla_unmasked_probe.py``).  The port's vesselness without the mask
 equals the reference's jitted program bit for bit on
 ``chip_smoke.filter_frame`` frames, 3D and 2D, at last axes below, at and
