@@ -133,15 +133,15 @@ Phases, each printing its own lines; any failure exits non-zero:
    cascades' taps with both carries, the LoG's, a dim block, a last axis
    of 128, a core box, no mask, on synthetic frames (and CPU copies at
    small shapes), then the largest call of each wrapper in phases 4, 6 and
-   11 on the caller's own arguments (weights, carry, spacing, minor
-   extent, core, mask), with their times beside the plain versions', the
+   11 on the caller's own arguments (weights, carry, spacing, frame
+   shape, core, mask), with their times beside the plain versions', the
    bound and (the correlation) one cuDNN convolution.  Network's 3D
    thinning (``kernels/csrc/thin26.cu``, through ``skeleton.skeletonize_3d``)
    and nearest seed (``kernels/csrc/nearest_seed.cu``, through
    ``edt.nearest_seed``), exactly against ``skeletonize_3d_plain`` and
    ``nearest_seed_plain``: ``thin_masks`` at three shapes (the thinning's
-   rounds, flag reads, sweeps and CUDA kernels also held to
-   ``thin26_model``), ``seed_inputs`` in 3D and 2D with and without
+   rounds, host reads, sweeps and CUDA kernels also held to
+   ``thin26_model``: one persistent launch and one read a call), ``seed_inputs`` in 3D and 2D with and without
    objects and a search radius (each call's CUDA kernels held to
    ``seed_work``'s), then Network's largest call on each main path with its
    own operands, with their times on a cold L2, the plain bodies' and the
@@ -159,8 +159,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    for low memory from the start.
 
 Phases 4 and 6 also print the hand kernels' launches by caller and
-``fma_f32``'s by calling function (failing if the Filter's arithmetic or
-Network's nearest seed launched it), and phase 11 the same for capacity.
+``fma_f32``'s by calling function, single calls and chains (``fma_chain``,
+one launch a straight-line program of multiply-adds), beside the launches
+the same work took one call a step before the chains (failing if the
+Filter's arithmetic or Network's nearest seed launched either), and phase
+11 the same for capacity.  Phase 17 also holds the chain to its plain
+version (``_fp.run_steps``) on synthetic programs of each of its kernels'
+forms and on each path's largest chain, timed beside its bound and one
+``torch.addcmul`` over as many elements.
 
 Phase 5 holds the flow costs card = CPU exactly (the Hu moments' powers
 round as XLA's CPU code rounds them, ``kernels/_fp.py::pow``).
@@ -678,8 +684,9 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
             by_caller[name][caller] = by_caller[name].get(caller, 0) + 1
     print(f"{tag}hand kernel launches on the main path: {json.dumps(hand)}, by caller "
           f"{json.dumps(by_caller)}", flush=True)
-    check_fma_callers(tag + "main path", calls.fma_by_caller, hand["fma_f32"])
-    seed_dist = {c: n for c, n in calls.fma_by_caller.items() if c.startswith("edt.")}
+    check_fma_callers(tag + "main path", calls.fma_callers(), hand["fma_f32"], hand["fma_chain"])
+    seed_dist = {c: n for by in (calls.fma_by_caller, calls.chain_by_caller)
+                 for c, n in by.items() if c.startswith("edt.")}
     if seed_dist:
         fail(f"{tag}Network's nearest seed launched fma_f32: {json.dumps(seed_dist)}")
     # 2D thinning is Zhang-Suen in plain torch: thin26 runs on the 3D path only
@@ -715,8 +722,9 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
                                                         "calls": calls.calls,
                                                         "fma_largest": calls.fma_largest,
                                                         "largest": calls.largest(),
+                                                        "wrapper_calls": calls.wrapper_calls,
                                                         "nn": calls.nn_operands(),
-                                                        "fma_by_caller": calls.fma_by_caller}
+                                                        "fma_by_caller": calls.fma_callers()}
 
 
 # ---------------------------------------------------------------------------
@@ -1195,8 +1203,10 @@ def phase_capacity_1024(gpu, edge=CAPACITY_EDGE):
     print(f"capacity {edge}^3 hand kernel launches: {json.dumps(hand)}; union-find calls by "
           "caller and shape: " + ", ".join(f"{t} {sh} x{n}" for (t, sh), n in shapes.items()),
           flush=True)
-    check_fma_callers(f"capacity {edge}^3", calls.fma_by_caller, hand["fma_f32"])
-    if min(hand[k] for k in ("ccl_union_find", "fma_f32", "gauss_axis", "frangi_tail")) == 0:
+    check_fma_callers(f"capacity {edge}^3", calls.fma_callers(), hand["fma_f32"],
+                      hand["fma_chain"])
+    if min(hand[k] for k in ("ccl_union_find", "fma_f32", "fma_chain", "gauss_axis",
+                             "frangi_tail")) == 0:
         fail(f"capacity {edge}^3 never launched the union-find, the fma, the Gaussian or the "
              "Frangi tail kernel")
     if out["strategy"] != "chunked" or out["fg_count"] != int((labels > 0).sum()):
@@ -1210,7 +1220,7 @@ def phase_capacity_1024(gpu, edge=CAPACITY_EDGE):
         fail(f"capacity {edge}^3: labels are not scipy's labelling of their support")
     return dict({k: out[k] for k in ("n_labels", "fg_count", "seconds")}, launches=hand,
                 calls=calls.calls["ccl_union_find"], fma_largest=calls.fma_largest,
-                largest=calls.largest(), fma_by_caller=calls.fma_by_caller,
+                largest=calls.largest(), fma_by_caller=calls.fma_callers(),
                 peak_gib=peak_gib)
 
 
@@ -1654,57 +1664,59 @@ def thin_masks(shape, seed=0):
 THIN_DIRECTIONS = ((-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
 
 
-def thin26_model(mask, lut, rounds_per_read):
+def thin26_model(mask, lut):
     """``kernels/csrc/thin26.cu`` in numpy: the list of the starting
-    foreground, the border, select and commit kernels over it (each
-    writes only buffers it does not read), the host reading the rounds'
-    commit flags once every ``rounds_per_read`` rounds.  Returns (the
-    skeleton, (rounds, flag reads, sweeps, kernels launched)) as the C
-    entry point counts them.  ``lut``: the 2**23-byte table as uint8."""
+    foreground; per direction the border phase's list of candidates; per
+    round the select phase over the round's work list, then the commit
+    phase, whose blocked voxels are the next round's work list (each phase
+    writes only buffers it does not read; a barrier after each), until a
+    round commits nothing.  Returns (the skeleton, (rounds, host reads,
+    sweeps, kernels launched)) as the C entry point counts them: one launch
+    and one read of the counts a call, none for an empty mask.  ``lut``:
+    the 2**23-byte table as uint8."""
     from nellie_tpu_torch.kernels.simple_point import OFFSETS_26
 
     fg = np.pad(np.asarray(mask, bool).astype(np.uint8), 1)  # outside the volume: 0
-    del_now, remaining = np.zeros_like(fg), np.zeros_like(fg)
-    z, y, x = (a + 1 for a in np.nonzero(mask))
-    parity = ((z - 1) % 2) * 4 + ((y - 1) % 2) * 2 + (x - 1) % 2
+    del_now = np.zeros_like(fg)
+    listed = [a + 1 for a in np.nonzero(mask)]
+    flips = [((abs(o[0]) % 2) << 2) | ((abs(o[1]) % 2) << 1) | abs(o[2]) % 2 for o in OFFSETS_26]
 
-    def at(buf, off):
+    def at(buf, pts, off):
+        z, y, x = pts
         return buf[z + off[0], y + off[1], x + off[2]]
 
-    def deletable():
-        code = np.zeros(z.shape, np.uint32)
+    def deletable(pts):
+        code = np.zeros(pts[0].shape, np.uint32)
         for k, off in enumerate(OFFSETS_26):
-            code |= at(fg, off).astype(np.uint32) << np.uint32(k)
+            code |= at(fg, pts, off).astype(np.uint32) << np.uint32(k)
         return (lut[code >> 3] >> (code & 7)) & 1
 
-    stats = [0, 0, 0, 0]
-    changed = z.size > 0
+    rounds = sweeps = 0
+    changed = listed[0].size > 0
     while changed:
         changed = False
-        stats[2] += 1
+        sweeps += 1
         for d in THIN_DIRECTIONS:
-            remaining[z, y, x] = at(fg, (0, 0, 0)) & (1 - at(fg, d)) & deletable()
-            stats[3] += 1
+            cand = (at(fg, listed, (0, 0, 0)) & (1 - at(fg, listed, d)) & deletable(listed)) > 0
+            work = [a[cand] for a in listed]
             go = True
             while go:
-                flags = []
-                for _ in range(rounds_per_read):
-                    del_now[z, y, x] = at(remaining, (0, 0, 0)) & at(fg, (0, 0, 0)) & deletable()
-                    dn = at(del_now, (0, 0, 0)).astype(bool)
-                    blocked = np.zeros(z.shape, bool)
-                    for off in OFFSETS_26:
-                        flip = ((abs(off[0]) % 2) << 2) | ((abs(off[1]) % 2) << 1) | abs(off[2]) % 2
-                        blocked |= at(del_now, off).astype(bool) & ((parity ^ flip) < parity)
-                    commit = dn & ~blocked
-                    remaining[z, y, x] = dn & blocked
-                    fg[z[commit], y[commit], x[commit]] = 0
-                    flags.append(bool(commit.any()))
-                stats[0] += rounds_per_read
-                stats[1] += 1
-                stats[3] += 2 * rounds_per_read
-                changed = changed or any(flags)
-                go = flags[-1]
-    return fg[1:-1, 1:-1, 1:-1].astype(bool), tuple(stats)
+                del_now[tuple(work)] = at(fg, work, (0, 0, 0)) & deletable(work)
+                dn = at(del_now, work, (0, 0, 0)).astype(bool)
+                z, y, x = work
+                parity = ((z - 1) % 2) * 4 + ((y - 1) % 2) * 2 + (x - 1) % 2
+                blocked = np.zeros(z.shape, bool)
+                for off, flip in zip(OFFSETS_26, flips):
+                    blocked |= at(del_now, work, off).astype(bool) & ((parity ^ flip) < parity)
+                commit = dn & ~blocked
+                fg[z[commit], y[commit], x[commit]] = 0
+                del_now[tuple(work)] = 0
+                work = [a[dn & blocked] for a in work]
+                rounds += 1
+                go = bool(commit.any())
+                changed = changed or go
+    stats = (rounds, 1, sweeps, 1) if listed[0].size else (0, 0, 0, 0)
+    return fg[1:-1, 1:-1, 1:-1].astype(bool), stats
 
 
 def seed_inputs(shape, seed=0, seed_fraction=0.05):
@@ -1815,6 +1827,43 @@ def fma_operands(n, seed=0):
             rng.choice([-1.0, 1.0, 3.0], k) * 2.0 ** (e1 + e2 - 60)]
     return tuple(np.concatenate([part[t] for part in (wide, cancel, tiny, specials, ties)])
                  .astype(f32) for t in range(3))
+
+
+def chain_model(meta, bases, konst, shape, sources):
+    """``fma_chain`` (``kernels/csrc/fma_f32.cu``) in torch: decode its
+    int64 header, slot pointers and constants as the C entry point does,
+    read each load as a strided view of the source tensor whose data the
+    slot's pointer is (``sources``), and run the steps with
+    ``_fp.fma_plain`` and float32 products and sums.  Returns the last
+    step's value in ``shape``."""
+    from nellie_tpu_torch.kernels import _fp
+
+    by_ptr = {t.data_ptr(): t for t in sources}
+    ndim, sizes, n_slots = meta[0], meta[1:5], meta[5]
+    n = int(np.prod(shape))
+    loads = []
+    for j in range(meta[38]):
+        slot, offset = meta[39 + j], meta[55 + j]
+        base = by_ptr[bases[slot]]
+        size, stride = ((n,), (1,)) if ndim == 0 else (
+            tuple(sizes[:ndim]), tuple(meta[6 + 4 * slot:6 + 4 * slot + ndim]))
+        assert slot < n_slots
+        loads.append(torch.as_strided(base, size, stride, base.storage_offset() + offset)
+                     .reshape(shape))
+    regs = [None] * 4
+    out = None
+    for s in range(meta[71]):
+        op, dst, *codes = meta[72 + 5 * s:77 + 5 * s]
+        v = [regs[c] if c < 4 else loads[c - 4] if c < 20 else
+             torch.tensor(konst[3 * s + a], dtype=torch.float32) for a, c in enumerate(codes)]
+        if op == 0:
+            out = _fp.fma_plain(v[0], v[1], v[2])
+        elif op == 1:
+            out = v[0] * v[1]
+        else:
+            out = v[0] + v[1]
+        regs[dst] = torch.broadcast_to(out, shape)
+    return regs[dst].reshape(shape)
 
 
 def _interp_squared_norms(query, anchors):
@@ -2100,20 +2149,29 @@ class KernelCalls:
     ``frangi.hessian_frob`` and ``frangi.frangi_response``, and of
     Network's, ``skeleton.skeletonize_3d`` and ``edt.nearest_seed``, with
     the caller's own arguments (tensors copied to the host before the call;
-    the first of equal sizes);
-    and ``fma_f32``'s launches by calling function."""
+    the first of equal sizes); the largest chain of ``fma_f32.cu`` (its
+    steps); and the single and chain launches by calling function, with the
+    ``fma_f32`` launches each chain's steps took one call a step."""
 
     WRAPPERS = {"correlate1d_traced": "filters", "_correlate1d": "filters",
                 "hessian_frob": "frangi", "frangi_response": "frangi",
-                "skeletonize_3d": "skeleton", "nearest_seed": "edt"}
+                "skeletonize_3d": "skeleton", "nearest_seed": "edt",
+                # the jnp kernels still in plain torch (PERF.md's rows to port)
+                "skeletonize_2d": "skeleton", "distance_transform": "edt",
+                "raw_moments": "moments", "pair_stats": "matching"}
 
     def __init__(self, keep=lambda name, tag, args: True):
         self.keep = keep
         self.calls = {"ccl_union_find": [], "flow_interp": []}
         self.fma_largest = (0, None)  # (elements, operands) of the largest fma_f32 call
         self.fma_by_caller = {}
+        # (elements, (steps, the program its caller passed)) of the largest chain
+        self.chain_largest = (0, None)
+        self.chain_by_caller = {}  # fma_f32.cu chain launches by calling function
+        self.chain_fma_steps = {}  # the fma_f32 launches the chains' steps took one by one
         self.nn_largest = {}  # caller tag: (Q * M, (queries, refs, fused_norms))
         self.wrapper_largest = {name: (0, None) for name in self.WRAPPERS}
+        self.wrapper_calls = {name: 0 for name in self.WRAPPERS}
         self._saved = []
 
     def _patch(self, cls, name, wrapper):
@@ -2124,19 +2182,31 @@ class KernelCalls:
     def _record_wrapper(self, module, name):
         """Replace ``module.name`` (the callers look it up there) by a
         recorder of its largest call by the first argument's size."""
-        original = getattr(module, name)
+        import inspect
 
-        def recorded(x, *args):
+        original = getattr(module, name)
+        signature = inspect.signature(original)
+
+        def recorded(x, *args, **kw):
+            self.wrapper_calls[name] += x.device.type == "cuda"
             if x.device.type == "cuda" and x.numel() > self.wrapper_largest[name][0]:
-                host = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+                # keyword arguments recorded by position, so that a replay
+                # passes them all
+                bound = args
+                if kw:
+                    full = signature.bind(x, *args, **kw)
+                    full.apply_defaults()
+                    bound = full.args[1:]
+                host = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in bound)
                 self.wrapper_largest[name] = (x.numel(), (x.cpu(),) + host)
-            return original(x, *args)
+            return original(x, *args, **kw)
 
         setattr(module, name, recorded)
         self._saved.append((module, name, original))
 
     def __enter__(self):
-        from nellie_tpu_torch.kernels import _fp, ccl, edt, filters, frangi, nn, skeleton
+        from nellie_tpu_torch.kernels import (_fp, ccl, edt, filters, frangi, matching, moments,
+                                              nn, skeleton)
         from nellie_tpu_torch.stages import flow_interpolation as fi
 
         def fma_recorded(original, kernel, a, b, c):  # the operands themselves: their layout is timed
@@ -2147,6 +2217,17 @@ class KernelCalls:
                 self.fma_largest = (out.numel(), (a, b, c))
             return out
 
+        def chain_recorded(original, kernel, steps, program=None):
+            caller = fma_caller()
+            listed = list(steps() if callable(steps) else steps)
+            self.chain_by_caller[caller] = self.chain_by_caller.get(caller, 0) + 1
+            self.chain_fma_steps[caller] = self.chain_fma_steps.get(caller, 0) + sum(
+                op == _fp.FMA for _, op, *_ in listed)
+            out = original(kernel, steps, program)
+            if out.numel() > self.chain_largest[0]:
+                self.chain_largest = (out.numel(), (listed, program))
+            return out
+
         def nn_recorded(original, kernel, queries, refs, fused_norms=False):
             tag = caller_tag()
             size = queries.shape[0] * refs.shape[0]
@@ -2155,8 +2236,10 @@ class KernelCalls:
             return original(kernel, queries, refs, fused_norms)
 
         self._patch(_fp._FmaKernel, "__call__", fma_recorded)
+        self._patch(_fp._FmaChainKernel, "__call__", chain_recorded)
         self._patch(nn._NNKernel, "__call__", nn_recorded)
-        modules = {"filters": filters, "frangi": frangi, "skeleton": skeleton, "edt": edt}
+        modules = {"filters": filters, "frangi": frangi, "skeleton": skeleton, "edt": edt,
+                   "moments": moments, "matching": matching}
         for name, module in self.WRAPPERS.items():
             self._record_wrapper(modules[module], name)
 
@@ -2178,24 +2261,38 @@ class KernelCalls:
             setattr(owner, name, original)
 
     def largest(self):
-        """The largest calls of the Filter's and Network's kernel wrappers
-        and of fma_f32."""
-        return {"fma": self.fma_largest, **self.wrapper_largest}
+        """The largest calls of the Filter's and Network's kernel wrappers,
+        of fma_f32 and of its chain."""
+        return {"fma": self.fma_largest, "fma_chain": self.chain_largest, **self.wrapper_largest}
+
+    def fma_callers(self):
+        """fma_f32's single launches, chain launches and the chains' steps
+        taken one call each, by calling function."""
+        return {"single": self.fma_by_caller, "chain": self.chain_by_caller,
+                "chain_steps": self.chain_fma_steps}
 
     def nn_operands(self):
         """{caller tag: (queries, refs, fused_norms)} of the largest nn calls."""
         return {tag: args for tag, (_, args) in self.nn_largest.items()}
 
 
-def check_fma_callers(what, by_caller, launches):
-    """Print ``fma_f32``'s launches by calling function and fail if one of
-    them is the Filter's per-voxel arithmetic, which its own kernels do."""
-    if sum(by_caller.values()) != launches:
-        fail(f"{what}: fma_f32 launches by caller add up to {sum(by_caller.values())}, the "
-             f"kernel counted {launches}")
-    print(f"{what}: fma_f32 launches by caller {json.dumps(dict(sorted(by_caller.items())))}",
-          flush=True)
-    filter_calls = filter_fma_callers(by_caller)
+def check_fma_callers(what, callers, launches, chain_launches):
+    """Print ``fma_f32``'s launches by calling function, single calls and
+    chains, beside the launches the same work took before the chains (one
+    single call an ``FMA`` step), and fail if one of them is the Filter's
+    per-voxel arithmetic, which its own kernels do."""
+    single, chain, steps = callers["single"], callers["chain"], callers["chain_steps"]
+    if sum(single.values()) != launches or sum(chain.values()) != chain_launches:
+        fail(f"{what}: fma_f32 launches by caller add up to {sum(single.values())} single and "
+             f"{sum(chain.values())} chain, the kernel counted {launches} and {chain_launches}")
+    names = sorted(set(single) | set(chain))
+    before = {c: single.get(c, 0) + steps.get(c, 0) for c in names}
+    after = {c: single.get(c, 0) + chain.get(c, 0) for c in names}
+    print(f"{what}: fma_f32 launches by caller, single {json.dumps(dict(sorted(single.items())))}"
+          f", chain {json.dumps(dict(sorted(chain.items())))}; launches one call a step "
+          f"(before the chains) {sum(before.values())}, with the chains {sum(after.values())}: "
+          f"{json.dumps({c: [before[c], after[c]] for c in names})}", flush=True)
+    filter_calls = filter_fma_callers({c: single.get(c, 0) + chain.get(c, 0) for c in names})
     if filter_calls:
         fail(f"{what}: the Filter's arithmetic launched fma_f32: {json.dumps(filter_calls)}")
 
@@ -2205,7 +2302,8 @@ def hand_counts():
     from nellie_tpu_torch.stages import flow_interpolation as fi
 
     return {"ccl_union_find": ccl.CCL_KERNEL, "flow_interp": fi.FLOW_INTERP_KERNEL,
-            "fma_f32": _fp.FMA_KERNEL, "gauss_axis": filters.GAUSS_AXIS_KERNEL,
+            "fma_f32": _fp.FMA_KERNEL, "fma_chain": _fp.FMA_CHAIN_KERNEL,
+            "gauss_axis": filters.GAUSS_AXIS_KERNEL,
             "frangi_tail": frangi.FRANGI_TAIL_KERNEL, "thin26": skeleton.THIN26_KERNEL,
             "nearest_seed": edt.NEAREST_SEED_KERNEL}
 
@@ -2668,6 +2766,131 @@ def phase_fma_kernel(gpu, largest):
     return rows, worst
 
 
+def chain_sources(steps):
+    return [x for _, _, *args in steps for x in args if isinstance(x, torch.Tensor)]
+
+
+def chain_bound(steps, n):
+    """(bound_ms, "bytes"): :func:`fma_bound`'s rule for a chain: every
+    element of storage that its tensor sources read, once however many
+    sources view it, and the n float32 results written once."""
+    return fma_bound(chain_sources(steps), n)
+
+
+def chain_kind(steps):
+    """Which of fma_f32.cu's chain kernels runs ``steps``."""
+    from nellie_tpu_torch.kernels import _fp
+
+    program, tensors = _fp._chain_program(steps)
+    prog = [(dst, op, [x if isinstance(x, (torch.Tensor, _fp.Reg)) else _fp.f32(x)
+                       for x in args]) for dst, op, *args in steps]
+    shape = torch.broadcast_shapes(*(t.shape for t in tensors))
+    kind = list(_fp._chain_layout(prog, shape, max(shape.numel(), 1))[0])[-1]
+    return {_fp.KIND_GENERAL: "general", _fp.KIND_ACCUMULATE: "accumulate",
+            _fp.KIND_LOG: "log", _fp.KIND_EXP: "exp", _fp.KIND_LANES: "lanes"}[kind]
+
+
+def check_chain(name, steps):
+    """The chain kernel (one launch) against its plain version
+    (``_fp.run_steps``: ``fma_plain`` and float32 products and sums) on the
+    card and on CPU copies, bit for bit (NaN where NaN); returns max
+    |kernel - plain| over the finite results."""
+    from nellie_tpu_torch.kernels import _fp
+
+    before = _fp.FMA_CHAIN_KERNEL.launches
+    got = _fp.FMA_CHAIN_KERNEL(steps)
+    if _fp.FMA_CHAIN_KERNEL.launches != before + 1:
+        fail(f"the chain on {name} was not one launch")
+    got = got.cpu().numpy()
+    cpu = [(d, op, *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+           for d, op, *args in steps]
+    worst = 0.0
+    for want in (_fp.run_steps(steps), _fp.run_steps(cpu)):
+        want = want.cpu().numpy()
+        if got.shape != want.shape or not same_bits(got, want).all():
+            fail(f"the fma chain differs from its plain version on {name}")
+        both = np.isfinite(got) & np.isfinite(want)
+        worst = max(worst, float(np.abs(got[both].astype(np.float64) - want[both]).max(
+            initial=0.0)))
+    return worst
+
+
+def phase_chain_kernel(gpu, largest):
+    """The multiply-add chain (``fma_f32.cu``'s ``fma_chain``) against its
+    plain version, bit for bit on the card and on CPU copies: the log and
+    exp polynomials, sums of products and of squares, the dot product's
+    lanes, a program of 16 steps, broadcast and strided views (each of the
+    kernel's forms: compiled in full, accumulating, general), then the
+    largest chain of each path on its own sources, timed on a cold L2
+    beside the plain version, one ``torch.addcmul`` over as many elements
+    (a yardstick: no one PyTorch call computes a chain) and the bound.
+    ``largest``: {path: (elements, (steps, the caller's program)) or (0,
+    None)}.  Returns (rows, max |kernel - plain|)."""
+    from nellie_tpu_torch.kernels import _fp
+    from nellie_tpu_torch.kernels._fp import ADD, FMA, MUL, R0, R1, R2, R3
+
+    a, b, c = (torch.from_numpy(x).cuda() for x in fma_operands(1 << 22, seed=5))
+    e = torch.round(torch.nan_to_num(b, nan=3.0, posinf=60.0, neginf=-60.0).clamp(-60, 60))
+    m = a[:4_000_000].reshape(2000, 2000)
+    d3 = torch.stack([a, b, c], dim=-1)
+    x4 = torch.nn.functional.pad(m[:, :13], (0, 3)).reshape(2000, 4, 4)
+    w4 = b[:64].reshape(4, 4, 4)
+    cases = {
+        "log polynomial": _fp._log_polynomial(a, e),
+        "exp polynomial": _fp._exp_polynomial(a, e),
+        "sum of three products": [(R0, MUL, b, c), (R0, FMA, a, b, R0), (R0, FMA, c, a, R0)],
+        "sum of squares of strided views": [(R0, MUL, d3[..., 0], d3[..., 0]),
+                                            (R0, FMA, d3[..., 1], d3[..., 1], R0),
+                                            (R0, FMA, d3[..., 2], d3[..., 2], R0)],
+        "dot product lanes": [(R0, MUL, x4[:, 0, :, None], w4[0])]
+        + [(R0, FMA, x4[:, i, :, None], w4[i], R0) for i in range(1, 4)],
+        "lane sum": _fp._lane_sum(*(m[:, k:k + 500] for k in (0, 500, 1000, 1500))),
+        "sixteen steps": [(R0, MUL, a, b)] + [(R0 if i % 2 else R1, FMA, (a, b, c)[i % 3],
+                                              R0, float(i)) for i in range(15)],
+        "views and registers": [(R0, MUL, m[:, 0:50], m[:, 1:51]),
+                                (R0, FMA, m[:, 2:52], m[:, 3:53], R0),
+                                (R2, ADD, m.t()[:50].t(), R0), (R3, FMA, -1.5, R2, R0),
+                                (R0, ADD, R3, R3)],
+        "misaligned and broadcast": [(R0, FMA, a[1:1 << 20], b[3:(1 << 20) + 2], 0.25),
+                                     (R1, MUL, torch.tensor(0.5, device="cuda"), R0),
+                                     (R0, FMA, R1, c[2:(1 << 20) + 1], R0)],
+    }
+    worst, kinds = 0.0, {}
+    for name, steps in cases.items():
+        worst = max(worst, check_chain(name, steps))
+        kinds[name] = chain_kind(steps)
+    print(f"fma chain = plain version bit for bit on the card and on CPU copies: "
+          f"{json.dumps(kinds)}", flush=True)
+    rows = {}
+    for path, (n, recorded) in largest.items():
+        if recorded is None:
+            fail(f"the {path} path made no fma chain call")
+        steps, program = recorded
+        worst = max(worst, check_chain(f"the {path} path's largest chain", steps))
+        plain_ms, _ = cold_times(lambda: _fp.run_steps(steps), 3, on_device=False)
+        # as its caller called it: with the program it passed (a template's
+        # is read once, the general chain's each call)
+        ms, on_device = cold_times(lambda: _fp.FMA_CHAIN_KERNEL(steps, program), 20)
+        t = torch.rand(n, device="cuda")
+        one, half = (torch.tensor(np.float32(v), device="cuda") for v in (1.5, 0.5))
+        addcmul_ms = cold_times(lambda: torch.addcmul(half, t, one), 20, on_device=False)[0]
+        bound_ms, bound_by = chain_bound(steps, n)
+        sources = chain_sources(steps)
+        print(f"fma chain = plain version bit for bit, and its time, at the {path} path's "
+              f"largest chain ({n} elements, {len(steps)} steps, {chain_kind(steps)} kernel, "
+              f"{len({id(x) for x in sources})} tensor sources of shapes "
+              f"{sorted({tuple(x.shape) for x in sources})}): kernel {ms:.4f} ms a call on a cold "
+              f"L2 (on the device {fmt_ms(on_device)}), plain {plain_ms:.4f} ms, one addcmul over "
+              f"as many elements {addcmul_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+              f"share {bound_ms / ms:.3f} (on the device {fmt_share(bound_ms, on_device)}) "
+              f"[{gpu}]", flush=True)
+        rows[path] = {"elements": n, "steps": len(steps), "kind": chain_kind(steps), "ms": ms,
+                      "device_ms": on_device, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": None, "addcmul_ms": addcmul_ms}
+        del t
+    return rows, worst
+
+
 # float32 operations a voxel of the Frangi tail's passes (a fused
 # multiply-add counts two), counted from csrc/frangi_tail.cu: pass 1 the
 # components' differences and products, the flushed sums of squares and the
@@ -2711,6 +2934,7 @@ def gauss_plain(which, x, args):
     from nellie_tpu_torch.kernels import filters
 
     if which == "_correlate1d":
+        args = [a.to(x.device) if isinstance(a, torch.Tensor) else a for a in args]
         return filters._correlate1d_plain(x, *args)
     weights, axis, carry = args
     out = filters.correlate1d_traced_plain(x, weights, axis)
@@ -2797,6 +3021,7 @@ def phase_gauss_kernel(gpu, largest):
                 continue
             x, *args = recorded
             x = x.cuda()
+            args = [a.cuda() if isinstance(a, torch.Tensor) else a for a in args]
             err = check_gauss(f"the {path} path's largest {which} call", which, x, args)
             worst = max(worst, err)
             wrapper = getattr(filters, which)
@@ -2845,8 +3070,8 @@ def tail_bound(name, g, carry_bytes, active=None):
 def tail_plain(name, g, args):
     """What the wrapper ``frangi.<name>`` computes, by the plain version,
     from the caller's own arguments: pass 1 ``hessian_frob_plain`` (spacing,
-    minor extent, core) as (frob, largest); pass 2 (components, params,
-    minor extent, mask, gamma_sq, vessel, all_mask) the components from
+    frame shape, core) as (frob, largest); pass 2 (components, params,
+    frame shape, mask, gamma_sq, vessel, all_mask) the components from
     ``hessian.hessian_unnormalized`` (with no mask, as the program without
     the Frobenius mask rounds them) and ``frangi_response_plain``."""
     from nellie_tpu_torch.kernels import frangi, hessian
@@ -2915,7 +3140,7 @@ def phase_tail_kernel(gpu, largest):
     versions on the card: synthetic smoothed blocks in 3D and 2D at the main
     shapes, a last axis of 128, a core box, both carries, no mask, a dim
     block (also on CPU copies at the small shapes); then the largest call of
-    each pass on each path, on the caller's own arguments (spacing, minor
+    each pass on each path, on the caller's own arguments (spacing, frame
     extent, core, params, mask), bit for bit, with their times on a cold L2
     cache.  ``largest``: {path: {pass: (voxels, (block on the host,
     arguments...))}}.  Returns (rows, max |kernel - plain| over every
@@ -2931,7 +3156,8 @@ def phase_tail_kernel(gpu, largest):
         params = frangi.FrangiParams(**MAIN_FRANGI[g.ndim])
         small = g.numel() <= 1 << 16
         for carry in (torch.float32, torch.float16):
-            for minor in ((None, 1) if shape[-1] == 128 else (None,)):
+            # a block 128 wide of a frame that is not
+            for minor in ((None, tuple(shape[:-1]) + (1,)) if shape[-1] == 128 else (None,)):
                 one, two = synthetic_tail_args(g, params, minor, core, carry)
                 no_mask = two[:3] + (None,) + two[4:]
                 for name, args in (("hessian_frob", one), ("frangi_response", two),
@@ -2983,15 +3209,16 @@ def phase_tail_kernel(gpu, largest):
 def thin_bound(n_voxels):
     """(bound_ms, "bytes") of one thinning: the mask read and the skeleton
     written once, one byte a voxel each, at the memory rate.  The state
-    that the loop's passes touch between them (the foreground's list and
-    three byte buffers) stays in the L2 and is not counted."""
+    that the loop's phases touch between them (the foreground's list, the
+    per-voxel byte buffers and the flags) stays in the L2 and is not
+    counted."""
     return 2 * n_voxels / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
 def check_thin(what, mask, lut):
     """The kernel through ``skeleton.skeletonize_3d`` (one launch) against
     ``skeletonize_3d_plain`` on the card, exactly; returns (max |kernel -
-    plain|, the kernel's (rounds, flag reads, sweeps, kernels launched))."""
+    plain|, the kernel's (rounds, host reads, sweeps, kernels launched))."""
     from nellie_tpu_torch.kernels import skeleton
 
     kernel = skeleton.THIN26_KERNEL
@@ -3010,8 +3237,8 @@ def check_thin(what, mask, lut):
 def phase_thin_kernel(gpu, largest):
     """The 3D thinning kernel through ``skeleton.skeletonize_3d`` against
     ``skeletonize_3d_plain`` on the card: ``thin_masks`` at three shapes
-    (its rounds, flag reads, sweeps and kernels launched also held to
-    ``thin26_model``), then Network's largest call on the 3D path on its
+    (its rounds, host reads, sweeps and kernels launched also held to
+    ``thin26_model``: one launch and one host read a call), then Network's largest call on the 3D path on its
     own mask and table, exactly, with its times on a cold L2 cache.  ``largest``: {path:
     (voxels, (mask on the host, table)) or (0, None)}.  Returns (rows, max
     |kernel - plain| over every check)."""
@@ -3024,14 +3251,14 @@ def phase_thin_kernel(gpu, largest):
     for shape in ((10, 18, 20), (9, 17, 21), (3, 40, 33)):
         for name, m in thin_masks(shape, seed=sum(shape)).items():
             err, stats = check_thin(f"{name} {shape}", torch.from_numpy(m).cuda(), lut)
-            _, want = thin26_model(m, table, skeleton.ROUNDS_PER_READ)
+            _, want = thin26_model(m, table)
             if stats != want:
                 fail(f"thin26 on {name} {shape}: rounds, reads, sweeps, kernels {stats}, the "
                      f"model's {want}")
             worst = max(worst, err)
             cases += 1
     print(f"thin26 (through skeletonize_3d) = plain body exactly on {cases} synthetic masks "
-          "(tubes, blobs, a sheet, noise, a cross on every face, empty, full; rounds, flag reads, "
+          "(tubes, blobs, a sheet, noise, a cross on every face, empty, full; rounds, host reads, "
           "sweeps and kernels launched as thin26_model's)", flush=True)
     rows = {}
     for path, (n, recorded) in largest.items():
@@ -3049,17 +3276,78 @@ def phase_thin_kernel(gpu, largest):
         bound_ms, bound_by = thin_bound(n)
         print(f"thin26 = plain body exactly, and its time, at the {path} path's largest call "
               f"({tuple(mask.shape)}, {n_list} foreground voxels, {sweeps} sweeps, {rounds} "
-              f"rounds in {reads} flag reads, {kernels} CUDA kernels a call): kernel {ms:.4f} ms "
+              f"rounds, {reads} host reads, {kernels} CUDA kernels a call): kernel {ms:.4f} ms "
               f"a call on a cold L2 (on the device {fmt_ms(on_device)}), plain {plain_ms:.4f} ms, "
               f"library none, bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.4g} "
               f"(on the device {fmt_share(bound_ms, on_device)}) [{gpu}]", flush=True)
         rows[path] = {"shape": list(mask.shape), "foreground": n_list, "sweeps": sweeps,
-                      "rounds": rounds, "flag_reads": reads, "kernels_a_call": kernels,
+                      "rounds": rounds, "host_reads": reads, "kernels_a_call": kernels,
                       "max_abs_err": err, "ms": ms, "device_ms": on_device,
                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                       "library_ms": None}
         del mask, table_used
     return rows, worst
+
+
+PLAIN_ROWS = {"skeletonize_2d": "skeleton", "distance_transform": "edt",
+              "raw_moments": "moments", "pair_stats": "matching"}
+
+
+def plain_bound(name, args, out):
+    """(bound_ms, "bytes") of a plain-torch kernel's call: its tensor
+    inputs read and its outputs written once, at the memory rate (their
+    arithmetic is far below the float32 rate at these sizes)."""
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    nbytes = sum(a.numel() * a.element_size() for a in args if isinstance(a, torch.Tensor))
+    nbytes += sum(o.numel() * o.element_size() for o in outs if isinstance(o, torch.Tensor))
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def cuda_kernels_a_call(fn):
+    """The CUDA kernels one call of ``fn`` launches, by ``torch.profiler``
+    (None when it records none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return n or None
+
+
+def phase_plain_rows(gpu, largest, calls):
+    """The jnp kernels still in plain torch (``skeletonize_2d``,
+    ``distance_transform``, ``raw_moments``, ``pair_stats``): their largest
+    call on each main path, on its own arguments, timed on a cold L2 (per
+    call and on the device), the CUDA kernels a call launches and its byte
+    bound, with the calls each path made.  ``largest``: {path: {name:
+    (size, (args...))}}; ``calls``: {path: {name: calls}}."""
+    import importlib
+
+    rows = {}
+    for path, recorded in largest.items():
+        for name, module in PLAIN_ROWS.items():
+            n, args = recorded[name]
+            if args is None:
+                continue
+            fn = getattr(importlib.import_module(f"nellie_tpu_torch.kernels.{module}"), name)
+            args = tuple(a.cuda() if isinstance(a, torch.Tensor) else a for a in args)
+            out = fn(*args)
+            ms, on_device = cold_times(lambda: fn(*args), 3)
+            kernels = cuda_kernels_a_call(lambda: fn(*args))
+            bound_ms, bound_by = plain_bound(name, args, out)
+            shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+            print(f"plain torch {name} at the {path} path's largest call ({shapes}): "
+                  f"{ms:.4f} ms a call on a cold L2 (on the device {fmt_ms(on_device)}), "
+                  f"{kernels} CUDA kernels a call, {calls[path][name]} calls on the path, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}) [{gpu}]", flush=True)
+            rows[f"{path} {name}"] = {"shapes": shapes, "plain_ms": ms, "device_ms": on_device,
+                                      "kernels_a_call": kernels, "calls": calls[path][name],
+                                      "bound_ms": bound_ms, "bound_by": bound_by}
+            del args, out
+    return rows
 
 
 def seed_bound(seeds, objects):
@@ -3338,11 +3626,15 @@ def main() -> None:
                                                "capacity_1024": capacity["fma_largest"]})
     largest = {"3D": hand["largest"], "2D": hand_2d["largest"],
                "capacity_1024": capacity["largest"]}
+    chain_rows, chain_err = phase_chain_kernel(gpu, {p: calls["fma_chain"]
+                                                     for p, calls in largest.items()})
     gauss_rows, gauss_err = phase_gauss_kernel(gpu, largest)
     tail_rows, tail_err = phase_tail_kernel(gpu, largest)
     thin_rows, thin_err = phase_thin_kernel(gpu, {"3D": hand["largest"]["skeletonize_3d"]})
     seed_rows, seed_err = phase_seed_kernel(gpu, {"3D": hand["largest"]["nearest_seed"],
                                                   "2D": hand_2d["largest"]["nearest_seed"]})
+    phase_plain_rows(gpu, {"3D": hand["largest"], "2D": hand_2d["largest"]},
+                     {"3D": hand["wrapper_calls"], "2D": hand_2d["wrapper_calls"]})
     print(f"phase 17 (hand kernels against their plain bodies): "
           f"{time.perf_counter() - start:.1f} s", flush=True)
     root = tempfile.mkdtemp(prefix="nellie_port_oom_")
@@ -3363,7 +3655,7 @@ def main() -> None:
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     launches_by_path = {name: {"3D": hand["launches"][name], "2D": hand_2d["launches"][name]}
                         for name in hand["launches"]}
-    for name in ("ccl_union_find", "fma_f32", "gauss_axis", "frangi_tail"):
+    for name in ("ccl_union_find", "fma_f32", "fma_chain", "gauss_axis", "frangi_tail"):
         launches_by_path[name]["capacity_1024"] = capacity["launches"][name]
     # a call of thin26 or nearest_seed launches many CUDA kernels
     kernel_launches_by_path = {name: {"3D": n, "2D": hand_2d["kernel_launches"][name]}
@@ -3396,6 +3688,13 @@ def main() -> None:
          **{k: fma_rows["3D"][k] for k in keys},
          "launches_by_path": launches_by_path["fma_f32"], "launches_by_caller": fma_by_caller,
          "paths": fma_rows},
+        {"name": "fma_chain", "route": "cuda",
+         "source": "nellie_tpu_torch/kernels/csrc/fma_f32.cu",
+         "replaces": "nellie_tpu/stages/labelling.py:60",
+         "launches": hand["launches"]["fma_chain"], "max_abs_err": chain_err,
+         **{k: chain_rows["3D"][k] for k in keys}, "addcmul_ms": chain_rows["3D"]["addcmul_ms"],
+         "launches_by_path": launches_by_path["fma_chain"], "launches_by_caller": fma_by_caller,
+         "paths": chain_rows},
         {"name": "gauss_axis", "route": "cuda",
          "source": "nellie_tpu_torch/kernels/csrc/gauss_axis.cu",
          "replaces": "nellie_tpu/kernels/filters.py:73",

@@ -9,6 +9,13 @@ bound through ``ctypes``), or raises; on CPU tensors it runs
 :func:`fma_plain`, which rounds to odd in float64 and then once to
 float32.  ``FMA_KERNEL.launches`` counts the kernel's launches.
 
+A straight-line program of such steps (:func:`chain`: at most 16 steps
+``fma(x, y, z)``, ``x * y`` or ``x + y`` over four registers, tensor views
+and constants) is one launch of the same library's chain entry point on the
+card (``FMA_CHAIN_KERNEL.launches``) and the same steps one by one
+(:func:`run_steps`) on the CPU: the sums of products and squares, the dot
+product's lanes and the log and exp polynomials run so.
+
 A sum of products ``p0 + p1 + ... `` is contracted by XLA with the LEFT
 product of the first addition fused: ``fma(a0, b0, a1*b1)``, then
 ``fma(ai, bi, acc)`` for each further term.
@@ -21,7 +28,7 @@ from typing import Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from nellie_tpu_torch.kernels._cuda import CudaKernel, check_error
+from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CudaKernel, check_error
 
 Operand = Union[torch.Tensor, float]
 
@@ -44,6 +51,23 @@ _LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
 _SQRT_HALF = f32(float.fromhex("0x1.6a09e60000000p-1"))
 
 
+def _log_polynomial(r, e):
+    """The chain of XLA's log after the reduction, from r = m - 1 and the
+    exponent e: with r2 = r*r and r3 = r2*r,
+    y = fma(fma(fma(y0, r3, y1), r3, y2), r3, e*q1) of the three Horner
+    pairs y0, y1, y2, then fma(q2, e, fma(-0.5, r2, r) + y)."""
+    p = _LOG_P
+    return [(R0, FMA, r, p[0], p[1]), (R0, FMA, R0, r, p[2]),      # y0
+            (R1, FMA, r, p[3], p[4]), (R1, FMA, R1, r, p[5]),      # y1
+            (R2, MUL, r, r), (R3, MUL, R2, r),                      # r2, r3
+            (R0, FMA, R0, R3, R1),
+            (R1, FMA, r, p[6], p[7]), (R1, FMA, R1, r, p[8]),      # y2
+            (R0, FMA, R0, R3, R1),
+            (R1, MUL, e, f32(_LOG_Q1)), (R0, FMA, R0, R3, R1),      # y
+            (R1, FMA, -0.5, R2, r), (R1, ADD, R1, R0),
+            (R0, FMA, _LOG_Q2, e, R1)]
+
+
 def log(x: torch.Tensor) -> torch.Tensor:
     """``jnp.log`` as XLA computes it on the CPU, bit for bit: x = m·2**e
     with m in [√½, √2), a degree-8 polynomial in m - 1 with XLA's fused
@@ -58,13 +82,7 @@ def log(x: torch.Tensor) -> torch.Tensor:
     small = m < _SQRT_HALF
     e = e - small.float()
     r = (m - 1.0) + torch.where(small, m, torch.zeros_like(m))
-    r2 = r * r
-    r3 = r2 * r
-    y = fma(fma(r, _LOG_P[0], _LOG_P[1]), r, _LOG_P[2])
-    y1 = fma(fma(r, _LOG_P[3], _LOG_P[4]), r, _LOG_P[5])
-    y2 = fma(fma(r, _LOG_P[6], _LOG_P[7]), r, _LOG_P[8])
-    y = fma(fma(fma(y, r3, y1), r3, y2), r3, e * f32(_LOG_Q1))
-    out = fma(_LOG_Q2, e, fma(-0.5, r2, r) + y)
+    out = _LOG_CHAIN(r, e)
     out = torch.where(x < 0, torch.full_like(out, float("nan")), out)
     out = torch.where(x == 0, torch.full_like(out, -float("inf")), out)
     return torch.where(torch.isposinf(x) | torch.isnan(x), x, out)
@@ -92,6 +110,15 @@ _EXP_P = (1.9875691214110702e-4, 1.398199936375022e-3, 8.333452045917511e-3,
 _TINY = float(np.finfo(np.float32).tiny)
 
 
+def _exp_polynomial(x, n):
+    """The chain of XLA's exp from the clamped x and n: r = x - n ln 2 in two
+    fused parts, z = the Horner polynomial in r, then 1 + fma(z, r*r, r)."""
+    return [(R0, FMA, -_EXP_C1, n, x), (R0, FMA, -_EXP_C2, n, R0),  # r
+            (R1, FMA, R0, _EXP_P[0], _EXP_P[1]),
+            *[(R1, FMA, R1, R0, p) for p in _EXP_P[2:]],
+            (R2, MUL, R0, R0), (R1, FMA, R1, R2, R0), (R1, ADD, 1.0, R1)]
+
+
 def exp(x: torch.Tensor) -> torch.Tensor:
     """``jnp.exp`` as XLA computes it on the CPU, bit for bit: the argument
     split into n·ln 2 + r (n = floor(x·log2 e + ½), clamped to ±127), a
@@ -101,12 +128,7 @@ def exp(x: torch.Tensor) -> torch.Tensor:
     bit on about one input in ten."""
     x = torch.clamp(x.float(), f32(_EXP_LO), f32(_EXP_HI))
     n = torch.clamp(torch.floor(fma(x, _EXP_LOG2E, 0.5)), -127.0, 127.0)
-    r = fma(-_EXP_C1, n, x)
-    r = fma(-_EXP_C2, n, r)
-    z = fma(r, _EXP_P[0], _EXP_P[1])
-    for p in _EXP_P[2:]:
-        z = fma(z, r, p)
-    z = 1.0 + fma(z, r * r, r)
+    z = _EXP_CHAIN(x, n)
     y = z * ((n.to(torch.int32) + 127) << 23).view(torch.float32)
     return torch.where(y < _TINY, torch.zeros_like(y), y)
 
@@ -312,14 +334,48 @@ def _merge_axes(shape, strides):
 
 class _FmaKernel(CudaKernel):
     """The compiled fused multiply-add (``csrc/fma_f32.cu``), built once
-    per process, with a launch count."""
+    per process, with a launch count; the library also holds the chain
+    entry point (:data:`FMA_CHAIN_KERNEL`)."""
 
     source = "fma_f32.cu"
+    flags = (*BASE_FLAGS, "-fmad=false")
 
     def bind(self, lib):
-        ptr = ctypes.c_void_p
+        ptr, f = ctypes.c_void_p, ctypes.c_float
         lib.fma_f32.argtypes = [ptr, ctypes.c_longlong, ctypes.c_int, ptr, ptr, ptr, ptr, ptr]
         lib.fma_f32.restype = ctypes.c_int
+        lib.fma_f32_flat.argtypes = [ptr, ctypes.c_longlong, ptr, ptr, ptr, f, f, f,
+                                     ctypes.c_int, ptr]
+        lib.fma_f32_flat.restype = ctypes.c_int
+        lib.fma_chain.argtypes = [ptr, ctypes.c_longlong, ptr, ptr, ptr, ptr]
+        lib.fma_chain.restype = ctypes.c_int
+
+    @staticmethod
+    def _flat_operands(ops):
+        """(device, shape, pointers, values, broadcast bits) when every
+        tensor operand is a float32 CUDA tensor of one device, contiguous
+        of one shape or 0-dim (read once, bit k of the bits set), and the
+        others numbers; else None: the call that needs no layout work."""
+        dev = shape = None
+        ptrs, values, broadcast = [], [], 0
+        for k, x in enumerate(ops):
+            if isinstance(x, torch.Tensor):
+                if x.device.type != "cuda" or x.dtype != torch.float32 or \
+                        (dev is not None and x.device != dev):
+                    return None
+                dev = x.device
+                if x.dim() == 0:
+                    broadcast |= 1 << k
+                elif not x.is_contiguous() or (shape is not None and x.shape != shape):
+                    return None
+                else:
+                    shape = x.shape
+                ptrs.append(x.data_ptr())
+                values.append(0.0)
+            else:
+                ptrs.append(None)
+                values.append(x)
+        return dev, (torch.Size(()) if shape is None else shape), ptrs, values, broadcast
 
     def __call__(self, a: Operand, b: Operand, c: Operand) -> torch.Tensor:
         """``a*b + c`` as a new C-contiguous float32 tensor on the operands'
@@ -328,21 +384,23 @@ class _FmaKernel(CudaKernel):
         tensors are read in place, strided or broadcast views included;
         other float types are first copied to float32, and the views are
         copied to contiguous tensors only when more than four axes remain
-        after merging."""
+        after merging.  Contiguous float32 operands of one shape (and 0-dim
+        ones) take a direct call."""
+        flat = self._flat_operands((a, b, c))
+        if flat is not None:
+            dev, shape, ptrs, values, broadcast = flat
+            lib = self._lib or self.build()
+            with self.on_device(dev):
+                out = torch.empty(shape, dtype=torch.float32, device=dev)
+                if out.numel():
+                    err = lib.fma_f32_flat(out.data_ptr(), out.numel(), *ptrs, *values, broadcast,
+                                           torch.cuda.current_stream(dev).cuda_stream)
+                    check_error("fma_f32 launch", err)
+                    self.count_launch()
+            return out
         dev = next(x.device for x in (a, b, c)
                    if isinstance(x, torch.Tensor) and x.device.type == "cuda")
-        ops = []
-        for x in (a, b, c):
-            if isinstance(x, torch.Tensor):
-                if x.device != dev:
-                    if x.device.type != "cpu" or x.dim() != 0:
-                        raise ValueError(f"fma operands on {x.device} and {dev}")
-                    x = float(x)
-                elif x.dtype != torch.float32:
-                    if not x.dtype.is_floating_point:
-                        raise TypeError(f"fma takes floating-point operands, not {x.dtype}")
-                    x = x.float()
-            ops.append(x if isinstance(x, torch.Tensor) else f32(x))
+        ops = [_cuda_operand(x, dev, "fma") for x in (a, b, c)]
         shapes = [x.shape for x in ops if isinstance(x, torch.Tensor)]
         shape = shapes[0] if all(sh == shapes[0] for sh in shapes) else \
             torch.broadcast_shapes(*shapes)
@@ -371,6 +429,21 @@ class _FmaKernel(CudaKernel):
         return out
 
 
+def _cuda_operand(x, dev, name):
+    """An operand for a kernel on CUDA device ``dev``: a float32 tensor on
+    it (other float types copied) or a float32 number (from a number or a
+    0-dim CPU tensor)."""
+    if isinstance(x, torch.Tensor):
+        if x.device != dev:
+            if x.device.type != "cpu" or x.dim() != 0:
+                raise ValueError(f"{name} operands on {x.device} and {dev}")
+            return f32(float(x))
+        if not x.dtype.is_floating_point:
+            raise TypeError(f"{name} takes floating-point operands, not {x.dtype}")
+        return x if x.dtype == torch.float32 else x.float()
+    return f32(x)
+
+
 _FmaShape = ctypes.c_longlong * _FMA_MAX_DIMS
 _FmaPointers = ctypes.c_void_p * 3
 _FmaValues = ctypes.c_float * 3
@@ -390,25 +463,387 @@ def fma(a: Operand, b: Operand, c: Operand) -> torch.Tensor:
     raise ValueError(f"fma: unsupported devices {sorted(devices)}")
 
 
+# ---------------------------------------------------------------------------
+# chains: straight-line programs of multiply-adds, one launch on the card
+# ---------------------------------------------------------------------------
+
+
+class Reg(int):
+    """A register of a chain program (0 to ``CHAIN_REGS - 1``)."""
+
+
+R0, R1, R2, R3 = (Reg(i) for i in range(4))
+FMA, MUL, ADD = 0, 1, 2  # a step's operation: fma(x, y, z), x * y, x + y
+CHAIN_REGS, CHAIN_STEPS, CHAIN_LOADS, CHAIN_SLOTS = 4, 16, 16, 8
+_SRC_LOAD, _SRC_CONST = CHAIN_REGS, CHAIN_REGS + CHAIN_LOADS
+# fma_chain's int64 header: ndim, 4 sizes, slots, 8 x 4 strides, loads,
+# 16 load slots, 16 load offsets, steps, 5 codes a step, then the kind
+_META_LEN = 73 + 5 * CHAIN_STEPS
+# the kinds of program fma_f32.cu runs: any program (its codes read from
+# the header), one accumulator, and the programs it compiles in full
+KIND_GENERAL, KIND_ACCUMULATE, KIND_LOG, KIND_EXP, KIND_LANES = range(5)
+
+
+def run_steps(steps, fma_fn=None) -> torch.Tensor:
+    """The chain ``steps`` one operation at a time: the plain version with
+    :func:`fma_plain` (the default), or the per-call composition with
+    :func:`fma`.  A step is ``(destination register, FMA, x, y, z)``,
+    ``(register, MUL, x, y)`` or ``(register, ADD, x, y)``; a source is a
+    :class:`Reg`, a tensor or a number.  Returns the last step's value."""
+    fma_fn = fma_plain if fma_fn is None else fma_fn
+    regs = [None] * CHAIN_REGS
+    out = None
+    for dst, op, *args in steps:
+        v = [regs[a] if isinstance(a, Reg) else a for a in args]
+        if op == FMA:
+            out = fma_fn(v[0], v[1], v[2])
+        elif op == MUL:
+            out = v[0] * v[1]
+        else:
+            out = v[0] + v[1]
+        regs[dst] = out
+    return out
+
+
+def chain(steps) -> torch.Tensor:
+    """A straight-line program of multiply-adds (see :func:`run_steps`),
+    as its steps round: one launch of the chain kernel when a source is a
+    CUDA tensor and every tensor source is float32, the per-call
+    composition (one ``fma_f32`` launch an ``FMA`` step) for other float
+    types on the card, the plain version on CPU tensors."""
+    program = _chain_program(steps)
+    devices = {t.device.type for t in program[1]}
+    if "cuda" in devices:
+        if all(t.dtype == torch.float32 for t in program[1]):
+            return FMA_CHAIN_KERNEL(steps, program)
+        return run_steps(steps, fma)
+    if devices <= {"cpu"}:
+        return run_steps(steps)
+    raise ValueError(f"chain: unsupported devices {sorted(devices)}")
+
+
+def accumulate(first, pairs) -> torch.Tensor:
+    """``acc = first`` (steps that leave it in R0 and read no register),
+    then for each ``(a, b)`` of ``pairs`` ``acc = fma(a, b, acc)``, or
+    ``acc = acc + b`` where ``a`` is None, as chains that each keep to the
+    kernel's limits (the running sum carried from one to the next)."""
+    def step(a, b, acc):
+        return (R0, ADD, acc, b) if a is None else (R0, FMA, a, b, acc)
+
+    steps = list(first)
+    reads = _Reads(steps)
+    for a, b in pairs:
+        if len(steps) == CHAIN_STEPS or not reads.fits((a, b)):
+            steps = [step(a, b, chain(steps))]
+            reads = _Reads(steps)
+        else:
+            steps.append(step(a, b, R0))
+    return chain(steps)
+
+
+class _Reads:
+    """The tensors a chain reads so far, against the kernel's limits: at
+    most ``CHAIN_LOADS`` distinct tensors and ``CHAIN_SLOTS`` distinct
+    (base tensor, strides, shape) among them (an upper bound on its
+    slots)."""
+
+    def __init__(self, steps):
+        self.ids, self.slots = set(), set()
+        for step in steps:
+            self.fits(step[2:])
+
+    def fits(self, sources) -> bool:
+        """Add ``sources`` if the chain can still take them."""
+        new = {id(x): x for x in sources if isinstance(x, torch.Tensor) and id(x) not in self.ids}
+        slots = {(id(_root(x)), x.stride(), x.shape) for x in new.values()}
+        if len(self.ids) + len(new) > CHAIN_LOADS or len(self.slots | slots) > CHAIN_SLOTS:
+            return False
+        self.ids.update(new)
+        self.slots |= slots
+        return True
+
+
+class _FmaChainKernel(CudaKernel):
+    """The chain entry point of ``csrc/fma_f32.cu`` (the library of
+    :data:`FMA_KERNEL`), with its own launch count."""
+
+    source = "fma_f32.cu"
+    flags = _FmaKernel.flags
+
+    def __init__(self):
+        super().__init__()
+        self._layouts = {}  # program and operand layout: (header, constants, slot sources)
+
+    def build(self):
+        return FMA_KERNEL.build()
+
+    def __call__(self, steps, program=None) -> torch.Tensor:
+        """The program ``steps`` (see :func:`run_steps`, or a function that
+        returns them; ``program``: their :func:`_chain_program`, when the
+        caller has it) as one launch: its
+        value as a new C-contiguous float32 tensor on the sources' CUDA
+        device.  Sources broadcast; tensors are read in place (views of one
+        tensor with the same strides are one slot at several offsets).  The
+        kernel's argument block is cached by the program and its sources'
+        shapes, strides and storage sharing, so a repeated call builds only
+        its slot pointers."""
+        if program is None:
+            _check_length(steps)
+            program = _chain_program(steps)
+        program, tensors = program
+        dev = next((t.device for t in tensors if t.device.type == "cuda"), None)
+        if dev is None:
+            raise TypeError("the chain kernel takes a CUDA tensor source")
+        if any(t.device != dev or t.dtype != torch.float32 for t in tensors):
+            # 0-dim CPU tensors become numbers, other float types float32
+            ops = {id(t): _cuda_operand(t, dev, "chain") for t in tensors}
+            steps = [(dst, op, *(ops[id(x)] if isinstance(x, torch.Tensor) else x
+                                 for x in args)) for dst, op, *args in _steps(steps)]
+            program, tensors = _chain_program(steps)
+        first, layout = {}, []
+        for i, t in enumerate(tensors):
+            g = first.setdefault(id(_root(t)), i)
+            layout.append((t.shape, t.stride(), g, t.data_ptr() - tensors[g].data_ptr()))
+        key = (program, tuple(layout))
+        cached = self._layouts.get(key)
+        if cached is None:
+            steps = _check_length(_steps(steps))
+            shapes = [t.shape for t in tensors]
+            shape = shapes[0] if all(sh == shapes[0] for sh in shapes) else \
+                torch.broadcast_shapes(*shapes)
+            n = shape.numel()
+            prog = [(dst, op, [x if isinstance(x, (torch.Tensor, Reg)) else f32(x)
+                               for x in args]) for dst, op, *args in steps]
+            meta, _, konst, reps = _chain_layout(prog, shape, n) if n else (None, None, None, [])
+            cached = (meta, konst, reps, shape, n)
+            with self._lock:
+                if len(self._layouts) > 4096:
+                    self._layouts.clear()
+                self._layouts[key] = cached
+        meta, konst, reps, shape, n = cached
+        lib = FMA_KERNEL._lib or FMA_KERNEL.build()
+        with self.on_device(dev):
+            out = torch.empty(shape, dtype=torch.float32, device=dev)
+            if n == 0:
+                return out
+            bases = _ChainBases(*(tensors[i].data_ptr() for i in reps))
+            err = lib.fma_chain(out.data_ptr(), n, meta, bases, konst,
+                                torch.cuda.current_stream(dev).cuda_stream)
+        check_error("fma_chain launch", err)
+        self.count_launch()
+        return out
+
+
+_REG_KEYS = ("r0", "r1", "r2", "r3")
+
+
+def _steps(steps):
+    return steps() if callable(steps) else steps
+
+
+def _check_length(steps):
+    if not 1 <= len(steps) <= CHAIN_STEPS:
+        raise ValueError(f"a chain takes 1 to {CHAIN_STEPS} steps, not {len(steps)}")
+    return steps
+
+
+class ChainTemplate:
+    """A chain whose steps are fixed and whose tensor sources are given at
+    each call (``build(*sources)`` returns the steps): its program key is
+    read off stand-in sources once, so that a call on the card lays out its
+    sources and builds no steps unless the layout is new."""
+
+    def __init__(self, build, n_sources: int):
+        self.build = build
+        self.n_sources = n_sources
+        self._key = None
+
+    def key(self):
+        """(the program, the order in which its steps first read each
+        source)."""
+        if self._key is None:
+            stand_ins = [torch.zeros(1) for _ in range(self.n_sources)]
+            program, tensors = _chain_program(self.build(*stand_ins))
+            order = [next(i for i, s in enumerate(stand_ins) if s is t) for t in tensors]
+            self._key = (program, order)
+        return self._key
+
+    def __call__(self, *sources) -> torch.Tensor:
+        if all(isinstance(x, torch.Tensor) and x.device.type == "cuda" and
+               x.dtype == torch.float32 for x in sources):
+            program, order = self.key()
+            return FMA_CHAIN_KERNEL(lambda: self.build(*sources),
+                                    (program, [sources[i] for i in order]))
+        return chain(self.build(*sources))
+
+
+def _root(x: torch.Tensor) -> torch.Tensor:
+    """The tensor whose storage ``x`` views (``x`` itself if not a view):
+    views of one root may share a slot of the chain kernel."""
+    return x if x._base is None else x._base
+_ChainBases = ctypes.c_void_p * CHAIN_SLOTS
+
+
+def _chain_program(steps):
+    """(the program with its tensor sources numbered by first use, those
+    tensors): a key of the steps that holds every constant and register."""
+    ids, tensors, program = {}, [], []
+    for step in steps:
+        dst, op, *args = step
+        if op not in (FMA, MUL, ADD) or len(args) != (3 if op == FMA else 2) or \
+                not 0 <= dst < CHAIN_REGS:
+            raise ValueError(f"bad chain step {step}")
+        key = [int(dst), op]
+        for x in args:
+            if isinstance(x, Reg):
+                key.append(_REG_KEYS[x])
+            elif isinstance(x, torch.Tensor):
+                j = ids.get(id(x))
+                if j is None:
+                    j = ids[id(x)] = len(tensors)
+                    tensors.append(x)
+                key.append(-1 - j)
+            else:
+                key.append(float(x))
+        program.append(tuple(key))
+    return tuple(program), tensors
+
+
+def _chain_layout(prog, shape, n, kind=None):
+    """fma_chain's (int64 header, slot pointers, constants) for ``prog``
+    (steps as ``(dst, op, sources)`` with tensors on the device), and the
+    positions among the distinct tensor sources (by first use) of the
+    slots' base views; the kind of program is :func:`_chain_kind`'s unless
+    given."""
+    views = {}  # id of a source tensor: its view broadcast to the output
+    for _, _, srcs in prog:
+        for x in srcs:
+            if isinstance(x, torch.Tensor) and id(x) not in views:
+                views[id(x)] = x if x.shape == shape else x.expand(shape)
+    # a slot: views of one root tensor with one set of strides
+    slot_of, slots, loads, load_of, reps = {}, [], [], {}, []
+    for i, (key, v) in enumerate(views.items()):
+        skey = (id(_root(v)), v.stride())
+        if skey not in slot_of:
+            if len(slots) == CHAIN_SLOTS:
+                raise ValueError(f"a chain reads at most {CHAIN_SLOTS} strided tensors")
+            slot_of[skey] = len(slots)
+            slots.append(v)
+            reps.append(i)
+        s = slot_of[skey]
+        lkey = (s, (v.data_ptr() - slots[s].data_ptr()) // 4)
+        if lkey not in load_of:
+            load_of[lkey] = len(loads)
+            loads.append(lkey)
+        views[key] = load_of[lkey]
+    if len(loads) > CHAIN_LOADS:
+        raise ValueError(f"a chain reads at most {CHAIN_LOADS} tensor sources")
+    contiguous = all(v.is_contiguous() for v in slots)
+    if contiguous:
+        ndim, sizes, strides = 0, [n], [[1] for _ in slots]
+    else:
+        sizes, strides = _merge_axes(shape, [v.stride() for v in slots])
+        if len(sizes) > _FMA_MAX_DIMS:
+            raise ValueError("a chain's views keep more than four axes after merging")
+        ndim = len(sizes)
+    pad = [0] * (_FMA_MAX_DIMS - len(sizes))
+    meta = [ndim, *sizes, *([1] * len(pad)), len(slots)]
+    for k in range(CHAIN_SLOTS):
+        meta += (strides[k] + pad) if k < len(slots) else [0] * _FMA_MAX_DIMS
+    meta.append(len(loads))
+    meta += [s for s, _ in loads] + [0] * (CHAIN_LOADS - len(loads))
+    meta += [o for _, o in loads] + [0] * (CHAIN_LOADS - len(loads))
+    meta.append(len(prog))
+    konst = []
+    for dst, op, srcs in prog:
+        codes = []
+        for x in srcs:
+            if isinstance(x, Reg):
+                codes.append(int(x))
+                konst.append(0.0)
+            elif isinstance(x, torch.Tensor):
+                codes.append(_SRC_LOAD + views[id(x)])
+                konst.append(0.0)
+            else:
+                codes.append(_SRC_CONST)
+                konst.append(x)
+        codes += [_SRC_CONST] * (3 - len(codes))
+        konst += [0.0] * (3 - len(srcs))
+        meta += [op, int(dst), *codes]
+    meta += [0] * (_META_LEN - 1 - len(meta))
+    meta.append(_chain_kind(prog, meta[72:]) if kind is None else kind)
+    return ((ctypes.c_longlong * _META_LEN)(*meta), _ChainBases(*[v.data_ptr() for v in slots]),
+            (ctypes.c_float * (3 * CHAIN_STEPS))(*konst), reps)
+
+
+def _chain_kind(prog, codes) -> int:
+    """Which of fma_f32.cu's kernels runs ``prog`` (its codes as the header
+    holds them): a program compiled in full where the codes are one of its
+    tables, the accumulating kernel where only R0 is written, the first
+    step reads no register and every later one is ``fma(x, y, R0)`` or
+    ``R0 + x`` of loads and constants, else the general one."""
+    fixed = _fixed_codes().get(tuple(codes[:5 * len(prog)]))
+    if fixed is not None:
+        return fixed
+    def accumulates(op, srcs):
+        if op == FMA:
+            return isinstance(srcs[2], Reg) and int(srcs[2]) == 0 and \
+                not any(isinstance(x, Reg) for x in srcs[:2])
+        return op == ADD and isinstance(srcs[0], Reg) and int(srcs[0]) == 0 and \
+            not isinstance(srcs[1], Reg)
+
+    if all(int(dst) == 0 for dst, _, _ in prog) and \
+            not any(isinstance(x, Reg) for x in prog[0][2]) and \
+            all(accumulates(op, srcs) for _, op, srcs in prog[1:]):
+        return KIND_ACCUMULATE
+    return KIND_GENERAL
+
+
+_FIXED_CODES = {}
+
+
+def _fixed_codes():
+    """{codes of a program fma_f32.cu compiles in full: its kind}, from the
+    functions that build them, on stand-in tensors (loads numbered by first
+    use)."""
+    if not _FIXED_CODES:
+        a, b, c, d = (torch.zeros(1) for _ in range(4))
+        for kind, steps in ((KIND_LOG, _log_polynomial(a, b)), (KIND_EXP, _exp_polynomial(a, b)),
+                            (KIND_LANES, _lane_sum(a, b, c, d))):
+            prog = [(dst, op, [x if isinstance(x, (torch.Tensor, Reg)) else f32(x)
+                               for x in args]) for dst, op, *args in steps]
+            meta = list(_chain_layout(prog, (1,), 1, kind=KIND_GENERAL)[0])
+            _FIXED_CODES[tuple(meta[72:72 + 5 * len(prog)])] = kind
+    return _FIXED_CODES
+
+
+def _lane_sum(s0, s1, s2, s3):
+    """(s0 + s1) + (s2 + s3): the combination of the dot product's lanes."""
+    return [(R0, ADD, s0, s1), (R1, ADD, s2, s3), (R0, ADD, R0, R1)]
+
+
+FMA_CHAIN_KERNEL = _FmaChainKernel()
+_LOG_CHAIN = ChainTemplate(_log_polynomial, 2)
+_EXP_CHAIN = ChainTemplate(_exp_polynomial, 2)
+
+
 def sum_of_products(pairs: Sequence[Tuple[Operand, Operand]]) -> torch.Tensor:
-    """``a0*b0 + a1*b1 + ...`` with XLA's contraction order."""
+    """``a0*b0 + a1*b1 + ...`` with XLA's contraction order, as one chain."""
     (a0, b0), rest = pairs[0], pairs[1:]
     if not rest:
         return a0 * b0
     (a1, b1), rest = rest[0], rest[1:]
-    acc = fma(a0, b0, a1 * b1)
-    for a, b in rest:
-        acc = fma(a, b, acc)
-    return acc
+    return accumulate([(R0, MUL, a1, b1), (R0, FMA, a0, b0, R0)], rest)
 
 
 def reduce_sum_of_squares(diff: torch.Tensor) -> torch.Tensor:
     """``sum(diff * diff, axis=-1)`` as XLA's reduction loop rounds it: the
-    accumulator starts at ``x0*x0`` and takes ``fma(xk, xk, acc)``."""
-    acc = diff[..., 0] * diff[..., 0]
-    for k in range(1, diff.shape[-1]):
-        acc = fma(diff[..., k], diff[..., k], acc)
-    return acc
+    accumulator starts at ``x0*x0`` and takes ``fma(xk, xk, acc)``; one
+    chain."""
+    if diff.shape[-1] == 1:
+        return diff[..., 0] * diff[..., 0]
+    cols = [diff[..., k] for k in range(diff.shape[-1])]
+    return accumulate([(R0, MUL, cols[0], cols[0])], [(x, x) for x in cols[1:]])
 
 
 def row_sum_of_squares(x: torch.Tensor) -> torch.Tensor:
@@ -424,16 +859,16 @@ def contract(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("...k,kp->...p", x, w)`` rounded as XLA's CPU dot rounds it:
     four partial sums over k mod 4, each the first product followed by
     fused multiply-adds in k order, combined as (s0 + s1) + (s2 + s3).
-    The four lanes run side by side; zero padding of k to a multiple of 4
-    leaves every lane's sum unchanged."""
+    The four lanes run side by side, as one chain over k and one that
+    combines them; zero padding of k to a multiple of 4 adds fma(0, 0, s)
+    steps, as XLA's padded loop does."""
     k = x.shape[-1]
     pad = -k % 4
     x4 = torch.nn.functional.pad(x, (0, pad)).reshape(*x.shape[:-1], -1, 4)
     w4 = torch.nn.functional.pad(w, (0, 0, 0, pad)).reshape(-1, 4, w.shape[-1])
-    acc = x4[..., 0, :, None] * w4[0]
-    for i in range(1, w4.shape[0]):
-        acc = fma(x4[..., i, :, None], w4[i], acc)
-    return (acc[..., 0, :] + acc[..., 1, :]) + (acc[..., 2, :] + acc[..., 3, :])
+    acc = accumulate([(R0, MUL, x4[..., 0, :, None], w4[0])],
+                     [(x4[..., i, :, None], w4[i]) for i in range(1, w4.shape[0])])
+    return chain(_lane_sum(*(acc[..., lane, :] for lane in range(4))))
 
 
 REDUCE_WINDOW = 32  # XLA's CPU tree-reduction window

@@ -20,7 +20,11 @@
 // never contracts it (filters.py::shared_products).  For _correlate1d the
 // caller passes those taps as a table of flags a position (n x count
 // bytes, or null where there are none), and a flagged product is rounded
-// and added (filters.py::_tap_chain).  Built with -fmad=false and without fast math, so the product
+// and added (filters.py::_tap_chain).  The LoG program of XLA's last fusion
+// reads its centre tap (offset 0) from another pass's output
+// (filters.py::log_program); the caller then passes that tensor as
+// `centre`, read at the output's own index.  Built with -fmad=false and
+// without fast math, so the product
 // x[k1] * w1 is rounded and every other step is the written __fmaf_rn.
 // The result is rounded to float16 and back when the cascade's carry is
 // float16 (the plain version's .to(float16).float()), and stored as
@@ -100,7 +104,7 @@ template <bool ROUND_HALF>
 __global__ void __launch_bounds__(THREADS)
 outer_axis_kernel(const float* __restrict__ x, float* __restrict__ out, int n, long long inner,
                   long long outer, int reach, const Taps taps,
-                  const uint8_t* __restrict__ shared) {
+                  const uint8_t* __restrict__ shared, const float* __restrict__ centre) {
   __shared__ float tile[(SEG + 2 * MAX_REACH) * LINES];
   const long long j = static_cast<long long>(blockIdx.x) * LINES + threadIdx.x;
   const int rows = SEG + 2 * reach;
@@ -117,8 +121,14 @@ outer_axis_kernel(const float* __restrict__ x, float* __restrict__ out, int n, l
       if (j >= inner) continue;
       for (int i = seg0 + threadIdx.y; i < seg0 + SEG && i < n; i += blockDim.y) {
         const int base = i - seg0 + reach;
-        out[(line0 + i) * inner + j] = tap_sum<ROUND_HALF>(
-            taps, [&](int k) { return tile[(base + taps.offset[k]) * LINES + threadIdx.x]; },
+        const long long at = (line0 + i) * inner + j;
+        out[at] = tap_sum<ROUND_HALF>(
+            taps,
+            [&](int k) {
+              return centre && taps.offset[k] == 0
+                         ? __ldg(centre + at)
+                         : tile[(base + taps.offset[k]) * LINES + threadIdx.x];
+            },
             shared ? shared + static_cast<long long>(i) * taps.count : nullptr);
       }
     }
@@ -129,7 +139,8 @@ outer_axis_kernel(const float* __restrict__ x, float* __restrict__ out, int n, l
 template <bool ROUND_HALF>
 __global__ void __launch_bounds__(THREADS)
 last_axis_kernel(const float* __restrict__ x, float* __restrict__ out, int n, long long lines,
-                 int reach, const Taps taps, const uint8_t* __restrict__ shared) {
+                 int reach, const Taps taps, const uint8_t* __restrict__ shared,
+                 const float* __restrict__ centre) {
   __shared__ float tile[ROW_SEG + 2 * MAX_REACH];
   const int seg0 = blockIdx.x * ROW_SEG;
   for (long long line = blockIdx.y; line < lines; line += gridDim.y) {
@@ -141,7 +152,11 @@ last_axis_kernel(const float* __restrict__ x, float* __restrict__ out, int n, lo
     const int i = seg0 + threadIdx.x;
     if (i < n)
       out[line * n + i] = tap_sum<ROUND_HALF>(
-          taps, [&](int k) { return tile[threadIdx.x + reach + taps.offset[k]]; },
+          taps,
+          [&](int k) {
+            return centre && taps.offset[k] == 0 ? __ldg(centre + line * n + i)
+                                                 : tile[threadIdx.x + reach + taps.offset[k]];
+          },
           shared ? shared + static_cast<long long>(i) * taps.count : nullptr);
   }
 }
@@ -155,10 +170,11 @@ extern "C" {
 // offsets `offsets` (each |offset| <= 128) with float32 `weights`;
 // round_half: round each result to float16 and back.
 // shared: device flags (n x count bytes) of the taps whose product is
-// computed once at each output position, or null
+// computed once at each output position, or null; centre: float32 like x,
+// read by the tap at offset 0 in place of x, or null
 int gauss_axis(const float* x, float* out, long long total, long long n, long long inner,
                int count, const int* offsets, const float* weights, int round_half,
-               const uint8_t* shared, void* stream) {
+               const uint8_t* shared, const float* centre, void* stream) {
   if (total < 1 || n < 1 || inner < 1 || total % (n * inner) != 0 || count < 1 ||
       count > MAX_TAPS || n > (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -182,19 +198,19 @@ int gauss_axis(const float* x, float* out, long long total, long long n, long lo
     const dim3 block(LINES, THREADS / LINES);
     if (round_half)
       outer_axis_kernel<true><<<grid, block, 0, s>>>(x, out, static_cast<int>(n), inner, outer,
-                                                     reach, taps, shared);
+                                                     reach, taps, shared, centre);
     else
       outer_axis_kernel<false><<<grid, block, 0, s>>>(x, out, static_cast<int>(n), inner, outer,
-                                                      reach, taps, shared);
+                                                      reach, taps, shared, centre);
   } else {
     const dim3 grid(static_cast<unsigned>((n + ROW_SEG - 1) / ROW_SEG),
                     static_cast<unsigned>(std::min(outer, GRID_YZ)));
     if (round_half)
       last_axis_kernel<true><<<grid, THREADS, 0, s>>>(x, out, static_cast<int>(n), outer, reach,
-                                                      taps, shared);
+                                                      taps, shared, centre);
     else
       last_axis_kernel<false><<<grid, THREADS, 0, s>>>(x, out, static_cast<int>(n), outer, reach,
-                                                       taps, shared);
+                                                       taps, shared, centre);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -125,25 +125,36 @@ def _tap_chain(reads, weights, shared=None) -> torch.Tensor:
     return out
 
 
-def _correlate1d_plain(x: torch.Tensor, weights: np.ndarray, axis: int) -> torch.Tensor:
+def _correlate1d_plain(x: torch.Tensor, weights: np.ndarray, axis: int, tap_shared=None,
+                       centre: torch.Tensor = None) -> torch.Tensor:
     """Correlate along ``axis`` with scipy 'reflect' edges; zero taps
-    skipped; products shared as :func:`shared_products` finds them."""
+    skipped; products shared as :func:`shared_products` finds them, and at
+    every position those of the nonzero taps flagged in ``tap_shared``; the
+    centre tap reads ``centre`` in place of ``x`` where given."""
     radius = len(weights) // 2
     if radius == 0:
-        return x * f32(weights[0])
+        return (x if centre is None else centre) * f32(weights[0])
     xp = pad_symmetric(x, axis, radius, radius)
     n = x.shape[axis]
     terms = [(k, f32(w)) for k, w in enumerate(weights) if float(w) != 0.0]
     if not terms:
         return torch.zeros_like(x)
     ws = [w for _, w in terms]
-    out = _tap_chain([xp.narrow(axis, k, n) for k, _ in terms], ws)
+
+    def read(k, start, length):
+        if k == radius and centre is not None:
+            return centre.narrow(axis, start, length)
+        return xp.narrow(axis, start + k, length)
+
+    out = _tap_chain([read(k, 0, n) for k, _ in terms], ws, tap_shared)
     shared = shared_products(n, [(k - radius, w) for k, w in terms], axis % x.ndim == x.ndim - 1)
     if shared is not None:
+        if tap_shared is not None:
+            shared = shared | np.asarray(tap_shared, bool)[None, :]
         for i in np.flatnonzero(shared.any(axis=1)):
             i = int(i)
-            out.narrow(axis, i, 1).copy_(_tap_chain(
-                [xp.narrow(axis, i + k, 1) for k, _ in terms], ws, shared[i]))
+            out.narrow(axis, i, 1).copy_(_tap_chain([read(k, i, 1) for k, _ in terms], ws,
+                                                    shared[i]))
     return out
 
 
@@ -178,16 +189,18 @@ class _GaussAxisKernel(CudaKernel):
         ptr = ctypes.c_void_p
         lib.gauss_axis.argtypes = [ptr, ptr, ctypes.c_longlong, ctypes.c_longlong,
                                    ctypes.c_longlong, ctypes.c_int, ptr, ptr, ctypes.c_int, ptr,
-                                   ptr]
+                                   ptr, ptr]
         lib.gauss_axis.restype = ctypes.c_int
 
     def __call__(self, x: torch.Tensor, taps, axis: int, round_half: bool = False,
-                 shared=None) -> torch.Tensor:
+                 shared=None, centre: torch.Tensor = None) -> torch.Tensor:
         """The correlation of the float32 CUDA tensor ``x`` along ``axis``
         over ``taps``, (input offset, float32 weight) pairs in summation
         order, as a new float32 tensor (each value rounded through float16
         with ``round_half``); ``shared``: :func:`shared_products`' table for
-        the axis, or None."""
+        the axis (or any such table of flags), or None; ``centre``: a tensor
+        like ``x`` that the tap at offset 0 reads in place of ``x``, or
+        None."""
         if x.device.type != "cuda" or x.dtype != torch.float32:
             raise TypeError(f"gauss_axis takes a float32 CUDA tensor, not {x.dtype} on {x.device}")
         if not 1 <= len(taps) <= self.max_taps:
@@ -196,6 +209,11 @@ class _GaussAxisKernel(CudaKernel):
             raise ValueError(f"gauss_axis taps reach at most {self.max_reach} voxels")
         axis = axis % x.ndim
         x = x.contiguous()
+        if centre is not None:
+            if centre.shape != x.shape or centre.device != x.device or \
+                    centre.dtype != torch.float32:
+                raise ValueError("gauss_axis: the centre tensor must be float32 like x")
+            centre = centre.contiguous()
         out = torch.empty_like(x)
         if x.numel() == 0:
             return out
@@ -213,6 +231,7 @@ class _GaussAxisKernel(CudaKernel):
             err = lib.gauss_axis(x.data_ptr(), out.data_ptr(), x.numel(), n, inner, len(taps),
                                  offsets, weights, int(bool(round_half)),
                                  None if shared is None else shared.data_ptr(),
+                                 None if centre is None else centre.data_ptr(),
                                  torch.cuda.current_stream().cuda_stream)
         check_error("gauss_axis launch", err)
         self.count_launch()
@@ -240,18 +259,24 @@ def traced_taps(weights: np.ndarray):
     return [(k - radius, f32(w)) for k, w in enumerate(weights)]
 
 
-def _correlate1d(x: torch.Tensor, weights: np.ndarray, axis: int) -> torch.Tensor:
+def _correlate1d(x: torch.Tensor, weights: np.ndarray, axis: int, tap_shared=None,
+                 centre: torch.Tensor = None) -> torch.Tensor:
     """Correlate along ``axis`` with scipy 'reflect' edges; zero taps
     skipped: ``csrc/gauss_axis.cu`` on a CUDA tensor, or
-    :func:`_correlate1d_plain`."""
+    :func:`_correlate1d_plain` (``tap_shared`` and ``centre`` as there)."""
     if not on_card(x, "_correlate1d"):
-        return _correlate1d_plain(x, weights, axis)
+        return _correlate1d_plain(x, weights, axis, tap_shared, centre)
     taps = nonzero_taps(weights)
     if not taps:
         return torch.zeros_like(x)
     axis = axis % x.ndim
-    return GAUSS_AXIS_KERNEL(x, taps, axis,
-                             shared=shared_products(x.shape[axis], taps, axis == x.ndim - 1))
+    shared = shared_products(x.shape[axis], taps, axis == x.ndim - 1)
+    if tap_shared is not None and any(tap_shared):
+        flags = np.broadcast_to(np.asarray(tap_shared, bool), (x.shape[axis], len(taps)))
+        shared = flags if shared is None else shared | flags
+    if centre is not None and not any(o == 0 for o, _ in taps):
+        centre = None
+    return GAUSS_AXIS_KERNEL(x, taps, axis, shared=shared, centre=centre)
 
 
 def correlate1d_traced(x: torch.Tensor, weights: np.ndarray, axis: int,
@@ -268,18 +293,73 @@ def correlate1d_traced(x: torch.Tensor, weights: np.ndarray, axis: int,
 
 def gaussian_laplace(x: torch.Tensor, sigma: Sequence[float], truncate: float = 4.0) -> torch.Tensor:
     """Sum over axes of second-derivative Gaussian responses
-    (``scipy.ndimage.gaussian_laplace``)."""
+    (``scipy.ndimage.gaussian_laplace``), rounded as the reference's
+    function jitted alone rounds it (:func:`log_program`)."""
+    return log_program(x, sigma, truncate)
+
+
+def log_program(x: torch.Tensor, sigma: Sequence[float], truncate: float = 4.0,
+                sunk_centre: bool = False) -> torch.Tensor:
+    """The LoG as one of XLA's CPU programs computes it.
+
+    In 2D, and in 3D with an axis not filtered, the correlations of each
+    term follow one another.  In 3D, XLA's last fusion recomputes each
+    term's correlations along axes 0 and 1 inline at the output position
+    itself (the centre taps), while the other taps read padded copies that
+    other fusions computed.  In that fusion the order-0 and order-2
+    correlations that read one input (axis 0 of the terms, and axis 1 of
+    the last two terms, which share their axis-0 pass) load each element
+    once, and where their weights at a tap have the same magnitude (the
+    centre tap at a sigma of exactly 1) LLVM computes the product once and
+    never contracts it.  So a term is: ``A`` (axis 0) and ``Y`` (axis 1
+    over ``A``) as the padded copies hold them; ``A*`` and ``Y*`` as the
+    last fusion computes them (``Y*``'s centre reads ``A*``); the term is
+    the axis-2 correlation of ``Y`` whose centre reads ``Y*``.
+    ``sunk_centre``: the input is a select that another program computes
+    inline (the Markers' clamped distance), which LLVM multiplies inside the
+    select where the value has one use, so ``A``'s centre product is
+    rounded and added, not contracted (``A*`` reads it twice)."""
     sigma = tuple(float(s) for s in sigma)
     if len(sigma) != x.ndim:
         raise ValueError("sigma must have one entry per axis")
+    if x.ndim != 3 or min(sigma) <= 0:
+        total = None
+        for d2_axis in range(x.ndim):
+            term = x
+            for axis, s in enumerate(sigma):
+                if s <= 0:
+                    continue
+                order = 2 if axis == d2_axis else 0
+                term = _correlate1d(term, gaussian_kernel1d(s, truncate, order=order), axis)
+            total = term if total is None else total + term
+        return total
+    w = {(a, o): gaussian_kernel1d(sigma[a], truncate, order=o) for a in range(3) for o in (0, 2)}
+
+    def twin_taps(a):
+        """The taps of axis a where the order-0 and order-2 weights have the
+        same float32 magnitude, in the order of each kernel's nonzero taps."""
+        w0, w2 = (np.abs(w[(a, o)].astype(np.float32)) for o in (0, 2))
+        twin = (w0 == w2) & (w0 != 0)
+        return {o: [bool(twin[k]) for k in range(len(w[(a, o)])) if float(w[(a, o)][k]) != 0.0]
+                for o in (0, 2)}
+
+    def centre_tap(o):
+        return [k == len(w[(0, o)]) // 2 for k in range(len(w[(0, o)]))
+                if float(w[(0, o)][k]) != 0.0]
+
+    twin0, twin1 = twin_taps(0), twin_taps(1)
+    # axis 0: order 2 in term 0, order 0 in terms 1 and 2 (one pass)
+    a_pad = {o: _correlate1d(x, w[(0, o)], 0, centre_tap(o) if sunk_centre else None)
+             for o in (0, 2)}
+    a_last = {o: _correlate1d(x, w[(0, o)], 0, twin0[o]) for o in (0, 2)}
     total = None
-    for d2_axis in range(x.ndim):
-        term = x
-        for axis, s in enumerate(sigma):
-            if s <= 0:
-                continue
-            order = 2 if axis == d2_axis else 0
-            term = _correlate1d(term, gaussian_kernel1d(s, truncate, order=order), axis)
+    for t in range(3):
+        a_order = 2 if t == 0 else 0
+        o1 = 2 if t == 1 else 0
+        y_pad = _correlate1d(a_pad[a_order], w[(1, o1)], 1)
+        y_last = _correlate1d(a_pad[a_order], w[(1, o1)], 1, twin1[o1] if t else None,
+                              centre=a_last[a_order])
+        term = _correlate1d(y_pad, w[(2, 2 if t == 2 else 0)], 2, centre=y_last)
         total = term if total is None else total + term
     return total
 

@@ -85,7 +85,7 @@ class WholeFrame:
     has the same three methods over the cores of a frame's shards; the
     cascade reads nothing else of the whole frame."""
 
-    minor_extent = None  # the Hessian's width rule reads the block's own
+    frame_shape = None  # the Hessian's fusion rules read the block's own shape
 
     @staticmethod
     def core(index: int, block: torch.Tensor) -> torch.Tensor:
@@ -199,7 +199,7 @@ def _core_box(block: torch.Tensor, core: torch.Tensor):
     return lo, [a + n for a, n in zip(lo, core.shape)]
 
 
-def tail_geometry(g: torch.Tensor, spacing, minor_extent, core: torch.Tensor,
+def tail_geometry(g: torch.Tensor, spacing, frame_shape, core: torch.Tensor,
                   masked: bool = True) -> _Geometry:
     """The kernel's view of block ``g``: its shape, per axis the Hessian's
     constants f32(0.5 / spacing) and f32(1 / spacing) (the same as
@@ -217,7 +217,7 @@ def tail_geometry(g: torch.Tensor, spacing, minor_extent, core: torch.Tensor,
         geo.inv[a] = f32(1.0 / sp[a])
         if f32(0.5 * (1.0 / sp[a])) != geo.half[a]:
             raise ValueError(f"spacing {sp[a]}: the gradient's constants differ")
-    for a, fused in enumerate(fused_axes(g, minor_extent, masked)):
+    for a, fused in enumerate(fused_axes(g, frame_shape, masked)):
         geo.fuse[a] = int(fused)
     lo, hi = _core_box(g, core)
     for a in range(3):
@@ -290,10 +290,10 @@ class _FrangiTailKernel(CudaKernel):
 FRANGI_TAIL_KERNEL = _FrangiTailKernel()
 
 
-def hessian_frob_plain(g: torch.Tensor, spacing, minor_extent, core):
+def hessian_frob_plain(g: torch.Tensor, spacing, frame_shape, core):
     """Pass 1 in plain torch: (the Hessian components, their unnormalised
     Frobenius norm, the largest |component| over ``core(component)``)."""
-    h, frob = hessian_unnormalized(g, spacing, minor_extent)
+    h, frob = hessian_unnormalized(g, spacing, frame_shape)
     return h, frob, largest_component({k: core(v) for k, v in h.items()})
 
 
@@ -311,20 +311,20 @@ def frangi_response_plain(h, mask, gamma_sq, params: FrangiParams, vessel, all_m
     return torch.maximum(vessel, v.to(vessel.dtype)), all_mask
 
 
-def hessian_frob(g: torch.Tensor, spacing, minor_extent, core):
+def hessian_frob(g: torch.Tensor, spacing, frame_shape, core):
     """Pass 1 of a scale's tail on block ``g``: (the components for
     :func:`frangi_response`, or None where the kernel recomputes them; the
     unnormalised Frobenius norm; the largest |component| over the core box,
     ``core(g)``).  ``csrc/frangi_tail.cu`` on a CUDA block, or
     :func:`hessian_frob_plain`."""
     if not on_card(g, "frangi tail"):
-        return hessian_frob_plain(g, spacing, minor_extent, core)
+        return hessian_frob_plain(g, spacing, frame_shape, core)
     frob, largest = FRANGI_TAIL_KERNEL.hessian_frob(
-        g, tail_geometry(g, spacing, minor_extent, core(g)))
+        g, tail_geometry(g, spacing, frame_shape, core(g)))
     return None, frob, largest
 
 
-def frangi_response(g, h, params: FrangiParams, minor_extent, mask, gamma_sq, vessel, all_mask):
+def frangi_response(g, h, params: FrangiParams, frame_shape, mask, gamma_sq, vessel, all_mask):
     """Pass 2 of a scale's tail on block ``g`` (``h`` from
     :func:`hessian_frob`): returns (vessel, all_mask) after
     ``vessel = max(vessel, response in the carry type)`` and
@@ -334,9 +334,9 @@ def frangi_response(g, h, params: FrangiParams, minor_extent, mask, gamma_sq, ve
     version returns new tensors."""
     if not on_card(g, "frangi tail"):
         if h is None or mask is None:
-            h, _ = hessian_unnormalized(g, params.spacing, minor_extent, masked=mask is not None)
+            h, _ = hessian_unnormalized(g, params.spacing, frame_shape, masked=mask is not None)
         return frangi_response_plain(h, mask, gamma_sq, params, vessel, all_mask)
-    geo = tail_geometry(g, params.spacing, minor_extent, g, masked=mask is not None)
+    geo = tail_geometry(g, params.spacing, frame_shape, g, masked=mask is not None)
     FRANGI_TAIL_KERNEL.frangi_response(g, geo, mask, gamma_sq, params, vessel, all_mask)
     return vessel, all_mask
 
@@ -370,7 +370,7 @@ def vesselness_blocks(blocks, params: FrangiParams, apply_mask: bool, stats):
             gauss[b] = g
         gamma_sq = [2.0 * g * g for g in _gammas(gauss, params.max_threshold_samples, stats)]
         if apply_mask:
-            tails = [hessian_frob(g, params.spacing, stats.minor_extent,
+            tails = [hessian_frob(g, params.spacing, stats.frame_shape,
                                   lambda v, b=b: stats.core(b, v)) for b, g in enumerate(gauss)]
             largest = stats.all_max([m for _, _, m in tails])
             frobs = [frob / nonzero_or_one(m) for (_, frob, _), m in zip(tails, largest)]
@@ -382,7 +382,7 @@ def vesselness_blocks(blocks, params: FrangiParams, apply_mask: bool, stats):
             tails = [(None, None, None)] * len(gauss)
             h_masks = [None] * len(gauss)
         for b, (h, _, _) in enumerate(tails):
-            vessel[b], all_mask[b] = frangi_response(gauss[b], h, params, stats.minor_extent,
+            vessel[b], all_mask[b] = frangi_response(gauss[b], h, params, stats.frame_shape,
                                                      h_masks[b], gamma_sq[b], vessel[b],
                                                      all_mask[b])
         del tails, h_masks

@@ -29,9 +29,10 @@ def gradient(f: torch.Tensor, spacing: float, axis: int) -> torch.Tensor:
 # axis whose length is at least this many elements into its consumers
 # ("Concatenate fusion is inefficient" in its fusion log).
 _XLA_MINOR_CONCAT_LIMIT = 128
+_XLA_SMALL_FRAME = 32  # a frame no longer than this along every axis
 
 
-def _fuses_inner_gradient(f: torch.Tensor, axis: int, minor_extent=None,
+def _fuses_inner_gradient(f: torch.Tensor, axis: int, frame_shape=None,
                           masked: bool = True) -> bool:
     """Whether XLA fuses the whole inner gradient into the outer one, as
     it compiles the reference's Frangi scale body (2D and 3D).
@@ -47,24 +48,29 @@ def _fuses_inner_gradient(f: torch.Tensor, axis: int, minor_extent=None,
     Z and Y it tried (1 to 256), in 2D as in 3D.  Without the mask
     (``vesselness_frame(..., apply_mask=False)``) no Frobenius norm reads
     the components, so every axis fuses it but a minor one of more than
-    the limit (``scripts/xla_unmasked_probe.py``).  ``minor_extent``: the
-    whole frame's last-axis width, when ``f`` is a block of it (the rule
-    is the frame's)."""
-    n = f.shape[axis] if minor_extent is None or axis != f.ndim - 1 else int(minor_extent)
-    if not masked:
+    the limit (``scripts/xla_unmasked_probe.py``); and so does the masked
+    program of a small frame, every axis of which is at most
+    ``_XLA_SMALL_FRAME`` long (``scripts/xla_unmasked_probe.py`` prints both
+    programs: masked, 9x20x30, 30x20x30 and 32x32x32 fuse it on every axis,
+    9x20x33, 9x33x30 and 33x32x32 on none; 2D alike).
+    ``frame_shape``: the whole frame's shape, when ``f`` is a block of it
+    (the rule is the frame's)."""
+    shape = tuple(f.shape) if frame_shape is None else tuple(int(v) for v in frame_shape)
+    n = shape[axis]
+    if not masked or max(shape) <= _XLA_SMALL_FRAME:
         return axis != f.ndim - 1 or n - 1 < _XLA_MINOR_CONCAT_LIMIT
     return axis == f.ndim - 1 and n - 1 < _XLA_MINOR_CONCAT_LIMIT <= n
 
 
-def fused_axes(f: torch.Tensor, minor_extent=None, masked: bool = True):
+def fused_axes(f: torch.Tensor, frame_shape=None, masked: bool = True):
     """Per axis, whether its diagonal component fuses the whole inner
     gradient (:func:`_fuses_inner_gradient`); every axis's edge
     differences are contracted either way (:func:`_second_gradient`)."""
-    return [_fuses_inner_gradient(f, axis, minor_extent, masked) for axis in range(f.ndim)]
+    return [_fuses_inner_gradient(f, axis, frame_shape, masked) for axis in range(f.ndim)]
 
 
 def _second_gradient(f: torch.Tensor, spacing: float, axis: int,
-                     minor_extent=None, masked: bool = True) -> torch.Tensor:
+                     frame_shape=None, masked: bool = True) -> torch.Tensor:
     """``gradient(gradient(f))`` along one axis as XLA rounds every
     diagonal component (``hxx``, ``hyy``, ``hzz``): it fuses the inner
     gradient's edge values into the outer gradient, whose two edge
@@ -82,7 +88,7 @@ def _second_gradient(f: torch.Tensor, spacing: float, axis: int,
     last = fma(f.narrow(axis, n - 1, 1) - f.narrow(axis, n - 2, 1), inv,
                -g.narrow(axis, n - 2, 1)) * inv
     interior = out.narrow(axis, 1, n - 2)
-    if _fuses_inner_gradient(f, axis, minor_extent, masked) and n > 3:
+    if _fuses_inner_gradient(f, axis, frame_shape, masked) and n > 3:
         # g[i + 1] = diff[i + 1] * coefficient, contracted into g[i + 1] - g[i - 1]
         diff = torch.cat([f.narrow(axis, 3, n - 3) - f.narrow(axis, 1, n - 3),
                           f.narrow(axis, n - 1, 1) - f.narrow(axis, n - 2, 1)], dim=axis)
@@ -139,10 +145,10 @@ def frobenius_norm(h: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def hessian_unnormalized(
-    image: torch.Tensor, spacing: Sequence[float], minor_extent=None, masked: bool = True
+    image: torch.Tensor, spacing: Sequence[float], frame_shape=None, masked: bool = True
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """The components and the Frobenius norm before its division by the
-    largest |component|; ``minor_extent`` as for :func:`_fuses_inner_gradient`.
+    largest |component|; ``frame_shape`` as for :func:`_fuses_inner_gradient`.
     ``masked``: the components as the program with the Frobenius mask
     rounds them (the Filter's); without it XLA fuses the whole inner
     gradient of every diagonal component but along a minor axis of more
@@ -151,21 +157,21 @@ def hessian_unnormalized(
     if image.ndim == 2:
         g0 = gradient(image, spacing[0], 0)
         h = {
-            "hxx": _second_gradient(image, spacing[0], 0, minor_extent, masked),
+            "hxx": _second_gradient(image, spacing[0], 0, frame_shape, masked),
             "hxy": gradient(g0, spacing[1], 1),
-            "hyy": _second_gradient(image, spacing[1], 1, minor_extent, masked),
+            "hyy": _second_gradient(image, spacing[1], 1, frame_shape, masked),
         }
         frob = frobenius_norm(h)
     elif image.ndim == 3:
         g0 = gradient(image, spacing[0], 0)
         g1 = gradient(image, spacing[1], 1)
         h = {
-            "hxx": _second_gradient(image, spacing[0], 0, minor_extent, masked),
+            "hxx": _second_gradient(image, spacing[0], 0, frame_shape, masked),
             "hxy": gradient(g0, spacing[1], 1),
             "hxz": gradient(g0, spacing[2], 2),
-            "hyy": _second_gradient(image, spacing[1], 1, minor_extent, masked),
+            "hyy": _second_gradient(image, spacing[1], 1, frame_shape, masked),
             "hyz": gradient(g1, spacing[2], 2),
-            "hzz": _second_gradient(image, spacing[2], 2, minor_extent, masked),
+            "hzz": _second_gradient(image, spacing[2], 2, frame_shape, masked),
         }
         frob = frobenius_norm(h)
     else:

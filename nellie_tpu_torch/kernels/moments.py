@@ -16,7 +16,8 @@ from math import comb
 
 import torch
 
-from nellie_tpu_torch.kernels._fp import _TINY, contract, flush, fma, log10
+from nellie_tpu_torch.kernels._fp import (
+    _TINY, ADD, FMA, MUL, R0, accumulate, contract, flush, fma, log10)
 from nellie_tpu_torch.kernels._fp import pow as pow_f32
 
 
@@ -47,22 +48,21 @@ _FUSE_RIGHT_LOOPED = _FUSE_RIGHT - {(3, 0)}
 def _sum_terms(terms, fuse_right):
     """``t0 + t1 + ...`` for terms ``(factor, value)`` meaning
     ``factor * value`` (``factor`` None for a bare value), with XLA's fused
-    multiply-adds: every later product is fused into the running sum."""
-    def product(t):
-        return t[1] if t[0] is None else t[0] * t[1]
-
+    multiply-adds: every later product is fused into the running sum.  One
+    chain of multiply-adds (``_fp.accumulate``)."""
     if len(terms) == 1:
-        return product(terms[0])
+        f, v = terms[0]
+        return v if f is None else f * v
     (f0, v0), (f1, v1) = terms[0], terms[1]
     if f1 is not None and (f0 is None or fuse_right):
-        acc = fma(f1, v1, product(terms[0]))
+        first = [(R0, FMA, f1, v1, v0)] if f0 is None else [(R0, MUL, f0, v0),
+                                                            (R0, FMA, f1, v1, R0)]
     elif f0 is not None:
-        acc = fma(f0, v0, product(terms[1]))
+        first = [(R0, FMA, f0, v0, v1)] if f1 is None else [(R0, MUL, f1, v1),
+                                                            (R0, FMA, f0, v0, R0)]
     else:
-        acc = v0 + v1
-    for f, v in terms[2:]:
-        acc = acc + v if f is None else fma(f, v, acc)
-    return acc
+        first = [(R0, ADD, v0, v1)]
+    return accumulate(first, terms[2:])
 
 
 def central_moments(m: torch.Tensor, looped: bool = False) -> torch.Tensor:

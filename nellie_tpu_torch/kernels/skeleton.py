@@ -11,7 +11,9 @@ hand-written kernel ``csrc/thin26.cu`` (built for ``sm_90a`` with ``nvcc``
 on first use, bound through ``ctypes``), or raises; on a CPU tensor it runs
 :func:`skeletonize_3d_plain`.  ``THIN26_KERNEL.launches`` counts the
 wrapper's calls (one C call runs the whole loop) and
-``THIN26_KERNEL.kernel_launches`` the CUDA kernels those calls launched.
+``THIN26_KERNEL.kernel_launches`` the CUDA kernels those calls launched
+(one a call: the kernel is persistent and runs every sweep, direction and
+round between grid barriers).
 
 The sweep is the reference's exactly: six border directions per outer
 iteration; within a direction the candidates are fixed to the border
@@ -125,13 +127,10 @@ def skeletonize_3d_plain(mask: torch.Tensor, lut: torch.Tensor = None) -> torch.
         fg = new
 
 
-ROUNDS_PER_READ = 4  # the kernel's rounds between two host reads of its commit flags
-
-
 class _Thin26Kernel(CudaKernel):
     """The compiled thinning (``csrc/thin26.cu``), built once per process,
     with a launch count, a count of the CUDA kernels launched and the last
-    call's (rounds, flag reads, sweeps, kernels launched)."""
+    call's (rounds, host reads, sweeps, kernels launched)."""
 
     source = "thin26.cu"
 
@@ -142,12 +141,13 @@ class _Thin26Kernel(CudaKernel):
 
     def bind(self, lib):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.thin26.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+        lib.thin26.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, i32, i32, i32,
                                ctypes.POINTER(ctypes.c_longlong), ptr]
         lib.thin26.restype = i32
+        lib.thin26_scratch_bytes.argtypes = [i32]
+        lib.thin26_scratch_bytes.restype = ctypes.c_longlong
 
-    def __call__(self, mask: torch.Tensor, lut: torch.Tensor,
-                 rounds_per_read: int = ROUNDS_PER_READ) -> torch.Tensor:
+    def __call__(self, mask: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
         if mask.device.type != "cuda" or mask.ndim != 3:
             raise TypeError(f"thin26 takes a 3D CUDA tensor, not {mask.ndim}D on {mask.device}")
         if lut.device != mask.device or lut.dtype != torch.uint8 or lut.numel() != 1 << 23:
@@ -163,15 +163,16 @@ class _Thin26Kernel(CudaKernel):
             return fg
         lib = self._lib or self.build()
         with self.on_device(dev):
-            voxels = torch.nonzero(fg.reshape(-1)).reshape(-1).to(torch.int32)
+            # queued before the list's host sync, so the card is not idle after it
             del_now = torch.zeros(fg.shape, dtype=torch.uint8, device=dev)
-            remaining = torch.zeros(fg.shape, dtype=torch.uint8, device=dev)
-            flags = torch.empty(rounds_per_read, dtype=torch.int32, device=dev)
+            voxels = torch.nonzero(fg.reshape(-1)).reshape(-1).to(torch.int32)
+            # flags and counters, the directions' work lists, a byte a voxel
+            scratch = torch.empty(lib.thin26_scratch_bytes(voxels.numel()), dtype=torch.uint8,
+                                  device=dev)
             stats = (ctypes.c_longlong * 4)()
             err = lib.thin26(fg.data_ptr(), voxels.data_ptr(), voxels.numel(), del_now.data_ptr(),
-                             remaining.data_ptr(), flags.data_ptr(), lut.data_ptr(),
-                             *fg.shape, rounds_per_read, stats,
-                             torch.cuda.current_stream().cuda_stream)
+                             scratch.data_ptr(), lut.data_ptr(), *fg.shape, stats,
+                             torch.cuda.current_stream(dev).cuda_stream)
         check_error("thin26 launch", err)
         with self._lock:
             self.count_launch()

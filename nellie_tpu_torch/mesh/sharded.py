@@ -349,7 +349,7 @@ class ShardStats:
     def __init__(self, plan: ShardPlan, offsets):
         self.plan = plan
         self.offsets = offsets
-        self.minor_extent = plan.shape[-1]  # the Hessian's rule is the frame's
+        self.frame_shape = tuple(plan.shape)  # the Hessian's rule is the frame's
 
     def core(self, k: int, block: torch.Tensor) -> torch.Tensor:
         return crop(block, self.plan, k, self.offsets[k])

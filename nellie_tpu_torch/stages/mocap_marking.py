@@ -25,7 +25,7 @@ from nellie_tpu_torch.utils.logger import logger
 from nellie_tpu_torch.device import resolve_device
 from nellie_tpu_torch.kernels import edt
 from nellie_tpu_torch.kernels._fp import f32
-from nellie_tpu_torch.kernels.filters import binary_dilation, gaussian_laplace, maximum_filter
+from nellie_tpu_torch.kernels.filters import binary_dilation, log_program, maximum_filter
 from nellie_tpu_torch.utils import adaptive_run
 from nellie_tpu_torch.utils.chunking import (
     compute_chunk_shape,
@@ -71,7 +71,8 @@ def markers_frame(intensity, mask, base_im, params: MarkerParams, distance=None)
     peak_mask = torch.zeros(mask.shape, dtype=torch.bool, device=mask.device)
     for s in params.sigmas:
         vec = params.sigma_vec(float(s))
-        log_resp = -gaussian_laplace(base, vec) * f32(float(s) ** 2)
+        log_resp = -log_program(base, vec, params.truncate, sunk_centre=distance is base_im) \
+            * f32(float(s) ** 2)
         log_resp = torch.clamp(log_resp, min=0.0)
         local_max = (log_resp == maximum_filter(log_resp, 3)) & valid
         better = local_max & (log_resp > best_resp)

@@ -17,9 +17,17 @@ importing the package of its own tree:
 - each tree's union-find and interpolation kernel on those inputs: a
   digest of each output (the trees must agree, NaN taken as one value),
   its time per call (CUDA events) and on the device (``torch.profiler``);
+- each tree's 3D thinning (``skeleton.skeletonize_3d``) on the 3D main
+  path's largest Network mask, and its fused multiply-add (``_fp.fma``) on
+  the 3D path's largest ``fma_f32`` call, then ``_fp.log``, ``_fp.exp``,
+  ``_fp.sum_of_products`` (three pairs) and ``_fp.reduce_sum_of_squares``
+  (three columns) on 4,194,304 seeded values: a digest, the time per call
+  and on the device on a cold L2 (``chip_smoke.cold_times``), and the
+  multiply-add kernels' launches a call (one a contracted step on a tree
+  without the chains);
 - the fused segmentation chain (``FusedSegmentation.run(fence_stages=True)``)
-  on the 3D main series, once to warm up and once timed: its wall and
-  Filter seconds;
+  on the 3D main series, once to warm up and once timed: its wall, Filter
+  and Network seconds;
 - ``capacity.segment_volume`` on ``chip_smoke.capacity_volume(1024)``: its
   wall and vesselness seconds and its label count.
 
@@ -82,6 +90,18 @@ def child(tree, rows_path, out_path, label):
     gpu = chip_smoke.gpu_line()
     rows = torch.load(rows_path)  # tensors, strings and floats only
     result = {"tree": label, "kernels": {}}
+    for row, (fn, args) in multiply_add_rows(rows).items():
+        out = fn(*args)
+        out = digest(out.to(torch.uint8) if out.dtype == torch.bool else out)
+        launches = fma_launches()
+        fn(*args)
+        launches = fma_launches() - launches
+        ms, on_device = chip_smoke.cold_times(lambda: fn(*args), 5 if row == "thin26" else 20)
+        result["kernels"][row] = {"ms": ms, "device_ms": on_device, "digest": out,
+                                  "fma_launches": launches}
+        print(f"{label} tree: {row}: {ms:.4f} ms a call on a cold L2, on the device "
+              f"{chip_smoke.fmt_ms(on_device)}, {launches} multiply-add launches a call "
+              f"[{gpu}]", flush=True)
     for kind, kernel, reps in (("ccl", ccl.CCL_KERNEL, 20),
                                ("interp", fi.FLOW_INTERP_KERNEL, 10)):
         for row, args in rows[kind].items():
@@ -97,7 +117,7 @@ def child(tree, rows_path, out_path, label):
         for name in ("warm-up", "timed"):
             wall, stages = chip_smoke.fused_segmentation_seconds(
                 root, name, chip_smoke.MAIN_SHAPE, fence=True)
-        result.update(seg_fused=wall, filter=stages["filter"])
+        result.update(seg_fused=wall, filter=stages["filter"], network=stages["network"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     vol = chip_smoke.capacity_volume(chip_smoke.CAPACITY_EDGE)
@@ -113,6 +133,39 @@ def child(tree, rows_path, out_path, label):
           f"{result['vesselness']:.3f} s, {result['n_labels']} labels [{gpu}]", flush=True)
     with open(out_path, "w") as f:
         json.dump(result, f)
+
+
+def fma_launches():
+    """The multiply-add kernels' launches so far: ``fma_f32``'s single
+    calls and, on a tree that has them, its chains."""
+    from nellie_tpu_torch.kernels import _fp
+
+    chain = getattr(_fp, "FMA_CHAIN_KERNEL", None)
+    return _fp.FMA_KERNEL.launches + (chain.launches if chain is not None else 0)
+
+
+def multiply_add_rows(rows):
+    """{row: (function, arguments on the card)} of the thinning and the
+    multiply-add rows, on this process's package."""
+    import numpy as np
+
+    from nellie_tpu_torch.kernels import _fp, skeleton
+
+    def cuda(args):
+        return tuple(a.cuda() if isinstance(a, torch.Tensor) else a for a in args)
+
+    rng = np.random.default_rng(13)
+    a, b, c = (torch.from_numpy(rng.standard_normal(1 << 22).astype(np.float32)).cuda()
+               for _ in range(3))
+    positive = a.abs() + 1e-3
+    return {"thin26": (skeleton.skeletonize_3d, cuda(rows["thin26"])),
+            "fma_f32 3D largest": (_fp.fma, cuda(rows["fma"])),
+            "log": (_fp.log, (positive,)),
+            "exp": (_fp.exp, (a * 4,)),
+            "sum_of_products": (lambda x, y, z: _fp.sum_of_products([(x, y), (y, z), (z, x)]),
+                                (a, b, c)),
+            "reduce_sum_of_squares": (_fp.reduce_sum_of_squares,
+                                      (torch.stack([a, b, c], dim=-1),))}
 
 
 def record(rows_path):
@@ -140,6 +193,9 @@ def record(rows_path):
     host = {kind: {row: tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
                    for row, args in rows.items()}
             for kind, rows in (("ccl", ccl_rows), ("interp", interp_rows))}
+    host["thin26"] = hand["largest"]["skeletonize_3d"][1]  # (mask, table) on the host
+    host["fma"] = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
+                        for a in hand["fma_largest"][1])
     torch.save(host, rows_path)
     return gpu
 
@@ -189,17 +245,20 @@ def main() -> None:
                 "ms": min(m["ms"] for m in mine),
                 "device_ms": min((m["device_ms"] for m in mine if m["device_ms"] is not None),
                                  default=None)}
+            if "fma_launches" in mine[0]:
+                kernels[row][label]["fma_launches"] = mine[0]["fma_launches"]
         this, before = kernels[row]["this"], kernels[row]["earlier"]
         print(f"{row}: this tree {this['ms']:.4f} ms a call (on the device "
               f"{fmt(this['device_ms'])}), earlier tree {before['ms']:.4f} ms "
               f"(on the device {fmt(before['device_ms'])}) [{gpu}]", flush=True)
     if len({t["n_labels"] for t in turns}) != 1:
         sys.exit("the two trees' capacity runs found different label counts")
-    seconds = [{k: t[k] for k in ("tree", "seg_fused", "filter", "capacity", "vesselness")}
-               for t in turns]
+    seconds = [{k: t[k] for k in ("tree", "seg_fused", "filter", "network", "capacity",
+                                  "vesselness")} for t in turns]
     print("seconds by turn: " + "; ".join(
-        f"{s['tree']}: seg_fused {s['seg_fused']:.3f}, filter {s['filter']:.3f}, capacity "
-        f"{s['capacity']:.3f}, vesselness {s['vesselness']:.3f}" for s in seconds)
+        f"{s['tree']}: seg_fused {s['seg_fused']:.3f}, filter {s['filter']:.3f}, network "
+        f"{s['network']:.3f}, capacity {s['capacity']:.3f}, vesselness {s['vesselness']:.3f}"
+        for s in seconds)
         + f" [{gpu}]", flush=True)
     line = json.dumps({"gpu": gpu, "kernels": kernels, "turns": seconds})
     if args.out:

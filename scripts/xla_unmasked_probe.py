@@ -14,8 +14,10 @@ difference of two inner-gradient values sees both products and LLVM
 contracts the left one into a fused multiply-add.  Prints one JSON line per
 shape and program with the axes where that happens.  The port's
 ``hessian.fused_axes`` (``_fuses_inner_gradient``) mirrors
-these lines: with the mask only a last axis of exactly 128; without it
-every axis but a last one longer than 128.
+these lines: with the mask only a last axis of exactly 128, except in a
+small frame (no axis longer than 32: 9x20x30, 32x32x32, 20x30), which
+fuses like the program without it; without it every axis but a last one
+longer than 128.
 """
 from __future__ import annotations
 

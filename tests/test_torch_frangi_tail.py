@@ -141,7 +141,7 @@ def test_mesh_blocks_with_core_boxes(shape):
                          sharded.filter_halo(frangi.FrangiParams(**kw), plan, False))
     stats = sharded.ShardStats(plan, [lo for _, lo in ext])
     for k, (block, lo) in enumerate(ext):
-        geo = frangi.tail_geometry(block, kw["spacing"], stats.minor_extent,
+        geo = frangi.tail_geometry(block, kw["spacing"], stats.frame_shape,
                                    stats.core(k, block))
         a, b = plan.bounds[k]
         assert (geo.core_lo[0], geo.core_hi[0]) == (lo, lo + b - a)
@@ -159,10 +159,13 @@ def test_geometry_constants_and_errors():
     geo = frangi.tail_geometry(g, (0.5, 0.2, 0.3), None, g)
     assert [geo.n[a] for a in range(3)] == [4, 5, 128] and list(geo.fuse) == [0, 0, 1]
     assert geo.half[2] == np.float32(0.5 / 0.3) and geo.inv[1] == np.float32(1 / 0.2)
-    geo = frangi.tail_geometry(g[..., :100].contiguous(), (0.5, 0.2, 0.3), 128,
+    geo = frangi.tail_geometry(g[..., :100].contiguous(), (0.5, 0.2, 0.3), (4, 5, 128),
                                g[..., :100].contiguous())
-    assert list(geo.fuse) == [0, 0, 1]  # the frame's width decides, not the block's
-    geo = frangi.tail_geometry(g, (0.5, 0.2, 0.3), 129, g, masked=False)
+    assert list(geo.fuse) == [0, 0, 1]  # the frame's shape decides, not the block's
+    geo = frangi.tail_geometry(g[:, :, :20].contiguous(), (0.5, 0.2, 0.3), (4, 5, 20),
+                               g[:, :, :20].contiguous())
+    assert list(geo.fuse) == [1, 1, 1]  # a small frame: every axis
+    geo = frangi.tail_geometry(g, (0.5, 0.2, 0.3), (4, 5, 129), g, masked=False)
     assert list(geo.fuse) == [1, 1, 0]  # without the mask: every axis but a minor one over 128
     assert frangi._core_box(g, g[1:3, 2:4, 5:9]) == ([1, 2, 5], [3, 4, 9])
     with pytest.raises(ValueError):

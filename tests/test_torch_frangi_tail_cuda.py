@@ -60,7 +60,8 @@ def test_hessian_frob(cuda, shape, scale):
     g = _smoothed(shape, seed=sum(shape), scale=scale)
     params = PARAMS[len(shape)]
     core = (lambda v: v.narrow(0, 1, v.shape[0] - 2)) if shape[0] > 2 else (lambda v: v)
-    for minor in (None, 128):
+    # the block's own shape, then a frame 128 wide of which it is a block
+    for minor in (None, tuple(shape[:-1]) + (128,)):
         before = frangi.FRANGI_TAIL_KERNEL.launches
         h, frob, largest = frangi.hessian_frob(g.to(cuda), params.spacing, minor, core)
         torch.cuda.synchronize()

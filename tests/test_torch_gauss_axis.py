@@ -5,11 +5,14 @@ reflected index, the multiply-add chain) against the plain versions, so that the
 kernel itself, on the card: ``tests/test_torch_gauss_axis_cuda.py``).
 
 The LoG is held where its taps are shorter than the axis, with the sigmas
-of ``test_torch_segmentation.test_filters_bitwise`` and others that agree;
-where its reflected taps reach past the axis's extent, in
-``tests/test_torch_log_programs.py``.  Jitted alone, ``gaussian_laplace``
-with a sigma of exactly 1 along an axis (0.4, 1, 1 or 1, 2, 2 in 3D)
-rounds otherwise; ROADMAP Queue 3 lists it.
+of ``test_torch_segmentation.test_filters_bitwise`` and others; where its
+reflected taps reach past the axis's extent, in
+``tests/test_torch_log_programs.py``.  Jitted alone in 3D,
+``gaussian_laplace`` at a sigma of exactly 1 along an axis (0.4, 1, 1 or
+1, 2, 2) shares the order-0 and order-2 centre products of one input in
+XLA's last fusion, which never contracts them (``filters.log_program``):
+those sigmas are cases too, and ``kernel_model`` reads a centre tap from
+another tensor as the kernel does for that program.
 """
 import numpy as np
 import pytest
@@ -32,20 +35,22 @@ LOG_SHAPES = [(12, 48, 48), (24, 32, 128), (64, 128)]  # every tap radius below 
 LOG_TAPS = [(1.0, 0), (1.0, 2), (2.5, 2), (0.3, 0)]
 
 
-def kernel_model(x, taps, axis, round_half=False, shared=None):
+def kernel_model(x, taps, axis, round_half=False, shared=None, centre=None):
     """``csrc/gauss_axis.cu`` in torch: each output reads tap k at the
     reflected index i + offset_k (numpy's "symmetric") and sums
     fma(x0, w0, x1 * w1), then fma(xk, wk, acc), rounding once a step; at
     the positions where ``shared`` (``filters.shared_products``' table)
     flags a tap, its product is rounded and added (for the first add the
-    other product is contracted, or neither); optionally rounded through
-    float16."""
+    other product is contracted, or neither); the tap at offset 0 reads
+    ``centre`` where given; optionally rounded through float16."""
     from nellie_tpu_torch.kernels._fp import fma_plain
 
     n = x.shape[axis]
     i = torch.arange(n, device=x.device)
 
     def at(offset):
+        if offset == 0 and centre is not None:
+            return centre
         m = torch.remainder(i + offset, 2 * n)
         return torch.index_select(x, axis, torch.where(m < n, m, 2 * n - 1 - m))
 
@@ -106,7 +111,12 @@ def test_log_correlation_bitwise(shape):
 
 @pytest.mark.parametrize("shape,sigma", [((12, 48, 48), (0.7, 1.6, 1.3)),
                                          ((24, 32, 128), (0.5, 1.25, 1.25)),
-                                         ((64, 128), (1.0, 1.0)), ((64, 128), (0.5, 0.5))])
+                                         ((64, 128), (1.0, 1.0)), ((64, 128), (0.5, 0.5)),
+                                         ((12, 48, 48), (0.4, 1.0, 1.0)),
+                                         ((12, 48, 48), (1.0, 2.0, 2.0)),
+                                         ((12, 48, 48), (1.0, 1.0, 1.0)),
+                                         ((10, 40, 56), (0.5, 1.0, 2.0)),
+                                         ((64, 128), (2.0, 1.0))])
 def test_gaussian_laplace_bitwise(shape, sigma):
     frame = chip_smoke.filter_frame(shape, seed=len(shape))
     want = jax.jit(lambda x: j_filters.gaussian_laplace(x, sigma))(frame)
@@ -130,6 +140,25 @@ def test_kernel_model_equals_plain(frame, round_half):
                                shared=filters.shared_products(x.shape[axis], taps,
                                                               axis == x.ndim - 1))
             assert_bitwise(got.numpy(), filters._correlate1d_plain(x, w, axis).numpy())
+
+
+def test_kernel_model_reads_the_centre():
+    """The LoG program's passes (``filters.log_program``): taps flagged at
+    every position and a centre read from another tensor, in the kernel's
+    loop, equal ``_correlate1d_plain`` with the same flags and centre."""
+    x = torch.from_numpy(chip_smoke.filter_frame((6, 20, 24), seed=4))
+    other = torch.from_numpy(chip_smoke.filter_frame((6, 20, 24), seed=5))
+    for axis in range(3):
+        for sigma, order in LOG_TAPS + [(1.0, 2)]:
+            w = filters.gaussian_kernel1d(sigma, 4.0, order=order)
+            taps = filters.nonzero_taps(w)
+            flags = [o == 0 or k % 3 == 1 for k, (o, _) in enumerate(taps)]
+            table = filters.shared_products(x.shape[axis], taps, axis == 2)
+            table = np.broadcast_to(np.asarray(flags), (x.shape[axis], len(taps))) | (
+                False if table is None else table)
+            got = kernel_model(x, taps, axis, shared=table, centre=other)
+            want = filters._correlate1d_plain(x, w, axis, flags, centre=other)
+            assert_bitwise(got.numpy(), want.numpy())
 
 
 def test_tap_lists():

@@ -87,14 +87,33 @@ def test_shapes_off_the_tiles(cuda, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(12, 48, 48), (3, 5, 9), (1, 200)])
+def test_centre_and_tap_flags(cuda, shape):
+    """The LoG program's passes: a tap flagged at every position and the
+    centre read from another tensor."""
+    x = torch.from_numpy(chip_smoke.filter_frame(shape, seed=7)).to(cuda)
+    other = torch.from_numpy(chip_smoke.filter_frame(shape, seed=8)).to(cuda)
+    for axis in range(len(shape)):
+        for sigma, order in ((1.0, 0), (1.0, 2), (2.5, 2)):
+            w = filters.gaussian_kernel1d(sigma, 4.0, order=order)
+            flags = [o == 0 for o, _ in filters.nonzero_taps(w)]
+            _check(lambda t, *a: filters._correlate1d(t, *a, centre=other),
+                   lambda t, *a: filters._correlate1d_plain(t, *a, centre=other.to(t.device)),
+                   x, w, axis, flags)
+
+
+@pytest.mark.gpu
 def test_gaussian_laplace_and_errors(cuda):
     x = torch.from_numpy(chip_smoke.filter_frame((12, 48, 48), seed=3)).to(cuda)
     before = filters.GAUSS_AXIS_KERNEL.launches
     got = filters.gaussian_laplace(x, (0.4, 1.0, 1.0))
-    assert filters.GAUSS_AXIS_KERNEL.launches == before + 9
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(filters, "_correlate1d", filters._correlate1d_plain)
-        _same(got, filters.gaussian_laplace(x.cpu(), (0.4, 1.0, 1.0)))
+    # XLA's program: the axis-0 passes (2) and the last fusion's (2), then
+    # a term's axis-1 pass, its last-fusion pass and its axis-2 pass (9)
+    assert filters.GAUSS_AXIS_KERNEL.launches == before + 13
+    _same(got, filters.gaussian_laplace(x.cpu(), (0.4, 1.0, 1.0)))
+    for sunk in (False, True):
+        _same(filters.log_program(x, (0.5, 1.25, 1.25), sunk_centre=sunk),
+              filters.log_program(x.cpu(), (0.5, 1.25, 1.25), sunk_centre=sunk))
     with pytest.raises(TypeError):
         filters.GAUSS_AXIS_KERNEL(x.double(), [(0, 1.0)], 0)
     with pytest.raises(ValueError):

@@ -64,12 +64,15 @@ def test_filter_3d_whole_frames_at_fused_widths(tmp_path, width):
 def test_inner_gradient_fusion_rule():
     """XLA leaves a minor-axis concatenation of 128 elements or more
     unfused, so only a last axis of exactly 128 fuses the inner gradient;
-    the other axes never do."""
+    the other axes never do -- but in a frame no axis of which is longer
+    than 32, where every axis fuses it."""
     fused = [w for w in range(2, 600)
-             if hessian._fuses_inner_gradient(torch.zeros(1, 1, w), 2)]
+             if hessian._fuses_inner_gradient(torch.zeros(1, 48, w), 2)]
     assert fused == [128]
     assert not hessian._fuses_inner_gradient(torch.zeros(1, 128, 128), 1)
     assert hessian._fuses_inner_gradient(torch.zeros(64, 128), 1)
+    assert all(hessian._fuses_inner_gradient(torch.zeros(1, 1, w), 2) for w in range(2, 33))
+    assert not hessian._fuses_inner_gradient(torch.zeros(1, 1, 33), 2)
 
 
 @pytest.mark.parametrize("shape", [(64, 64), (64, 128), (128, 256)])

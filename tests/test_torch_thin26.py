@@ -7,9 +7,10 @@ equals the reference's jitted ``skeletonize_3d`` exactly with its default
 ``lut``, on ``chip_smoke.thin_masks``: tubes, blobs, a one-voxel sheet,
 noise, a cross touching every face, empty and full, at an even and an odd
 shape.  ``chip_smoke.thin26_model`` (``kernels/csrc/thin26.cu`` in numpy:
-the starting foreground as a list, kernels that write only buffers they do
-not read, the host reading the commit flags once every K rounds) and the
-plain body's own rounds driven K at a time both equal the plain body.
+the starting foreground as a list, phases that write only buffers they do
+not read, each direction stopping at the round that commits nothing, one
+launch and one host read a call) and the plain body's own rounds driven
+K at a time both equal the plain body.
 """
 import numpy as np
 import pytest
@@ -64,15 +65,43 @@ def test_masks_thin(masks, plain):
                 assert 0 < got.sum() < m.sum(), (shape, name)
 
 
-@pytest.mark.parametrize("rounds_per_read", [1, 2, 4, 7])
+@pytest.mark.parametrize("name", NAMES)
 @pytest.mark.parametrize("shape", SHAPES)
-def test_kernel_model_equals_plain(masks, plain, shape, rounds_per_read):
-    lut = get_simple26_lut()
-    for name, m in masks[shape].items():
-        got, (rounds, reads, sweeps, kernels) = chip_smoke.thin26_model(m, lut, rounds_per_read)
-        np.testing.assert_array_equal(got, plain[(shape, name)], err_msg=name)
-        assert rounds == reads * rounds_per_read and kernels == 6 * sweeps + 2 * rounds
-        assert (sweeps == 0) == (not m.any())
+def test_kernel_model_equals_plain(masks, plain, shape, name):
+    """The persistent kernel's model: one launch and one host read a call,
+    a direction's rounds up to and including the first that commits
+    nothing."""
+    m = masks[shape][name]
+    got, (rounds, reads, sweeps, kernels) = chip_smoke.thin26_model(m, get_simple26_lut())
+    np.testing.assert_array_equal(got, plain[(shape, name)])
+    assert (sweeps == 0) == (not m.any()) and reads == kernels == int(m.any())
+    assert rounds >= 6 * sweeps
+
+
+def test_model_rounds_are_the_plain_rounds(masks):
+    """A direction of the model runs the plain body's rounds (which stop
+    at the first round that commits nothing) plus one empty round where
+    the border has no candidate, which the plain body skips."""
+    shape = SHAPES[1]
+    lut = torch.from_numpy(get_simple26_lut())
+    lower = skeleton.lower_parity(shape, "cpu")
+    for name in ("tubes", "blobs", "every face"):
+        m = masks[shape][name]
+        fg = torch.from_numpy(m)
+        rounds = 0
+        while True:
+            before = fg
+            for d in range(6):
+                remaining = skeleton.border_candidates(fg, d, lut)
+                go = True
+                while go:
+                    fg, remaining, commit = skeleton.thin_round(fg, remaining, lut, lower)
+                    rounds += 1
+                    go = bool(commit.any())
+            if torch.equal(fg, before):
+                break
+        _, stats = chip_smoke.thin26_model(m, get_simple26_lut())
+        assert stats[0] == rounds, name
 
 
 @pytest.mark.parametrize("rounds_per_read", [2, 5])

@@ -9,8 +9,9 @@ Needs a CUDA GPU and skips without one; imports no JAX.  On the card:
 ``kernels/csrc/thin26.cu`` once (no plain body, no ``fma_f32``) and equals
 ``skeletonize_3d_plain`` exactly, on the card and on CPU copies, on
 ``chip_smoke.thin_masks`` at even, odd and thin shapes and on the 3D main
-path's frame (64x256x256, six tubes masked at 300); its rounds, flag
-reads, sweeps and CUDA kernels are ``chip_smoke.thin26_model``'s, and
+path's frame (64x256x256, six tubes masked at 300); its rounds, host
+reads, sweeps and CUDA kernels are ``chip_smoke.thin26_model``'s (one
+persistent launch and one host read a call), and
 ``THIN26_KERNEL.kernel_launches`` grows by the call's CUDA kernels.
 """
 import numpy as np
@@ -44,8 +45,7 @@ def _check(mask_np, dev, model=True):
     stats = kernel.last_stats
     assert kernel.kernel_launches == kernels + stats[3]
     if model:
-        want, want_stats = chip_smoke.thin26_model(mask_np, get_simple26_lut(),
-                                                   skeleton.ROUNDS_PER_READ)
+        want, want_stats = chip_smoke.thin26_model(mask_np, get_simple26_lut())
         assert np.array_equal(got.cpu().numpy(), want) and stats == want_stats
     return got, stats
 
@@ -62,8 +62,8 @@ def test_masks(cuda, shape):
 def test_main_path_frame(cuda):
     mask = chip_smoke.make_frame((64, 256, 256)) > 300
     got, (rounds, reads, sweeps, kernels) = _check(mask, cuda, model=False)
-    assert 0 < int(got.sum()) < int(mask.sum()) and rounds == reads * skeleton.ROUNDS_PER_READ
-    assert kernels == 6 * sweeps + 2 * rounds
+    assert 0 < int(got.sum()) < int(mask.sum()) and reads == kernels == 1
+    assert rounds >= 6 * sweeps
 
 
 @pytest.mark.gpu
@@ -83,15 +83,18 @@ def test_refuses_bad_tables(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rounds_per_read", [1, 7])
-def test_rounds_per_read(cuda, rounds_per_read):
-    """Reading the commit flags every round or every seven rounds gives
-    the same skeleton, with the rounds, reads and kernels of the model."""
+@pytest.mark.parametrize("seed", [47, 48])
+def test_one_launch_one_read(cuda, seed):
+    """Every call is one persistent launch and one host read, with the
+    rounds and sweeps of the model, on the caller's stream."""
     lut = skeleton.simple26_lut(cuda)
     table = get_simple26_lut()
-    for name, m in chip_smoke.thin_masks((9, 17, 21), seed=47).items():
-        got = skeleton.THIN26_KERNEL(torch.from_numpy(m).to(cuda), lut,
-                                     rounds_per_read=rounds_per_read)
-        want, want_stats = chip_smoke.thin26_model(m, table, rounds_per_read)
+    stream = torch.cuda.Stream()
+    for name, m in chip_smoke.thin_masks((9, 17, 21), seed=seed).items():
+        with torch.cuda.stream(stream):
+            got = skeleton.THIN26_KERNEL(torch.from_numpy(m).to(cuda), lut)
+        stream.synchronize()
+        want, want_stats = chip_smoke.thin26_model(m, table)
         assert np.array_equal(got.cpu().numpy(), want), name
         assert skeleton.THIN26_KERNEL.last_stats == want_stats, name
+        assert want_stats[1] == want_stats[3] == int(m.any())
