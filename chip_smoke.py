@@ -130,21 +130,32 @@ Phases, each printing its own lines; any failure exits non-zero:
    for bit against the plain versions (``correlate1d_traced_plain``,
    ``_correlate1d_plain``, ``hessian_frob_plain``,
    ``frangi_response_plain``) on the same arguments: the 3D and 2D main
-   cascades' taps with both carries, the LoG's, a dim block, a last axis
-   of 128, a core box, no mask, on synthetic frames (and CPU copies at
-   small shapes), then the largest call of each wrapper in phases 4, 6 and
-   11 on the caller's own arguments (weights, carry, spacing, frame
-   shape, core, mask), with their times beside the plain versions', the
-   bound and (the correlation) one cuDNN convolution.  Network's 3D
+   cascades' taps with both carries, the LoG's, every tap count that has
+   its own unrolled correlation instance (exactly the counts of the -r..r
+   tap lists that phases 4, 6 and 11 launched, each of which must have
+   taken its instance, as the kernel reports) and the run-time loop's
+   (``gauss_instance_weights``), a dim block, a last axis of 128, a core
+   box, no mask, on synthetic frames (and CPU copies at small shapes),
+   then the largest call of each wrapper in phases 4, 6 and 11 on the
+   caller's own arguments (weights, carry, spacing, frame shape, core,
+   mask), with their times beside the plain versions', the bound and (the
+   correlation) one cuDNN convolution, the instance and copy width each
+   correlation took and its host-to-device copies a call (none, or the
+   phase fails).  Network's 3D
    thinning (``kernels/csrc/thin26.cu``, through ``skeleton.skeletonize_3d``)
    and nearest seed (``kernels/csrc/nearest_seed.cu``, through
    ``edt.nearest_seed``), exactly against ``skeletonize_3d_plain`` and
    ``nearest_seed_plain``: ``thin_masks`` at three shapes (the thinning's
    rounds, host reads, sweeps and CUDA kernels also held to
-   ``thin26_model``: one persistent launch and one read a call), ``seed_inputs`` in 3D and 2D with and without
-   objects and a search radius (each call's CUDA kernels held to
-   ``seed_work``'s), then Network's largest call on each main path with its
-   own operands, with their times on a cold L2, the plain bodies' and the
+   ``thin26_model``: one persistent launch and one read a call),
+   ``seed_inputs`` in 3D and 2D with and without objects and a search
+   radius (each call's CUDA kernels held to ``seed_work``'s and to the
+   kernel's own count, with no host read: one persistent launch a call),
+   then Network's largest call on each main path with its
+   own operands (whether a nearest seed waits on the card, read from how
+   long the call takes with 50 ms of work queued before it, which an
+   ``.item()`` must wait out, held to the kernel's own count of host
+   reads), with their times on a cold L2, the plain bodies' and the
    byte bounds of each call's inputs read and outputs written once; both
    rows also give the CUDA kernels that the main paths' calls launched
    (``kernel_launches``: one call runs the whole loop).  ``max_abs_err`` is
@@ -693,6 +704,7 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
     required = {k: n for k, n in hand.items() if k != "thin26" or len(shape) == 4}
     if min(required.values()) == 0:
         fail(f"{tag}the main path never launched one of the hand kernels: {json.dumps(hand)}")
+    print_gauss_taps(tag + "main path", calls.gauss_taps)
     print(f"{tag}Network's kernels on the main path: thin26 {hand['thin26']} calls "
           f"({kernel_launches['thin26']} CUDA kernels), nearest_seed {hand['nearest_seed']} "
           f"calls ({kernel_launches['nearest_seed']} CUDA kernels)", flush=True)
@@ -724,7 +736,8 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
                                                         "largest": calls.largest(),
                                                         "wrapper_calls": calls.wrapper_calls,
                                                         "nn": calls.nn_operands(),
-                                                        "fma_by_caller": calls.fma_callers()}
+                                                        "fma_by_caller": calls.fma_callers(),
+                                                        "gauss_taps": calls.gauss_taps}
 
 
 # ---------------------------------------------------------------------------
@@ -1205,6 +1218,7 @@ def phase_capacity_1024(gpu, edge=CAPACITY_EDGE):
           flush=True)
     check_fma_callers(f"capacity {edge}^3", calls.fma_callers(), hand["fma_f32"],
                       hand["fma_chain"])
+    print_gauss_taps(f"capacity {edge}^3", calls.gauss_taps)
     if min(hand[k] for k in ("ccl_union_find", "fma_f32", "fma_chain", "gauss_axis",
                              "frangi_tail")) == 0:
         fail(f"capacity {edge}^3 never launched the union-find, the fma, the Gaussian or the "
@@ -1221,6 +1235,7 @@ def phase_capacity_1024(gpu, edge=CAPACITY_EDGE):
     return dict({k: out[k] for k in ("n_labels", "fg_count", "seconds")}, launches=hand,
                 calls=calls.calls["ccl_union_find"], fma_largest=calls.fma_largest,
                 largest=calls.largest(), fma_by_caller=calls.fma_callers(),
+                gauss_taps=calls.gauss_taps,
                 peak_gib=peak_gib)
 
 
@@ -2151,7 +2166,9 @@ class KernelCalls:
     the caller's own arguments (tensors copied to the host before the call;
     the first of equal sizes); the largest chain of ``fma_f32.cu`` (its
     steps); and the single and chain launches by calling function, with the
-    ``fma_f32`` launches each chain's steps took one call a step."""
+    ``fma_f32`` launches each chain's steps took one call a step; and
+    ``gauss_axis``'s launches by (tap count, offsets -r..r, the unrolled
+    count of the instance the launch took, 0 for the run-time loop)."""
 
     WRAPPERS = {"correlate1d_traced": "filters", "_correlate1d": "filters",
                 "hessian_frob": "frangi", "frangi_response": "frangi",
@@ -2172,6 +2189,7 @@ class KernelCalls:
         self.nn_largest = {}  # caller tag: (Q * M, (queries, refs, fused_norms))
         self.wrapper_largest = {name: (0, None) for name in self.WRAPPERS}
         self.wrapper_calls = {name: 0 for name in self.WRAPPERS}
+        self.gauss_taps = {}  # (taps, offsets -r..r, instance taken): launches
         self._saved = []
 
     def _patch(self, cls, name, wrapper):
@@ -2237,7 +2255,18 @@ class KernelCalls:
 
         self._patch(_fp._FmaKernel, "__call__", fma_recorded)
         self._patch(_fp._FmaChainKernel, "__call__", chain_recorded)
+        def gauss_recorded(original, kernel, x, taps, *args, **kw):
+            out = original(kernel, x, taps, *args, **kw)
+            if x.numel():
+                offsets = [o for o, _ in taps]
+                reach = len(offsets) // 2
+                key = (len(offsets), offsets == list(range(-reach, reach + 1)),
+                       kernel.last_used[0])
+                self.gauss_taps[key] = self.gauss_taps.get(key, 0) + 1
+            return out
+
         self._patch(nn._NNKernel, "__call__", nn_recorded)
+        self._patch(filters._GaussAxisKernel, "__call__", gauss_recorded)
         modules = {"filters": filters, "frangi": frangi, "skeleton": skeleton, "edt": edt,
                    "moments": moments, "matching": matching}
         for name, module in self.WRAPPERS.items():
@@ -2960,6 +2989,70 @@ def check_gauss(name, which, x, args, against_cpu=False):
     return worst
 
 
+def gauss_instance_weights(seed=0):
+    """Seeded nonzero weights of every tap count that has its own kernel
+    instance (``filters.GAUSS_UNROLLED_COUNTS``), then lists that take the
+    run-time loop: 19 and 1 taps, and 9 taps with a zero inside (the
+    nonzero offsets are then not -r..r)."""
+    from nellie_tpu_torch.kernels import filters
+
+    rng = np.random.default_rng(seed)
+    out = [rng.uniform(0.05, 1.0, c) * rng.choice([-1.0, 1.0], c)
+           for c in filters.GAUSS_UNROLLED_COUNTS + (19, 1, 9)]
+    out[-1][3] = 0.0
+    return out
+
+
+def print_gauss_taps(what, hist):
+    """``gauss_axis``'s launches on a path by tap count
+    (``KernelCalls.gauss_taps``), with the instance each took."""
+    parts = [f"{count} taps{'' if tight else ' (not -r..r)'} x{n} "
+             f"({f'unrolled {instance}' if instance else 'run-time loop'})"
+             for (count, tight, instance), n in sorted(hist.items())]
+    print(f"{what}: gauss_axis launches by tap count: {', '.join(parts)}", flush=True)
+
+
+def check_gauss_instances(hists):
+    """Holds the kernel's unrolled counts to the paths' traffic
+    (``hists``: {path: ``KernelCalls.gauss_taps``}): every launch of 3 or
+    more taps at -r..r took the instance of its own count, every other
+    launch the run-time loop, and every unrolled count was launched on
+    some path."""
+    from nellie_tpu_torch.kernels import filters
+
+    unrolled = set(filters.GAUSS_UNROLLED_COUNTS)
+    seen = set()
+    for path, hist in hists.items():
+        for (count, tight, instance), n in hist.items():
+            should = tight and count >= 3
+            if should:
+                seen.add(count)
+            if instance != (count if should and count in unrolled else 0):
+                took = f"the {instance}-tap instance" if instance else "the run-time loop"
+                fail(f"gauss_axis on the {path} path: {n} launches of {count} taps (-r..r "
+                     f"{tight}) took {took}; the unrolled counts are {sorted(unrolled)}")
+    if seen != unrolled:
+        fail(f"gauss_axis unrolls {sorted(unrolled)} taps, the paths launch -r..r lists of "
+             f"{sorted(seen)} (missing {sorted(seen - unrolled)}, unused "
+             f"{sorted(unrolled - seen)})")
+    print(f"gauss_axis: every -r..r tap list of the {', '.join(hists)} paths took the "
+          f"unrolled instance of its count, and every unrolled count ({sorted(unrolled)}) "
+          "was launched", flush=True)
+
+
+def host_to_device_copies(fn):
+    """The host-to-device copies one call of ``fn`` makes, by
+    ``torch.profiler`` (after one call outside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if "HtoD" in e.name)
+
+
 def library_correlation(x, taps, axis):
     """One cuDNN convolution of the input padded beforehand (symmetric
     edges; the pad is outside the timed call): the same correlation, in
@@ -2979,7 +3072,7 @@ def library_correlation(x, taps, axis):
     return lambda: conv(xp, kernel)
 
 
-def phase_gauss_kernel(gpu, largest):
+def phase_gauss_kernel(gpu, largest, tap_hists):
     """The 1-D correlation kernel through its wrappers
     (``filters.correlate1d_traced``, ``filters._correlate1d``) against the
     plain versions on the card: the 3D and 2D main cascades' taps along
@@ -2987,10 +3080,13 @@ def phase_gauss_kernel(gpu, largest):
     the taps (also on CPU copies); then the largest call of each wrapper on
     each path, on the caller's own arguments, bit for bit, with its times
     on a cold L2 cache.  ``largest``: {path: {wrapper: (voxels, (x on the
-    host, arguments...)) or (0, None)}}.  Returns (rows, max |kernel -
-    plain| over every check)."""
+    host, arguments...)) or (0, None)}}; ``tap_hists``: {path:
+    ``KernelCalls.gauss_taps``}, held by :func:`check_gauss_instances`.
+    Returns (rows, max |kernel - plain| over every check)."""
     from nellie_tpu_torch.kernels import filters, frangi
 
+    check_gauss_instances(tap_hists)
+    check_host_waits()
     cases, worst = 0, 0.0
     for shape in ((12, 48, 48), CCL_SHAPE_3D, (7, 33, 128), CCL_SHAPE_2D, (3, 200)):
         x = torch.from_numpy(filter_frame(shape, seed=len(shape))).cuda()
@@ -3004,13 +3100,16 @@ def phase_gauss_kernel(gpu, largest):
             calls += [("_correlate1d", (filters.gaussian_kernel1d(s, 4.0, order=o), axis))
                       for s, o in ((1.0, 0), (1.0, 2), (2.5, 2))]
             calls += [("_correlate1d", (np.array([0.3]), axis))]
+            calls += [("_correlate1d", (w, axis)) for w in gauss_instance_weights()]
+            calls += [("correlate1d_traced", (w, axis, carry)) for w in gauss_instance_weights()
+                      for carry in (torch.float32, torch.float16)]
             for which, args in calls:
                 worst = max(worst, check_gauss(f"{shape} axis {axis}", which, x, args, small))
                 cases += 1
     print(f"gauss_axis (through correlate1d_traced and _correlate1d) = plain version bit for bit "
           f"on {cases} synthetic calls (the main cascades' taps with both carries, the LoG's, "
-          "one tap, an axis shorter than the taps; CPU copies too at the small shapes)",
-          flush=True)
+          "one tap, an axis shorter than the taps, every tap count with its own instance and "
+          "the run-time loop's; CPU copies too at the small shapes)", flush=True)
     rows = {}
     for path, calls in largest.items():
         for which, row in (("correlate1d_traced", path), ("_correlate1d", f"{path} LoG")):
@@ -3023,6 +3122,7 @@ def phase_gauss_kernel(gpu, largest):
             x = x.cuda()
             args = [a.cuda() if isinstance(a, torch.Tensor) else a for a in args]
             err = check_gauss(f"the {path} path's largest {which} call", which, x, args)
+            instance, copy_bytes = filters.GAUSS_AXIS_KERNEL.last_used
             worst = max(worst, err)
             wrapper = getattr(filters, which)
             plain_ms, _ = cold_times(lambda: gauss_plain(which, x, args), 3, on_device=False)
@@ -3030,17 +3130,28 @@ def phase_gauss_kernel(gpu, largest):
             taps = (filters.nonzero_taps(args[0]) if which == "_correlate1d"
                     else filters.traced_taps(args[0]))
             library_ms, _ = cold_times(library_correlation(x, taps, args[1]), 20, on_device=False)
+            uploads = host_to_device_copies(lambda: wrapper(x, *args))
+            wait_ms = host_wait_ms(lambda: wrapper(x, *args))
+            if uploads or wait_ms >= QUEUED_MS / 2:
+                fail(f"gauss_axis ({which}) at the {path} path's largest call copied "
+                     f"{uploads} times from the host a call, or waited on the card (it "
+                     f"returned after {wait_ms:.3f} ms with {QUEUED_MS} ms queued)")
             bound_ms, bound_by = gauss_bound(n)
             half = len(args) > 2 and args[2] == torch.float16
             print(f"gauss_axis ({which}) = plain version bit for bit, and its time, at the "
                   f"{path} path's largest call ({tuple(x.shape)} along axis {args[1]}, "
-                  f"{len(taps)} taps, float16 carry {half}): kernel {ms:.4f} ms a call on a "
+                  f"{len(taps)} taps, float16 carry {half}; "
+                  f"{f'the {instance}-tap unrolled' if instance else 'the run-time'} tap loop, "
+                  f"{copy_bytes}-byte copies): kernel {ms:.4f} ms a call on a "
                   f"cold L2 (on the device {fmt_ms(on_device)}), plain {plain_ms:.4f} ms, "
                   f"library (cuDNN convolution of the padded input) {library_ms:.4f} ms, bound "
                   f"{bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f} (on the device "
-                  f"{fmt_share(bound_ms, on_device)}) [{gpu}]", flush=True)
+                  f"{fmt_share(bound_ms, on_device)}), host-to-device copies a call {uploads}, "
+                  f"returned after {wait_ms:.3f} ms with {QUEUED_MS} ms queued on the card "
+                  f"[{gpu}]", flush=True)
             rows[row] = {"wrapper": which, "shape": list(x.shape), "axis": args[1],
-                         "taps": len(taps), "max_abs_err": err, "ms": ms,
+                         "taps": len(taps), "instance": instance, "copy_bytes": copy_bytes,
+                         "max_abs_err": err, "ms": ms, "host_ms_with_work_queued": wait_ms,
                          "device_ms": on_device, "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by, "library_ms": library_ms}
             del x
@@ -3350,6 +3461,41 @@ def phase_plain_rows(gpu, largest, calls):
     return rows
 
 
+QUEUED_MS = 50.0  # the work queued on the card before a call that host_wait_ms times
+
+
+def host_wait_ms(fn, queued_ms=QUEUED_MS):
+    """The host's milliseconds in one call of ``fn`` made with about
+    ``queued_ms`` of work queued on the card before it (one
+    ``torch.cuda._sleep`` kernel, its cycles measured first), after one
+    call outside it.  A call that reads anything back from the card, or
+    waits on it, cannot return before that work ends; one that only queues
+    work returns at once.  (``torch.profiler`` does not serve here: on the
+    card it traced no kernel in some calls of the ctypes libraries.)"""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    end.synchronize()
+    torch.cuda._sleep(int(10 ** 7 * queued_ms / start.elapsed_time(end)))
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return host_ms
+
+
+def check_host_waits():
+    """The host-wait test must see the wait of an ``.item()``."""
+    ms = host_wait_ms(lambda: torch.ones(1, device="cuda").item())
+    if ms < QUEUED_MS / 2:
+        fail(f".item() returned in {ms:.3f} ms with {QUEUED_MS} ms queued on the card: the "
+             "host-wait test cannot see a host read")
+    return ms
+
+
 def seed_bound(seeds, objects):
     """(bound_ms, "bytes") of one nearest seed: the seeds and the objects
     read and the labels (the seeds' type) and the float32 distances written
@@ -3364,16 +3510,12 @@ def seed_bound(seeds, objects):
 def seed_work(seeds, objects, max_radius_px):
     """(the voxels that run, the CUDA kernels launched) of one nearest
     seed: the voxels outside object 0 when objects are given and no seed
-    lies in object 0, else every voxel; one kernel a step and offset when
-    any voxel runs, and the distance's."""
-    from nellie_tpu_torch.kernels import edt
-
+    lies in object 0, else every voxel; one persistent kernel a call (its
+    flags cleared by a memset beforehand, not counted)."""
     work = seeds.numel()
     if objects is not None and not bool(((seeds > 0) & (objects == 0)).any()):
         work = int((objects != 0).sum())
-    steps = len(edt.jump_steps(tuple(seeds.shape), max_radius_px))
-    passes = steps * (3 ** seeds.ndim - 1) if work > 0 else 0
-    return work, passes + 1
+    return work, 1
 
 
 def check_seed(what, args):
@@ -3389,9 +3531,11 @@ def check_seed(what, args):
     labels, dist = edt.nearest_seed(*args)
     _, kernels = seed_work(args[0], args[1], args[3] if len(args) > 3 else None)
     if (kernel.launches != before + 1 or _fp.FMA_KERNEL.launches != fma
-            or kernel.kernel_launches != kernels_before + kernels):
+            or kernel.kernel_launches != kernels_before + kernels
+            or kernel.last_stats["cuda_kernels"] != kernels
+            or kernel.last_stats["host_reads"] != 0):
         fail(f"nearest_seed on {what} did not launch its kernel once with {kernels} CUDA "
-             f"kernels, or launched fma_f32")
+             f"kernels and no host read ({kernel.last_stats}), or launched fma_f32")
     want = edt.nearest_seed_plain(*args)
     if not (torch.equal(labels, want[0]) and same_tensor(dist, want[1])):
         fail(f"nearest_seed differs from its plain body on {what}")
@@ -3423,6 +3567,7 @@ def phase_seed_kernel(gpu, largest):
     print(f"nearest_seed = plain body (labels exactly, distances bit for bit) on {cases} "
           "synthetic calls (3D and 2D, with and without objects, max_radius_px 3 and none, "
           "seeds in object 0)", flush=True)
+    item_ms = check_host_waits()
     rows = {}
     for path, (_, recorded) in largest.items():
         if recorded is None:
@@ -3435,17 +3580,30 @@ def phase_seed_kernel(gpu, largest):
         radius = rest[1] if len(rest) > 1 else None
         steps = edt.jump_steps(tuple(seeds.shape), radius)
         work, kernels = seed_work(seeds, objects, radius)
+        stats = dict(edt.NEAREST_SEED_KERNEL.last_stats)
+        wait_ms = host_wait_ms(lambda: edt.nearest_seed(*args))
+        reads = int(wait_ms >= QUEUED_MS / 2)  # 1: at least one
+        if reads != stats["host_reads"]:
+            fail(f"nearest_seed at the {path} path's largest call returned after {wait_ms:.3f} "
+                 f"ms with {QUEUED_MS} ms queued on the card (.item() {item_ms:.3f} ms): it "
+                 f"waits on the card, the kernel counts {stats['host_reads']} host reads")
         plain_ms, _ = cold_times(lambda: edt.nearest_seed_plain(*args), 2, on_device=False)
         ms, on_device = cold_times(lambda: edt.nearest_seed(*args), 10)
         bound_ms, bound_by = seed_bound(seeds, objects)
         print(f"nearest_seed = plain body bit for bit, and its time, at the {path} path's "
               f"largest call ({tuple(seeds.shape)}, sampling {sampling}, {work} voxels run, "
-              f"{len(steps)} steps, {kernels} CUDA kernels a call): kernel {ms:.4f} ms a call "
+              f"{len(steps)} steps; a call: {stats['cuda_kernels']} CUDA kernel and "
+              f"{stats['host_reads']} host reads by the kernel's count, returned after "
+              f"{wait_ms:.3f} ms with {QUEUED_MS} ms queued on the card (.item() "
+              f"{item_ms:.3f} ms), so {reads} host reads; a grid of {stats['blocks']} "
+              f"blocks): kernel {ms:.4f} ms a call "
               f"on a cold L2 (on the device {fmt_ms(on_device)}), plain {plain_ms:.4f} ms, "
               f"library none, bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.4g} "
               f"(on the device {fmt_share(bound_ms, on_device)}) [{gpu}]", flush=True)
         rows[path] = {"shape": list(seeds.shape), "voxels_run": work, "steps": len(steps),
-                      "kernels_a_call": kernels,
+                      "kernels_a_call": kernels, "host_reads_a_call": reads,
+                      "host_ms_with_work_queued": wait_ms,
+                      "blocks": stats["blocks"],
                       "max_abs_err": err, "ms": ms, "device_ms": on_device,
                       "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                       "library_ms": None}
@@ -3628,7 +3786,9 @@ def main() -> None:
                "capacity_1024": capacity["largest"]}
     chain_rows, chain_err = phase_chain_kernel(gpu, {p: calls["fma_chain"]
                                                      for p, calls in largest.items()})
-    gauss_rows, gauss_err = phase_gauss_kernel(gpu, largest)
+    gauss_rows, gauss_err = phase_gauss_kernel(
+        gpu, largest, {"3D": hand["gauss_taps"], "2D": hand_2d["gauss_taps"],
+                       "capacity_1024": capacity["gauss_taps"]})
     tail_rows, tail_err = phase_tail_kernel(gpu, largest)
     thin_rows, thin_err = phase_thin_kernel(gpu, {"3D": hand["largest"]["skeletonize_3d"]})
     seed_rows, seed_err = phase_seed_kernel(gpu, {"3D": hand["largest"]["nearest_seed"],

@@ -9,11 +9,11 @@ Port of ``nellie_tpu/kernels/edt.py``:
   its rare approximate answers are the reference's too.  An exact nearest
   seed is later work (ROADMAP).  On a CUDA tensor it launches the
   hand-written kernel ``csrc/nearest_seed.cu`` (built for ``sm_90a`` with
-  ``nvcc`` on first use, bound through ``ctypes``; one C call runs every
-  step), or raises; on a CPU tensor it runs :func:`nearest_seed_plain`.
-  ``NEAREST_SEED_KERNEL.launches`` counts the wrapper's calls and
-  ``NEAREST_SEED_KERNEL.kernel_launches`` the CUDA kernels those calls
-  launched (one a step and offset, and the distance's).
+  ``nvcc`` on first use, bound through ``ctypes``; one persistent launch
+  runs every step, with no host read), or raises; on a CPU tensor it runs
+  :func:`nearest_seed_plain`.  ``NEAREST_SEED_KERNEL.launches`` counts the
+  wrapper's calls and ``NEAREST_SEED_KERNEL.kernel_launches`` the CUDA
+  kernels those calls launched (one a call).
 """
 from __future__ import annotations
 
@@ -121,35 +121,43 @@ def _seed_values(seed_labels: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 class _NearestSeedKernel(CudaKernel):
     """The compiled jump flooding (``csrc/nearest_seed.cu``), built once per
-    process, with a launch count and a count of the CUDA kernels launched."""
+    process, with a launch count, a count of the CUDA kernels launched and
+    the last call's ``last_stats`` (CUDA kernels, host reads, grid blocks)."""
 
     source = "nearest_seed.cu"
     flags = (*BASE_FLAGS, "-fmad=false")
+    max_voxels = MAX_VOXELS  # int32 voxel indices
 
     def __init__(self):
         super().__init__()
         self.kernel_launches = 0
+        self.last_stats = None
 
     def bind(self, lib):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.nearest_seed.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ctypes.POINTER(i32),
+        lib.nearest_seed_scratch.argtypes = [i32]
+        lib.nearest_seed_scratch.restype = ctypes.c_longlong
+        lib.nearest_seed.argtypes = [ptr, ptr, i32, ctypes.POINTER(i32),
                                      ctypes.POINTER(ctypes.c_float), ctypes.POINTER(i32), i32,
-                                     ptr, ctypes.POINTER(i32), ctypes.POINTER(i32), ptr]
+                                     ptr, ptr, ptr, ctypes.POINTER(ctypes.c_longlong), ptr]
         lib.nearest_seed.restype = i32
 
     def __call__(self, seed_labels, obj_labels=None, sampling=None, max_radius_px=None):
+        """(int32 labels, float32 distances) by one C call; ``seed_labels``
+        int32 (the kernel reads and returns seed values as int32)."""
         shape = tuple(seed_labels.shape)
         ndim = len(shape)
-        if seed_labels.device.type != "cuda" or not 1 <= ndim <= 3:
-            raise TypeError(f"nearest_seed takes a CUDA tensor of 1 to 3 axes, not {ndim} on "
-                            f"{seed_labels.device}")
+        if seed_labels.device.type != "cuda" or not 1 <= ndim <= 3 or \
+                seed_labels.dtype != torch.int32:
+            raise TypeError(f"nearest_seed takes an int32 CUDA tensor of 1 to 3 axes, not "
+                            f"{ndim} axes of {seed_labels.dtype} on {seed_labels.device}")
         if obj_labels is not None and (obj_labels.shape != seed_labels.shape
                                        or obj_labels.device != seed_labels.device):
             raise ValueError("nearest_seed: obj_labels must match seed_labels' shape and device")
         n = seed_labels.numel()
-        if n > MAX_VOXELS:
-            raise ValueError(f"{n} voxels: the nearest-seed kernel's int32 indices take at most "
-                             f"{MAX_VOXELS}")
+        if n > self.max_voxels:
+            raise ValueError(f"{n} voxels: the nearest-seed kernel takes at most "
+                             f"{self.max_voxels}")
         dev = seed_labels.device
         if sampling is None:
             sampling = (1.0,) * ndim
@@ -159,33 +167,28 @@ class _NearestSeedKernel(CudaKernel):
         steps = jump_steps(shape, max_radius_px)
         lib = self._lib or self.build()
         with self.on_device(dev):
-            is_seed = seed_labels > 0
-            flat = torch.arange(n, dtype=torch.int32, device=dev).reshape(shape)
-            idx_a = torch.where(is_seed, flat, -1).to(torch.int32).contiguous()
-            idx_b = idx_a.clone()
-            obj = voxels = None
-            if obj_labels is not None:
-                obj = obj_labels.to(torch.int32).contiguous()
-                # the voxels of object 0 never take a seed when none lies in
-                # object 0: only the others run
-                if not bool((is_seed & (obj == 0)).any()):
-                    voxels = torch.nonzero((obj != 0).reshape(-1)).reshape(-1).to(torch.int32)
+            seeds = seed_labels.contiguous()
+            obj = None if obj_labels is None else obj_labels.to(torch.int32).contiguous()
+            labels = torch.empty(shape, dtype=torch.int32, device=dev)
             dist = torch.empty(shape, dtype=torch.float32, device=dev)
-            result, launched = ctypes.c_int(0), ctypes.c_int(0)
+            words = lib.nearest_seed_scratch(n)
+            if words < 0:
+                raise RuntimeError("nearest_seed: the device takes no cooperative launch")
+            scratch = torch.empty(words, dtype=torch.int32, device=dev)
+            stats = (ctypes.c_longlong * 3)()
             err = lib.nearest_seed(
-                idx_a.data_ptr(), idx_b.data_ptr(), None if obj is None else obj.data_ptr(),
-                None if voxels is None else voxels.data_ptr(),
-                0 if voxels is None else voxels.numel(), ndim, (ctypes.c_int * 3)(*shape),
-                (ctypes.c_float * 3)(*(f32(s) for s in sampling)),
-                (ctypes.c_int * len(steps))(*steps), len(steps), dist.data_ptr(),
-                ctypes.byref(result), ctypes.byref(launched),
+                seeds.data_ptr(), None if obj is None else obj.data_ptr(), ndim,
+                (ctypes.c_int * 3)(*shape), (ctypes.c_float * 3)(*(f32(s) for s in sampling)),
+                (ctypes.c_int * len(steps))(*steps), len(steps), scratch.data_ptr(),
+                labels.data_ptr(), dist.data_ptr(), stats,
                 torch.cuda.current_stream().cuda_stream)
             check_error("nearest_seed launch", err)
             with self._lock:
                 self.count_launch()
-                self.kernel_launches += launched.value
-            idx = idx_b if result.value else idx_a
-            return _seed_values(seed_labels, idx), dist
+                self.kernel_launches += stats[0]
+                self.last_stats = {"cuda_kernels": stats[0], "host_reads": stats[1],
+                                   "blocks": stats[2]}
+            return labels, dist
 
 
 NEAREST_SEED_KERNEL = _NearestSeedKernel()
@@ -202,8 +205,8 @@ def nearest_seed(
     Returns (labels, distances): the nearest seed's value (0 where none is
     reachable) and the physical distance to it (+inf where none).  With
     ``obj_labels`` a voxel only accepts seeds of its own object.  A CUDA
-    tensor goes to the hand-written kernel (or raises), a CPU tensor to
-    :func:`nearest_seed_plain`."""
+    tensor goes to the hand-written kernel, which takes int32 seeds (or
+    raises), a CPU tensor of any type to :func:`nearest_seed_plain`."""
     if on_card(seed_labels, "nearest_seed"):
         return NEAREST_SEED_KERNEL(seed_labels, obj_labels, sampling, max_radius_px)
     return nearest_seed_plain(seed_labels, obj_labels, sampling, max_radius_px)

@@ -17,12 +17,16 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
+import os
+import re
+import threading
 from typing import Sequence
 
 import numpy as np
 import torch
 
-from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CudaKernel, check_error, on_card
+from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CSRC, CudaKernel, check_error, on_card
 from nellie_tpu_torch.kernels._fp import f32, fma
 
 
@@ -176,39 +180,110 @@ def correlate1d_traced_plain(x: torch.Tensor, weights: np.ndarray, axis: int) ->
     return out
 
 
+@functools.lru_cache(maxsize=512)  # a frame's passes repeat the same few tap lists
+def _tap_plan(taps: tuple):
+    """(count, C offsets, C weights, reach) of the kernel's taps, built once
+    a tap list; raises on what the kernel does not take."""
+    count = len(taps)
+    if not 1 <= count <= _GaussAxisKernel.max_taps:
+        raise ValueError(f"gauss_axis takes 1 to {_GaussAxisKernel.max_taps} taps, not {count}")
+    reach = max(abs(int(o)) for o, _ in taps)
+    if reach > _GaussAxisKernel.max_reach:
+        raise ValueError(f"gauss_axis taps reach at most {_GaussAxisKernel.max_reach} voxels")
+    return (count, (ctypes.c_int * count)(*(int(o) for o, _ in taps)),
+            (ctypes.c_float * count)(*(float(w) for _, w in taps)), reach)
+
+
+def pack_flags(table: np.ndarray) -> np.ndarray:
+    """An (n, count) bool table of flagged taps as the kernel reads it: per
+    position ceil(count / 32) 32-bit words, tap k at bit k % 32 of word
+    k // 32 (int32 words)."""
+    n, count = table.shape
+    words = (count + 31) // 32
+    bits = np.zeros((n, words * 32), np.uint64)
+    bits[:, :count] = table
+    packed = (bits.reshape(n, words, 32) << np.arange(32, dtype=np.uint64)).sum(axis=2)
+    return packed.astype(np.uint32).view(np.int32)
+
+
+def flag_table(n: int, taps, last_axis: bool, tap_flags=None, device="cpu"):
+    """The kernel's flag table of one pass, on ``device``: the taps whose
+    products are computed once at each position, :func:`shared_products`
+    or'd with the flags ``tap_flags`` sets at every position, packed by
+    :func:`pack_flags`; None where no tap is flagged.  Cached by (n, taps,
+    last axis, tap flags, device), so the passes of every frame after the
+    first copy nothing to the card; read only."""
+    flags = None if tap_flags is None or not any(tap_flags) else \
+        tuple(bool(f) for f in tap_flags)
+    return _flag_table(int(n), tuple(taps), bool(last_axis), flags, torch.device(device))
+
+
+@functools.lru_cache(maxsize=512)
+def _flag_table(n: int, taps: tuple, last_axis: bool, tap_flags, device):
+    shared = shared_products(n, taps, last_axis)
+    if tap_flags is not None:
+        flags = np.broadcast_to(np.asarray(tap_flags, bool), (n, len(taps)))
+        shared = flags if shared is None else shared | flags
+    if shared is None:
+        return None
+    return torch.from_numpy(pack_flags(np.asarray(shared, bool))).to(device)
+
+
+def _unrolled_counts() -> tuple:
+    """The tap counts that ``csrc/gauss_axis.cu`` unrolls in instances of
+    their own (for taps at offsets -r..r), read from its ``GAUSS_COUNTS``
+    list, the one place they are written."""
+    with open(os.path.join(CSRC, "gauss_axis.cu")) as f:
+        listed = re.search(r"^#define GAUSS_COUNTS\(X\)(.*)$", f.read(), re.MULTILINE).group(1)
+    return tuple(int(c) for c in re.findall(r"X\((\d+)\)", listed))
+
+
+GAUSS_UNROLLED_COUNTS = _unrolled_counts()
+
+
 class _GaussAxisKernel(CudaKernel):
     """The compiled 1-D correlation (``csrc/gauss_axis.cu``), built once per
-    process, with a launch count."""
+    process, with a launch count; :attr:`last_used` is what the calling
+    thread's last launch took, as the kernel reports it."""
 
     source = "gauss_axis.cu"
     flags = (*BASE_FLAGS, "-fmad=false")
     max_taps = 256
-    max_reach = 128  # the largest |offset|: the margin of the kernel's shared tiles
+    max_reach = 128  # the largest |offset|: the kernel's largest tile margin
+
+    def __init__(self):
+        super().__init__()
+        self._used = threading.local()
 
     def bind(self, lib):
-        ptr = ctypes.c_void_p
-        lib.gauss_axis.argtypes = [ptr, ptr, ctypes.c_longlong, ctypes.c_longlong,
-                                   ctypes.c_longlong, ctypes.c_int, ptr, ptr, ctypes.c_int, ptr,
-                                   ptr, ptr]
-        lib.gauss_axis.restype = ctypes.c_int
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.gauss_axis.argtypes = [ptr, ptr, i64, i64, i64, i32, ptr, ptr, i32, i32, ptr, i32,
+                                   ptr, ctypes.POINTER(i32), ptr]
+        lib.gauss_axis.restype = i32
+
+    @property
+    def last_used(self):
+        """(unrolled tap count, bytes a copy) of this thread's last launch:
+        the count of the instance it took (0: the run-time loop) and its
+        tiles' copy width (16 or 4); None before the first."""
+        return getattr(self._used, "value", None)
 
     def __call__(self, x: torch.Tensor, taps, axis: int, round_half: bool = False,
                  shared=None, centre: torch.Tensor = None) -> torch.Tensor:
         """The correlation of the float32 CUDA tensor ``x`` along ``axis``
         over ``taps``, (input offset, float32 weight) pairs in summation
         order, as a new float32 tensor (each value rounded through float16
-        with ``round_half``); ``shared``: :func:`shared_products`' table for
-        the axis (or any such table of flags), or None; ``centre``: a tensor
-        like ``x`` that the tap at offset 0 reads in place of ``x``, or
-        None."""
+        with ``round_half``); ``shared``: the taps whose products are
+        computed once at each position, as :func:`flag_table` gives them
+        on the card, or None; ``centre``: a tensor like ``x`` that the tap
+        at offset 0 reads in place of ``x``, or None."""
         if x.device.type != "cuda" or x.dtype != torch.float32:
             raise TypeError(f"gauss_axis takes a float32 CUDA tensor, not {x.dtype} on {x.device}")
-        if not 1 <= len(taps) <= self.max_taps:
-            raise ValueError(f"gauss_axis takes 1 to {self.max_taps} taps, not {len(taps)}")
-        if max(abs(int(o)) for o, _ in taps) > self.max_reach:
-            raise ValueError(f"gauss_axis taps reach at most {self.max_reach} voxels")
+        count, offsets, weights, reach = _tap_plan(taps if isinstance(taps, tuple)
+                                                   else tuple(taps))
         axis = axis % x.ndim
-        x = x.contiguous()
+        if not x.is_contiguous():
+            x = x.contiguous()
         if centre is not None:
             if centre.shape != x.shape or centre.device != x.device or \
                     centre.dtype != torch.float32:
@@ -218,22 +293,22 @@ class _GaussAxisKernel(CudaKernel):
         if x.numel() == 0:
             return out
         n = x.shape[axis]
-        inner = int(np.prod(x.shape[axis + 1:], dtype=np.int64))
-        offsets = (ctypes.c_int * len(taps))(*(int(o) for o, _ in taps))
-        weights = (ctypes.c_float * len(taps))(*(float(w) for _, w in taps))
+        words = (count + 31) // 32
+        if shared is not None and (shared.shape != (n, words) or shared.dtype != torch.int32
+                                   or shared.device != x.device):
+            raise ValueError(f"gauss_axis: flags of {tuple(shared.shape)} {shared.dtype} on "
+                             f"{shared.device}, not ({n}, {words}) int32 on {x.device}")
         lib = self._lib or self.build()
+        used = (ctypes.c_int * 2)()
         with self.on_device(x.device):
-            if shared is not None:
-                if shared.shape != (n, len(taps)):
-                    raise ValueError(f"gauss_axis: a shared table of {shared.shape}, not "
-                                     f"{(n, len(taps))}")
-                shared = torch.from_numpy(np.ascontiguousarray(shared, np.uint8)).to(x.device)
-            err = lib.gauss_axis(x.data_ptr(), out.data_ptr(), x.numel(), n, inner, len(taps),
-                                 offsets, weights, int(bool(round_half)),
-                                 None if shared is None else shared.data_ptr(),
-                                 None if centre is None else centre.data_ptr(),
+            err = lib.gauss_axis(x.data_ptr(), out.data_ptr(), x.numel(), n,
+                                 math.prod(x.shape[axis + 1:]), count, offsets, weights, reach,
+                                 int(bool(round_half)),
+                                 None if shared is None else shared.data_ptr(), words,
+                                 None if centre is None else centre.data_ptr(), used,
                                  torch.cuda.current_stream().cuda_stream)
         check_error("gauss_axis launch", err)
+        self._used.value = (used[0], used[1])
         self.count_launch()
         return out
 
@@ -245,18 +320,26 @@ def nonzero_taps(weights: np.ndarray):
     """The kernel's taps for :func:`_correlate1d_plain`: (input offset,
     float32 weight) of each nonzero weight in order, the one weight where
     there is no other; empty where every weight is 0."""
-    radius = len(weights) // 2
-    if radius == 0:
-        return [(0, f32(weights[0]))]
-    return [(k - radius, f32(w)) for k, w in enumerate(weights) if float(w) != 0.0]
+    return list(_weights_taps(np.asarray(weights).tobytes(), np.asarray(weights).dtype.str,
+                              False))
 
 
 def traced_taps(weights: np.ndarray):
     """The kernel's taps for :func:`correlate1d_traced_plain`: every weight,
     zeros included, as (input offset, float32 weight)."""
-    weights = np.asarray(weights, np.float32)
+    return list(_weights_taps(np.asarray(weights).tobytes(), np.asarray(weights).dtype.str,
+                              True))
+
+
+@functools.lru_cache(maxsize=512)  # the same weights recur every frame
+def _weights_taps(raw: bytes, dtype: str, traced: bool) -> tuple:
+    weights = np.frombuffer(raw, dtype=np.dtype(dtype))
     radius = len(weights) // 2
-    return [(k - radius, f32(w)) for k, w in enumerate(weights)]
+    if traced:
+        return tuple((k - radius, f32(w)) for k, w in enumerate(weights.astype(np.float32)))
+    if radius == 0:
+        return ((0, f32(weights[0])),)
+    return tuple((k - radius, f32(w)) for k, w in enumerate(weights) if float(w) != 0.0)
 
 
 def _correlate1d(x: torch.Tensor, weights: np.ndarray, axis: int, tap_shared=None,
@@ -266,17 +349,15 @@ def _correlate1d(x: torch.Tensor, weights: np.ndarray, axis: int, tap_shared=Non
     :func:`_correlate1d_plain` (``tap_shared`` and ``centre`` as there)."""
     if not on_card(x, "_correlate1d"):
         return _correlate1d_plain(x, weights, axis, tap_shared, centre)
-    taps = nonzero_taps(weights)
+    weights = np.asarray(weights)
+    taps = _weights_taps(weights.tobytes(), weights.dtype.str, False)
     if not taps:
         return torch.zeros_like(x)
     axis = axis % x.ndim
-    shared = shared_products(x.shape[axis], taps, axis == x.ndim - 1)
-    if tap_shared is not None and any(tap_shared):
-        flags = np.broadcast_to(np.asarray(tap_shared, bool), (x.shape[axis], len(taps)))
-        shared = flags if shared is None else shared | flags
+    flags = flag_table(x.shape[axis], taps, axis == x.ndim - 1, tap_shared, x.device)
     if centre is not None and not any(o == 0 for o, _ in taps):
         centre = None
-    return GAUSS_AXIS_KERNEL(x, taps, axis, shared=shared, centre=centre)
+    return GAUSS_AXIS_KERNEL(x, taps, axis, shared=flags, centre=centre)
 
 
 def correlate1d_traced(x: torch.Tensor, weights: np.ndarray, axis: int,
@@ -288,7 +369,9 @@ def correlate1d_traced(x: torch.Tensor, weights: np.ndarray, axis: int,
     if not on_card(x, "correlate1d_traced"):
         out = correlate1d_traced_plain(x, weights, axis)
         return out.to(carry).float() if half else out
-    return GAUSS_AXIS_KERNEL(x, traced_taps(weights), axis, round_half=half)
+    weights = np.asarray(weights)
+    return GAUSS_AXIS_KERNEL(x, _weights_taps(weights.tobytes(), weights.dtype.str, True), axis,
+                             round_half=half)
 
 
 def gaussian_laplace(x: torch.Tensor, sigma: Sequence[float], truncate: float = 4.0) -> torch.Tensor:
@@ -299,7 +382,7 @@ def gaussian_laplace(x: torch.Tensor, sigma: Sequence[float], truncate: float = 
 
 
 def log_program(x: torch.Tensor, sigma: Sequence[float], truncate: float = 4.0,
-                sunk_centre: bool = False) -> torch.Tensor:
+                sunk_centre: bool = False, peak: bool = False):
     """The LoG as one of XLA's CPU programs computes it.
 
     In 2D, and in 3D with an axis not filtered, the correlations of each
@@ -318,7 +401,24 @@ def log_program(x: torch.Tensor, sigma: Sequence[float], truncate: float = 4.0,
     ``sunk_centre``: the input is a select that another program computes
     inline (the Markers' clamped distance), which LLVM multiplies inside the
     select where the value has one use, so ``A``'s centre product is
-    rounded and added, not contracted (``A*`` reads it twice)."""
+    rounded and added, not contracted (``A*`` reads it twice).
+
+    That last fusion exists only where XLA fuses the padding of the last
+    axis into it: a minor-axis concatenation (the axis and the taps'
+    radius on one side) of fewer than 128 elements.  From 128 on, each
+    term is the plain sequence of the axis-0 (``A``), axis-1 and axis-2
+    passes, each over the whole previous pass (``A``'s centre as
+    ``sunk_centre`` says); the 3D main frames (a last axis of 256) take
+    that form.
+
+    ``peak``: also return the LoG as Markers' peak fusion recomputes it at
+    the voxel, as (the program's LoG, the peak fusion's).  That fusion
+    computes every scale's last fusion inline and compares it with the
+    maximum filter of the program's LoG; there LLVM orders the first add of
+    an axis-0 order-0 pass of three taps with the centre's product (the
+    voxel's own value) first, and contracts that one: ``A*``'s tap 0 is
+    rounded and its centre contracted (``scripts/xla_markers_probe.py``
+    lists it).  Elsewhere the two are the same tensor."""
     sigma = tuple(float(s) for s in sigma)
     if len(sigma) != x.ndim:
         raise ValueError("sigma must have one entry per axis")
@@ -332,8 +432,22 @@ def log_program(x: torch.Tensor, sigma: Sequence[float], truncate: float = 4.0,
                 order = 2 if axis == d2_axis else 0
                 term = _correlate1d(term, gaussian_kernel1d(s, truncate, order=order), axis)
             total = term if total is None else total + term
-        return total
+        return (total, total) if peak else total
     w = {(a, o): gaussian_kernel1d(sigma[a], truncate, order=o) for a in range(3) for o in (0, 2)}
+
+    def centre_tap(o):
+        return [k == len(w[(0, o)]) // 2 for k in range(len(w[(0, o)]))
+                if float(w[(0, o)][k]) != 0.0]
+
+    # axis 0: order 2 in term 0, order 0 in terms 1 and 2 (one pass)
+    a_pad = {o: _correlate1d(x, w[(0, o)], 0, centre_tap(o) if sunk_centre else None)
+             for o in (0, 2)}
+    y_pad = [_correlate1d(a_pad[2 if t == 0 else 0], w[(1, 2 if t == 1 else 0)], 1)
+             for t in range(3)]
+    if x.shape[2] + len(w[(2, 0)]) // 2 >= 128:  # the last axis's padding is not fused
+        terms = [_correlate1d(y_pad[t], w[(2, 2 if t == 2 else 0)], 2) for t in range(3)]
+        total = terms[0] + terms[1] + terms[2]
+        return (total, total) if peak else total
 
     def twin_taps(a):
         """The taps of axis a where the order-0 and order-2 weights have the
@@ -343,25 +457,25 @@ def log_program(x: torch.Tensor, sigma: Sequence[float], truncate: float = 4.0,
         return {o: [bool(twin[k]) for k in range(len(w[(a, o)])) if float(w[(a, o)][k]) != 0.0]
                 for o in (0, 2)}
 
-    def centre_tap(o):
-        return [k == len(w[(0, o)]) // 2 for k in range(len(w[(0, o)]))
-                if float(w[(0, o)][k]) != 0.0]
-
     twin0, twin1 = twin_taps(0), twin_taps(1)
-    # axis 0: order 2 in term 0, order 0 in terms 1 and 2 (one pass)
-    a_pad = {o: _correlate1d(x, w[(0, o)], 0, centre_tap(o) if sunk_centre else None)
-             for o in (0, 2)}
     a_last = {o: _correlate1d(x, w[(0, o)], 0, twin0[o]) for o in (0, 2)}
-    total = None
-    for t in range(3):
+
+    def term(t, a_star):
         a_order = 2 if t == 0 else 0
         o1 = 2 if t == 1 else 0
-        y_pad = _correlate1d(a_pad[a_order], w[(1, o1)], 1)
         y_last = _correlate1d(a_pad[a_order], w[(1, o1)], 1, twin1[o1] if t else None,
-                              centre=a_last[a_order])
-        term = _correlate1d(y_pad, w[(2, 2 if t == 2 else 0)], 2, centre=y_last)
-        total = term if total is None else total + term
-    return total
+                              centre=a_star)
+        return _correlate1d(y_pad[t], w[(2, 2 if t == 2 else 0)], 2, centre=y_last)
+
+    terms = [term(t, a_last[2 if t == 0 else 0]) for t in range(3)]
+    total = terms[0] + terms[1] + terms[2]
+    if not peak:
+        return total
+    if len(nonzero_taps(w[(0, 0)])) != 3:
+        return total, total
+    # the peak fusion's A* of order 0 (terms 1 and 2): centre contracted, tap 0 rounded
+    a_star = _correlate1d(x, w[(0, 0)], 0, [True, False, False])
+    return total, terms[0] + term(1, a_star) + term(2, a_star)
 
 
 # --------------------------------------------------------------------------

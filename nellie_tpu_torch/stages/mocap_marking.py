@@ -71,13 +71,17 @@ def markers_frame(intensity, mask, base_im, params: MarkerParams, distance=None)
     peak_mask = torch.zeros(mask.shape, dtype=torch.bool, device=mask.device)
     for s in params.sigmas:
         vec = params.sigma_vec(float(s))
-        log_resp = -log_program(base, vec, params.truncate, sunk_centre=distance is base_im) \
-            * f32(float(s) ** 2)
-        log_resp = torch.clamp(log_resp, min=0.0)
-        local_max = (log_resp == maximum_filter(log_resp, 3)) & valid
-        better = local_max & (log_resp > best_resp)
+        # the maximum filter reads the program's LoG, the peak test the one the
+        # peak fusion recomputes at the voxel (filters.log_program's ``peak``)
+        program, inline = log_program(base, vec, params.truncate,
+                                      sunk_centre=distance is base_im, peak=True)
+        log_resp = torch.clamp(-program * f32(float(s) ** 2), min=0.0)
+        at_voxel = log_resp if inline is program else \
+            torch.clamp(-inline * f32(float(s) ** 2), min=0.0)
+        local_max = (at_voxel == maximum_filter(log_resp, 3)) & valid
+        better = local_max & (at_voxel > best_resp)
         peak_mask = peak_mask | better
-        best_resp = torch.where(better, log_resp, best_resp)
+        best_resp = torch.where(better, at_voxel, best_resp)
 
     score = torch.where(peak_mask, intensity.float(), torch.zeros_like(best_resp))
     size = 2 * int(params.peak_min_distance) + 1

@@ -17,6 +17,12 @@ importing the package of its own tree:
 - each tree's union-find and interpolation kernel on those inputs: a
   digest of each output (the trees must agree, NaN taken as one value),
   its time per call (CUDA events) and on the device (``torch.profiler``);
+- each tree's 1-D correlation (``filters.correlate1d_traced`` and
+  ``filters._correlate1d``, ``csrc/gauss_axis.cu``) on the 3D and 2D main
+  paths' largest cascade calls and the 3D path's largest LoG call, and its
+  nearest seed (``edt.nearest_seed``, ``csrc/nearest_seed.cu``) on the 3D
+  and 2D paths' largest Network calls, each with its caller's own
+  arguments;
 - each tree's 3D thinning (``skeleton.skeletonize_3d``) on the 3D main
   path's largest Network mask, and its fused multiply-add (``_fp.fma``) on
   the 3D path's largest ``fma_f32`` call, then ``_fp.log``, ``_fp.exp``,
@@ -27,7 +33,8 @@ importing the package of its own tree:
   without the chains);
 - the fused segmentation chain (``FusedSegmentation.run(fence_stages=True)``)
   on the 3D main series, once to warm up and once timed: its wall, Filter
-  and Network seconds;
+  and Network seconds, and a digest of every file it wrote (the script
+  names the files that differ between the trees);
 - ``capacity.segment_volume`` on ``chip_smoke.capacity_volume(1024)``: its
   wall and vesselness seconds and its label count.
 
@@ -66,6 +73,10 @@ def load_chip_smoke():
 
 
 def digest(out):
+    if isinstance(out, tuple):
+        return "".join(digest(o)[:8] for o in out)
+    if out.dtype == torch.bool:
+        out = out.to(torch.uint8)
     if out.is_floating_point():
         out = torch.where(torch.isnan(out), torch.full_like(out, float("nan")), out)
     return hashlib.sha256(out.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
@@ -88,15 +99,17 @@ def child(tree, rows_path, out_path, label):
 
     resolve_device("cuda")
     gpu = chip_smoke.gpu_line()
-    rows = torch.load(rows_path)  # tensors, strings and floats only
+    # tensors, strings, numbers, dtypes and the correlations' numpy weights:
+    # this process's own file
+    rows = torch.load(rows_path, weights_only=False)
     result = {"tree": label, "kernels": {}}
-    for row, (fn, args) in multiply_add_rows(rows).items():
-        out = fn(*args)
-        out = digest(out.to(torch.uint8) if out.dtype == torch.bool else out)
+    for row, (fn, args) in kernel_rows(rows).items():
+        out = digest(fn(*args))
         launches = fma_launches()
         fn(*args)
         launches = fma_launches() - launches
-        ms, on_device = chip_smoke.cold_times(lambda: fn(*args), 5 if row == "thin26" else 20)
+        reps = 5 if row == "thin26" else 10 if row.startswith("nearest_seed") else 20
+        ms, on_device = chip_smoke.cold_times(lambda: fn(*args), reps)
         result["kernels"][row] = {"ms": ms, "device_ms": on_device, "digest": out,
                                   "fma_launches": launches}
         print(f"{label} tree: {row}: {ms:.4f} ms a call on a cold L2, on the device "
@@ -117,7 +130,8 @@ def child(tree, rows_path, out_path, label):
         for name in ("warm-up", "timed"):
             wall, stages = chip_smoke.fused_segmentation_seconds(
                 root, name, chip_smoke.MAIN_SHAPE, fence=True)
-        result.update(seg_fused=wall, filter=stages["filter"], network=stages["network"])
+        result.update(seg_fused=wall, filter=stages["filter"], network=stages["network"],
+                      artifacts=artifact_digests(os.path.join(root, "timed")))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     vol = chip_smoke.capacity_volume(chip_smoke.CAPACITY_EDGE)
@@ -135,6 +149,18 @@ def child(tree, rows_path, out_path, label):
         json.dump(result, f)
 
 
+def artifact_digests(directory):
+    """{file: digest} of every file the fused chain wrote under
+    ``directory`` (its artifacts, the Markers' among them)."""
+    out = {}
+    for base, _, files in os.walk(directory):
+        for name in files:
+            path = os.path.join(base, name)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, directory)] = hashlib.sha256(f.read()).hexdigest()[:16]
+    return out
+
+
 def fma_launches():
     """The multiply-add kernels' launches so far: ``fma_f32``'s single
     calls and, on a tree that has them, its chains."""
@@ -144,12 +170,12 @@ def fma_launches():
     return _fp.FMA_KERNEL.launches + (chain.launches if chain is not None else 0)
 
 
-def multiply_add_rows(rows):
-    """{row: (function, arguments on the card)} of the thinning and the
-    multiply-add rows, on this process's package."""
+def kernel_rows(rows):
+    """{row: (function, arguments on the card)} of the correlation, nearest
+    seed, thinning and multiply-add rows, on this process's package."""
     import numpy as np
 
-    from nellie_tpu_torch.kernels import _fp, skeleton
+    from nellie_tpu_torch.kernels import _fp, edt, filters, skeleton
 
     def cuda(args):
         return tuple(a.cuda() if isinstance(a, torch.Tensor) else a for a in args)
@@ -158,7 +184,11 @@ def multiply_add_rows(rows):
     a, b, c = (torch.from_numpy(rng.standard_normal(1 << 22).astype(np.float32)).cuda()
                for _ in range(3))
     positive = a.abs() + 1e-3
-    return {"thin26": (skeleton.skeletonize_3d, cuda(rows["thin26"])),
+    return {**{f"gauss_axis {path}": (getattr(filters, which), cuda(args))
+               for path, (which, args) in rows["gauss"].items()},
+            **{f"nearest_seed {path}": (edt.nearest_seed, cuda(args))
+               for path, args in rows["seed"].items()},
+            "thin26": (skeleton.skeletonize_3d, cuda(rows["thin26"])),
             "fma_f32 3D largest": (_fp.fma, cuda(rows["fma"])),
             "log": (_fp.log, (positive,)),
             "exp": (_fp.exp, (a * 4,)),
@@ -194,6 +224,11 @@ def record(rows_path):
                    for row, args in rows.items()}
             for kind, rows in (("ccl", ccl_rows), ("interp", interp_rows))}
     host["thin26"] = hand["largest"]["skeletonize_3d"][1]  # (mask, table) on the host
+    host["gauss"] = {"3D": ("correlate1d_traced", hand["largest"]["correlate1d_traced"][1]),
+                     "2D": ("correlate1d_traced", hand_2d["largest"]["correlate1d_traced"][1]),
+                     "3D LoG": ("_correlate1d", hand["largest"]["_correlate1d"][1])}
+    host["seed"] = {"3D": hand["largest"]["nearest_seed"][1],
+                    "2D": hand_2d["largest"]["nearest_seed"][1]}
     host["fma"] = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
                         for a in hand["fma_largest"][1])
     torch.save(host, rows_path)
@@ -253,6 +288,10 @@ def main() -> None:
               f"(on the device {fmt(before['device_ms'])}) [{gpu}]", flush=True)
     if len({t["n_labels"] for t in turns}) != 1:
         sys.exit("the two trees' capacity runs found different label counts")
+    differ = sorted(name for name in turns[0]["artifacts"]
+                    if len({t["artifacts"].get(name) for t in turns}) != 1)
+    print(f"the fused chain's files on the 3D main series: {len(turns[0]['artifacts'])}, "
+          f"differing between the trees: {differ or 'none'}", flush=True)
     seconds = [{k: t[k] for k in ("tree", "seg_fused", "filter", "network", "capacity",
                                   "vesselness")} for t in turns]
     print("seconds by turn: " + "; ".join(
@@ -260,7 +299,8 @@ def main() -> None:
         f"{s['network']:.3f}, capacity {s['capacity']:.3f}, vesselness {s['vesselness']:.3f}"
         for s in seconds)
         + f" [{gpu}]", flush=True)
-    line = json.dumps({"gpu": gpu, "kernels": kernels, "turns": seconds})
+    line = json.dumps({"gpu": gpu, "kernels": kernels, "turns": seconds,
+                       "differing_files": differ})
     if args.out:
         with open(args.out, "w") as f:
             f.write(line + "\n")

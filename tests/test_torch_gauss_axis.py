@@ -73,6 +73,97 @@ def kernel_model(x, taps, axis, round_half=False, shared=None, centre=None):
     return acc.half().float() if round_half else acc
 
 
+def _chain(reads, weights, flags):
+    """The kernel's sum of one output's taps in torch: ``reads[k]`` the
+    values tap k reads, ``flags[k]`` a bool tensor broadcastable to them
+    (the tap's product rounded and added) or None."""
+    from nellie_tpu_torch.kernels._fp import fma_plain
+
+    if len(reads) == 1:
+        return reads[0] * weights[0]
+    no = [torch.zeros((), dtype=torch.bool) if f is None else f for f in flags]
+    p0, p1 = reads[0] * weights[0], reads[1] * weights[1]
+    acc = torch.where(no[0] & no[1], p0 + p1,
+                      torch.where(no[0], fma_plain(reads[1], weights[1], p0),
+                                  fma_plain(reads[0], weights[0], p1)))
+    for r, w, f in zip(reads[2:], weights[2:], no[2:]):
+        acc = torch.where(f, acc + r * w, fma_plain(r, w, acc))
+    return acc
+
+
+def _reflect(idx, n):
+    m = np.remainder(idx, 2 * n)
+    return np.where(m < n, m, 2 * n - 1 - m)
+
+
+SEG, THREADS = 32, 256  # gauss_axis.cu: output rows an outer-axis tile, threads a block
+
+
+def tile_model(x, taps, axis, round_half=False, shared=None, centre=None, vec=4):
+    """``csrc/gauss_axis.cu``'s tile plan in torch.  Along an outer axis
+    (inner extent > 1) a tile holds SEG output rows with the taps' reach on
+    both sides: rows seg0 - reach + r, read as they are where every one lies
+    in the axis (an interior tile) and reflected otherwise; output row m of
+    the segment reads tile row m + reach + offset (the unrolled instances
+    stream the same rows through a window).  Along the last axis a tile
+    holds ``span`` positions with ``margin`` (the reach rounded up to the
+    copy width) on both sides, copied a chunk of ``vec`` at a time: as it is
+    where the chunk lies in the line, reflected element by element
+    otherwise.  Sums by :func:`_chain` with ``shared``'s flags a position;
+    the tap at offset 0 reads ``centre`` where given.  Returns the output
+    and the (interior, edge) tiles walked."""
+    axis %= x.ndim
+    n = x.shape[axis]
+    inner = int(np.prod(x.shape[axis + 1:], dtype=np.int64))
+    v = x.reshape(-1, n, inner)
+    cen = None if centre is None else centre.reshape(-1, n, inner)
+    weights = [w for _, w in taps]
+    reach = max(abs(o) for o, _ in taps)
+    out = torch.empty_like(v)
+    tiles = [0, 0]
+
+    def flags(k, rows):
+        if shared is None:
+            return None
+        return torch.from_numpy(np.ascontiguousarray(shared[rows, k]))
+
+    if inner > 1:
+        for seg0 in range(0, n, SEG):
+            m = np.arange(min(SEG, n - seg0))
+            rows = np.arange(seg0 - reach, seg0 - reach + len(m) + 2 * reach)
+            interior = rows[0] >= 0 and rows[-1] < n
+            tiles[0 if interior else 1] += 1
+            tile = v[:, torch.from_numpy(rows if interior else _reflect(rows, n))]
+            reads = [cen[:, torch.from_numpy(seg0 + m)] if o == 0 and cen is not None
+                     else tile[:, torch.from_numpy(m + reach + o)] for o, _ in taps]
+            fl = [None if flags(k, seg0 + m) is None else flags(k, seg0 + m)[None, :, None]
+                  for k in range(len(taps))]
+            out[:, torch.from_numpy(seg0 + m)] = _chain(reads, weights, fl)
+    else:
+        line = v.reshape(-1, n)
+        res = out.reshape(-1, n)
+        cl = None if cen is None else cen.reshape(-1, n)
+        span = -(-min(n, THREADS * vec) // vec) * vec
+        margin = -(-reach // vec) * vec
+        for seg0 in range(0, n, span):
+            pos = np.arange(seg0 - margin, seg0 + span + margin)
+            interior = pos[0] >= 0 and pos[-1] < n
+            tiles[0 if interior else 1] += 1
+            chunks = pos.reshape(-1, vec)
+            inside = (chunks[:, :1] >= 0) & (chunks[:, -1:] < n)
+            src = np.where(inside, chunks, _reflect(chunks, n)).reshape(-1)
+            assert not interior or (src == pos).all()
+            tile = line[:, torch.from_numpy(src)]
+            q = np.arange(seg0, min(seg0 + span, n))
+            reads = [cl[:, torch.from_numpy(q)] if o == 0 and cl is not None
+                     else tile[:, torch.from_numpy(q - seg0 + margin + o)] for o, _ in taps]
+            fl = [None if flags(k, q) is None else flags(k, q)[None, :]
+                  for k in range(len(taps))]
+            res[:, torch.from_numpy(q)] = _chain(reads, weights, fl)
+    out = out.reshape(x.shape)
+    return (out.half().float() if round_half else out), tuple(tiles)
+
+
 def assert_bitwise(got, want):
     got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
     assert got.shape == want.shape
@@ -171,3 +262,95 @@ def test_tap_lists():
     assert torch.equal(filters._correlate1d(x, np.zeros(3), 1), torch.zeros_like(x))
     with pytest.raises(ValueError):
         filters.correlate1d_traced(x.to("meta"), w, 1)
+
+
+def _weights_of(taps):
+    """A weight array whose nonzero taps (``filters.nonzero_taps``) are ``taps``."""
+    reach = max(abs(o) for o, _ in taps)
+    w = np.zeros(2 * reach + 1, np.float64)
+    for o, wt in taps:
+        w[o + reach] = wt
+    return w
+
+
+def _taps_of_reach(reach, seed):
+    """Taps reaching ``reach``: -r..r for the short reaches (the unrolled
+    instances' lists), a sparse list past them (the run-time loop's)."""
+    rng = np.random.default_rng(seed)
+    offsets = list(range(-reach, reach + 1)) if reach <= 12 else [-reach, -5, -1, 0, 2, reach]
+    return [(o, float(np.float32(rng.uniform(0.05, 1.0) * rng.choice([-1, 1]))))
+            for o in offsets]
+
+
+# (shape, axis): inner extents 5, 6 and 1 (a 2-D frame along its first axis
+# of one column), last axes of 301 (4-byte chunks), 2,100 (16-byte chunks,
+# three tiles, one of them interior) and 40; axes long enough for interior
+# tiles at the short reaches
+TILE_CASES = [((70, 5), 0), ((3, 37, 6), 1), ((4, 301), 1), ((2, 2100), 1), ((40, 1), 0),
+              ((3, 40), 1), ((150, 3), 0)]
+
+
+@pytest.mark.parametrize("reach", [1, 2, 5, 12, 33, 64, 65, 128])
+@pytest.mark.parametrize("shape,axis", TILE_CASES)
+def test_tile_plan_equals_plain(shape, axis, reach):
+    """The kernel's tile plan, edge tiles reflected and interior tiles
+    not, at reaches from 1 to 128, equals the plain correlation; the
+    16-byte chunks along a last axis only where it is a multiple of 4."""
+    x = torch.from_numpy(chip_smoke.filter_frame(shape, seed=reach))
+    taps = _taps_of_reach(reach, seed=reach)
+    w = _weights_of(taps)
+    n = shape[axis]
+    last = axis == len(shape) - 1 or int(np.prod(shape[axis + 1:])) == 1
+    vec = 4 if n % 4 == 0 else 1
+    shared = filters.shared_products(n, taps, axis == len(shape) - 1)
+    got, tiles = tile_model(x, taps, axis, shared=shared, vec=vec if last else 4)
+    assert_bitwise(got.numpy(), filters._correlate1d_plain(x, w, axis).numpy())
+    if reach <= 12 and shape in ((150, 3), (2, 2100)):  # both kinds of tile
+        assert tiles[0] > 0 and tiles[1] > 0
+    if reach <= 12:  # every tap kept: the traced pass, rounded through float16
+        got, _ = tile_model(x, taps, axis, round_half=True, vec=vec if last else 4)
+        want = filters.correlate1d_traced_plain(x, w.astype(np.float32), axis)
+        assert_bitwise(got.numpy(), want.half().float().numpy())
+
+
+def test_tile_plan_reads_the_centre():
+    """The LoG program's passes in the tile plan: flags at every position
+    and the centre from another tensor."""
+    x = torch.from_numpy(chip_smoke.filter_frame((40, 6), seed=4))
+    other = torch.from_numpy(chip_smoke.filter_frame((40, 6), seed=5))
+    for axis in range(2):
+        w = filters.gaussian_kernel1d(1.0, 4.0, order=2)
+        taps = filters.nonzero_taps(w)
+        flags = [o == 0 or k % 3 == 1 for k, (o, _) in enumerate(taps)]
+        table = filters.shared_products(x.shape[axis], taps, axis == 1)
+        table = np.broadcast_to(np.asarray(flags), (x.shape[axis], len(taps))) | (
+            False if table is None else table)
+        got, _ = tile_model(x, taps, axis, shared=table, centre=other,
+                            vec=4 if x.shape[axis] % 4 == 0 else 1)
+        want = filters._correlate1d_plain(x, w, axis, flags, centre=other)
+        assert_bitwise(got.numpy(), want.numpy())
+
+
+@pytest.mark.parametrize("n,last_axis", [(5, False), (2, True), (40, False), (3, True)])
+def test_flag_table_cache(n, last_axis):
+    """``filters.flag_table``'s key (n, taps, last axis, tap flags, device)
+    and contents: ``shared_products`` | the tap flags at every position,
+    packed 32 taps a word; made once a key."""
+    for sigma, order in ((1.0, 2), (1.5, 0), (0.3, 0)):
+        taps = filters.nonzero_taps(filters.gaussian_kernel1d(sigma, 4.0, order=order))
+        for tap_flags in (None, [o == 0 for o, _ in taps], [False] * len(taps)):
+            table = filters.flag_table(n, taps, last_axis, tap_flags, "cpu")
+            shared = filters.shared_products(n, taps, last_axis)
+            want = None if shared is None else shared
+            if tap_flags is not None and any(tap_flags):
+                flags = np.broadcast_to(np.asarray(tap_flags), (n, len(taps)))
+                want = flags if want is None else want | flags
+            if want is None:
+                assert table is None
+                continue
+            assert table.dtype == torch.int32 and table.shape == (n, (len(taps) + 31) // 32)
+            bits = (table.numpy().view(np.uint32)[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+            assert np.array_equal(bits.reshape(n, -1)[:, :len(taps)].astype(bool), want)
+            hits = filters._flag_table.cache_info().hits
+            assert filters.flag_table(n, tuple(taps), last_axis, tap_flags, "cpu") is table
+            assert filters._flag_table.cache_info().hits == hits + 1

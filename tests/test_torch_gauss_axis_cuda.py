@@ -11,7 +11,13 @@ launch ``kernels/csrc/gauss_axis.cu`` once and equal
 card and on CPU copies: the cascade's per-scale taps (zeros kept) along
 every axis with the float32 and float16 carries, the LoG's taps (zeros
 skipped), one tap, extents shorter than the taps' radius, a last axis of 128 and more
-lines than the grid holds, on ``chip_smoke.filter_frame`` frames.
+lines than the grid holds, on ``chip_smoke.filter_frame`` frames; every tap
+count with its own unrolled instance and the run-time loop's
+(``chip_smoke.gauss_instance_weights``) through both wrappers and both
+carries, along outer axes with inner extents of 1, 3, 4 and 129 and along
+last axes of several lengths, tiles that touch an edge only and tiles with
+an interior, a tensor off the 16-byte alignment, the centre tensor and the
+flag table (``filters.flag_table``, cached on the card).
 """
 import numpy as np
 import pytest
@@ -120,3 +126,83 @@ def test_gaussian_laplace_and_errors(cuda):
         filters.GAUSS_AXIS_KERNEL(x, [(0, 1.0)] * 257, 0)
     with pytest.raises(ValueError):  # beyond the tiles' margin
         filters.GAUSS_AXIS_KERNEL(x, [(0, 1.0), (129, 0.5)], 0)
+
+
+# (shape, axis): outer axes with inner extents 1, 3, 4 and 129 (the last
+# two: 16-byte and 4-byte tiles with a partial column tile), axes of 40
+# (every tile touches an edge) and 300 (interior tiles), last axes of 7, 200,
+# 1,024 (one tile a line), 5,000 and 4,999 (interior tiles, 16 and 4 bytes)
+INSTANCE_CASES = [((40, 1), 0), ((40, 3), 0), ((40, 4), 0), ((40, 129), 0), ((300, 12), 0),
+                  ((2, 70, 8), 1), ((5, 7), 1), ((3, 200), 1), ((9, 1024), 1), ((3, 5000), 1),
+                  ((3, 4999), 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,axis", INSTANCE_CASES)
+def test_every_instance(cuda, shape, axis):
+    x = torch.from_numpy(chip_smoke.filter_frame(shape, seed=11)).to(cuda)
+    for w in chip_smoke.gauss_instance_weights():
+        for carry in (torch.float32, torch.float16):
+            def plain(v, ww, a, c=carry):
+                return filters.correlate1d_traced_plain(v, ww, a).to(c).float()
+            _check(lambda v, ww, a, c=carry: filters.correlate1d_traced(v, ww, a, c), plain, x, w,
+                   axis)
+        _check(filters._correlate1d, filters._correlate1d_plain, x, w, axis)
+
+
+@pytest.mark.gpu
+def test_instance_and_copy_width(cuda):
+    """What a launch reports taking (``GAUSS_AXIS_KERNEL.last_used``): the
+    unrolled instance of each listed count at -r..r and the run-time loop
+    for other lists; 16-byte copies where the inner extent (or the line) is
+    a multiple of 4 and the tensors lie on 16-byte boundaries, else 4."""
+    kernel = filters.GAUSS_AXIS_KERNEL
+
+    def used(shape, axis, taps, offset=0):
+        buf = torch.zeros(int(np.prod(shape)) + offset, dtype=torch.float32, device=cuda)
+        kernel(buf[offset:].view(shape), taps, axis)
+        return kernel.last_used
+
+    for count in filters.GAUSS_UNROLLED_COUNTS:
+        taps = [(k - count // 2, 0.5) for k in range(count)]
+        assert used((40, 4), 0, taps) == (count, 16)
+        assert used((40, 4), 0, taps, offset=1) == (count, 4)
+        assert used((40, 129), 0, taps) == (count, 4)
+        assert used((3, 5000), 1, taps) == (count, 16)
+        assert used((3, 5000), 1, taps, offset=1) == (count, 4)
+        assert used((3, 4999), 1, taps) == (count, 4)
+    assert used((40, 4), 0, [(k - 9, 0.5) for k in range(19)]) == (0, 16)
+    assert used((40, 4), 0, [(-1, 0.5), (1, 0.5), (2, 0.5)]) == (0, 16)
+    assert used((300, 4), 0, [(-65, 0.5), (0, 0.5), (65, 0.5)]) == (0, 4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,axis", [((40, 36), 0), ((6, 44), 1)])
+def test_off_alignment(cuda, shape, axis):
+    """A contiguous view 4 bytes past a 16-byte boundary takes 4-byte copies."""
+    frame = torch.from_numpy(chip_smoke.filter_frame(shape, seed=12))
+    buf = torch.empty(frame.numel() + 1, dtype=torch.float32, device=cuda)
+    x = buf[1:].view(shape)
+    x.copy_(frame.to(cuda))
+    assert x.data_ptr() % 16 == 4
+    for w in chip_smoke.gauss_instance_weights()[:3]:
+        _check(filters._correlate1d, filters._correlate1d_plain, x, w, axis)
+        _check(filters.correlate1d_traced, filters.correlate1d_traced_plain, x, w, axis)
+
+
+@pytest.mark.gpu
+def test_flag_table_stays_on_the_card(cuda):
+    """The LoG's flagged passes: the table is made once and then read from
+    the cache, and equals the packed ``shared_products`` | tap flags."""
+    x = torch.from_numpy(chip_smoke.filter_frame((5, 9, 40), seed=13)).to(cuda)
+    w = filters.gaussian_kernel1d(1.5, 4.0, order=2)
+    taps = filters.nonzero_taps(w)
+    tap_flags = [o == 0 for o, _ in taps]
+    first = filters.flag_table(5, taps, False, tap_flags, cuda)
+    assert first.device.type == "cuda"
+    assert filters.flag_table(5, taps, False, tap_flags, cuda) is first
+    shared = filters.shared_products(5, taps, False)
+    table = np.broadcast_to(np.asarray(tap_flags), (5, len(taps))) | (
+        False if shared is None else shared)
+    assert np.array_equal(first.cpu().numpy(), filters.pack_flags(table))
+    _check(filters._correlate1d, filters._correlate1d_plain, x, w, 0, tap_flags)
