@@ -224,6 +224,7 @@ TIE_REL = 1e-6   # an index may differ only where the two candidates' float64
                  # squared distances differ by <= TIE_REL * (|q|^2 + |r|^2)
 # published dense peaks of one H100 SXM at 700 W (NVIDIA's data sheet)
 FP32_FLOPS = 67e12
+FP64_FLOPS = 34e12  # H100 SXM, float64 outside the tensor cores (NVIDIA's data sheet)
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -2920,14 +2921,18 @@ def phase_chain_kernel(gpu, largest):
     return rows, worst
 
 
-# float32 operations a voxel of the Frangi tail's passes (a fused
-# multiply-add counts two), counted from csrc/frangi_tail.cu: pass 1 the
-# components' differences and products, the flushed sums of squares and the
-# largest |component|; pass 2 the components again, the eigenvalues
-# (scaling, the trigonometric method with acos and two cosines), three exps
-# and the response
-TAIL_OPS = {("hessian_frob", 3): 56, ("hessian_frob", 2): 28,
-            ("frangi_response", 3): 270, ("frangi_response", 2): 90}
+# (float32, float64) operations a voxel of the Frangi tail's passes in the
+# plain version's arithmetic (hessian.py, eigen.py, frangi.py; a fused
+# multiply-add counts two, a division or a root one), counted one for one
+# from csrc/frangi_tail.cu, which repeats it: pass 1 the first derivatives
+# and the components (18 in 3D), the flushed sums of squares and the root
+# (13) and the largest |component| (11); pass 2 the components again, the
+# eigenvalues (the scaling, the trigonometric method's 145 float32
+# operations with nine divisions and fdlibm's acos, and glibc's two cosines
+# reduced and summed in float64, 44), three exps and the response (118),
+# and the carry's maximum
+TAIL_OPS = {("hessian_frob", 3): (42, 0), ("hessian_frob", 2): (22, 0),
+            ("frangi_response", 3): (282, 44), ("frangi_response", 2): (102, 0)}
 MAIN_FRANGI = {3: dict(sigmas=(0.625, 0.8333, 1.0417, 1.25), spacing=(0.5, 0.2, 0.2),
                        z_ratio=2.5),
                2: dict(sigmas=(1.25, 1.6667, 2.0833, 2.5, 2.9167), spacing=(0.1, 0.1))}
@@ -3160,21 +3165,22 @@ def phase_gauss_kernel(gpu, largest, tap_hists):
 
 def tail_bound(name, g, carry_bytes, active=None):
     """(bound_ms, bound_by) of one pass over block ``g``: bytes at the
-    memory rate, or ``TAIL_OPS`` float32 operations a voxel at the fp32
-    peak, the larger.  Pass 1: the block read and the norm written, 8 bytes
-    a voxel.  Pass 2 does its work only at the ``active`` voxels of the
+    memory rate, or ``TAIL_OPS`` operations a voxel, float32 at the fp32
+    peak and float64 at the fp64 peak (the two pipes side by side: the
+    larger), the larger.  Pass 1: the block read and the norm written, 8
+    bytes a voxel.  Pass 2 does its work only at the ``active`` voxels of the
     Frobenius mask (all without one): the mask read and vessel read and
     written everywhere (1 + 2 x carry bytes), the block read (4) and the
     operations there, all_mask written (1) elsewhere."""
     n = g.numel()
     active = n if active is None else active
+    f32_ops, f64_ops = TAIL_OPS[(name, g.ndim)]
     if name == "hessian_frob":
-        nbytes, ops = 8 * n, TAIL_OPS[(name, g.ndim)] * n
+        nbytes, voxels = 8 * n, n
     else:
-        nbytes = (1 + 2 * carry_bytes) * n + 4 * active + (n - active)
-        ops = TAIL_OPS[(name, g.ndim)] * active
+        nbytes, voxels = (1 + 2 * carry_bytes) * n + 4 * active + (n - active), active
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_FLOPS * 1e3
+    ops_ms = max(f32_ops * voxels / FP32_FLOPS, f64_ops * voxels / FP64_FLOPS) * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
@@ -3306,6 +3312,8 @@ def phase_tail_kernel(gpu, largest):
             row[name] = {"shape": list(g.shape), "max_abs_err": err, "ms": ms,
                          "device_ms": on_device, "plain_ms": plain_ms, "bound_ms": bound_ms,
                          "bound_by": bound_by}
+            if active is not None:
+                row[name]["mask_share"] = active / g.numel()
             del g, args
         both = lambda k: sum(r[k] for r in row.values())  # noqa: E731
         on_dev = [r["device_ms"] for r in row.values()]

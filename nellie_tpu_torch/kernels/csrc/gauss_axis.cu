@@ -24,7 +24,11 @@
 // (filters.py::_tap_chain).  The LoG program of XLA's last fusion reads
 // its centre tap (offset 0) from another pass's output
 // (filters.py::log_program); the caller then passes that tensor as
-// `centre`, read at the output's own index.  Built with -fmad=false and
+// `centre`, read at the output's own index.  Where XLA pads a pass's input
+// by reflection in a loop whose rounding differs from the one that computed
+// the rest (Markers' sunk axis-0 pass), the caller passes the reflected
+// values' tensor as `edge`: a tap whose index falls outside the axis reads
+// it (reflected) in place of x.  Built with -fmad=false and
 // without fast math, so the product x[k1] * w1 is rounded and every other
 // step is the written __fmaf_rn.  The result is rounded to float16 and
 // back when the cascade's carry is float16 (the plain version's
@@ -175,6 +179,7 @@ struct Outer {
   float* out;
   const uint32_t* flags;  // n x words, or null
   const float* centre;    // like x, or null
+  const float* edge;      // like x, or null: read where a row index falls outside the axis
   long long inner, outer, col_tiles, tiles;
   int n, segs, reach, words, round_half;
 };
@@ -191,13 +196,16 @@ __device__ __forceinline__ void outer_load(const Outer& g, long long t, float* t
   const int rows = min(SEG, g.n - seg0) + 2 * g.reach;
   const bool interior = seg0 - g.reach >= 0 && seg0 - g.reach + rows <= g.n;
   const float* col = g.x + o * g.n * g.inner + j;
+  const float* edge_col = g.edge != nullptr ? g.edge + o * g.n * g.inner + j : col;
   float* dst = tile + threadIdx.x * VEC;
   for (int r = threadIdx.y; r < rows; r += TY) {
-    const int row = interior ? seg0 - g.reach + r : reflect(seg0 - g.reach + r, g.n);
+    const int raw = seg0 - g.reach + r;
+    const bool inside = interior || (raw >= 0 && raw < g.n);
+    const float* src = (inside ? col : edge_col) + (inside ? raw : reflect(raw, g.n)) * g.inner;
     if (VEC == 4)
-      copy16(dst + r * W, col + row * g.inner);
+      copy16(dst + r * W, src);
     else
-      copy4(dst + r * W, col + row * g.inner);
+      copy4(dst + r * W, src);
   }
 }
 
@@ -344,6 +352,7 @@ struct Last {
   float* out;
   const uint32_t* flags;
   const float* centre;
+  const float* edge;  // like x, or null: read where a position falls outside the line
   long long lines, tiles;
   int n, span, lpt, segs, reach, margin, words, round_half;
 };
@@ -360,13 +369,17 @@ __device__ __forceinline__ void last_load(const Last& g, long long t, float* til
     const int c = q - ls * chunks;
     if (line0 + ls >= g.lines) break;
     const float* src = g.x + (line0 + ls) * g.n;
+    const float* edge = g.edge != nullptr ? g.edge + (line0 + ls) * g.n : src;
     float* dst = tile + ls * stride + c * VEC;
     const int p = start + c * VEC;
     if (VEC == 4 && (interior || (p >= 0 && p + 4 <= g.n))) {
       copy16(dst, src + p);
     } else {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) copy4(dst + e, src + reflect(p + e, g.n));
+      for (int e = 0; e < VEC; ++e) {
+        const bool inside = p + e >= 0 && p + e < g.n;
+        copy4(dst + e, (inside ? src : edge) + reflect(p + e, g.n));
+      }
     }
   }
 }
@@ -565,12 +578,14 @@ extern "C" {
 // and back.  flags: device table of the taps whose product is computed once
 // at each output position, `words` 32-bit words a position (bit k of word
 // k / 32 for tap k), or null; centre: float32 like x, read by the tap at
-// offset 0 in place of x, or null.  used (host, 2 values, written when the
+// offset 0 in place of x, or null; edge: float32 like x, read (reflected)
+// by a tap whose index falls outside the axis in place of x, or null.  used (host, 2 values, written when the
 // kernel is launched): the tap count of the unrolled instance the launch
 // took (0: the run-time loop) and the bytes a copy of its tiles (16 or 4)
 int gauss_axis(const float* x, float* out, long long total, long long n, long long inner,
                int count, const int* offsets, const float* weights, int reach, int round_half,
-               const uint32_t* flags, int words, const float* centre, int* used, void* stream) {
+               const uint32_t* flags, int words, const float* centre, const float* edge,
+               int* used, void* stream) {
   if (total < 1 || n < 1 || inner < 1 || total % (n * inner) != 0 || count < 1 ||
       count > MAX_TAPS || n > (1LL << 30) || reach < 0 || reach > MAX_REACH ||
       (flags != nullptr && words != (count + 31) / 32))
@@ -583,7 +598,7 @@ int gauss_axis(const float* x, float* out, long long total, long long n, long lo
     taps.weight[k] = weights[k];
   }
   const int instance = specialised(count, offsets) ? count : 0;
-  const bool vec_ok = aligned(x) && aligned(out) && aligned(centre);
+  const bool vec_ok = aligned(x) && aligned(out) && aligned(centre) && aligned(edge);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long outer = total / (n * inner);
   cudaError_t err;
@@ -591,7 +606,7 @@ int gauss_axis(const float* x, float* out, long long total, long long n, long lo
   if (inner > 1) {
     const bool vec = vec_ok && inner % 4 == 0 && reach <= VEC4_MAX_REACH;
     const int width = TX * (vec ? 4 : 1);
-    Outer g{x, out, flags, centre, inner, outer, (inner + width - 1) / width, 0,
+    Outer g{x, out, flags, centre, edge, inner, outer, (inner + width - 1) / width, 0,
             static_cast<int>(n), static_cast<int>((n + SEG - 1) / SEG), reach, words,
             round_half};
     g.tiles = g.outer * g.segs * g.col_tiles;
@@ -609,7 +624,7 @@ int gauss_axis(const float* x, float* out, long long total, long long n, long lo
     const int margin = (reach + per - 1) / per * per;
     // lines a tile: as many as the threads cover, at most LAST_TILE_FLOATS floats a buffer
     const int lpt = std::max(1, std::min(THREADS * per / span, LAST_TILE_FLOATS / (span + 2 * margin)));
-    Last g{x, out, flags, centre, outer, 0, static_cast<int>(n), span, lpt,
+    Last g{x, out, flags, centre, edge, outer, 0, static_cast<int>(n), span, lpt,
            static_cast<int>((n + span - 1) / span), reach, margin, words, round_half};
     g.tiles = (g.lines + g.lpt - 1) / g.lpt * g.segs;
     const int smem = 2 * g.lpt * (span + 2 * margin) * static_cast<int>(sizeof(float));

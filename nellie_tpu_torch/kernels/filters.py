@@ -130,15 +130,22 @@ def _tap_chain(reads, weights, shared=None) -> torch.Tensor:
 
 
 def _correlate1d_plain(x: torch.Tensor, weights: np.ndarray, axis: int, tap_shared=None,
-                       centre: torch.Tensor = None) -> torch.Tensor:
+                       centre: torch.Tensor = None, edge: torch.Tensor = None) -> torch.Tensor:
     """Correlate along ``axis`` with scipy 'reflect' edges; zero taps
     skipped; products shared as :func:`shared_products` finds them, and at
     every position those of the nonzero taps flagged in ``tap_shared``; the
-    centre tap reads ``centre`` in place of ``x`` where given."""
+    centre tap reads ``centre`` in place of ``x`` where given, and a tap
+    whose index falls outside the axis reads ``edge`` (reflected) in place
+    of ``x`` where given."""
     radius = len(weights) // 2
     if radius == 0:
         return (x if centre is None else centre) * f32(weights[0])
     xp = pad_symmetric(x, axis, radius, radius)
+    if edge is not None:
+        ep = pad_symmetric(edge, axis, radius, radius)
+        n_pad = xp.shape[axis]
+        xp = torch.cat([ep.narrow(axis, 0, radius), x,
+                        ep.narrow(axis, n_pad - radius, radius)], dim=axis)
     n = x.shape[axis]
     terms = [(k, f32(w)) for k, w in enumerate(weights) if float(w) != 0.0]
     if not terms:
@@ -258,7 +265,7 @@ class _GaussAxisKernel(CudaKernel):
     def bind(self, lib):
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.gauss_axis.argtypes = [ptr, ptr, i64, i64, i64, i32, ptr, ptr, i32, i32, ptr, i32,
-                                   ptr, ctypes.POINTER(i32), ptr]
+                                   ptr, ptr, ctypes.POINTER(i32), ptr]
         lib.gauss_axis.restype = i32
 
     @property
@@ -269,14 +276,17 @@ class _GaussAxisKernel(CudaKernel):
         return getattr(self._used, "value", None)
 
     def __call__(self, x: torch.Tensor, taps, axis: int, round_half: bool = False,
-                 shared=None, centre: torch.Tensor = None) -> torch.Tensor:
+                 shared=None, centre: torch.Tensor = None,
+                 edge: torch.Tensor = None) -> torch.Tensor:
         """The correlation of the float32 CUDA tensor ``x`` along ``axis``
         over ``taps``, (input offset, float32 weight) pairs in summation
         order, as a new float32 tensor (each value rounded through float16
         with ``round_half``); ``shared``: the taps whose products are
         computed once at each position, as :func:`flag_table` gives them
         on the card, or None; ``centre``: a tensor like ``x`` that the tap
-        at offset 0 reads in place of ``x``, or None."""
+        at offset 0 reads in place of ``x``, or None; ``edge``: a tensor like
+        ``x`` that a tap whose index falls outside the axis reads (reflected)
+        in place of ``x``, or None."""
         if x.device.type != "cuda" or x.dtype != torch.float32:
             raise TypeError(f"gauss_axis takes a float32 CUDA tensor, not {x.dtype} on {x.device}")
         count, offsets, weights, reach = _tap_plan(taps if isinstance(taps, tuple)
@@ -284,11 +294,12 @@ class _GaussAxisKernel(CudaKernel):
         axis = axis % x.ndim
         if not x.is_contiguous():
             x = x.contiguous()
-        if centre is not None:
-            if centre.shape != x.shape or centre.device != x.device or \
-                    centre.dtype != torch.float32:
-                raise ValueError("gauss_axis: the centre tensor must be float32 like x")
-            centre = centre.contiguous()
+        for name, other in (("centre", centre), ("edge", edge)):
+            if other is not None and (other.shape != x.shape or other.device != x.device or
+                                      other.dtype != torch.float32):
+                raise ValueError(f"gauss_axis: the {name} tensor must be float32 like x")
+        centre = None if centre is None else centre.contiguous()
+        edge = None if edge is None else edge.contiguous()
         out = torch.empty_like(x)
         if x.numel() == 0:
             return out
@@ -305,7 +316,8 @@ class _GaussAxisKernel(CudaKernel):
                                  math.prod(x.shape[axis + 1:]), count, offsets, weights, reach,
                                  int(bool(round_half)),
                                  None if shared is None else shared.data_ptr(), words,
-                                 None if centre is None else centre.data_ptr(), used,
+                                 None if centre is None else centre.data_ptr(),
+                                 None if edge is None else edge.data_ptr(), used,
                                  torch.cuda.current_stream().cuda_stream)
         check_error("gauss_axis launch", err)
         self._used.value = (used[0], used[1])
@@ -343,12 +355,13 @@ def _weights_taps(raw: bytes, dtype: str, traced: bool) -> tuple:
 
 
 def _correlate1d(x: torch.Tensor, weights: np.ndarray, axis: int, tap_shared=None,
-                 centre: torch.Tensor = None) -> torch.Tensor:
+                 centre: torch.Tensor = None, edge: torch.Tensor = None) -> torch.Tensor:
     """Correlate along ``axis`` with scipy 'reflect' edges; zero taps
     skipped: ``csrc/gauss_axis.cu`` on a CUDA tensor, or
-    :func:`_correlate1d_plain` (``tap_shared`` and ``centre`` as there)."""
+    :func:`_correlate1d_plain` (``tap_shared``, ``centre`` and ``edge`` as
+    there)."""
     if not on_card(x, "_correlate1d"):
-        return _correlate1d_plain(x, weights, axis, tap_shared, centre)
+        return _correlate1d_plain(x, weights, axis, tap_shared, centre, edge)
     weights = np.asarray(weights)
     taps = _weights_taps(weights.tobytes(), weights.dtype.str, False)
     if not taps:
@@ -357,7 +370,7 @@ def _correlate1d(x: torch.Tensor, weights: np.ndarray, axis: int, tap_shared=Non
     flags = flag_table(x.shape[axis], taps, axis == x.ndim - 1, tap_shared, x.device)
     if centre is not None and not any(o == 0 for o, _ in taps):
         centre = None
-    return GAUSS_AXIS_KERNEL(x, taps, axis, shared=flags, centre=centre)
+    return GAUSS_AXIS_KERNEL(x, taps, axis, shared=flags, centre=centre, edge=edge)
 
 
 def correlate1d_traced(x: torch.Tensor, weights: np.ndarray, axis: int,
@@ -381,6 +394,17 @@ def gaussian_laplace(x: torch.Tensor, sigma: Sequence[float], truncate: float = 
     return log_program(x, sigma, truncate)
 
 
+_VECTOR_LANES = 8  # float32 lanes of XLA's CPU loops (256-bit vectors)
+
+
+def _select_folds(weights: np.ndarray) -> bool:
+    """Whether a sunk pass's first add takes the centre as a select whose
+    other arm is -0, the add's identity: three nonzero taps and a negative
+    float32 centre weight (``0 * w`` is -0 only for w < 0)."""
+    taps = [float(v) for v in np.asarray(weights) if float(v) != 0.0]
+    return len(taps) == 3 and f32(np.asarray(weights)[len(weights) // 2]) < 0
+
+
 def log_program(x: torch.Tensor, sigma: Sequence[float], truncate: float = 4.0,
                 sunk_centre: bool = False, peak: bool = False):
     """The LoG as one of XLA's CPU programs computes it.
@@ -401,7 +425,17 @@ def log_program(x: torch.Tensor, sigma: Sequence[float], truncate: float = 4.0,
     ``sunk_centre``: the input is a select that another program computes
     inline (the Markers' clamped distance), which LLVM multiplies inside the
     select where the value has one use, so ``A``'s centre product is
-    rounded and added, not contracted (``A*`` reads it twice).
+    rounded and added, not contracted (``A*`` reads it twice).  Where that
+    centre's weight is negative in a pass of three taps, the select's other
+    arm is ``0 * w = -0``, the add's identity, and on AVX-512 LLVM folds the
+    select into the first add: the vector loop contracts neither product,
+    the scalar loops (the padded copies' reflected rows, the last axis's
+    columns past a multiple of 8) contract tap 0, and the passes that read
+    ``A`` take each where XLA's code does
+    (``scripts/xla_markers_machine_code.py``).  That fold is XLA's code for
+    AVX-512, which the port follows; where XLA generates AVX2 code every
+    loop contracts tap 0, so the reference on such a CPU differs from the
+    port in these passes.
 
     That last fusion exists only where XLA fuses the padding of the last
     axis into it: a minor-axis concatenation (the axis and the taps'
@@ -439,10 +473,22 @@ def log_program(x: torch.Tensor, sigma: Sequence[float], truncate: float = 4.0,
         return [k == len(w[(0, o)]) // 2 for k in range(len(w[(0, o)]))
                 if float(w[(0, o)][k]) != 0.0]
 
-    # axis 0: order 2 in term 0, order 0 in terms 1 and 2 (one pass)
-    a_pad = {o: _correlate1d(x, w[(0, o)], 0, centre_tap(o) if sunk_centre else None)
-             for o in (0, 2)}
-    y_pad = [_correlate1d(a_pad[2 if t == 0 else 0], w[(1, 2 if t == 1 else 0)], 1)
+    # axis 0: order 2 in term 0, order 0 in terms 1 and 2 (one pass); where a
+    # sunk centre's select folds into the first add, the vector loop's pass
+    # (a_vec) differs from the scalar loops' (a_edge: the reflected rows of
+    # the padded copies, and the last axis's remainder columns)
+    a_pad, a_vec, a_edge = {}, {0: None, 2: None}, {0: None, 2: None}
+    tail = x.shape[2] % _VECTOR_LANES
+    for o in (0, 2):
+        a_pad[o] = _correlate1d(x, w[(0, o)], 0, centre_tap(o) if sunk_centre else None)
+        if sunk_centre and _select_folds(w[(0, o)]):
+            a_edge[o] = a_pad[o]
+            a_vec[o] = _correlate1d(x, w[(0, o)], 0, [True, True, False])
+            a_pad[o] = a_vec[o].clone() if tail else a_vec[o]
+            a_pad[o].narrow(2, x.shape[2] - tail, tail).copy_(
+                a_edge[o].narrow(2, x.shape[2] - tail, tail))
+    order = [2, 0, 0]  # the axis-0 pass of each term
+    y_pad = [_correlate1d(a_pad[order[t]], w[(1, 2 if t == 1 else 0)], 1, edge=a_edge[order[t]])
              for t in range(3)]
     if x.shape[2] + len(w[(2, 0)]) // 2 >= 128:  # the last axis's padding is not fused
         terms = [_correlate1d(y_pad[t], w[(2, 2 if t == 2 else 0)], 2) for t in range(3)]
@@ -460,12 +506,17 @@ def log_program(x: torch.Tensor, sigma: Sequence[float], truncate: float = 4.0,
     twin0, twin1 = twin_taps(0), twin_taps(1)
     a_last = {o: _correlate1d(x, w[(0, o)], 0, twin0[o]) for o in (0, 2)}
 
+    # the axis-1 passes' reflected columns: their centre from the vector loop
+    y_edge = [None if a_edge[order[t]] is None or not tail else
+              _correlate1d(a_pad[order[t]], w[(1, 2 if t == 1 else 0)], 1,
+                           centre=a_vec[order[t]], edge=a_edge[order[t]]) for t in range(3)]
+
     def term(t, a_star):
-        a_order = 2 if t == 0 else 0
         o1 = 2 if t == 1 else 0
-        y_last = _correlate1d(a_pad[a_order], w[(1, o1)], 1, twin1[o1] if t else None,
-                              centre=a_star)
-        return _correlate1d(y_pad[t], w[(2, 2 if t == 2 else 0)], 2, centre=y_last)
+        y_last = _correlate1d(a_pad[order[t]], w[(1, o1)], 1, twin1[o1] if t else None,
+                              centre=a_star, edge=a_edge[order[t]])
+        return _correlate1d(y_pad[t], w[(2, 2 if t == 2 else 0)], 2, centre=y_last,
+                            edge=y_edge[t])
 
     terms = [term(t, a_last[2 if t == 0 else 0]) for t in range(3)]
     total = terms[0] + terms[1] + terms[2]

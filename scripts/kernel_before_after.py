@@ -23,6 +23,10 @@ importing the package of its own tree:
   nearest seed (``edt.nearest_seed``, ``csrc/nearest_seed.cu``) on the 3D
   and 2D paths' largest Network calls, each with its caller's own
   arguments;
+- each tree's Frangi tail (``frangi.hessian_frob`` and
+  ``frangi.frangi_response``, ``csrc/frangi_tail.cu``) on the 3D, 2D and
+  capacity paths' largest calls of each pass, with their callers' own
+  arguments (the core as a box);
 - each tree's 3D thinning (``skeleton.skeletonize_3d``) on the 3D main
   path's largest Network mask, and its fused multiply-add (``_fp.fma``) on
   the 3D path's largest ``fma_f32`` call, then ``_fp.log``, ``_fp.exp``,
@@ -170,9 +174,34 @@ def fma_launches():
     return _fp.FMA_KERNEL.launches + (chain.launches if chain is not None else 0)
 
 
+class CoreBox:
+    """A block's core box, [lo, hi) per axis, called as the tail wrappers'
+    ``core`` (the caller's closure does not pickle)."""
+
+    def __init__(self, block, core):
+        from nellie_tpu_torch.kernels import frangi
+
+        self.lo, self.hi = frangi._core_box(block, core(block))
+
+    def __call__(self, v):
+        for axis, (lo, hi) in enumerate(zip(self.lo, self.hi)):
+            v = v.narrow(axis, lo, hi - lo)
+        return v
+
+
+def tail_call(name):
+    """``frangi.<name>`` of this process's package, its tensors only (pass 2
+    updates vessel and all_mask in place, the same on every call)."""
+    from nellie_tpu_torch.kernels import frangi
+
+    fn = getattr(frangi, name)
+    return lambda *args: tuple(t for t in fn(*args) if t is not None)
+
+
 def kernel_rows(rows):
     """{row: (function, arguments on the card)} of the correlation, nearest
-    seed, thinning and multiply-add rows, on this process's package."""
+    seed, Frangi tail, thinning and multiply-add rows, on this process's
+    package."""
     import numpy as np
 
     from nellie_tpu_torch.kernels import _fp, edt, filters, skeleton
@@ -188,6 +217,8 @@ def kernel_rows(rows):
                for path, (which, args) in rows["gauss"].items()},
             **{f"nearest_seed {path}": (edt.nearest_seed, cuda(args))
                for path, args in rows["seed"].items()},
+            **{f"frangi_tail {row}": (tail_call(name), cuda(args))
+               for row, (name, args) in rows["tail"].items()},
             "thin26": (skeleton.skeletonize_3d, cuda(rows["thin26"])),
             "fma_f32 3D largest": (_fp.fma, cuda(rows["fma"])),
             "log": (_fp.log, (positive,)),
@@ -229,6 +260,14 @@ def record(rows_path):
                      "3D LoG": ("_correlate1d", hand["largest"]["_correlate1d"][1])}
     host["seed"] = {"3D": hand["largest"]["nearest_seed"][1],
                     "2D": hand_2d["largest"]["nearest_seed"][1]}
+    host["tail"] = {}
+    for path, largest in (("3D", hand["largest"]), ("2D", hand_2d["largest"]),
+                          ("capacity", capacity["largest"])):
+        for name in ("hessian_frob", "frangi_response"):
+            block, *args = largest[name][1]
+            if name == "hessian_frob":
+                args[2] = CoreBox(block, args[2])
+            host["tail"][f"{name} {path}"] = (name, (block, *args))
     host["fma"] = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
                         for a in hand["fma_largest"][1])
     torch.save(host, rows_path)

@@ -27,7 +27,11 @@ contracted), and flags those whose left product is the voxel's own value
 grow toward the centre, so tap 1 or the centre came first): there the
 centre tap is contracted and tap 0 rounded, the rule that
 ``nellie_tpu_torch.kernels.filters.log_program(peak=True)`` mirrors for an
-axis-0 order-0 pass of three taps.  The last line is one JSON object: for
+axis-0 order-0 pass of three taps.  The IR comes before instruction
+selection, which can fold a select into an add (a masked add on AVX-512)
+and so change which products are contracted:
+``scripts/xla_markers_machine_code.py`` reads and runs the machine code.
+The last line is one JSON object: for
 each fusion and scale, the first adds as [left weight, right weight,
 centre first] and the factor that folds ``-...`` and ``* s**2``.
 """

@@ -16,8 +16,10 @@ count with its own unrolled instance and the run-time loop's
 (``chip_smoke.gauss_instance_weights``) through both wrappers and both
 carries, along outer axes with inner extents of 1, 3, 4 and 129 and along
 last axes of several lengths, tiles that touch an edge only and tiles with
-an interior, a tensor off the 16-byte alignment, the centre tensor and the
-flag table (``filters.flag_table``, cached on the card).
+an interior, a tensor off the 16-byte alignment, the centre tensor, the
+edge tensor (reflected reads) and the flag table (``filters.flag_table``,
+cached on the card); Markers' LoG program where its sunk axis-0 pass has
+three taps, at last axes with and without a remainder of the vector loop.
 """
 import numpy as np
 import pytest
@@ -109,6 +111,43 @@ def test_centre_and_tap_flags(cuda, shape):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(12, 48, 48), (5, 7, 130), (40, 3), (2, 9, 4999)])
+def test_edge_tensor(cuda, shape):
+    """A tap whose index falls outside the axis reads ``edge`` (reflected):
+    along every axis, with tiles that touch an edge and interior ones, and
+    with the centre tensor and flags."""
+    x = torch.from_numpy(chip_smoke.filter_frame(shape, seed=5)).to(cuda)
+    edge = torch.from_numpy(chip_smoke.filter_frame(shape, seed=6)).to(cuda)
+    other = torch.from_numpy(chip_smoke.filter_frame(shape, seed=8)).to(cuda)
+    for axis in range(len(shape)):
+        for sigma, order in ((0.3, 2), (1.0, 0), (2.5, 2)):
+            w = filters.gaussian_kernel1d(sigma, 4.0, order=order)
+            _check(lambda t, *a: filters._correlate1d(t, *a, edge=edge),
+                   lambda t, *a: filters._correlate1d_plain(t, *a, edge=edge.to(t.device)),
+                   x, w, axis)
+            flags = [o == 0 for o, _ in filters.nonzero_taps(w)]
+            _check(lambda t, *a: filters._correlate1d(t, *a, centre=other, edge=edge),
+                   lambda t, *a: filters._correlate1d_plain(t, *a, centre=other.to(t.device),
+                                                            edge=edge.to(t.device)),
+                   x, w, axis, flags)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(5, 48, 48), (3, 24, 122), (3, 24, 130), (5, 64, 256)])
+def test_markers_sunk_program(cuda, shape):
+    """Markers' LoG at 5 px (sigmas 0.5 to 1.43 over a z ratio of 2.5): the
+    second scale's sunk axis-0 order-2 pass of three taps takes the vector
+    and scalar loops' passes and the edge tensor; card = CPU."""
+    d = torch.from_numpy(np.minimum(np.abs(chip_smoke.filter_frame(shape, seed=2)) / 60, 10))
+    for s in (0.5, 0.7333333333333334, 1.2):
+        sigma = (s / 2.5, s, s)
+        got = filters.log_program(d.to(cuda), sigma, sunk_centre=True, peak=True)
+        want = filters.log_program(d, sigma, sunk_centre=True, peak=True)
+        for g, w in zip(got, want):
+            _same(g, w)
+
+
+@pytest.mark.gpu
 def test_gaussian_laplace_and_errors(cuda):
     x = torch.from_numpy(chip_smoke.filter_frame((12, 48, 48), seed=3)).to(cuda)
     before = filters.GAUSS_AXIS_KERNEL.launches
@@ -124,6 +163,8 @@ def test_gaussian_laplace_and_errors(cuda):
         filters.GAUSS_AXIS_KERNEL(x.double(), [(0, 1.0)], 0)
     with pytest.raises(ValueError):
         filters.GAUSS_AXIS_KERNEL(x, [(0, 1.0)] * 257, 0)
+    with pytest.raises(ValueError):  # an edge tensor of another shape
+        filters.GAUSS_AXIS_KERNEL(x, [(0, 1.0)], 0, edge=x[1:])
     with pytest.raises(ValueError):  # beyond the tiles' margin
         filters.GAUSS_AXIS_KERNEL(x, [(0, 1.0), (129, 0.5)], 0)
 

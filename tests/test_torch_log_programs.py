@@ -16,9 +16,13 @@ Markers' own program (``markers_frame_distance``, the stage's default, and
 ``markers_frame`` on a float base) on ``filter_frame`` masks at Z of 3 to 9,
 radii 5 and 10 px: its LoG as the program's maximum filters read it
 (``filters.log_program(sunk_centre=True)``, held to the reference's filters
-read out of its program; the second scale at 5 px, whose axis-0 pass has
-three taps, still an ulp off in 1-2 % of voxels: strict expected
-failures), and its markers, which the peak fusion decides from each
+read out of its program; at the second scale at 5 px, whose axis-0
+order-2 pass has three taps and a negative centre, the vector loop folds
+the select into the first add and contracts neither product, the scalar
+loops contract tap 0: ``scripts/xla_markers_machine_code.py``; XLA's
+AVX-512 code, so those cases skip where XLA generates other code,
+``torch_port_data.needs_avx512``), and its
+markers, which the peak fusion decides from each
 scale's LoG recomputed at the voxel, where an axis-0 order-0 pass of three
 taps contracts its centre and rounds tap 0 (``log_program(peak=True)``,
 ``scripts/xla_markers_probe.py``).
@@ -203,13 +207,8 @@ def reference_max_filters():
     return out
 
 
-LOG_OPEN = pytest.mark.xfail(
-    strict=True, reason="ROADMAP Queue 3 open #1: the second scale at 5 px (sigma 0.733, three "
-                        "axis-0 taps) is 1-3 ulps off in 1-2 % of voxels, cause not found")
-
-
 @pytest.mark.parametrize("z,seed,radius,scale", [
-    pytest.param(z, seed, radius, scale, marks=LOG_OPEN) if (radius, scale) == (5.0, 1)
+    pytest.param(z, seed, radius, scale, marks=D.needs_avx512) if (radius, scale) == (5.0, 1)
     else (z, seed, radius, scale)
     for z, seed in ((3, 5), (5, 3), (9, 109)) for radius in (10.0, 5.0) for scale in range(5)])
 def test_markers_log_as_its_max_filters_read_it(reference_max_filters, z, seed, radius, scale):
@@ -244,13 +243,14 @@ def wide_max_filters():
 
 
 @pytest.mark.parametrize("shape,scale", [
-    pytest.param(shape, scale, marks=LOG_OPEN) if scale == 1 else (shape, scale)
+    pytest.param(shape, scale, marks=D.needs_avx512) if scale == 1 else (shape, scale)
     for shape in ((3, 24, 122), (3, 24, 130)) for scale in range(5)])
 def test_markers_log_past_the_fused_padding(wide_max_filters, shape, scale):
     """Where the last axis and a scale's radius reach 128, XLA does not fuse
     the last axis's padding into the last fusion and the LoG is the plain
     sequence of passes (``filters.log_program``); each scale's maximum
-    filter equals the reference's, the second scale aside (open)."""
+    filter equals the reference's (at 122, the second scale's last two
+    columns are the scalar loop's)."""
     mask, seen = wide_max_filters[shape]
     params = _marker_params(markers, 5.0)
     distance = markers._clamped_distance(torch.from_numpy(mask), params)

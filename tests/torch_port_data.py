@@ -7,6 +7,7 @@ directories never collide.
 from __future__ import annotations
 
 import os
+import re
 import shutil
 
 import numpy as np
@@ -16,6 +17,29 @@ import torch
 from nellie_tpu.io import ome as ome_mod
 from nellie_tpu.io import tiff as tifffile
 from nellie_tpu.io.verifier import FileInfo, ImInfo
+
+def xla_cpu_has_avx512() -> bool:
+    """Whether XLA's CPU backend generates AVX-512 code here: the host's CPU
+    lists ``avx512f`` in /proc/cpuinfo and ``XLA_FLAGS`` caps no lower ISA
+    (``--xla_cpu_max_isa``)."""
+    cap = re.search(r"--xla_cpu_max_isa=(\S+)", os.environ.get("XLA_FLAGS", ""))
+    if cap and not cap.group(1).upper().startswith("AVX512"):
+        return False
+    try:
+        with open("/proc/cpuinfo") as f:
+            return any(line.startswith("flags") and "avx512f" in line.split() for line in f)
+    except OSError:
+        return False
+
+
+# Markers' sunk three-tap pass as the port computes it (filters.log_program)
+# is XLA's AVX-512 code: there the vector loop folds the select into its
+# first add; on AVX2 every loop contracts tap 0, so the reference differs
+needs_avx512 = pytest.mark.skipif(
+    not xla_cpu_has_avx512(),
+    reason="the port mirrors XLA's AVX-512 code for Markers' sunk three-tap pass; XLA "
+           "generates other code without avx512f (scripts/xla_markers_machine_code.py --isa)")
+
 
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
