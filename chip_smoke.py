@@ -5,10 +5,11 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. the device: name, ``nvidia-smi`` name and power limit, torch/CUDA versions;
-2. builds the eight CUDA kernels from the checkout (nearest neighbour,
+2. builds the eleven CUDA kernels from the checkout (nearest neighbour,
    union-find, flow interpolation, fused multiply-add, the Gaussian
    cascade's 1-D correlation, the Frangi tail, Network's 3D thinning and
-   nearest seed; one nvcc each, in parallel), times the builds and prints
+   nearest seed, tracking's pair sums and ROI statistics, the histogram
+   thresholds; one nvcc each, in parallel), times the builds and prints
    the nearest-neighbour kernel's registers, spills and resident warps per
    SM;
 3. checks the kernel against its plain PyTorch version on the card (ragged
@@ -158,16 +159,39 @@ Phases, each printing its own lines; any failure exits non-zero:
    reads), with their times on a cold L2, the plain bodies' and the
    byte bounds of each call's inputs read and outputs written once; both
    rows also give the CUDA kernels that the main paths' calls launched
-   (``kernel_launches``: one call runs the whole loop).  ``max_abs_err`` is
+   (``kernel_launches``: one call runs the whole loop).  Tracking's pair
+   sums (``kernels/csrc/pair_sums.cu``, through ``matching.pair_stats``),
+   ROI statistics (``kernels/csrc/roi_stats.cu``, through
+   ``moments.masked_mean_variance``) and the histogram thresholds
+   (``kernels/csrc/hist_threshold.cu``, through ``thresholds.otsu_threshold``,
+   ``triangle_threshold``, ``triangle_and_otsu`` and ``min_triangle_otsu``),
+   bit for bit against
+   their plain bodies (``*_plain``) on synthetic cases (``PAIR_CASES``: a
+   tile of one window level, a second level over 4,096 x 4,096, the lanes
+   of a padded 2,048 x 128 and 2,048 x 256 tile, no gated pair;
+   ``ROI_CASES``: 16^3, 20^2 and 20^3 ROIs, sums that stay subnormal,
+   subnormal voxels, signed voxels, an empty ROI each; ``THRESHOLD_CASES``:
+   an empty mask, a span of 0, one masked value, two bins, both triangle
+   flips, no mask, 100, 1,000 and 10,000 bins, a frame's worth of values,
+   more than 2^24 values), then on
+   each path's largest call with the caller's own arguments (the tracker's
+   3D and 2D calls; the Filter's, Label's and capacity's thresholds), with
+   their times on a cold L2, the plain bodies', ``torch.histc``'s beside
+   the histogram, the CUDA kernels a call, the calls each path made, the
+   bound (for the pair sums also the length of a sum's chain of dependent
+   adds) and the host reads, from whether the call waits out 50 ms of work
+   queued on the card before it (the pair sums must: they read the count;
+   the thresholds and the ROI statistics must not).  ``max_abs_err`` is
    the largest |kernel - plain| over the compared calls.  The multiply-add,
    correlation and tail rows are timed on a cold L2 cache (flushed before
    every call), so that the byte bounds at the memory rate hold;
 18. a real out-of-memory on the card: with most of the card's memory held
-   by a ballast tensor, ``run`` on a 3D series whose full-frame working
-   set passes the ladder's estimate but not the memory left, so the stage
-   runs out of memory and reruns in its low-memory mode on the same
-   device; every file it wrote is held byte for byte to a run that asked
-   for low memory from the start.
+   by a ballast, the Filter on a 3D series whose full-frame working set
+   passes the ladder's estimate; right after the estimate more ballast
+   takes all but 5 frames (as another process would), so the stage runs
+   out of memory and reruns in its low-memory mode on the same device;
+   its ``im_preprocessed`` is held byte for byte to a run that asked for
+   low memory from the start.
 
 Phases 4 and 6 also print the hand kernels' launches by caller and
 ``fma_f32``'s by calling function, single calls and chains (``fma_chain``,
@@ -709,6 +733,9 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
     print(f"{tag}Network's kernels on the main path: thin26 {hand['thin26']} calls "
           f"({kernel_launches['thin26']} CUDA kernels), nearest_seed {hand['nearest_seed']} "
           f"calls ({kernel_launches['nearest_seed']} CUDA kernels)", flush=True)
+    print(f"{tag}tracking's and the thresholds' kernels on the main path: "
+          + ", ".join(f"{k} {hand[k]} calls ({kernel_launches[k]} CUDA kernels)"
+                      for k in ("pair_sums", "roi_stats", "hist_threshold")), flush=True)
 
     tables = check_tables(im_info, skip_nodes=False)
     print(f"{tag}feature rows: " + ", ".join(f"{k} {len(v)}" for k, v in tables.items()),
@@ -1221,9 +1248,9 @@ def phase_capacity_1024(gpu, edge=CAPACITY_EDGE):
                       hand["fma_chain"])
     print_gauss_taps(f"capacity {edge}^3", calls.gauss_taps)
     if min(hand[k] for k in ("ccl_union_find", "fma_f32", "fma_chain", "gauss_axis",
-                             "frangi_tail")) == 0:
-        fail(f"capacity {edge}^3 never launched the union-find, the fma, the Gaussian or the "
-             "Frangi tail kernel")
+                             "frangi_tail", "hist_threshold")) == 0:
+        fail(f"capacity {edge}^3 never launched the union-find, the fma, the Gaussian, the "
+             "Frangi tail or the threshold kernel")
     if out["strategy"] != "chunked" or out["fg_count"] != int((labels > 0).sum()):
         fail(f"capacity {edge}^3: not the chunked strategy, or fg_count is not the support")
     start = time.perf_counter()
@@ -1234,9 +1261,10 @@ def phase_capacity_1024(gpu, edge=CAPACITY_EDGE):
     if not equal:
         fail(f"capacity {edge}^3: labels are not scipy's labelling of their support")
     return dict({k: out[k] for k in ("n_labels", "fg_count", "seconds")}, launches=hand,
+                kernel_launches=read_kernel_launches(),
                 calls=calls.calls["ccl_union_find"], fma_largest=calls.fma_largest,
-                largest=calls.largest(), fma_by_caller=calls.fma_callers(),
-                gauss_taps=calls.gauss_taps,
+                largest=calls.largest(), wrapper_calls=calls.wrapper_calls,
+                fma_by_caller=calls.fma_callers(), gauss_taps=calls.gauss_taps,
                 peak_gib=peak_gib)
 
 
@@ -2174,9 +2202,12 @@ class KernelCalls:
     WRAPPERS = {"correlate1d_traced": "filters", "_correlate1d": "filters",
                 "hessian_frob": "frangi", "frangi_response": "frangi",
                 "skeletonize_3d": "skeleton", "nearest_seed": "edt",
+                "pair_stats": "matching", "masked_mean_variance": "moments",
+                "min_triangle_otsu": "thresholds", "otsu_threshold": "thresholds",
+                "triangle_threshold": "thresholds", "triangle_and_otsu": "thresholds",
                 # the jnp kernels still in plain torch (PERF.md's rows to port)
                 "skeletonize_2d": "skeleton", "distance_transform": "edt",
-                "raw_moments": "moments", "pair_stats": "matching"}
+                "raw_moments": "moments"}
 
     def __init__(self, keep=lambda name, tag, args: True):
         self.keep = keep
@@ -2225,7 +2256,7 @@ class KernelCalls:
 
     def __enter__(self):
         from nellie_tpu_torch.kernels import (_fp, ccl, edt, filters, frangi, matching, moments,
-                                              nn, skeleton)
+                                              nn, skeleton, thresholds)
         from nellie_tpu_torch.stages import flow_interpolation as fi
 
         def fma_recorded(original, kernel, a, b, c):  # the operands themselves: their layout is timed
@@ -2269,7 +2300,7 @@ class KernelCalls:
         self._patch(nn._NNKernel, "__call__", nn_recorded)
         self._patch(filters._GaussAxisKernel, "__call__", gauss_recorded)
         modules = {"filters": filters, "frangi": frangi, "skeleton": skeleton, "edt": edt,
-                   "moments": moments, "matching": matching}
+                   "moments": moments, "matching": matching, "thresholds": thresholds}
         for name, module in self.WRAPPERS.items():
             self._record_wrapper(modules[module], name)
 
@@ -2328,14 +2359,17 @@ def check_fma_callers(what, callers, launches, chain_launches):
 
 
 def hand_counts():
-    from nellie_tpu_torch.kernels import _fp, ccl, edt, filters, frangi, skeleton
+    from nellie_tpu_torch.kernels import (_fp, ccl, edt, filters, frangi, matching, moments,
+                                          skeleton, thresholds)
     from nellie_tpu_torch.stages import flow_interpolation as fi
 
     return {"ccl_union_find": ccl.CCL_KERNEL, "flow_interp": fi.FLOW_INTERP_KERNEL,
             "fma_f32": _fp.FMA_KERNEL, "fma_chain": _fp.FMA_CHAIN_KERNEL,
             "gauss_axis": filters.GAUSS_AXIS_KERNEL,
             "frangi_tail": frangi.FRANGI_TAIL_KERNEL, "thin26": skeleton.THIN26_KERNEL,
-            "nearest_seed": edt.NEAREST_SEED_KERNEL}
+            "nearest_seed": edt.NEAREST_SEED_KERNEL, "pair_sums": matching.PAIR_SUMS_KERNEL,
+            "roi_stats": moments.ROI_STATS_KERNEL,
+            "hist_threshold": thresholds.HIST_THRESHOLD_KERNEL}
 
 
 def reset_hand_counts():
@@ -2350,9 +2384,9 @@ def read_hand_counts():
 
 
 def read_kernel_launches():
-    """The CUDA kernels launched by the wrappers whose one call launches
-    many (``thin26``, ``nearest_seed``); every other wrapper's call
-    launches one kernel."""
+    """The CUDA kernels launched by the wrappers that count them
+    (``thin26``, ``nearest_seed``, ``pair_sums``, ``roi_stats``,
+    ``hist_threshold``); every other wrapper's call launches one kernel."""
     return {name: kernel.kernel_launches for name, kernel in hand_counts().items()
             if hasattr(kernel, "kernel_launches")}
 
@@ -3409,7 +3443,7 @@ def phase_thin_kernel(gpu, largest):
 
 
 PLAIN_ROWS = {"skeletonize_2d": "skeleton", "distance_transform": "edt",
-              "raw_moments": "moments", "pair_stats": "matching"}
+              "raw_moments": "moments"}
 
 
 def plain_bound(name, args, out):
@@ -3438,7 +3472,7 @@ def cuda_kernels_a_call(fn):
 
 def phase_plain_rows(gpu, largest, calls):
     """The jnp kernels still in plain torch (``skeletonize_2d``,
-    ``distance_transform``, ``raw_moments``, ``pair_stats``): their largest
+    ``distance_transform``, ``raw_moments``): their largest
     call on each main path, on its own arguments, timed on a cold L2 (per
     call and on the device), the CUDA kernels a call launches and its byte
     bound, with the calls each path made.  ``largest``: {path: {name:
@@ -3620,21 +3654,456 @@ def phase_seed_kernel(gpu, largest):
 
 
 # ---------------------------------------------------------------------------
+# phase 17: tracking's pair sums and ROI statistics, the histogram thresholds
+# ---------------------------------------------------------------------------
+
+PAIR_WINDOW = 32  # XLA's CPU tree-reduction window, pair_sums.cu's level 1
+# synthetic pair-sum tiles: (n_post, n_pre, ndim, F, padded tile, max
+# distance, shift of the later frame): the 3D main path's one window level
+# (F = 22), the 2D path's second general level over 4,096 x 4,096 (F = 10),
+# the lanes of a padded 2,048 x 128 (8 lanes of 4 columns) and 2,048 x 256
+# (4 of 8), and no gated pair
+PAIR_CASES = {
+    "3D 1024 tile": (338, 332, 3, 22, (1024, 1024), 1.0, 0.0),
+    "2D 4096 tile": (2196, 2195, 2, 10, (4096, 4096), 1.0, 0.0),
+    "lanes 2048x128": (1100, 70, 3, 22, (2048, 128), 1.0, 0.0),
+    "lanes 2048x256": (1100, 200, 2, 10, (2048, 256), 1.0, 0.0),
+    "no gated pair": (90, 70, 3, 22, (128, 128), 1e-6, 50.0),
+}
+
+
+def pair_tile(n_post, n_pre, ndim, n_feat, seed=0, shift=0.0):
+    """(coords_post, coords_pre, feats_post, feats_pre) float32 numpy
+    arrays: earlier markers on a lattice of 0.5 / 0.2 um, later ones near
+    them (moved by ``shift`` um), normal features."""
+    rng = np.random.default_rng(seed)
+    spacing = np.array([0.5, 0.2, 0.2][-ndim:])
+    coords_pre = (rng.integers(0, 24, (n_pre, ndim)) * spacing).astype(np.float32)
+    coords_post = (coords_pre[rng.integers(0, n_pre, n_post)]
+                   + rng.normal(0, 0.2, (n_post, ndim)) + shift).astype(np.float32)
+    feats = [rng.normal(0, 1, (n, n_feat)).astype(np.float32) for n in (n_post, n_pre)]
+    return coords_post, coords_pre, feats[0], feats[1]
+
+
+def pair_chain(padded):
+    """The dependent adds in one of ``pair_sums.cu``'s sums: 1,024 at level
+    1, each later level's window (1,024, or 32 / lanes rows of the columns
+    and the halving of the lanes), then the window sums left."""
+    w = PAIR_WINDOW
+    rows, cols = padded[0] // w, padded[1] // w
+    chain = w * w
+    while rows > w or cols > w:
+        lanes = {4: 8, 8: 4}.get(cols) if rows > w else None
+        chain += (w // lanes * cols + lanes.bit_length() - 1) if lanes else w * w
+        rows, cols = -(-rows // w), 1 if lanes else -(-cols // w)
+    return chain + rows * cols
+
+
+def pair_bound(args):
+    """(bound_ms, bound_by) of one pair sum: its inputs read and its sums
+    written once at the memory rate, or its float32 operations (a pair's
+    gate: the differences, squares and adds, the root, the division and
+    the compare; per feature a difference, an absolute value, a square
+    and two adds) at the float32 rate, the larger."""
+    cp, cq, fp, fq = args[:4]
+    pairs, ndim, n_feat = cp.shape[0] * cq.shape[0], cp.shape[1], fp.shape[1]
+    nbytes = 4 * (cp.numel() + cq.numel() + fp.numel() + fq.numel() + 2 * (n_feat + 1)) + 8
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = pairs * (3 * ndim + 3 + 5 * (n_feat + 1)) / FP32_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def check_pair_sums(what, args, against_cpu=False):
+    """The kernel through ``matching.pair_stats`` (one C call, one CUDA
+    kernel) against ``pair_stats_plain`` on the card (and on CPU copies):
+    the count exactly, the sums bit for bit; returns (count, max |kernel -
+    plain|)."""
+    from nellie_tpu_torch.kernels import matching
+
+    kernel = matching.PAIR_SUMS_KERNEL
+    before, kernels = kernel.launches, kernel.kernel_launches
+    got = matching.pair_stats(*args)
+    if kernel.launches != before + 1 or kernel.kernel_launches != kernels + 1:
+        fail(f"pair_stats on {what} did not launch its kernel once with one CUDA kernel "
+             f"({kernel.kernel_launches - kernels} CUDA kernels)")
+    worst = 0.0
+    for where in ["cuda"] + (["cpu"] if against_cpu else []):
+        want = matching.pair_stats_plain(*(a.to(where) if isinstance(a, torch.Tensor) else a
+                                           for a in args))
+        if got[0] != want[0] or not (same_tensor(got[1], want[1].to(got[1].device))
+                                     and same_tensor(got[2], want[2].to(got[2].device))):
+            fail(f"pair_stats differs from its plain body on {what} ({where}): counts "
+                 f"{got[0]} and {want[0]}")
+        worst = max(worst, max_abs_diff(got[1], want[1]), max_abs_diff(got[2], want[2]))
+    return got[0], worst
+
+
+def roi_inputs(shape, scale=500.0, fill=0.4, seed=0):
+    """Float32 ROIs of ``shape`` (N, ...): uniform voxels up to ``scale``
+    on a ``fill`` share of them, the first ROI empty."""
+    rng = np.random.default_rng(seed)
+    x = (rng.random(shape) * scale * (rng.random(shape) < fill)).astype(np.float32)
+    x[0] = 0
+    return x
+
+
+def signed_rois(n=6, edge=17):
+    """ROIs of edge^3 whose first 4,096 voxels cancel exactly to 0, then
+    subnormal ones and a normal one: the second block of voxels starts
+    from a zero sum."""
+    rng = np.random.default_rng(6)
+    v = edge ** 3
+    x = np.zeros((n, v), np.float32)
+    x[:, 10], x[:, 20] = 3.0, -3.0
+    x[:, 4096:] = (rng.random((n, v - 4096)) * 1e-39).astype(np.float32)
+    x[:, 4096 + 50] = 1.0
+    return x.reshape((n,) + (edge,) * 3)
+
+
+# synthetic ROI sets: (shape, scale, fill): the 3D main path's 16^3 ROIs and
+# the 2D path's 20^2 (twice 338 markers), 20^3 (past one block of 4,096
+# voxels), dim ROIs whose squares are subnormal, and ROIs of voxels about
+# the smallest normal float32 (the subnormal ones read as zero)
+ROI_CASES = {
+    "3D 16^3": ((676, 16, 16, 16), 500.0, 0.4),
+    "2D 20^2": ((676, 20, 20), 500.0, 0.4),
+    "3D 20^3": ((64, 20, 20, 20), 500.0, 0.4),
+    "dim": ((64, 12, 12, 12), 1e-20, 0.8),
+    "subnormal voxels": ((64, 12, 12), 3e-38, 0.8),
+}
+
+
+def roi_bound(images):
+    """(bound_ms, bound_by): the ROIs read and the (N, 2) float32 written
+    once at the memory rate, or the float64 adds and squares (three a
+    voxel) at the float64 rate, the larger."""
+    n, voxels = images.shape[0], images[0].numel() if images.shape[0] else 0
+    bytes_ms = (images.numel() * images.element_size() + 8 * n) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 3 * n * voxels / FP64_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def check_roi_stats(what, images, against_cpu=False):
+    """The kernel through ``moments.masked_mean_variance`` (one CUDA kernel)
+    against ``masked_mean_variance_plain`` on the card (and
+    on CPU copies), bit for bit; returns max |kernel - plain|."""
+    from nellie_tpu_torch.kernels import moments
+
+    kernel = moments.ROI_STATS_KERNEL
+    before, kernels = kernel.launches, kernel.kernel_launches
+    got = moments.masked_mean_variance(images)
+    if kernel.launches != before + 1 or kernel.kernel_launches != kernels + 1:
+        fail(f"masked_mean_variance on {what} did not launch its kernel once with one CUDA "
+             f"kernel ({kernel.kernel_launches - kernels} CUDA kernels)")
+    worst = 0.0
+    for where in ["cuda"] + (["cpu"] if against_cpu else []):
+        want = moments.masked_mean_variance_plain(images.to(where))
+        if not same_tensor(got, want.to(got.device)):
+            fail(f"masked_mean_variance differs from its plain body on {what} ({where})")
+        worst = max(worst, max_abs_diff(got, want))
+    return worst
+
+
+# synthetic threshold samples: (values, mask rule, nbins, size): skewed and
+# bimodal, the triangle's peak near either end (both flips), Label's log10
+# domain with no mask, an empty mask, every value equal (a span of 0), one
+# masked value, every value in two bins, 100, 1,000 and 10,000 bins (past
+# the kernel's shared-memory histogram), a frame's worth of values, and more
+# values than 2^24 (the counts' float32 total rounds in XLA's order)
+THRESHOLD_CASES = {
+    "bimodal": ("bimodal", "random", 256, 4000),
+    "peak low (flip)": ("peak_low", "random", 256, 4000),
+    "peak high (no flip)": ("peak_high", "random", 256, 4000),
+    "log, no mask": ("log", None, 256, 4000),
+    "empty mask": ("bimodal", "none", 256, 4000),
+    "span 0": ("equal", "random", 256, 4000),
+    "one value": ("bimodal", "one", 256, 4000),
+    "two bins": ("two_bins", "random", 256, 4000),
+    "100 bins": ("bimodal", "random", 100, 4000),
+    "1000 bins": ("peak_low", "random", 1000, 4000),
+    "10000 bins": ("bimodal", "random", 10000, 40000),
+    "64x256x256 values": ("peak_low", "random", 256, 64 * 256 * 256),
+    "2^24 + 2^22 values": ("peak_low", None, 256, 2 ** 24 + 2 ** 22),
+}
+
+
+def threshold_inputs(kind, rule, n, seed=0):
+    """(values float32, mask bool or None) numpy arrays of ``n`` values."""
+    rng = np.random.default_rng(seed)
+    if kind == "bimodal":
+        v = np.concatenate([rng.normal(1.0, 0.3, n - n // 3), rng.gamma(2.0, 2.0, n // 3)])
+    elif kind == "peak_low":
+        v = rng.gamma(1.5, 1.0, n)
+    elif kind == "peak_high":
+        v = 10.0 - rng.gamma(1.5, 1.0, n)
+    elif kind == "log":
+        v = np.log10(rng.gamma(2.0, 1e-3, n) + 1e-6)
+    elif kind == "equal":
+        v = np.full(n, 0.75)
+    elif kind == "two_bins":
+        v = np.where(rng.random(n) < 0.3, 2.0, 5.0)
+    else:
+        raise ValueError(kind)
+    mask = None if rule is None else {"random": rng.random(n) < 0.8,
+                                      "none": np.zeros(n, bool),
+                                      "one": np.arange(n) == 17}[rule]
+    return v.astype(np.float32), mask
+
+
+THRESHOLD_FUNCTIONS = ("min_triangle_otsu", "otsu_threshold", "triangle_threshold",
+                       "triangle_and_otsu")
+
+
+def threshold_bound(values, mask):
+    """(bound_ms, "bytes"): the values and the mask read once and the five
+    results written once, at the memory rate (a few operations a value are
+    far below the float32 rate)."""
+    nbytes = values.numel() * 4 + (0 if mask is None else mask.numel()) + 17
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def check_thresholds(what, values, mask, nbins=256, against_cpu=False):
+    """The kernel against the plain bodies on the card (and on CPU copies),
+    bit for bit: its five results from one call (two CUDA kernels), then
+    each of the four public functions; returns max |kernel - plain|."""
+    from nellie_tpu_torch.kernels import thresholds
+
+    kernel = thresholds.HIST_THRESHOLD_KERNEL
+    before, kernels = kernel.launches, kernel.kernel_launches
+    otsu, criterion, tri, low, any_valid = kernel(values, mask, nbins)
+    if kernel.launches != before + 1 or kernel.kernel_launches != kernels + 2:
+        fail(f"the threshold kernel on {what} did not launch two CUDA kernels "
+             f"({kernel.kernel_launches - kernels})")
+    public = (*thresholds.otsu_threshold(values, mask, nbins),
+              thresholds.triangle_threshold(values, mask, nbins),
+              thresholds.min_triangle_otsu(values, mask, nbins))
+    pair = thresholds.triangle_and_otsu(values, mask, nbins)
+    if not (same_tensor(pair[0], public[2]) and same_tensor(pair[1], public[0])):
+        fail(f"triangle_and_otsu on {what} differs from triangle_threshold and otsu_threshold")
+    worst = 0.0
+    for where in ["cuda"] + (["cpu"] if against_cpu else []):
+        v, m = values.to(where), None if mask is None else mask.to(where)
+        want = (*thresholds.otsu_threshold_plain(v, m, nbins),
+                thresholds.triangle_threshold_plain(v, m, nbins),
+                thresholds.min_triangle_otsu_plain(v, m, nbins))
+        pair = thresholds.triangle_and_otsu_plain(v, m, nbins)
+        if not (same_tensor(pair[0], want[2]) and same_tensor(pair[1], want[0])):
+            fail(f"triangle_and_otsu_plain on {what} ({where}) differs from the single plain "
+                 "bodies")
+        for got in ((otsu, criterion, tri, low), public):
+            for g, w, name in zip(got, want, ("Otsu", "criterion", "triangle", "minimum")):
+                if not same_tensor(g, w.to(g.device)):
+                    fail(f"the threshold kernel's {name} differs from the plain body on {what} "
+                         f"({where}): {float(g)!r} and {float(w)!r}")
+                worst = max(worst, max_abs_diff(g, w))
+    valid = bool(values.numel() and (mask is None or mask.any()))
+    if bool(any_valid) != valid:
+        fail(f"the threshold kernel on {what}: any_valid {bool(any_valid)}, not {valid}")
+    return worst
+
+
+def library_histogram(values, mask, nbins):
+    """One PyTorch call's histogram of values[mask] over their range
+    (``torch.histc``; the range read once beforehand), as a function."""
+    sel = values[mask]
+    lo, hi = (float(sel.min()), float(sel.max())) if sel.numel() else (0.0, 1.0)
+    return lambda: torch.histc(values[mask], nbins, lo, hi)
+
+
+def phase_track_threshold_kernels(gpu, largest, calls):
+    """Tracking's pair sums (``csrc/pair_sums.cu``) and ROI statistics
+    (``csrc/roi_stats.cu``) and the histogram thresholds
+    (``csrc/hist_threshold.cu``) against their plain bodies on the card,
+    bit for bit: the synthetic cases (``PAIR_CASES``, ``ROI_CASES`` and
+    signed ROIs, ``THRESHOLD_CASES``; the small ones also against CPU
+    copies), then each path's largest call of ``pair_stats`` and
+    ``masked_mean_variance`` (3D, 2D) and of each threshold function (3D,
+    2D, capacity) on the caller's own arguments, timed on a cold L2 beside
+    the plain bodies and (the histogram) ``torch.histc``, with the CUDA
+    kernels a call (``torch.profiler``, and the kernels' own counts) and
+    the calls each path made; a threshold call with 50 ms of work queued
+    on the card must not wait for it.  ``largest``: {path: {wrapper:
+    (size, args on the host)}}; ``calls``: {path: {wrapper: calls}}.
+    Returns ({kernel: rows}, {kernel: max |kernel - plain|})."""
+    from nellie_tpu_torch.kernels import matching, moments, thresholds
+
+    errs = {"pair_sums": 0.0, "roi_stats": 0.0, "hist_threshold": 0.0}
+    rows = {"pair_sums": {}, "roi_stats": {}, "hist_threshold": {}}
+    for k, (name, (n_post, n_pre, ndim, n_feat, padded, max_d, shift)) in enumerate(
+            PAIR_CASES.items()):
+        arrays = pair_tile(n_post, n_pre, ndim, n_feat, seed=k, shift=shift)
+        args = (*(torch.from_numpy(a).cuda() for a in arrays), max_d, padded)
+        count, err = check_pair_sums(name, args, against_cpu=n_post * n_pre < 10 ** 6)
+        if (count == 0) != (name == "no gated pair"):
+            fail(f"pair_stats on {name}: {count} gated pairs")
+        errs["pair_sums"] = max(errs["pair_sums"], err)
+    print(f"pair_stats = plain body (count exactly, sums bit for bit) on "
+          f"{len(PAIR_CASES)} synthetic tiles: {', '.join(PAIR_CASES)}", flush=True)
+    for k, (name, (shape, scale, fill)) in enumerate(ROI_CASES.items()):
+        images = torch.from_numpy(roi_inputs(shape, scale, fill, seed=k)).cuda()
+        errs["roi_stats"] = max(errs["roi_stats"],
+                                check_roi_stats(name, images, against_cpu=shape[0] <= 64))
+    errs["roi_stats"] = max(errs["roi_stats"], check_roi_stats(
+        "signed ROIs", torch.from_numpy(signed_rois()).cuda(), against_cpu=True))
+    print(f"masked_mean_variance = plain body bit for bit on {len(ROI_CASES) + 1} synthetic "
+          f"ROI sets: {', '.join(ROI_CASES)}, signed ROIs (each with an empty ROI)", flush=True)
+    for k, (name, (kind, rule, nbins, n)) in enumerate(THRESHOLD_CASES.items()):
+        v, m = threshold_inputs(kind, rule, n, seed=k)
+        errs["hist_threshold"] = max(errs["hist_threshold"], check_thresholds(
+            name, torch.from_numpy(v).cuda(), None if m is None else torch.from_numpy(m).cuda(),
+            nbins, against_cpu=n < 10 ** 5))
+    print(f"the thresholds = plain bodies bit for bit on {len(THRESHOLD_CASES)} synthetic "
+          f"samples: {', '.join(THRESHOLD_CASES)}", flush=True)
+    item_ms = check_host_waits()
+
+    def kernels_a_call(fn, kernel):
+        """(device events by the profiler, CUDA kernels by the kernel's
+        count) of one call."""
+        profiled = cuda_kernels_a_call(fn)
+        before = kernel.kernel_launches
+        fn()
+        return profiled, kernel.kernel_launches - before
+
+    for path in ("3D", "2D"):
+        recorded = largest[path]["pair_stats"][1]
+        if recorded is None:
+            fail(f"the {path} path made no pair_stats call")
+        args = tuple(a.cuda() if isinstance(a, torch.Tensor) else a for a in recorded)
+        count, err = check_pair_sums(f"the {path} path's largest call", args)
+        errs["pair_sums"] = max(errs["pair_sums"], err)
+        fn = lambda: matching.pair_stats(*args)  # noqa: E731
+        profiled, own = kernels_a_call(fn, matching.PAIR_SUMS_KERNEL)
+        wait_ms = host_wait_ms(fn)
+        reads = int(wait_ms >= QUEUED_MS / 2)  # 1: at least one
+        if reads != 1:
+            fail(f"pair_stats at the {path} path's largest call returned after {wait_ms:.3f} ms "
+                 f"with {QUEUED_MS} ms queued on the card: it did not wait for the count")
+        plain_ms, _ = cold_times(lambda: matching.pair_stats_plain(*args), 2, on_device=False)
+        ms, on_device = cold_times(fn, 10)
+        bound_ms, bound_by = pair_bound(args)
+        chain = pair_chain(args[5])
+        shapes = [tuple(a.shape) for a in args[:4]]
+        print(f"pair_sums = plain body bit for bit, and its time, at the {path} path's "
+              f"largest call ({shapes}, padded tile {tuple(args[5])}, {count} gated pairs, "
+              f"{calls[path]['pair_stats']} calls on the path): kernel {ms:.4f} ms a call on a "
+              f"cold L2 (on the device {fmt_ms(on_device)}), plain {plain_ms:.4f} ms, library "
+              f"none; {own} CUDA kernel a call by the kernel's count ({profiled} device events "
+              f"by the profiler: a memset, the kernel and the count's copy), {reads} host read "
+              f"(the count, as the reference: returned after {wait_ms:.3f} ms with {QUEUED_MS} "
+              f"ms queued); bound {bound_ms:.6f} ms ({bound_by}), a chain of {chain} "
+              f"dependent adds a sum [{gpu}]", flush=True)
+        rows["pair_sums"][path] = {
+            "shapes": shapes, "padded": list(args[5]), "gated_pairs": count,
+            "calls": calls[path]["pair_stats"], "kernels_a_call": own,
+            "device_events_a_call": profiled, "host_reads_a_call": reads,
+            "host_ms_with_work_queued": wait_ms, "chain_adds": chain,
+            "max_abs_err": err, "ms": ms, "device_ms": on_device, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        del args
+
+        recorded = largest[path]["masked_mean_variance"][1]
+        if recorded is None:
+            fail(f"the {path} path made no masked_mean_variance call")
+        images = recorded[0].cuda()
+        err = check_roi_stats(f"the {path} path's largest call", images)
+        errs["roi_stats"] = max(errs["roi_stats"], err)
+        fn = lambda: moments.masked_mean_variance(images)  # noqa: E731
+        profiled, own = kernels_a_call(fn, moments.ROI_STATS_KERNEL)
+        wait_ms = host_wait_ms(fn)
+        reads = int(wait_ms >= QUEUED_MS / 2)
+        if reads:
+            fail(f"masked_mean_variance at the {path} path's largest call waited on the card "
+                 f"({wait_ms:.3f} ms with {QUEUED_MS} ms queued)")
+        plain_ms, _ = cold_times(lambda: moments.masked_mean_variance_plain(images), 2,
+                                 on_device=False)
+        ms, on_device = cold_times(fn, 10)
+        bound_ms, bound_by = roi_bound(images)
+        print(f"roi_stats = plain body bit for bit, and its time, at the {path} path's largest "
+              f"call ({tuple(images.shape)}, {calls[path]['masked_mean_variance']} calls on the "
+              f"path): kernel {ms:.4f} ms a call on a cold L2 (on the device "
+              f"{fmt_ms(on_device)}), plain {plain_ms:.4f} ms, library none; {own} CUDA kernel "
+              f"a call by the kernel's count ({profiled} by the profiler), {reads} host reads "
+              f"(returned after {wait_ms:.3f} ms with {QUEUED_MS} ms queued); bound "
+              f"{bound_ms:.6f} ms ({bound_by}), a chain of {images[0].numel()} dependent "
+              f"float64 adds a sum [{gpu}]", flush=True)
+        rows["roi_stats"][path] = {
+            "shape": list(images.shape), "calls": calls[path]["masked_mean_variance"],
+            "kernels_a_call": own, "device_events_a_call": profiled, "host_reads_a_call": reads,
+            "host_ms_with_work_queued": wait_ms, "chain_adds": images[0].numel(),
+            "max_abs_err": err, "ms": ms, "device_ms": on_device, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        del images
+
+    for path, recorded in largest.items():
+        for name in THRESHOLD_FUNCTIONS:
+            if recorded.get(name, (0, None))[1] is None:
+                continue
+            values, mask, *rest = recorded[name][1]
+            values = values.cuda()
+            mask = None if mask is None else mask.cuda()
+            nbins = rest[0] if rest else 256
+            err = check_thresholds(f"the {path} path's largest {name} call", values, mask, nbins)
+            errs["hist_threshold"] = max(errs["hist_threshold"], err)
+            fn = lambda: getattr(thresholds, name)(values, mask, nbins)  # noqa: E731
+            plain = getattr(thresholds, f"{name}_plain")
+            profiled, own = kernels_a_call(fn, thresholds.HIST_THRESHOLD_KERNEL)
+            wait_ms = host_wait_ms(fn)
+            reads = int(wait_ms >= QUEUED_MS / 2)
+            if reads:
+                fail(f"{name} at the {path} path's largest call returned after {wait_ms:.3f} ms "
+                     f"with {QUEUED_MS} ms queued on the card (.item() {item_ms:.3f} ms): it "
+                     "waits on the card")
+            plain_ms, _ = cold_times(lambda: plain(values, mask, nbins), 2, on_device=False)
+            library_ms, _ = cold_times(library_histogram(values, mask, nbins), 5,
+                                       on_device=False)
+            ms, on_device = cold_times(fn, 10)
+            bound_ms, bound_by = threshold_bound(values, mask)
+            n_calls = calls[path].get(name, 0)
+            print(f"hist_threshold = plain body bit for bit, and its time, at the {path} path's "
+                  f"largest {name} call ({tuple(values.shape)}, "
+                  f"{int(values.numel() if mask is None else mask.sum())} masked values, "
+                  f"{nbins} bins, {n_calls} calls on the path): kernel {ms:.4f} ms a call on a "
+                  f"cold L2 (on the device {fmt_ms(on_device)}), plain {plain_ms:.4f} ms, "
+                  f"library (torch.histc of values[mask]) {library_ms:.4f} ms; {own} CUDA "
+                  f"kernels a call by the kernel's count ({profiled} device events by the "
+                  f"profiler, the memset among them), {reads} host reads (returned after "
+                  f"{wait_ms:.3f} ms with {QUEUED_MS} ms queued on the card, .item() "
+                  f"{item_ms:.3f} ms); bound {bound_ms:.6f} ms ({bound_by}) [{gpu}]",
+                  flush=True)
+            rows["hist_threshold"][f"{path} {name}"] = {
+                "shape": list(values.shape), "nbins": nbins, "calls": n_calls,
+                "kernels_a_call": own, "device_events_a_call": profiled,
+                "host_reads_a_call": reads, "host_ms_with_work_queued": wait_ms,
+                "max_abs_err": err, "ms": ms, "device_ms": on_device, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+            del values, mask
+    for path in ("3D", "2D"):
+        if f"{path} min_triangle_otsu" not in rows["hist_threshold"]:
+            fail(f"the {path} path made no min_triangle_otsu call (the Filter's threshold)")
+    return rows, errs
+
+
+# ---------------------------------------------------------------------------
 # phase 18: a real out-of-memory on the card
 # ---------------------------------------------------------------------------
 
 OOM_SHAPE = (2, 64, 512, 512)
-OOM_FREE_FRAMES = 10  # float32 frames left free: over the estimate's 6 / 0.7, under the Filter's peak
+OOM_FREE_FRAMES = 10  # float32 frames free for the ladder's estimate: over its 6 / 0.7
+# float32 frames left once the run starts: under the full-frame Filter's peak
+# (6.0 frames since the thresholds run in a hand kernel), over the low-memory one's
+OOM_RUN_FRAMES = 5
 
 
 def phase_out_of_memory(gpu, root):
     """Filter on a 3D series with ``low_memory=False`` while a ballast
-    tensor holds all but ``OOM_FREE_FRAMES`` float32 frames of the card's
-    memory: the ladder's estimate (6 frames against 0.7 of what is free)
-    lets it start in full-frame mode, the full frame's working set does not
-    fit, PyTorch raises its out-of-memory error, and the ladder reruns the
-    stage in low-memory mode on the same device.  ``im_preprocessed`` must
-    equal, byte for byte, a run that asked for low memory from the start."""
+    holds all but ``OOM_FREE_FRAMES`` float32 frames of the card's memory:
+    the ladder's estimate (6 frames against 0.7 of what is free) lets it
+    start in full-frame mode; right after the estimate more ballast takes
+    all but ``OOM_RUN_FRAMES`` frames (as another process on the card
+    would), the full frame's working set does not fit, PyTorch raises its
+    out-of-memory error, and the ladder reruns the stage in low-memory mode
+    on the same device.  ``im_preprocessed`` must equal, byte for byte, a
+    run that asked for low memory from the start."""
     import logging
 
     from nellie_tpu_torch.io import ImInfo
@@ -3652,38 +4121,58 @@ def phase_out_of_memory(gpu, root):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info(dev)
-    target = OOM_FREE_FRAMES * frame_bytes
-    # most of the card at once, then small pieces until the ladder's own
-    # figure (the device's free memory and the free blocks PyTorch caches,
-    # which a large piece would not reuse) is down to the target
-    ballast = [torch.empty(max(free - target - 2 ** 30, 0), dtype=torch.uint8, device=dev)]
-    for _ in range(2000):
-        left = adaptive_run.device_free_bytes(dev)
-        if left <= 1.02 * target:
-            break
-        ballast.append(torch.empty(min(left - target, 2 ** 26) // 512 * 512, dtype=torch.uint8,
-                                   device=dev))
+
+    def fill_to(target):
+        """Ballast pieces until the ladder's own figure (the device's free
+        memory and the free blocks PyTorch caches, which a large piece
+        would not reuse) is down to ``target`` bytes: most of it at once,
+        then small pieces."""
+        pieces = [torch.empty(max(adaptive_run.device_free_bytes(dev) - target - 2 ** 30, 0),
+                              dtype=torch.uint8, device=dev)]
+        for _ in range(2000):
+            left = adaptive_run.device_free_bytes(dev)
+            if left <= 1.02 * target:
+                break
+            pieces.append(torch.empty(min(left - target, 2 ** 26) // 512 * 512,
+                                      dtype=torch.uint8, device=dev))
+        return pieces
+
+    ballast = fill_to(OOM_FREE_FRAMES * frame_bytes)
     left = adaptive_run.device_free_bytes(dev)
     estimate_low = adaptive_run.should_use_low_memory(infos["ladder"], dev)
+    estimate = adaptive_run.should_use_low_memory
+    left_at_run = []
+
+    def estimate_then_shrink(im_info, device):
+        low = estimate(im_info, device)
+        if not left_at_run:
+            ballast.extend(fill_to(OOM_RUN_FRAMES * frame_bytes))
+            left_at_run.append(adaptive_run.device_free_bytes(dev))
+        return low
+
     records = []
     handler = logging.Handler()
     handler.emit = records.append
     log = logging.getLogger("nellie_tpu_torch")
     log.addHandler(handler)
+    adaptive_run.should_use_low_memory = estimate_then_shrink
     try:
         Filter(infos["ladder"], device="cuda", low_memory=False).run()
     finally:
+        adaptive_run.should_use_low_memory = estimate
         log.removeHandler(handler)
         del ballast
         torch.cuda.empty_cache()
     messages = [r.getMessage() for r in records]
     oom = [m for m in messages if "out of memory in full-frame mode" in m]
     rungs = [m for m in messages if m.startswith("Filter: ") and " mode on " in m]
+    run_frames = left_at_run[0] / frame_bytes if left_at_run else float("nan")
     print(f"out of memory on the card: a ballast left {left / 2 ** 20:.1f} MiB free of "
           f"{total / 2 ** 30:.1f} GiB ({left / frame_bytes:.2f} float32 frames of "
           f"{OOM_SHAPE[1:]}); the ladder's estimate chose "
-          f"{'low-memory' if estimate_low else 'full-frame'} mode; Filter's rungs: {rungs}; "
-          f"out-of-memory retries: {len(oom)} [{gpu}]", flush=True)
+          f"{'low-memory' if estimate_low else 'full-frame'} mode; then {run_frames:.2f} "
+          f"frames left for the run; Filter's rungs: {rungs}; out-of-memory retries: "
+          f"{len(oom)} [{gpu}]", flush=True)
     if estimate_low or not oom or not rungs or "low-memory mode on cuda" not in rungs[-1]:
         fail("phase 18: the Filter did not run out of memory in full-frame mode and rerun in "
              "low-memory mode on the card")
@@ -3694,7 +4183,8 @@ def phase_out_of_memory(gpu, root):
     print(f"phase 18 (out of memory): im_preprocessed of the rerun = the low-memory run's, byte "
           f"for byte ({int((arrays[0] > 0).sum())} nonzero voxels); "
           f"{time.perf_counter() - start:.1f} s", flush=True)
-    return {"free_mib": left / 2 ** 20, "retries": len(oom), "rungs": rungs}
+    return {"free_mib": left / 2 ** 20, "run_frames": run_frames, "retries": len(oom),
+            "rungs": rungs}
 
 
 def compare_tables(got, want, headers, skip):
@@ -3720,7 +4210,7 @@ def compare_tables(got, want, headers, skip):
 
 
 def build_kernels():
-    """Build the eight CUDA kernels from the checkout, one nvcc each, all
+    """Build the eleven CUDA kernels from the checkout, one nvcc each, all
     started together; print the seconds."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -3761,7 +4251,7 @@ def main() -> None:
         reassign, hierarchy = phase_kernel_main_shapes(nn, gpu, hand["nn"])
         phase_small_parity(root, small_series(), "TZYX",
                            {"X": 0.2, "Y": 0.2, "Z": 0.5, "T": 1.0})
-        _, by_stage_2d, im_info_2d, timings_2d, hand_2d = phase_main_path(
+        launches_2d, by_stage_2d, im_info_2d, timings_2d, hand_2d = phase_main_path(
             nn, gpu, root, MAIN_SHAPE_2D, tag="2D ")
         phase_fused_vs_staged(gpu, root, MAIN_SHAPE_2D, im_info_2d, timings_2d, tag="2D ")
         reassign_2d, hierarchy_2d = phase_kernel_main_shapes(nn, gpu, hand_2d["nn"], tag="2D ")
@@ -3801,6 +4291,9 @@ def main() -> None:
     thin_rows, thin_err = phase_thin_kernel(gpu, {"3D": hand["largest"]["skeletonize_3d"]})
     seed_rows, seed_err = phase_seed_kernel(gpu, {"3D": hand["largest"]["nearest_seed"],
                                                   "2D": hand_2d["largest"]["nearest_seed"]})
+    track_rows, track_errs = phase_track_threshold_kernels(
+        gpu, largest, {"3D": hand["wrapper_calls"], "2D": hand_2d["wrapper_calls"],
+                       "capacity_1024": capacity["wrapper_calls"]})
     phase_plain_rows(gpu, {"3D": hand["largest"], "2D": hand_2d["largest"]},
                      {"3D": hand["wrapper_calls"], "2D": hand_2d["wrapper_calls"]})
     print(f"phase 17 (hand kernels against their plain bodies): "
@@ -3823,11 +4316,15 @@ def main() -> None:
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     launches_by_path = {name: {"3D": hand["launches"][name], "2D": hand_2d["launches"][name]}
                         for name in hand["launches"]}
-    for name in ("ccl_union_find", "fma_f32", "fma_chain", "gauss_axis", "frangi_tail"):
+    for name in ("ccl_union_find", "fma_f32", "fma_chain", "gauss_axis", "frangi_tail",
+                 "hist_threshold"):
         launches_by_path[name]["capacity_1024"] = capacity["launches"][name]
-    # a call of thin26 or nearest_seed launches many CUDA kernels
+    # the CUDA kernels of the wrappers that count them (thin26 and nearest_seed
+    # run many passes in one, hist_threshold launches two)
     kernel_launches_by_path = {name: {"3D": n, "2D": hand_2d["kernel_launches"][name]}
                                for name, n in hand["kernel_launches"].items()}
+    kernel_launches_by_path["hist_threshold"]["capacity_1024"] = \
+        capacity["kernel_launches"]["hist_threshold"]
     fma_by_caller = {"3D": hand["fma_by_caller"], "2D": hand_2d["fma_by_caller"],
                      "capacity_1024": capacity["fma_by_caller"]}
     print(json.dumps({"kernels": [
@@ -3835,7 +4332,7 @@ def main() -> None:
          "source": "nellie_tpu_torch/kernels/csrc/nn_argmin.cu",
          "replaces": "nellie_tpu/kernels/pallas_nn.py:72",
          "launches": launches, "max_abs_err": max_abs, **{k: reassign[k] for k in keys},
-         "paths": paths},
+         "launches_by_path": {"3D": launches, "2D": launches_2d}, "paths": paths},
         {"name": "ccl_union_find", "route": "cuda",
          "source": "nellie_tpu_torch/kernels/csrc/ccl_union_find.cu",
          "replaces": "nellie_tpu/kernels/ccl.py:162",
@@ -3892,6 +4389,17 @@ def main() -> None:
          "kernel_launches": hand["kernel_launches"]["nearest_seed"],
          "kernel_launches_by_path": kernel_launches_by_path["nearest_seed"],
          "paths": seed_rows},
+        *({"name": name, "route": "cuda", "source": f"nellie_tpu_torch/kernels/csrc/{name}.cu",
+           "replaces": replaces, "launches": hand["launches"][name],
+           "max_abs_err": track_errs[name], **{k: track_rows[name][row][k] for k in keys},
+           "launches_by_path": launches_by_path[name],
+           "kernel_launches": hand["kernel_launches"][name],
+           "kernel_launches_by_path": kernel_launches_by_path[name], "paths": track_rows[name]}
+          for name, replaces, row in (
+              ("pair_sums", "nellie_tpu/kernels/matching.py:40", "3D"),
+              ("roi_stats", "nellie_tpu/kernels/moments.py:111", "3D"),
+              ("hist_threshold", "nellie_tpu/kernels/thresholds.py:18",
+               "3D min_triangle_otsu"))),
     ]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,15 +12,24 @@ with those global moments and keeps the row minima and, across tiles, the
 first column minimum.  The tiles run in the reference's order with its
 reductions, because a single big tile sums in another order and moves the
 z-scored costs.
+
+``pair_stats`` on CUDA tensors launches the hand-written kernel
+``csrc/pair_sums.cu`` (built for ``sm_90a`` with ``nvcc`` on first use,
+bound through ``ctypes``; one launch a call and the read of the count), or
+raises; on CPU tensors it runs :func:`pair_stats_plain`.
+``PAIR_SUMS_KERNEL.launches`` counts the wrapper's calls and
+``kernel_launches`` the CUDA kernels they launched.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
 import torch
 
 from nellie_tpu_torch.device import resolve_device
+from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CudaKernel, check_error, on_card
 from nellie_tpu_torch.kernels._fp import (
     REDUCE_WINDOW,
     f32,
@@ -36,12 +45,14 @@ COST_CUTOFF = 1.0
 def _pair_mask_and_dist(coords_post, coords_pre, max_distance):
     diff = coords_post[:, None, :] - coords_pre[None, :, :]
     dist = sqrt(reduce_sum_of_squares(diff))
-    return dist / max_distance, dist < max_distance
+    # a divisor on the device: PyTorch's CUDA division by a number
+    # multiplies by its reciprocal, which rounds otherwise
+    max_d = torch.full((), f32(max_distance), dtype=torch.float32, device=dist.device)
+    return dist / max_d, dist < max_d
 
 
-def pair_stats(coords_post, coords_pre, feats_post, feats_pre, max_distance, padded):
-    """(count, sum_f, sumsq_f) over distance-gated pairs, F+1 entries with
-    the normalised distance first.
+def pair_stats_plain(coords_post, coords_pre, feats_post, feats_pre, max_distance, padded):
+    """:func:`pair_stats` in plain torch.
 
     Each masked (rows, cols) sum is XLA's CPU tree reduction
     (:func:`_fp.tree_sum_2d`); its first level, the 32 x 32 windows, is
@@ -70,6 +81,80 @@ def pair_stats(coords_post, coords_pre, feats_post, feats_pre, max_distance, pad
     sumsqs = torch.nn.functional.pad(sumsqs, grow)
     return (int(mask.sum()), tree_sum_2d(sums.permute(2, 0, 1)),
             tree_sum_2d(sumsqs.permute(2, 0, 1)))
+
+
+class _PairSumsKernel(CudaKernel):
+    """The compiled pair sums (``csrc/pair_sums.cu``), built once per
+    process, with a launch count and a count of the CUDA kernels
+    launched."""
+
+    source = "pair_sums.cu"
+    flags = (*BASE_FLAGS, "-fmad=false")
+
+    def __init__(self):
+        super().__init__()
+        self.kernel_launches = 0
+
+    def bind(self, lib):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.pair_sums_scratch.argtypes = [i32, i32, i32]
+        lib.pair_sums_scratch.restype = ctypes.c_longlong
+        lib.pair_sums.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, ctypes.c_float, i32,
+                                  i32, ptr, ptr, ptr, ptr, ctypes.POINTER(i32), ptr]
+        lib.pair_sums.restype = i32
+
+    def __call__(self, coords_post, coords_pre, feats_post, feats_pre, max_distance, padded):
+        """(count, sums, sumsqs) by one C call and the read of the count;
+        float32 CUDA tensors of one device, coordinates (n, 1-3) and
+        features (n, F)."""
+        args = (coords_post, coords_pre, feats_post, feats_pre)
+        dev = coords_post.device
+        if any(a.device != dev or a.device.type != "cuda" or a.dtype != torch.float32
+               or a.dim() != 2 for a in args):
+            raise TypeError("pair_stats takes 2-D float32 tensors on one CUDA device")
+        (n_post, ndim), (n_pre, ndim_pre) = coords_post.shape, coords_pre.shape
+        n_feat = feats_post.shape[1]
+        if not 1 <= ndim <= 3 or ndim_pre != ndim or feats_pre.shape[1] != n_feat \
+                or feats_post.shape[0] != n_post or feats_pre.shape[0] != n_pre:
+            raise ValueError("pair_stats: coordinates (n, 1-3) and features (n, F) of "
+                             "matching rows")
+        w = REDUCE_WINDOW
+        rows, cols = padded[0] // w, padded[1] // w
+        if padded[0] % w or padded[1] % w or rows * w < n_post or cols * w < n_pre:
+            raise ValueError(f"pair_stats: padded tile {tuple(padded)} is not a multiple of "
+                             f"{w} holding {n_post} x {n_pre} pairs")
+        lib = self._lib or self.build()
+        with self.on_device(dev):
+            inputs = [a.contiguous() for a in args]
+            scratch = torch.empty(lib.pair_sums_scratch(n_feat, rows, cols), dtype=torch.float32,
+                                  device=dev)
+            counters = torch.empty(2, dtype=torch.int64, device=dev)
+            out = torch.empty(2, n_feat + 1, dtype=torch.float32, device=dev)
+            kernels = ctypes.c_int(0)
+            err = lib.pair_sums(*(a.data_ptr() for a in inputs), n_post, n_pre, ndim, n_feat,
+                                f32(max_distance), rows, cols, scratch.data_ptr(),
+                                counters.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+                                ctypes.byref(kernels), torch.cuda.current_stream().cuda_stream)
+            check_error("pair_sums launch", err)
+            with self._lock:
+                self.count_launch()
+                self.kernel_launches += kernels.value
+            return int(counters[0]), out[0], out[1]
+
+
+PAIR_SUMS_KERNEL = _PairSumsKernel()
+
+
+def pair_stats(coords_post, coords_pre, feats_post, feats_pre, max_distance, padded):
+    """(count, sum_f, sumsq_f) over distance-gated pairs, F+1 entries with
+    the normalised distance first, summed in the order of XLA's CPU tree
+    reduction over the reference's padded tile ``padded`` (rows, cols).
+    CUDA tensors go to the hand-written kernel (or it raises), CPU tensors
+    to :func:`pair_stats_plain`."""
+    if on_card(coords_post, "pair_stats"):
+        return PAIR_SUMS_KERNEL(coords_post, coords_pre, feats_post, feats_pre, max_distance,
+                                padded)
+    return pair_stats_plain(coords_post, coords_pre, feats_post, feats_pre, max_distance, padded)
 
 
 def bucket(n: int, minimum: int = 128) -> int:

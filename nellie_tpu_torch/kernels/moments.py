@@ -9,13 +9,22 @@ the raw moments are summed in the order XLA's CPU dot sums the
 reference's einsums, and the binomial transform fuses its multiply-adds
 where XLA does: the Hu features then follow the reference's roundings
 instead of amplifying a different summation order's.
+
+``masked_mean_variance`` on a CUDA tensor launches the hand-written kernel
+``csrc/roi_stats.cu`` (built for ``sm_90a`` with ``nvcc`` on first use,
+bound through ``ctypes``; one launch a call), or raises; on a CPU tensor it
+runs :func:`masked_mean_variance_plain`.  ``ROI_STATS_KERNEL.launches``
+counts the wrapper's calls and ``kernel_launches`` the CUDA kernels they
+launched.
 """
 from __future__ import annotations
 
+import ctypes
 from math import comb
 
 import torch
 
+from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CudaKernel, check_error, on_card
 from nellie_tpu_torch.kernels._fp import (
     _TINY, ADD, FMA, MUL, R0, accumulate, contract, flush, fma, log10)
 from nellie_tpu_torch.kernels._fp import pow as pow_f32
@@ -32,7 +41,7 @@ def raw_moments(images: torch.Tensor, order: int = 3) -> torch.Tensor:
     return contract(tmp.transpose(1, 2), row_pow)     # (N, K, K)
 
 
-_VOXEL_BLOCK = 4096  # voxels per block of widened terms in masked_mean_variance
+_VOXEL_BLOCK = 4096  # voxels per block of widened terms in masked_mean_variance (and roi_stats.cu)
 
 # (p, q) of the central moments whose first addition XLA's CPU code fuses
 # with its right product (the left one elsewhere); read off its output.
@@ -155,17 +164,20 @@ def hu_3d(volumes: torch.Tensor, looped: bool = False) -> torch.Tensor:
                       for axis in (1, 2, 3)], dim=1)
 
 
-def masked_mean_variance(images: torch.Tensor) -> torch.Tensor:
-    """[mean, variance] of the nonzero voxels of each image, (N, 2).
+def masked_mean_variance_plain(images: torch.Tensor) -> torch.Tensor:
+    """:func:`masked_mean_variance` in plain torch.
 
     The variance cancels most of its digits, so the sums are taken in the
     reference's order: XLA's CPU reduction adds the voxels one by one in
     raster order (the squares with fused multiply-adds).  Each step adds
     float64 terms into float32 sums, which rounds once as XLA does, and
     subnormal results are flushed as XLA's CPU code flushes them (the
-    voxels are intensities, never negative)."""
+    voxels are intensities, never negative).  That code also reads a
+    subnormal voxel as zero (denormals are zero): it neither counts nor
+    adds."""
     n = images.shape[0]
     flat = images.reshape(n, -1).float()
+    flat = torch.where(flat.abs() < _TINY, torch.zeros_like(flat), flat)
     count = (flat != 0).sum(dim=1)
     safe = torch.where(count == 0, torch.ones_like(count), count).float()
     sums = torch.zeros(n, 2, dtype=torch.float32, device=images.device)
@@ -186,3 +198,56 @@ def masked_mean_variance(images: torch.Tensor) -> torch.Tensor:
     mean = torch.where(zero, torch.zeros_like(mean), mean)
     var = torch.where(zero, torch.zeros_like(var), var)
     return torch.stack([mean, var], dim=1)
+
+
+class _RoiStatsKernel(CudaKernel):
+    """The compiled ROI statistics (``csrc/roi_stats.cu``), built once per
+    process, with a launch count and a count of the CUDA kernels
+    launched."""
+
+    source = "roi_stats.cu"
+    flags = (*BASE_FLAGS, "-fmad=false")
+
+    def __init__(self):
+        super().__init__()
+        self.kernel_launches = 0
+
+    def bind(self, lib):
+        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+        lib.roi_stats.argtypes = [ptr, i64, i64, ptr, ctypes.POINTER(ctypes.c_int), ptr]
+        lib.roi_stats.restype = ctypes.c_int
+
+    def __call__(self, images: torch.Tensor) -> torch.Tensor:
+        """(N, 2) float32 by one C call; images (N, ...) on a CUDA device
+        (other float types than float32 are first copied to it)."""
+        if images.device.type != "cuda" or images.dim() < 1 or \
+                not images.dtype.is_floating_point:
+            raise TypeError(f"masked_mean_variance takes a floating-point CUDA tensor of at "
+                            f"least one axis, not {images.dtype} on {images.device}")
+        dev = images.device
+        n = images.shape[0]
+        lib = self._lib or self.build()
+        with self.on_device(dev):
+            flat = images.reshape(n, -1).float().contiguous()
+            out = torch.empty(n, 2, dtype=torch.float32, device=dev)
+            kernels = ctypes.c_int(0)
+            err = lib.roi_stats(flat.data_ptr(), n, flat.shape[1], out.data_ptr(),
+                                ctypes.byref(kernels), torch.cuda.current_stream().cuda_stream)
+            check_error("roi_stats launch", err)
+            with self._lock:
+                self.count_launch()
+                self.kernel_launches += kernels.value
+            return out
+
+
+ROI_STATS_KERNEL = _RoiStatsKernel()
+
+
+def masked_mean_variance(images: torch.Tensor) -> torch.Tensor:
+    """[mean, variance] of the nonzero voxels of each image, (N, 2), with
+    the reference's order of sums and its flushes of subnormal results
+    (:func:`masked_mean_variance_plain`).  A CUDA tensor goes to the
+    hand-written kernel (or it raises), a CPU tensor to the plain body."""
+    if on_card(images, "masked_mean_variance"):
+        return ROI_STATS_KERNEL(images)
+    return masked_mean_variance_plain(images)

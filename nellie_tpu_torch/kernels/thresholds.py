@@ -4,17 +4,35 @@ Port of ``nellie_tpu/kernels/thresholds.py``.  The histogram is a
 ``torch.bincount`` in place of the reference's radix-16 one-hot matmul
 (``_bincount_tiled``, a TPU workaround); both give exact counts.  The bin
 index arithmetic of ``_masked_histogram`` is mirrored operation by
-operation in float32, and the cumulative sums follow XLA's blocked order
-(:func:`cumsum_f32`), so the chosen bin is the reference's.
+operation in float32, the cumulative sums follow XLA's blocked order
+(:func:`cumsum_f32`) and the counts' float32 total XLA's reduction order
+(:func:`counts_total`), so the chosen bin is the reference's at any number
+of masked values.  The counts are exact integers here; the reference's
+matmul counts are exact while each bin holds fewer than 2**24 values (its
+docstring), and there the two agree.
+
+On a CUDA tensor ``otsu_threshold``, ``triangle_threshold`` and
+``min_triangle_otsu`` launch the hand-written kernel
+``csrc/hist_threshold.cu`` (built for ``sm_90a`` with ``nvcc`` on first
+use, bound through ``ctypes``; one memset and two launches a call, no host
+read: the results stay on the device), or raise; on a CPU tensor they run
+their plain bodies (``*_plain``).  :func:`triangle_and_otsu` returns both
+thresholds of one histogram, from one kernel call.
+``HIST_THRESHOLD_KERNEL.launches`` counts the wrapper's calls and
+``kernel_launches`` the CUDA kernels they launched.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
-from nellie_tpu_torch.kernels._fp import fma, sqrt, sum_of_products
+from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CudaKernel, check_error, on_card
+from nellie_tpu_torch.kernels._fp import REDUCE_WINDOW, fma, sqrt, sum_of_products
 
 _SCAN_BLOCK = 16
+_DOT_COLUMNS = 16  # the reference's counts are a (nbins / 16, 16) matmul's rows
 
 
 def _running_sum(x: torch.Tensor) -> torch.Tensor:
@@ -44,12 +62,40 @@ def cumsum_f32(x: torch.Tensor) -> torch.Tensor:
     return (inner + offset[:, None]).reshape(-1)[:n]
 
 
+def counts_total(counts: torch.Tensor) -> torch.Tensor:
+    """``jnp.sum`` of the reference's float32 counts as XLA's CPU code
+    rounds it.  Where ``nbins`` is a multiple of 16 it sums the (nbins / 16,
+    16) matmul product, else the 1-D slice of it.  Up to 32 rows (or
+    values) it adds them one at a time in row-major order; past that it
+    first sums windows of 32 rows (32 values), padded with zeros to a
+    multiple of 32, half of the padding (rounded down) before the first
+    row, each window one element at a time, and then the window sums the
+    same way, until at most 32 remain."""
+    x = counts
+    n = x.shape[0]
+    unit = _DOT_COLUMNS if n % _DOT_COLUMNS == 0 else 1
+    rows = n // unit
+    while rows > REDUCE_WINDOW:
+        pad = -rows % REDUCE_WINDOW
+        before = pad // 2
+        x = torch.nn.functional.pad(x, (before * unit, (pad - before) * unit))
+        x = x.reshape(-1, REDUCE_WINDOW * unit)
+        acc = x[:, 0]
+        for k in range(1, x.shape[1]):
+            acc = acc + x[:, k]
+        x, unit, rows = acc, 1, acc.shape[0]
+    acc = x[0]
+    for k in range(1, x.shape[0]):
+        acc = acc + x[k]
+    return acc
+
+
 def _masked_histogram(values: torch.Tensor, mask: torch.Tensor, nbins: int):
     """Histogram of values[mask] over (masked min, masked max): numpy-style
     half-open bins, the last one closed."""
     flat = values.reshape(-1).float()
     mflat = mask.reshape(-1)
-    inf = torch.tensor(float("inf"), device=flat.device)
+    inf = torch.full((), float("inf"), device=flat.device)
     any_valid = bool(mflat.any())
     if any_valid:
         lo = torch.where(mflat, flat, inf).min()
@@ -62,15 +108,18 @@ def _masked_histogram(values: torch.Tensor, mask: torch.Tensor, nbins: int):
     idx = torch.floor((flat - lo) / safe_span * float(nbins)).to(torch.int64)
     idx = torch.clamp(idx, 0, nbins - 1)
     idx = torch.where(mflat, idx, torch.full_like(idx, nbins))
-    counts = torch.bincount(idx, minlength=nbins + 1)[:nbins].float()
+    counts = torch.bincount(idx, minlength=nbins + 1)[:nbins]
     bins = torch.arange(nbins, dtype=torch.float32, device=flat.device)
-    edges_lo = fma(bins, span / float(nbins), lo)
-    centers = edges_lo + span / float(2 * nbins)
-    return counts, centers, any_valid
+    # divisors on the device: PyTorch's CUDA division by a number multiplies
+    # by its reciprocal, which rounds otherwise
+    n, n2 = (torch.full((), float(k), device=flat.device) for k in (nbins, 2 * nbins))
+    edges_lo = fma(bins, span / n, lo)
+    centers = edges_lo + span / n2
+    counts = counts.float()
+    return counts, centers, any_valid, counts_total(counts)
 
 
-def _otsu_from_hist(counts, centers, any_valid):
-    total = counts.sum()
+def _otsu_from_hist(counts, centers, any_valid, total):
     p = counts / torch.clamp(total, min=1.0)
     pc = p * centers
     weight1 = cumsum_f32(p)
@@ -85,17 +134,17 @@ def _otsu_from_hist(counts, centers, any_valid):
     return threshold, variance12[idx]
 
 
-def otsu_threshold(values: torch.Tensor, mask=None, nbins: int = 256):
-    """Otsu's threshold of values[mask]. Returns (threshold, criterion)."""
+def otsu_threshold_plain(values: torch.Tensor, mask=None, nbins: int = 256):
+    """:func:`otsu_threshold` in plain torch."""
     if mask is None:
         mask = torch.ones(values.shape, dtype=torch.bool, device=values.device)
     return _otsu_from_hist(*_masked_histogram(values, mask, nbins))
 
 
-def _triangle_from_hist(counts, centers, any_valid):
+def _triangle_from_hist(counts, centers, any_valid, total):
     nbins = counts.shape[0]
     dev = counts.device
-    hist = counts / torch.clamp(counts.sum(), min=1.0)
+    hist = counts / torch.clamp(total, min=1.0)
     arg_peak = int(torch.argmax(hist))
     peak_height = hist[arg_peak]
     nz = torch.nonzero(hist > 0).reshape(-1)
@@ -125,20 +174,116 @@ def _triangle_from_hist(counts, centers, any_valid):
     return centers[arg_level]
 
 
-def triangle_threshold(values: torch.Tensor, mask=None, nbins: int = 256):
+def triangle_threshold_plain(values: torch.Tensor, mask=None, nbins: int = 256):
+    """:func:`triangle_threshold` in plain torch."""
     if mask is None:
         mask = torch.ones(values.shape, dtype=torch.bool, device=values.device)
     return _triangle_from_hist(*_masked_histogram(values, mask, nbins))
 
 
-def min_triangle_otsu(values: torch.Tensor, mask=None, nbins: int = 256):
-    """min(triangle, Otsu) from one shared histogram."""
+def triangle_and_otsu_plain(values: torch.Tensor, mask=None, nbins: int = 256):
+    """:func:`triangle_and_otsu` in plain torch: one shared histogram."""
     if mask is None:
         mask = torch.ones(values.shape, dtype=torch.bool, device=values.device)
     hist = _masked_histogram(values, mask, nbins)
-    tri = _triangle_from_hist(*hist)
-    ots, _ = _otsu_from_hist(*hist)
-    return torch.minimum(tri, ots)
+    return _triangle_from_hist(*hist), _otsu_from_hist(*hist)[0]
+
+
+def min_triangle_otsu_plain(values: torch.Tensor, mask=None, nbins: int = 256):
+    """:func:`min_triangle_otsu` in plain torch: one shared histogram."""
+    return torch.minimum(*triangle_and_otsu_plain(values, mask, nbins))
+
+
+class _HistThresholdKernel(CudaKernel):
+    """The compiled histogram thresholds (``csrc/hist_threshold.cu``), built
+    once per process, with a launch count and a count of the CUDA kernels
+    launched."""
+
+    source = "hist_threshold.cu"
+    flags = (*BASE_FLAGS, "-fmad=false")
+
+    def __init__(self):
+        super().__init__()
+        self.kernel_launches = 0
+
+    def bind(self, lib):
+        ptr = ctypes.c_void_p
+        lib.hist_threshold_scratch.argtypes = [ctypes.c_int]
+        lib.hist_threshold_scratch.restype = ctypes.c_longlong
+        lib.hist_threshold.argtypes = [ptr, ptr, ctypes.c_longlong, ctypes.c_int, ptr, ptr, ptr,
+                                       ctypes.POINTER(ctypes.c_int), ptr]
+        lib.hist_threshold.restype = ctypes.c_int
+
+    def __call__(self, values: torch.Tensor, mask=None, nbins: int = 256):
+        """(Otsu, its criterion, triangle, min(triangle, Otsu), any masked
+        value) as 0-dim tensors on ``values``' CUDA device, by one C call
+        with no host read; ``mask`` bool of ``values``' size, or None for
+        all; any ``nbins`` from 2 (the C entry point refuses others).  Values
+        of another float type are first copied to float32."""
+        if values.device.type != "cuda" or not values.dtype.is_floating_point:
+            raise TypeError(f"the threshold kernel takes a floating-point CUDA tensor, not "
+                            f"{values.dtype} on {values.device}")
+        if mask is not None and (mask.dtype != torch.bool or mask.device != values.device
+                                 or mask.numel() != values.numel()):
+            raise ValueError("the threshold kernel takes a bool mask of the values' size on "
+                             "their device")
+        dev = values.device
+        lib = self._lib or self.build()
+        with self.on_device(dev):
+            flat = values.reshape(-1).float().contiguous()
+            mflat = None if mask is None else mask.reshape(-1).contiguous()
+            scratch = torch.empty(lib.hist_threshold_scratch(nbins), dtype=torch.uint8,
+                                  device=dev)
+            out = torch.empty(4, dtype=torch.float32, device=dev)
+            any_valid = torch.empty((), dtype=torch.bool, device=dev)
+            kernels = ctypes.c_int(0)
+            err = lib.hist_threshold(flat.data_ptr(), None if mflat is None else mflat.data_ptr(),
+                                     flat.numel(), nbins, scratch.data_ptr(), out.data_ptr(),
+                                     any_valid.data_ptr(), ctypes.byref(kernels),
+                                     torch.cuda.current_stream().cuda_stream)
+            check_error("hist_threshold launch", err)
+            with self._lock:
+                self.count_launch()
+                self.kernel_launches += kernels.value
+            return out[0], out[1], out[2], out[3], any_valid
+
+
+HIST_THRESHOLD_KERNEL = _HistThresholdKernel()
+
+
+def otsu_threshold(values: torch.Tensor, mask=None, nbins: int = 256):
+    """Otsu's threshold of values[mask]. Returns (threshold, criterion).
+    A CUDA tensor goes to the hand-written kernel (or it raises), a CPU
+    tensor to :func:`otsu_threshold_plain`."""
+    if on_card(values, "otsu_threshold"):
+        return HIST_THRESHOLD_KERNEL(values, mask, nbins)[:2]
+    return otsu_threshold_plain(values, mask, nbins)
+
+
+def triangle_threshold(values: torch.Tensor, mask=None, nbins: int = 256):
+    """The triangle threshold of values[mask]; on a CUDA tensor the
+    hand-written kernel, on a CPU tensor :func:`triangle_threshold_plain`."""
+    if on_card(values, "triangle_threshold"):
+        return HIST_THRESHOLD_KERNEL(values, mask, nbins)[2]
+    return triangle_threshold_plain(values, mask, nbins)
+
+
+def triangle_and_otsu(values: torch.Tensor, mask=None, nbins: int = 256):
+    """(triangle, Otsu) of values[mask] from one shared histogram; on a
+    CUDA tensor one call of the hand-written kernel, on a CPU tensor
+    :func:`triangle_and_otsu_plain`."""
+    if on_card(values, "triangle_and_otsu"):
+        otsu, _, tri, _, _ = HIST_THRESHOLD_KERNEL(values, mask, nbins)
+        return tri, otsu
+    return triangle_and_otsu_plain(values, mask, nbins)
+
+
+def min_triangle_otsu(values: torch.Tensor, mask=None, nbins: int = 256):
+    """min(triangle, Otsu) from one shared histogram; on a CUDA tensor the
+    hand-written kernel, on a CPU tensor :func:`min_triangle_otsu_plain`."""
+    if on_card(values, "min_triangle_otsu"):
+        return HIST_THRESHOLD_KERNEL(values, mask, nbins)[3]
+    return min_triangle_otsu_plain(values, mask, nbins)
 
 
 def sample_strides(shape, max_samples: int):

@@ -49,8 +49,7 @@ def _frangi_threshold_kernel(frangi_flat, gate_flat, gate_thresh, nbins, step):
     if gate_flat is not None:
         valid = valid & (gate_flat > f32(gate_thresh))
     logv = log10(torch.where(frangi_flat > 0, frangi_flat, torch.ones_like(frangi_flat)))
-    tri = thr_k.triangle_threshold(logv, valid, nbins)
-    ots, _ = thr_k.otsu_threshold(logv, valid, nbins)
+    tri, ots = thr_k.triangle_and_otsu(logv, valid, nbins)
     # the reference's 10.0 ** t is glibc's powf, as XLA's CPU code calls it;
     # torch.pow is not, on the card (CUDA's powf) or on whole CPU tensors
     ten = torch.tensor(10.0, device=frangi_flat.device)

@@ -27,6 +27,12 @@ importing the package of its own tree:
   ``frangi.frangi_response``, ``csrc/frangi_tail.cu``) on the 3D, 2D and
   capacity paths' largest calls of each pass, with their callers' own
   arguments (the core as a box);
+- each tree's tracker pair sums (``matching.pair_stats``) and ROI
+  statistics (``moments.masked_mean_variance``) on the 3D and 2D main
+  paths' largest calls, and its histogram thresholds (``thresholds.
+  min_triangle_otsu``, ``otsu_threshold``, ``triangle_threshold``) on the
+  3D, 2D and capacity paths' largest call of each, with their callers' own
+  arguments;
 - each tree's 3D thinning (``skeleton.skeletonize_3d``) on the 3D main
   path's largest Network mask, and its fused multiply-add (``_fp.fma``) on
   the 3D path's largest ``fma_f32`` call, then ``_fp.log``, ``_fp.exp``,
@@ -39,8 +45,11 @@ importing the package of its own tree:
   on the 3D main series, once to warm up and once timed: its wall, Filter
   and Network seconds, and a digest of every file it wrote (the script
   names the files that differ between the trees);
+- ``run`` on the 3D main series and on the 2D movie: the seconds of each
+  stage (tracking's among them) and a digest of every file written, the
+  flow vectors and the feature CSVs among them;
 - ``capacity.segment_volume`` on ``chip_smoke.capacity_volume(1024)``: its
-  wall and vesselness seconds and its label count.
+  wall, vesselness and thresholds seconds and its label count.
 
 The last line is one JSON object: each kernel row's times on both trees
 (the least of each tree's two turns) and the seconds of every turn.
@@ -99,6 +108,7 @@ def child(tree, rows_path, out_path, label):
     from nellie_tpu_torch.kernels import ccl
     from nellie_tpu_torch.kernels.frangi import FrangiParams
     from nellie_tpu_torch.pipeline import capacity
+    from nellie_tpu_torch.pipeline.run import run
     from nellie_tpu_torch.stages import flow_interpolation as fi
 
     resolve_device("cuda")
@@ -112,7 +122,8 @@ def child(tree, rows_path, out_path, label):
         launches = fma_launches()
         fn(*args)
         launches = fma_launches() - launches
-        reps = 5 if row == "thin26" else 10 if row.startswith("nearest_seed") else 20
+        reps = 5 if row == "thin26" or row.startswith(SLOW_ON_EARLIER) else \
+            10 if row.startswith("nearest_seed") else 20
         ms, on_device = chip_smoke.cold_times(lambda: fn(*args), reps)
         result["kernels"][row] = {"ms": ms, "device_ms": on_device, "digest": out,
                                   "fma_launches": launches}
@@ -136,6 +147,16 @@ def child(tree, rows_path, out_path, label):
                 root, name, chip_smoke.MAIN_SHAPE, fence=True)
         result.update(seg_fused=wall, filter=stages["filter"], network=stages["network"],
                       artifacts=artifact_digests(os.path.join(root, "timed")))
+        for tag, shape in (("3D", chip_smoke.MAIN_SHAPE), ("2D", chip_smoke.MAIN_SHAPE_2D)):
+            directory = os.path.join(root, f"whole{tag}")
+            _, timings = run(chip_smoke.write_series(directory, shape), device="cuda",
+                             return_timings=True)
+            result[f"run {tag}"] = dict(timings)
+            result["artifacts"].update({f"run {tag}/{name}": d for name, d in
+                                        artifact_digests(directory).items()})
+            print(f"{label} tree: run on the {tag} main path: "
+                  + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items()) + f" [{gpu}]",
+                  flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     vol = chip_smoke.capacity_volume(chip_smoke.CAPACITY_EDGE)
@@ -145,10 +166,12 @@ def child(tree, rows_path, out_path, label):
     start = time.perf_counter()
     out = capacity.segment_volume(vol, params, emit="sparse_labels", device="cuda")
     result.update(capacity=time.perf_counter() - start,
-                  vesselness=out["seconds"]["vesselness"], n_labels=out["n_labels"])
+                  vesselness=out["seconds"]["vesselness"],
+                  thresholds=out["seconds"]["thresholds"], n_labels=out["n_labels"])
     print(f"{label} tree: seg_fused {result['seg_fused']:.3f} s, filter {result['filter']:.3f} "
           f"s; capacity 1024^3 {result['capacity']:.3f} s, vesselness "
-          f"{result['vesselness']:.3f} s, {result['n_labels']} labels [{gpu}]", flush=True)
+          f"{result['vesselness']:.3f} s, thresholds {result['thresholds']:.3f} s, "
+          f"{result['n_labels']} labels [{gpu}]", flush=True)
     with open(out_path, "w") as f:
         json.dump(result, f)
 
@@ -198,13 +221,38 @@ def tail_call(name):
     return lambda *args: tuple(t for t in fn(*args) if t is not None)
 
 
+# the rows whose earlier version is plain torch of many launches a call
+SLOW_ON_EARLIER = ("pair_stats", "masked_mean_variance", "min_triangle_otsu", "otsu_threshold",
+                   "triangle_threshold", "triangle_and_otsu")
+
+
+def pair_sums(*args):
+    """``matching.pair_stats`` of this process's package, its count as a
+    tensor."""
+    from nellie_tpu_torch.kernels import matching
+
+    count, sums, sumsqs = matching.pair_stats(*args)
+    return torch.tensor(count), sums, sumsqs
+
+
+def threshold_call(name):
+    """``thresholds.<name>`` of this process's package; for a tree without
+    ``triangle_and_otsu``, the two calls its Label made in its place."""
+    from nellie_tpu_torch.kernels import thresholds
+
+    if name == "triangle_and_otsu" and not hasattr(thresholds, name):
+        return lambda v, m, n: (thresholds.triangle_threshold(v, m, n),
+                                thresholds.otsu_threshold(v, m, n)[0])
+    return getattr(thresholds, name)
+
+
 def kernel_rows(rows):
     """{row: (function, arguments on the card)} of the correlation, nearest
-    seed, Frangi tail, thinning and multiply-add rows, on this process's
-    package."""
+    seed, Frangi tail, pair sums, ROI statistics, threshold, thinning and
+    multiply-add rows, on this process's package."""
     import numpy as np
 
-    from nellie_tpu_torch.kernels import _fp, edt, filters, skeleton
+    from nellie_tpu_torch.kernels import _fp, edt, filters, moments, skeleton
 
     def cuda(args):
         return tuple(a.cuda() if isinstance(a, torch.Tensor) else a for a in args)
@@ -219,6 +267,12 @@ def kernel_rows(rows):
                for path, args in rows["seed"].items()},
             **{f"frangi_tail {row}": (tail_call(name), cuda(args))
                for row, (name, args) in rows["tail"].items()},
+            **{f"pair_stats {path}": (pair_sums, cuda(args))
+               for path, args in rows["pair_stats"].items()},
+            **{f"masked_mean_variance {path}": (moments.masked_mean_variance, cuda(args))
+               for path, args in rows["roi"].items()},
+            **{row: (threshold_call(row.split()[0]), cuda(args))
+               for row, args in rows["thresholds"].items()},
             "thin26": (skeleton.skeletonize_3d, cuda(rows["thin26"])),
             "fma_f32 3D largest": (_fp.fma, cuda(rows["fma"])),
             "log": (_fp.log, (positive,)),
@@ -270,6 +324,15 @@ def record(rows_path):
             host["tail"][f"{name} {path}"] = (name, (block, *args))
     host["fma"] = tuple(a.cpu() if isinstance(a, torch.Tensor) else a
                         for a in hand["fma_largest"][1])
+    host["pair_stats"] = {"3D": hand["largest"]["pair_stats"][1],
+                          "2D": hand_2d["largest"]["pair_stats"][1]}
+    host["roi"] = {"3D": hand["largest"]["masked_mean_variance"][1],
+                   "2D": hand_2d["largest"]["masked_mean_variance"][1]}
+    host["thresholds"] = {
+        f"{name} {path}": largest[name][1]
+        for path, largest in (("3D", hand["largest"]), ("2D", hand_2d["largest"]),
+                              ("capacity", capacity["largest"]))
+        for name in chip_smoke.THRESHOLD_FUNCTIONS if largest[name][1] is not None}
     torch.save(host, rows_path)
     return gpu
 
@@ -332,11 +395,13 @@ def main() -> None:
     print(f"the fused chain's files on the 3D main series: {len(turns[0]['artifacts'])}, "
           f"differing between the trees: {differ or 'none'}", flush=True)
     seconds = [{k: t[k] for k in ("tree", "seg_fused", "filter", "network", "capacity",
-                                  "vesselness")} for t in turns]
+                                  "vesselness", "thresholds", "run 3D", "run 2D")}
+               for t in turns]
     print("seconds by turn: " + "; ".join(
         f"{s['tree']}: seg_fused {s['seg_fused']:.3f}, filter {s['filter']:.3f}, network "
-        f"{s['network']:.3f}, capacity {s['capacity']:.3f}, vesselness {s['vesselness']:.3f}"
-        for s in seconds)
+        f"{s['network']:.3f}, tracking 3D {s['run 3D']['tracking']:.3f}, tracking 2D "
+        f"{s['run 2D']['tracking']:.3f}, capacity {s['capacity']:.3f}, vesselness "
+        f"{s['vesselness']:.3f}, thresholds {s['thresholds']:.3f}" for s in seconds)
         + f" [{gpu}]", flush=True)
     line = json.dumps({"gpu": gpu, "kernels": kernels, "turns": seconds,
                        "differing_files": differ})

@@ -1,7 +1,7 @@
 """Profile stages of the PyTorch port on one NVIDIA GPU.
 
     python3 scripts/profile_torch_port.py [--shape 5 1024 1024]
-        [--stages network markers tracking reassign hierarchy]
+        [--stages filter label network markers tracking reassign hierarchy]
 
 Writes the main-path series of ``chip_smoke.py`` at ``--shape`` (T, Y, X
 for the 2D movie, T, Z, Y, X for the 3D series), runs the seven stages
@@ -12,8 +12,11 @@ time over wall time), the number of CUDA kernels launched, the host
 syncs, the aten ops with the most calls, and the same split for each
 profiler range inside the stage: the flow interpolation
 (``_interp_all_kernel``), the 3D thinning (``skeletonize_3d``), the
-nearest seed (``nearest_seed``) and the distance transform
-(``distance_transform``), each with its calls, wall (host) seconds,
+nearest seed (``nearest_seed``), the distance transform
+(``distance_transform``), the histogram thresholds (``min_triangle_otsu``,
+``otsu_threshold``, ``triangle_threshold``, ``triangle_and_otsu``), the percentile mask
+(``masked_percentile``) and the tracker's pair sums and ROI statistics
+(``pair_stats``, ``masked_mean_variance``), each with its calls, wall (host) seconds,
 device seconds, kernel launches and host syncs (``cudaStreamSynchronize``
 and the other synchronising runtime calls).  The profiler adds host time
 of its own, so the wall seconds here are above ``run``'s.  Processing the
@@ -44,19 +47,23 @@ def _ranged(fn, name):
     return wrapped
 
 
-STAGES = ("network", "markers", "tracking", "reassign", "hierarchy")
-RANGES = ("interp", "skeletonize_3d", "nearest_seed", "distance_transform")
+STAGES = ("filter", "label", "network", "markers", "tracking", "reassign", "hierarchy")
+RANGES = ("interp", "skeletonize_3d", "nearest_seed", "distance_transform", "min_triangle_otsu",
+          "otsu_threshold", "triangle_threshold", "triangle_and_otsu", "masked_percentile",
+          "pair_stats", "masked_mean_variance")
 
 
 def _stage(name, im_info):
+    from nellie_tpu_torch.stages.filtering import Filter
     from nellie_tpu_torch.stages.hierarchical import Hierarchy
     from nellie_tpu_torch.stages.hu_tracking import HuMomentTracking
+    from nellie_tpu_torch.stages.labelling import Label
     from nellie_tpu_torch.stages.mocap_marking import Markers
     from nellie_tpu_torch.stages.networking import Network
     from nellie_tpu_torch.stages.voxel_reassignment import VoxelReassigner
 
-    stages = {"network": Network, "markers": Markers, "tracking": HuMomentTracking,
-              "reassign": VoxelReassigner}
+    stages = {"filter": Filter, "label": Label, "network": Network, "markers": Markers,
+              "tracking": HuMomentTracking, "reassign": VoxelReassigner}
     if name in stages:
         return stages[name](im_info, device="cuda")
     if name == "hierarchy":
@@ -67,7 +74,7 @@ def _stage(name, im_info):
 def _install_ranges():
     """Wrap the kernels that the ranges name, where their callers look
     them up."""
-    from nellie_tpu_torch.kernels import edt, skeleton
+    from nellie_tpu_torch.kernels import edt, frangi, matching, moments, skeleton, thresholds
     from nellie_tpu_torch.stages import flow_interpolation, voxel_reassignment
 
     ranged = _ranged(flow_interpolation._interp_all_kernel, "interp")
@@ -76,6 +83,11 @@ def _install_ranges():
     skeleton.skeletonize_3d = _ranged(skeleton.skeletonize_3d, "skeletonize_3d")
     edt.nearest_seed = _ranged(edt.nearest_seed, "nearest_seed")
     edt.distance_transform = _ranged(edt.distance_transform, "distance_transform")
+    for module, name in ((thresholds, "min_triangle_otsu"), (thresholds, "otsu_threshold"),
+                         (thresholds, "triangle_threshold"), (thresholds, "triangle_and_otsu"),
+                         (frangi, "masked_percentile"),
+                         (matching, "pair_stats"), (moments, "masked_mean_variance")):
+        setattr(module, name, _ranged(getattr(module, name), name))
 
 
 def _is_sync(event):
