@@ -2207,7 +2207,8 @@ class KernelCalls:
                 "triangle_threshold": "thresholds", "triangle_and_otsu": "thresholds",
                 # the jnp kernels still in plain torch (PERF.md's rows to port)
                 "skeletonize_2d": "skeleton", "distance_transform": "edt",
-                "raw_moments": "moments"}
+                "raw_moments": "moments", "pair_costs": "matching",
+                "masked_percentile": "frangi"}
 
     def __init__(self, keep=lambda name, tag, args: True):
         self.keep = keep
@@ -3443,17 +3444,43 @@ def phase_thin_kernel(gpu, largest):
 
 
 PLAIN_ROWS = {"skeletonize_2d": "skeleton", "distance_transform": "edt",
-              "raw_moments": "moments"}
+              "raw_moments": "moments", "pair_costs": "matching",
+              "masked_percentile": "frangi"}
 
 
 def plain_bound(name, args, out):
-    """(bound_ms, "bytes") of a plain-torch kernel's call: its tensor
-    inputs read and its outputs written once, at the memory rate (their
-    arithmetic is far below the float32 rate at these sizes)."""
+    """(bound_ms, bound_by) of a plain-torch kernel's call: its tensor
+    inputs read and its outputs written once, at the memory rate; for
+    ``pair_costs`` the larger of that and its float32 operations (a pair's
+    gate and, a feature, a difference, an absolute value, a subtraction, a
+    division and a multiply-add, as ``pair_bound`` counts them) at the
+    float32 rate.  The others' arithmetic is far below the float32 rate at
+    these sizes."""
     outs = out if isinstance(out, (tuple, list)) else (out,)
     nbytes = sum(a.numel() * a.element_size() for a in args if isinstance(a, torch.Tensor))
     nbytes += sum(o.numel() * o.element_size() for o in outs if isinstance(o, torch.Tensor))
-    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    if name == "pair_costs":
+        cp, cq, fp = args[:3]
+        ops_ms = (cp.shape[0] * cq.shape[0] * (3 * cp.shape[1] + 3 + 5 * fp.shape[1])
+                  / FP32_FLOPS * 1e3)
+        if ops_ms > bytes_ms:
+            return ops_ms, "operations"
+    return bytes_ms, "bytes"
+
+
+def plain_library(name, args):
+    """One PyTorch call that computes the same function, as a function, or
+    None: ``torch.quantile`` of ``values[mask]`` for ``masked_percentile``
+    (the selection, the mask's gather beforehand)."""
+    if name != "masked_percentile":
+        return None
+    values, mask, q = args
+    sel = values.reshape(-1)[mask.reshape(-1)].float()
+    if sel.numel() == 0:
+        return None
+    level = torch.tensor(q / 100.0, device=sel.device)
+    return lambda: torch.quantile(sel, level)
 
 
 def cuda_kernels_a_call(fn):
@@ -3472,11 +3499,12 @@ def cuda_kernels_a_call(fn):
 
 def phase_plain_rows(gpu, largest, calls):
     """The jnp kernels still in plain torch (``skeletonize_2d``,
-    ``distance_transform``, ``raw_moments``): their largest
-    call on each main path, on its own arguments, timed on a cold L2 (per
-    call and on the device), the CUDA kernels a call launches and its byte
-    bound, with the calls each path made.  ``largest``: {path: {name:
-    (size, (args...))}}; ``calls``: {path: {name: calls}}."""
+    ``distance_transform``, ``raw_moments``, ``pair_costs``,
+    ``masked_percentile``): their largest call on each main path, on its
+    own arguments, timed on a cold L2 (per call and on the device) beside
+    the library call where there is one, the CUDA kernels a call launches
+    and its bound, with the calls each path made.  ``largest``: {path:
+    {name: (size, (args...))}}; ``calls``: {path: {name: calls}}."""
     import importlib
 
     rows = {}
@@ -3491,14 +3519,18 @@ def phase_plain_rows(gpu, largest, calls):
             ms, on_device = cold_times(lambda: fn(*args), 3)
             kernels = cuda_kernels_a_call(lambda: fn(*args))
             bound_ms, bound_by = plain_bound(name, args, out)
+            library = plain_library(name, args)
+            library_ms = None if library is None else cold_times(library, 3, on_device=False)[0]
             shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
             print(f"plain torch {name} at the {path} path's largest call ({shapes}): "
                   f"{ms:.4f} ms a call on a cold L2 (on the device {fmt_ms(on_device)}), "
-                  f"{kernels} CUDA kernels a call, {calls[path][name]} calls on the path, "
-                  f"bound {bound_ms:.4f} ms ({bound_by}) [{gpu}]", flush=True)
+                  f"library {fmt_ms(library_ms)}, {kernels} CUDA kernels a call, "
+                  f"{calls[path][name]} calls on the path, bound {bound_ms:.6f} ms ({bound_by}) "
+                  f"[{gpu}]", flush=True)
             rows[f"{path} {name}"] = {"shapes": shapes, "plain_ms": ms, "device_ms": on_device,
                                       "kernels_a_call": kernels, "calls": calls[path][name],
-                                      "bound_ms": bound_ms, "bound_by": bound_by}
+                                      "bound_ms": bound_ms, "bound_by": bound_by,
+                                      "library_ms": library_ms}
             del args, out
     return rows
 
@@ -3527,6 +3559,43 @@ def host_wait_ms(fn, queued_ms=QUEUED_MS):
     host_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     return host_ms
+
+
+def host_reads(fn):
+    """(fn(), the synchronising calls PyTorch made on the card in it):
+    ``torch.cuda.set_sync_debug_mode("warn")`` warns at each (a copy to the
+    host, ``.item()``, ``bool()`` of a CUDA tensor, a ``nonzero``); the
+    warnings are counted."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def filter_host_reads(shape=MAIN_SHAPE):
+    """The host reads of the Filter stage on the card over a main series
+    of ``shape`` (one warm-up run first): its percentile's count, its
+    writes to the host and (before the thresholds kept their results on
+    the card) a read before each Frangi threshold."""
+    from nellie_tpu_torch.io import ImInfo
+    from nellie_tpu_torch.stages.filtering import Filter
+
+    root = tempfile.mkdtemp(prefix="nellie_port_filter_reads_")
+    try:
+        reads = []
+        for k in range(2):
+            im_info = ImInfo(write_series(os.path.join(root, str(k)), shape))
+            _, n = host_reads(lambda: Filter(im_info, device="cuda").run())
+            reads.append(n)
+        return reads[-1]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def check_host_waits():
@@ -3762,14 +3831,22 @@ def signed_rois(n=6, edge=17):
 
 # synthetic ROI sets: (shape, scale, fill): the 3D main path's 16^3 ROIs and
 # the 2D path's 20^2 (twice 338 markers), 20^3 (past one block of 4,096
-# voxels), dim ROIs whose squares are subnormal, and ROIs of voxels about
-# the smallest normal float32 (the subnormal ones read as zero)
+# voxels), dim ROIs whose squares are subnormal, ROIs of voxels about the
+# smallest normal float32 (the subnormal ones read as zero), ROIs of 17^3
+# (every other one starts off 16 bytes; chunks of 1,024 and a short one),
+# of 48^3 (442 KB each, past shared memory: 108 chunks), and ROI counts
+# below the SMs (33, one a block) and above them (5,000 of 9^3, twelve a
+# block, starting off 16 bytes)
 ROI_CASES = {
     "3D 16^3": ((676, 16, 16, 16), 500.0, 0.4),
     "2D 20^2": ((676, 20, 20), 500.0, 0.4),
     "3D 20^3": ((64, 20, 20, 20), 500.0, 0.4),
     "dim": ((64, 12, 12, 12), 1e-20, 0.8),
     "subnormal voxels": ((64, 12, 12), 3e-38, 0.8),
+    "17^3, misaligned": ((40, 17, 17, 17), 500.0, 0.4),
+    "48^3, past shared memory": ((4, 48, 48, 48), 500.0, 0.4),
+    "33 ROIs, below the SMs": ((33, 16, 16, 16), 500.0, 0.4),
+    "5000 ROIs of 9^3, above the SMs": ((5000, 9, 9, 9), 500.0, 0.4),
 }
 
 
@@ -3781,6 +3858,19 @@ def roi_bound(images):
     bytes_ms = (images.numel() * images.element_size() + 8 * n) / HBM_BYTES_PER_S * 1e3
     ops_ms = 3 * n * voxels / FP64_FLOPS * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def chain_floor_ms(images):
+    """The device ms of ``roi_chain_floor`` on one ROI of ``images`` (the
+    middle one): one thread's chain of the sum of squares alone, out of
+    shared memory, on a cold L2 (``cold_times``); None where the ROI is
+    larger than the entry point takes or the profiler recorded nothing."""
+    from nellie_tpu_torch.kernels import moments
+
+    roi = images[images.shape[0] // 2].float().contiguous()
+    if roi.numel() > 12288:
+        return None
+    return cold_times(lambda: moments.ROI_STATS_KERNEL.chain_floor(roi), 10)[1]
 
 
 def check_roi_stats(what, images, against_cpu=False):
@@ -3826,6 +3916,43 @@ THRESHOLD_CASES = {
     "2^24 + 2^22 values": ("peak_low", None, 256, 2 ** 24 + 2 ** 22),
 }
 
+# the Filter's samples, stride_mask(shape, strides) & (frame > 0), on frames
+# with non-positive voxels: (shape, stride, mask rule, nbins): the 3D
+# frame's strides (2, 2, 2) at 64x256x256 and the capacity window's (4, 4,
+# 4) at 266x272x384, and at small sizes whose value counts are not a
+# multiple of 16: no positive voxel ("empty"), every value masked ("full":
+# 4,194,304, past the kernel's record of 2^21), a NaN masked in ("nan"),
+# 9,000 bins
+STRIDE_THRESHOLD_CASES = {
+    "3D frame, stride 2": ((64, 256, 256), 2, "positive", 256),
+    "capacity window, stride 4": ((266, 272, 384), 4, "positive", 256),
+    "stride 2, empty": ((15, 24, 41), 2, "empty", 256),
+    "stride 4, full mask": ((25, 28, 43), 4, "full", 256),
+    "64x256x256, full mask": ((64, 256, 256), 2, "full", 256),
+    "stride 2, NaN": ((15, 24, 41), 2, "nan", 256),
+    "stride 4, 9000 bins": ((25, 28, 43), 4, "positive", 9000),
+}
+
+
+def stride_threshold_inputs(shape, stride, rule, seed=0):
+    """(frame float32, mask bool) numpy arrays of a Filter-like sample:
+    normal values about 0.3 (a third not positive; none with "empty"),
+    the mask the stride points that are positive, every value ("full"), or
+    with a NaN masked in ("nan")."""
+    rng = np.random.default_rng(seed + 200)
+    v = rng.normal(0.3, 1.0, shape).astype(np.float32)
+    if rule == "empty":
+        v = -np.abs(v)
+    m = np.zeros(shape, bool)
+    m[tuple(slice(None, None, stride) for _ in shape)] = True
+    m &= v > 0
+    if rule == "full":
+        m[:] = True
+    if rule == "nan":
+        v[2, 4, 6] = np.nan
+        m[2, 4, 6] = True
+    return v, m
+
 
 def threshold_inputs(kind, rule, n, seed=0):
     """(values float32, mask bool or None) numpy arrays of ``n`` values."""
@@ -3855,10 +3982,12 @@ THRESHOLD_FUNCTIONS = ("min_triangle_otsu", "otsu_threshold", "triangle_threshol
 
 
 def threshold_bound(values, mask):
-    """(bound_ms, "bytes"): the values and the mask read once and the five
-    results written once, at the memory rate (a few operations a value are
-    far below the float32 rate)."""
-    nbytes = values.numel() * 4 + (0 if mask is None else mask.numel()) + 17
+    """(bound_ms, "bytes"): the least any implementation must move, at the
+    memory rate: the mask's bytes, 4 bytes of each masked value (with no
+    mask, every value) and the five results (17 bytes); a few operations a
+    value are far below the float32 rate."""
+    masked = values.numel() if mask is None else int(mask.sum())
+    nbytes = (0 if mask is None else mask.numel()) + 4 * masked + 17
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
@@ -3952,8 +4081,14 @@ def phase_track_threshold_kernels(gpu, largest, calls):
         errs["hist_threshold"] = max(errs["hist_threshold"], check_thresholds(
             name, torch.from_numpy(v).cuda(), None if m is None else torch.from_numpy(m).cuda(),
             nbins, against_cpu=n < 10 ** 5))
-    print(f"the thresholds = plain bodies bit for bit on {len(THRESHOLD_CASES)} synthetic "
-          f"samples: {', '.join(THRESHOLD_CASES)}", flush=True)
+    for k, (name, (shape, stride, rule, nbins)) in enumerate(STRIDE_THRESHOLD_CASES.items()):
+        v, m = stride_threshold_inputs(shape, stride, rule, seed=k)
+        errs["hist_threshold"] = max(errs["hist_threshold"], check_thresholds(
+            name, torch.from_numpy(v).cuda(), torch.from_numpy(m).cuda(), nbins,
+            against_cpu=v.size < 10 ** 5))
+    print(f"the thresholds = plain bodies bit for bit on "
+          f"{len(THRESHOLD_CASES) + len(STRIDE_THRESHOLD_CASES)} synthetic samples: "
+          f"{', '.join([*THRESHOLD_CASES, *STRIDE_THRESHOLD_CASES])}", flush=True)
     item_ms = check_host_waits()
 
     def kernels_a_call(fn, kernel):
@@ -4018,18 +4153,21 @@ def phase_track_threshold_kernels(gpu, largest, calls):
                                  on_device=False)
         ms, on_device = cold_times(fn, 10)
         bound_ms, bound_by = roi_bound(images)
+        floor_ms = chain_floor_ms(images)
         print(f"roi_stats = plain body bit for bit, and its time, at the {path} path's largest "
               f"call ({tuple(images.shape)}, {calls[path]['masked_mean_variance']} calls on the "
               f"path): kernel {ms:.4f} ms a call on a cold L2 (on the device "
               f"{fmt_ms(on_device)}), plain {plain_ms:.4f} ms, library none; {own} CUDA kernel "
               f"a call by the kernel's count ({profiled} by the profiler), {reads} host reads "
               f"(returned after {wait_ms:.3f} ms with {QUEUED_MS} ms queued); bound "
-              f"{bound_ms:.6f} ms ({bound_by}), a chain of {images[0].numel()} dependent "
-              f"float64 adds a sum [{gpu}]", flush=True)
+              f"{bound_ms:.6f} ms ({bound_by}); one thread's chain of {images[0].numel()} "
+              f"dependent steps of the sum of squares alone (roi_chain_floor) "
+              f"{fmt_ms(floor_ms)} on the device [{gpu}]", flush=True)
         rows["roi_stats"][path] = {
             "shape": list(images.shape), "calls": calls[path]["masked_mean_variance"],
             "kernels_a_call": own, "device_events_a_call": profiled, "host_reads_a_call": reads,
             "host_ms_with_work_queued": wait_ms, "chain_adds": images[0].numel(),
+            "chain_floor_ms": floor_ms,
             "max_abs_err": err, "ms": ms, "device_ms": on_device, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         del images
@@ -4122,19 +4260,28 @@ def phase_out_of_memory(gpu, root):
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info(dev)
 
+    filled = []
+
     def fill_to(target):
-        """Ballast pieces until the ladder's own figure (the device's free
-        memory and the free blocks PyTorch caches, which a large piece
-        would not reuse) is down to ``target`` bytes: most of it at once,
-        then small pieces."""
-        pieces = [torch.empty(max(adaptive_run.device_free_bytes(dev) - target - 2 ** 30, 0),
-                              dtype=torch.uint8, device=dev)]
-        for _ in range(2000):
-            left = adaptive_run.device_free_bytes(dev)
-            if left <= 1.02 * target:
-                break
-            pieces.append(torch.empty(min(left - target, 2 ** 26) // 512 * 512,
-                                      dtype=torch.uint8, device=dev))
+        """Ballast until the ladder's own figure (the device's free memory
+        and the free blocks PyTorch caches) is down to ``target`` bytes,
+        all of them the device's free memory.  The cached blocks are
+        fragments of segments that earlier phases' tensors still use, of
+        any size: a piece of exactly each one's size takes it whole (the
+        allocator picks the smallest block that fits), and one piece takes
+        the device's free memory but ``target``, as another process
+        would."""
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        pieces = [torch.empty(block["size"], dtype=torch.uint8, device=dev)
+                  for segment in torch.cuda.memory_snapshot()
+                  if segment["device"] == dev.index and segment["stream"] == stream
+                  for block in segment["blocks"] if block["state"] == "inactive"
+                  # a request of at most 1 MiB is served from the small pool only
+                  and (block["size"] <= 2 ** 20) == (segment["segment_type"] == "small")]
+        filled.append(sum(piece.numel() for piece in pieces))
+        free_now, _ = torch.cuda.mem_get_info(dev)
+        pieces.append(torch.empty(max(int(free_now) - target, 0), dtype=torch.uint8,
+                                  device=dev))
         return pieces
 
     ballast = fill_to(OOM_FREE_FRAMES * frame_bytes)
@@ -4171,8 +4318,9 @@ def phase_out_of_memory(gpu, root):
           f"{total / 2 ** 30:.1f} GiB ({left / frame_bytes:.2f} float32 frames of "
           f"{OOM_SHAPE[1:]}); the ladder's estimate chose "
           f"{'low-memory' if estimate_low else 'full-frame'} mode; then {run_frames:.2f} "
-          f"frames left for the run; Filter's rungs: {rungs}; out-of-memory retries: "
-          f"{len(oom)} [{gpu}]", flush=True)
+          f"frames left for the run (cached fragments filled first: "
+          f"{', '.join(f'{b / 2 ** 20:.1f}' for b in filled)} MiB); Filter's rungs: {rungs}; "
+          f"out-of-memory retries: {len(oom)} [{gpu}]", flush=True)
     if estimate_low or not oom or not rungs or "low-memory mode on cuda" not in rungs[-1]:
         fail("phase 18: the Filter did not run out of memory in full-frame mode and rerun in "
              "low-memory mode on the card")
@@ -4184,7 +4332,7 @@ def phase_out_of_memory(gpu, root):
           f"for byte ({int((arrays[0] > 0).sum())} nonzero voxels); "
           f"{time.perf_counter() - start:.1f} s", flush=True)
     return {"free_mib": left / 2 ** 20, "run_frames": run_frames, "retries": len(oom),
-            "rungs": rungs}
+            "rungs": rungs, "fragments_filled_mib": [b / 2 ** 20 for b in filled]}
 
 
 def compare_tables(got, want, headers, skip):
@@ -4230,7 +4378,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
     from nellie_tpu_torch.device import resolve_device
-    from nellie_tpu_torch.kernels import nn
+    from nellie_tpu_torch.kernels import frangi, nn
 
     kind = torch.cuda.get_device_name(0)
     gpu = gpu_line()
@@ -4296,6 +4444,17 @@ def main() -> None:
                        "capacity_1024": capacity["wrapper_calls"]})
     phase_plain_rows(gpu, {"3D": hand["largest"], "2D": hand_2d["largest"]},
                      {"3D": hand["wrapper_calls"], "2D": hand_2d["wrapper_calls"]})
+    filter_reads = filter_host_reads()
+    frame = torch.from_numpy(make_frame(MAIN_SHAPE[1:])).cuda().float()
+    for name, blocks in (("a 3D frame", [frame]), ("nothing positive", [-frame])):
+        _, reads = host_reads(lambda: frangi.WholeFrame.triangle_otsu(blocks, 10 ** 6))
+        if reads:
+            fail(f"the Filter's threshold on {name} made {reads} host reads")
+    print(f"the Filter's host reads on the 3D main series ({MAIN_SHAPE}), counted by "
+          f"torch.cuda.set_sync_debug_mode: {filter_reads}; 0 in a Frangi threshold (on a 3D "
+          f"frame and on one with nothing positive; "
+          f"{hand['wrapper_calls']['min_triangle_otsu']} min_triangle_otsu calls on the 3D "
+          f"path) [{gpu}]", flush=True)
     print(f"phase 17 (hand kernels against their plain bodies): "
           f"{time.perf_counter() - start:.1f} s", flush=True)
     root = tempfile.mkdtemp(prefix="nellie_port_oom_")

@@ -98,18 +98,16 @@ class WholeFrame:
     @staticmethod
     def triangle_otsu(blocks, max_samples: int):
         """min(triangle, Otsu) of the strided positive voxels, one per
-        block, or None when no sampled voxel is positive."""
+        block: 0 when no sampled voxel is positive, with no host read."""
         pos = _stride_masked_positive(blocks[0], max_samples)
-        if not bool(pos.any()):
-            return None
         return [thresholds.min_triangle_otsu(blocks[0], pos)]
 
 
+# With no positive sampled voxel the threshold is 0, and the reference's
+# choices for that case (gamma EPS32, the Frobenius mask frob > 0) are what
+# the clamp and the comparison give 0.
 def _gammas(gauss, max_samples: int, stats):
-    thr = stats.triangle_otsu(gauss, max_samples)
-    if thr is None:
-        return [torch.tensor(EPS32, device=g.device) for g in gauss]
-    return [torch.clamp(t, min=EPS32) for t in thr]
+    return [torch.clamp(t, min=EPS32) for t in stats.triangle_otsu(gauss, max_samples)]
 
 
 def _frob_masks(frobs, params: FrangiParams, stats):
@@ -119,8 +117,6 @@ def _frob_masks(frobs, params: FrangiParams, stats):
         thr = [torch.tensor(f32(params.frob_thresh), device=f.device) for f in frobs]
     else:
         thr = stats.triangle_otsu(frobs, params.max_threshold_samples)
-        if thr is None:
-            thr = [torch.zeros((), device=f.device) for f in frobs]
     scale = f32(1.0 / params.frob_thresh_division)
     return [frob > (t * scale) for frob, t in zip(frobs, thr)]
 

@@ -12,10 +12,13 @@ instead of amplifying a different summation order's.
 
 ``masked_mean_variance`` on a CUDA tensor launches the hand-written kernel
 ``csrc/roi_stats.cu`` (built for ``sm_90a`` with ``nvcc`` on first use,
-bound through ``ctypes``; one launch a call), or raises; on a CPU tensor it
-runs :func:`masked_mean_variance_plain`.  ``ROI_STATS_KERNEL.launches``
-counts the wrapper's calls and ``kernel_launches`` the CUDA kernels they
-launched.
+bound through ``ctypes``; one launch a call: a warp a block, a lane an ROI,
+the ROIs streamed through shared memory by bulk copies), or raises; on a
+CPU tensor it runs :func:`masked_mean_variance_plain`.
+``ROI_STATS_KERNEL.launches`` counts the wrapper's calls and
+``kernel_launches`` the CUDA kernels they launched;
+``ROI_STATS_KERNEL.chain_floor`` runs the chain that bounds the kernel
+alone, for timing.
 """
 from __future__ import annotations
 
@@ -216,6 +219,8 @@ class _RoiStatsKernel(CudaKernel):
         ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
         lib.roi_stats.argtypes = [ptr, i64, i64, ptr, ctypes.POINTER(ctypes.c_int), ptr]
         lib.roi_stats.restype = ctypes.c_int
+        lib.roi_chain_floor.argtypes = [ptr, i64, ptr, ptr]
+        lib.roi_chain_floor.restype = ctypes.c_int
 
     def __call__(self, images: torch.Tensor) -> torch.Tensor:
         """(N, 2) float32 by one C call; images (N, ...) on a CUDA device
@@ -238,6 +243,23 @@ class _RoiStatsKernel(CudaKernel):
                 self.count_launch()
                 self.kernel_launches += kernels.value
             return out
+
+    def chain_floor(self, roi: torch.Tensor) -> torch.Tensor:
+        """The float32 sum of squares of one ROI's voxels (a CUDA tensor,
+        at most 12,288 of them) by one thread out of shared memory: the
+        chain of dependent steps that bounds the kernel, run alone so that
+        it can be timed.  Not a launch of the ROI statistics."""
+        if roi.device.type != "cuda" or roi.dtype != torch.float32:
+            raise TypeError(f"chain_floor takes a float32 CUDA tensor, not {roi.dtype} on "
+                            f"{roi.device}")
+        lib = self._lib or self.build()
+        with self.on_device(roi.device):
+            flat = roi.reshape(-1).contiguous()
+            out = torch.empty(1, dtype=torch.float32, device=roi.device)
+            check_error("roi_chain_floor launch",
+                        lib.roi_chain_floor(flat.data_ptr(), flat.numel(), out.data_ptr(),
+                                            torch.cuda.current_stream().cuda_stream))
+            return out[0]
 
 
 ROI_STATS_KERNEL = _RoiStatsKernel()

@@ -14,10 +14,11 @@ docstring), and there the two agree.
 On a CUDA tensor ``otsu_threshold``, ``triangle_threshold`` and
 ``min_triangle_otsu`` launch the hand-written kernel
 ``csrc/hist_threshold.cu`` (built for ``sm_90a`` with ``nvcc`` on first
-use, bound through ``ctypes``; one memset and two launches a call, no host
-read: the results stay on the device), or raise; on a CPU tensor they run
-their plain bodies (``*_plain``).  :func:`triangle_and_otsu` returns both
-thresholds of one histogram, from one kernel call.
+use, bound through ``ctypes``; one memset and two launches a call, led by
+the mask, no host read: the results stay on the device), or raise; on a
+CPU tensor they run their plain bodies (``*_plain``).
+:func:`triangle_and_otsu` returns both thresholds of one histogram, from
+one kernel call.
 ``HIST_THRESHOLD_KERNEL.launches`` counts the wrapper's calls and
 ``kernel_launches`` the CUDA kernels they launched.
 """
@@ -197,7 +198,9 @@ def min_triangle_otsu_plain(values: torch.Tensor, mask=None, nbins: int = 256):
 class _HistThresholdKernel(CudaKernel):
     """The compiled histogram thresholds (``csrc/hist_threshold.cu``), built
     once per process, with a launch count and a count of the CUDA kernels
-    launched."""
+    launched.  A call's scratch (its counters, counts and record of the
+    masked values) is kept for the next call on the same device and
+    stream, which runs after it there; the lock covers the C call."""
 
     source = "hist_threshold.cu"
     flags = (*BASE_FLAGS, "-fmad=false")
@@ -205,21 +208,24 @@ class _HistThresholdKernel(CudaKernel):
     def __init__(self):
         super().__init__()
         self.kernel_launches = 0
+        self._scratch = {}  # (device index, stream): scratch bytes on that device
 
     def bind(self, lib):
         ptr = ctypes.c_void_p
-        lib.hist_threshold_scratch.argtypes = [ctypes.c_int]
+        lib.hist_threshold_scratch.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
         lib.hist_threshold_scratch.restype = ctypes.c_longlong
         lib.hist_threshold.argtypes = [ptr, ptr, ctypes.c_longlong, ctypes.c_int, ptr, ptr, ptr,
                                        ctypes.POINTER(ctypes.c_int), ptr]
         lib.hist_threshold.restype = ctypes.c_int
 
-    def __call__(self, values: torch.Tensor, mask=None, nbins: int = 256):
-        """(Otsu, its criterion, triangle, min(triangle, Otsu), any masked
-        value) as 0-dim tensors on ``values``' CUDA device, by one C call
-        with no host read; ``mask`` bool of ``values``' size, or None for
-        all; any ``nbins`` from 2 (the C entry point refuses others).  Values
-        of another float type are first copied to float32."""
+    def launch(self, values: torch.Tensor, mask=None, nbins: int = 256, with_any=False):
+        """(the four results as one float32 tensor: Otsu, its criterion,
+        triangle, min(triangle, Otsu); whether a value is masked in, a
+        0-dim bool tensor, or None without ``with_any``) on ``values``' CUDA
+        device, by one C call with no host read; ``mask`` bool of
+        ``values``' size, or None for all; any ``nbins`` from 2 (the C entry
+        point refuses others).  Values of another float type are first
+        copied to float32."""
         if values.device.type != "cuda" or not values.dtype.is_floating_point:
             raise TypeError(f"the threshold kernel takes a floating-point CUDA tensor, not "
                             f"{values.dtype} on {values.device}")
@@ -232,20 +238,32 @@ class _HistThresholdKernel(CudaKernel):
         with self.on_device(dev):
             flat = values.reshape(-1).float().contiguous()
             mflat = None if mask is None else mask.reshape(-1).contiguous()
-            scratch = torch.empty(lib.hist_threshold_scratch(nbins), dtype=torch.uint8,
-                                  device=dev)
+            stream = torch.cuda.current_stream(dev).cuda_stream
             out = torch.empty(4, dtype=torch.float32, device=dev)
-            any_valid = torch.empty((), dtype=torch.bool, device=dev)
+            any_valid = torch.empty((), dtype=torch.bool, device=dev) if with_any else None
+            nbytes = lib.hist_threshold_scratch(nbins, flat.numel(), int(mflat is not None))
             kernels = ctypes.c_int(0)
-            err = lib.hist_threshold(flat.data_ptr(), None if mflat is None else mflat.data_ptr(),
-                                     flat.numel(), nbins, scratch.data_ptr(), out.data_ptr(),
-                                     any_valid.data_ptr(), ctypes.byref(kernels),
-                                     torch.cuda.current_stream().cuda_stream)
-            check_error("hist_threshold launch", err)
             with self._lock:
+                key = (dev.index, stream)
+                scratch = self._scratch.get(key)
+                if scratch is None or scratch.numel() < nbytes:
+                    scratch = self._scratch[key] = torch.empty(nbytes, dtype=torch.uint8,
+                                                               device=dev)
+                err = lib.hist_threshold(flat.data_ptr(),
+                                         None if mflat is None else mflat.data_ptr(),
+                                         flat.numel(), nbins, scratch.data_ptr(), out.data_ptr(),
+                                         None if any_valid is None else any_valid.data_ptr(),
+                                         ctypes.byref(kernels), stream)
+                check_error("hist_threshold launch", err)
                 self.count_launch()
                 self.kernel_launches += kernels.value
-            return out[0], out[1], out[2], out[3], any_valid
+            return out, any_valid
+
+    def __call__(self, values: torch.Tensor, mask=None, nbins: int = 256):
+        """(Otsu, its criterion, triangle, min(triangle, Otsu), any masked
+        value) as 0-dim tensors on ``values``' CUDA device (:meth:`launch`)."""
+        out, any_valid = self.launch(values, mask, nbins, with_any=True)
+        return out[0], out[1], out[2], out[3], any_valid
 
 
 HIST_THRESHOLD_KERNEL = _HistThresholdKernel()
@@ -256,7 +274,8 @@ def otsu_threshold(values: torch.Tensor, mask=None, nbins: int = 256):
     A CUDA tensor goes to the hand-written kernel (or it raises), a CPU
     tensor to :func:`otsu_threshold_plain`."""
     if on_card(values, "otsu_threshold"):
-        return HIST_THRESHOLD_KERNEL(values, mask, nbins)[:2]
+        out, _ = HIST_THRESHOLD_KERNEL.launch(values, mask, nbins)
+        return out[0], out[1]
     return otsu_threshold_plain(values, mask, nbins)
 
 
@@ -264,7 +283,7 @@ def triangle_threshold(values: torch.Tensor, mask=None, nbins: int = 256):
     """The triangle threshold of values[mask]; on a CUDA tensor the
     hand-written kernel, on a CPU tensor :func:`triangle_threshold_plain`."""
     if on_card(values, "triangle_threshold"):
-        return HIST_THRESHOLD_KERNEL(values, mask, nbins)[2]
+        return HIST_THRESHOLD_KERNEL.launch(values, mask, nbins)[0][2]
     return triangle_threshold_plain(values, mask, nbins)
 
 
@@ -273,8 +292,8 @@ def triangle_and_otsu(values: torch.Tensor, mask=None, nbins: int = 256):
     CUDA tensor one call of the hand-written kernel, on a CPU tensor
     :func:`triangle_and_otsu_plain`."""
     if on_card(values, "triangle_and_otsu"):
-        otsu, _, tri, _, _ = HIST_THRESHOLD_KERNEL(values, mask, nbins)
-        return tri, otsu
+        out, _ = HIST_THRESHOLD_KERNEL.launch(values, mask, nbins)
+        return out[2], out[0]
     return triangle_and_otsu_plain(values, mask, nbins)
 
 
@@ -282,7 +301,7 @@ def min_triangle_otsu(values: torch.Tensor, mask=None, nbins: int = 256):
     """min(triangle, Otsu) from one shared histogram; on a CUDA tensor the
     hand-written kernel, on a CPU tensor :func:`min_triangle_otsu_plain`."""
     if on_card(values, "min_triangle_otsu"):
-        return HIST_THRESHOLD_KERNEL(values, mask, nbins)[3]
+        return HIST_THRESHOLD_KERNEL.launch(values, mask, nbins)[0][3]
     return min_triangle_otsu_plain(values, mask, nbins)
 
 

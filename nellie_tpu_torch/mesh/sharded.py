@@ -363,10 +363,7 @@ class ShardStats:
         strides = thr_k.sample_strides(self.plan.shape, max_samples)
         sample = gather_strided([self.core(k, b) for k, b in enumerate(blocks)], self.plan,
                                 strides)
-        pos = sample > 0
-        if not bool(pos.any()):
-            return None
-        thr = thr_k.min_triangle_otsu(sample, pos)
+        thr = thr_k.min_triangle_otsu(sample, sample > 0)  # 0 with no positive sample
         return [thr.to(d) for d in self.plan.devices]
 
 

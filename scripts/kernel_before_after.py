@@ -49,7 +49,10 @@ importing the package of its own tree:
   stage (tracking's among them) and a digest of every file written, the
   flow vectors and the feature CSVs among them;
 - ``capacity.segment_volume`` on ``chip_smoke.capacity_volume(1024)``: its
-  wall, vesselness and thresholds seconds and its label count.
+  wall, vesselness and thresholds seconds and its label count;
+- the Filter stage's host reads on the 3D main series
+  (``chip_smoke.filter_host_reads``, counted by
+  ``torch.cuda.set_sync_debug_mode``).
 
 The last line is one JSON object: each kernel row's times on both trees
 (the least of each tree's two turns) and the seconds of every turn.
@@ -140,6 +143,9 @@ def child(tree, rows_path, out_path, label):
                                                   "digest": out}
             print(f"{label} tree: {kind} {row}: {ms:.4f} ms a call, on the device "
                   f"{chip_smoke.fmt_ms(on_device)} [{gpu}]", flush=True)
+    result["filter_host_reads"] = chip_smoke.filter_host_reads()
+    print(f"{label} tree: the Filter's host reads on the 3D main series "
+          f"{result['filter_host_reads']} [{gpu}]", flush=True)
     root = tempfile.mkdtemp(prefix="before_after_")
     try:
         for name in ("warm-up", "timed"):
@@ -395,13 +401,15 @@ def main() -> None:
     print(f"the fused chain's files on the 3D main series: {len(turns[0]['artifacts'])}, "
           f"differing between the trees: {differ or 'none'}", flush=True)
     seconds = [{k: t[k] for k in ("tree", "seg_fused", "filter", "network", "capacity",
-                                  "vesselness", "thresholds", "run 3D", "run 2D")}
+                                  "vesselness", "thresholds", "run 3D", "run 2D",
+                                  "filter_host_reads")}
                for t in turns]
     print("seconds by turn: " + "; ".join(
         f"{s['tree']}: seg_fused {s['seg_fused']:.3f}, filter {s['filter']:.3f}, network "
         f"{s['network']:.3f}, tracking 3D {s['run 3D']['tracking']:.3f}, tracking 2D "
         f"{s['run 2D']['tracking']:.3f}, capacity {s['capacity']:.3f}, vesselness "
-        f"{s['vesselness']:.3f}, thresholds {s['thresholds']:.3f}" for s in seconds)
+        f"{s['vesselness']:.3f}, thresholds {s['thresholds']:.3f}, Filter host reads "
+        f"{s['filter_host_reads']}" for s in seconds)
         + f" [{gpu}]", flush=True)
     line = json.dumps({"gpu": gpu, "kernels": kernels, "turns": seconds,
                        "differing_files": differ})

@@ -11,9 +11,12 @@ and ``min_triangle_otsu`` on a CUDA tensor launch
 equal their plain bodies bit for bit, on the card and on CPU copies: the
 samples of ``chip_smoke.THRESHOLD_CASES`` (an empty mask, a span of 0, one
 masked value, two bins, both triangle flips, no mask, 100, 1,000 and
-10,000 bins, a frame's worth of values, more than 2^24 values), float16
-values, 2-D values with a 2-D mask; a call returns before 50 ms of work
-queued on the card ends; arguments it does not take raise.
+10,000 bins, a frame's worth of values, more than 2^24 values) and of
+``chip_smoke.STRIDE_THRESHOLD_CASES`` (the Filter's stride samples of a 3D
+frame and a capacity window, no positive voxel, a full mask past the
+kernel's record, a masked NaN, 9,000 bins), float16 values, 2-D values
+with a 2-D mask, values and mask off 16 bytes; a call returns before 50
+ms of work queued on the card ends; arguments it does not take raise.
 """
 import numpy as np
 import pytest
@@ -43,6 +46,24 @@ def test_cases(cuda, name):
     values, mask, nbins = _inputs(name, cuda)
     assert chip_smoke.check_thresholds(name, values, mask, nbins,
                                        against_cpu=values.numel() < 10 ** 5) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(chip_smoke.STRIDE_THRESHOLD_CASES))
+def test_stride_cases(cuda, name):
+    shape, stride, rule, nbins = chip_smoke.STRIDE_THRESHOLD_CASES[name]
+    v, m = chip_smoke.stride_threshold_inputs(shape, stride, rule)
+    assert chip_smoke.check_thresholds(name, torch.from_numpy(v).to(cuda),
+                                       torch.from_numpy(m).to(cuda), nbins,
+                                       against_cpu=v.size < 10 ** 5) == 0.0
+
+
+@pytest.mark.gpu
+def test_off_16_bytes(cuda):
+    """Values and mask that start off 16 bytes take the byte-wise walk."""
+    values, mask, nbins = _inputs("64x256x256 values", cuda, seed=6)
+    assert values[1:].data_ptr() % 16 and mask[1:].data_ptr() % 16
+    assert chip_smoke.check_thresholds("off 16 bytes", values[1:], mask[1:], nbins) == 0.0
 
 
 @pytest.mark.gpu

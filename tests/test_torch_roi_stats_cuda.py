@@ -9,9 +9,12 @@ Needs a CUDA GPU and skips without one; imports no JAX.  On the card:
 ``kernels/csrc/roi_stats.cu`` once (one CUDA kernel, no host read) and
 equals ``masked_mean_variance_plain`` bit for bit, on the card and on CPU
 copies: the ROI sets of ``chip_smoke.ROI_CASES`` (16^3, 20^2 and 20^3 ROIs,
-sums that stay subnormal, subnormal voxels, an empty ROI each), signed
-voxels cancelling at a block's end, an odd number of ROIs, float16 ROIs,
-and the tracker's features end to end.
+sums that stay subnormal, subnormal voxels, 17^3 ROIs that start off 16
+bytes, 48^3 ROIs past shared memory, ROI counts below and above the SMs,
+an empty ROI each), signed voxels cancelling at a block's end, an odd
+number of ROIs, ROIs from a base off 16 bytes, float16 ROIs, and the
+tracker's features end to end.  ``ROI_STATS_KERNEL.chain_floor`` (the
+chain that bounds the kernel, run alone) gives the plain sum of squares.
 """
 import numpy as np
 import pytest
@@ -38,13 +41,34 @@ def test_cases(cuda, name):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("images", ["signed", "odd", "float16"])
+@pytest.mark.parametrize("images", ["signed", "odd", "float16", "base + 4"])
 def test_other_inputs(cuda, images):
     x = {"signed": lambda: chip_smoke.signed_rois(),
          "odd": lambda: chip_smoke.roi_inputs((33, 9, 9, 9), seed=2),
-         "float16": lambda: chip_smoke.roi_inputs((40, 20, 20), seed=3).astype(np.float16)}[images]()
-    assert chip_smoke.check_roi_stats(images, torch.from_numpy(x).to(cuda),
-                                      against_cpu=True) == 0.0
+         "float16": lambda: chip_smoke.roi_inputs((40, 20, 20), seed=3).astype(np.float16),
+         "base + 4": lambda: chip_smoke.roi_inputs((41, 10, 10), seed=4)}[images]()
+    t = torch.from_numpy(x).to(cuda)
+    if images == "base + 4":  # a view whose first ROI starts 4 bytes past 16
+        t = t.reshape(-1)[1:1 + 40 * 100].reshape(40, 10, 10)
+        assert t.data_ptr() % 16 == 4
+    assert chip_smoke.check_roi_stats(images, t, against_cpu=True) == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("voxels", [400, 4096, 4913])
+def test_chain_floor(cuda, voxels):
+    """The chain run alone is the plain body's sum of squares: a float64
+    term added to the float32 sum and rounded, terms dropped until the
+    first normal one at each block of 4,096."""
+    x = chip_smoke.roi_inputs((2, voxels), seed=voxels)[1]
+    x[:7] = 1e-30  # squares below the smallest normal float32: dropped
+    want, keep = np.float32(0), False
+    for k, v in enumerate(x.astype(np.float64)):
+        keep = (keep or np.float32(v * v) >= np.finfo(np.float32).tiny) if k % 4096 else \
+            (want != 0 or np.float32(v * v) >= np.finfo(np.float32).tiny)
+        want = np.float32(np.float64(want) + (v * v if keep else 0.0))
+    got = moments.ROI_STATS_KERNEL.chain_floor(torch.from_numpy(x).to(cuda))
+    assert chip_smoke.same_bits(got.cpu().numpy(), want)
 
 
 @pytest.mark.gpu
