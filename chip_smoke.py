@@ -5,11 +5,11 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. the device: name, ``nvidia-smi`` name and power limit, torch/CUDA versions;
-2. builds the eleven CUDA kernels from the checkout (nearest neighbour,
+2. builds the twelve CUDA kernels from the checkout (nearest neighbour,
    union-find, flow interpolation, fused multiply-add, the Gaussian
    cascade's 1-D correlation, the Frangi tail, Network's 3D thinning and
-   nearest seed, tracking's pair sums and ROI statistics, the histogram
-   thresholds; one nvcc each, in parallel), times the builds and prints
+   nearest seed, tracking's pair sums, pair costs and ROI statistics, the
+   histogram thresholds; one nvcc each, in parallel), times the builds and prints
    the nearest-neighbour kernel's registers, spills and resident warps per
    SM;
 3. checks the kernel against its plain PyTorch version on the card (ragged
@@ -160,15 +160,21 @@ Phases, each printing its own lines; any failure exits non-zero:
    byte bounds of each call's inputs read and outputs written once; both
    rows also give the CUDA kernels that the main paths' calls launched
    (``kernel_launches``: one call runs the whole loop).  Tracking's pair
-   sums (``kernels/csrc/pair_sums.cu``, through ``matching.pair_stats``),
-   ROI statistics (``kernels/csrc/roi_stats.cu``, through
-   ``moments.masked_mean_variance``) and the histogram thresholds
+   sums (``kernels/csrc/pair_sums.cu``, through ``matching.pair_stats``)
+   and pair costs (``kernels/csrc/pair_costs.cu``, through
+   ``matching.pair_costs``), ROI statistics (``kernels/csrc/roi_stats.cu``,
+   through ``moments.masked_mean_variance``) and the histogram thresholds
    (``kernels/csrc/hist_threshold.cu``, through ``thresholds.otsu_threshold``,
    ``triangle_threshold``, ``triangle_and_otsu`` and ``min_triangle_otsu``),
    bit for bit against
    their plain bodies (``*_plain``) on synthetic cases (``PAIR_CASES``: a
    tile of one window level, a second level over 4,096 x 4,096, the lanes
-   of a padded 2,048 x 128 and 2,048 x 256 tile, no gated pair;
+   of a padded 2,048 x 128 and 2,048 x 256 tile, no gated pair, NaN and
+   subnormal features, gated terms of +0, every window of a tile real;
+   ``PAIR_COST_CASES``: the main
+   paths' shapes, ties across rows and columns, a row and a column with no
+   gated pair, costs that overflow, NaN features, costs of -0 and +0, no
+   gated pair;
    ``ROI_CASES``: 16^3, 20^2 and 20^3 ROIs, sums that stay subnormal,
    subnormal voxels, signed voxels, an empty ROI each; ``THRESHOLD_CASES``:
    an empty mask, a span of 0, one masked value, two bins, both triangle
@@ -178,10 +184,14 @@ Phases, each printing its own lines; any failure exits non-zero:
    3D and 2D calls; the Filter's, Label's and capacity's thresholds), with
    their times on a cold L2, the plain bodies', ``torch.histc``'s beside
    the histogram, the CUDA kernels a call, the calls each path made, the
-   bound (for the pair sums also the length of a sum's chain of dependent
-   adds) and the host reads, from whether the call waits out 50 ms of work
-   queued on the card before it (the pair sums must: they read the count;
-   the thresholds and the ROI statistics must not).  ``max_abs_err`` is
+   bound (for the pair sums also the most dependent adds a sum can take;
+   for both pair kernels every pair's gate and the gated pairs' work) and
+   the host reads, counted by ``torch.cuda.set_sync_debug_mode`` and read
+   from whether the call waits out 50 ms of work queued on the card before
+   it (the pair sums must: they read their packed result once; the pair
+   costs, the thresholds and the ROI statistics must not), and a frame
+   pair's matching (``match_frames_device``) on each path's largest tile,
+   which must make 2 host reads.  ``max_abs_err`` is
    the largest |kernel - plain| over the compared calls.  The multiply-add,
    correlation and tail rows are timed on a cold L2 cache (flushed before
    every call), so that the byte bounds at the memory rate hold;
@@ -735,7 +745,8 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
           f"calls ({kernel_launches['nearest_seed']} CUDA kernels)", flush=True)
     print(f"{tag}tracking's and the thresholds' kernels on the main path: "
           + ", ".join(f"{k} {hand[k]} calls ({kernel_launches[k]} CUDA kernels)"
-                      for k in ("pair_sums", "roi_stats", "hist_threshold")), flush=True)
+                      for k in ("pair_sums", "pair_costs", "roi_stats", "hist_threshold")),
+          flush=True)
 
     tables = check_tables(im_info, skip_nodes=False)
     print(f"{tag}feature rows: " + ", ".join(f"{k} {len(v)}" for k, v in tables.items()),
@@ -2202,13 +2213,13 @@ class KernelCalls:
     WRAPPERS = {"correlate1d_traced": "filters", "_correlate1d": "filters",
                 "hessian_frob": "frangi", "frangi_response": "frangi",
                 "skeletonize_3d": "skeleton", "nearest_seed": "edt",
-                "pair_stats": "matching", "masked_mean_variance": "moments",
+                "pair_stats": "matching", "pair_costs": "matching",
+                "masked_mean_variance": "moments",
                 "min_triangle_otsu": "thresholds", "otsu_threshold": "thresholds",
                 "triangle_threshold": "thresholds", "triangle_and_otsu": "thresholds",
                 # the jnp kernels still in plain torch (PERF.md's rows to port)
                 "skeletonize_2d": "skeleton", "distance_transform": "edt",
-                "raw_moments": "moments", "pair_costs": "matching",
-                "masked_percentile": "frangi"}
+                "raw_moments": "moments", "masked_percentile": "frangi"}
 
     def __init__(self, keep=lambda name, tag, args: True):
         self.keep = keep
@@ -2369,7 +2380,7 @@ def hand_counts():
             "gauss_axis": filters.GAUSS_AXIS_KERNEL,
             "frangi_tail": frangi.FRANGI_TAIL_KERNEL, "thin26": skeleton.THIN26_KERNEL,
             "nearest_seed": edt.NEAREST_SEED_KERNEL, "pair_sums": matching.PAIR_SUMS_KERNEL,
-            "roi_stats": moments.ROI_STATS_KERNEL,
+            "pair_costs": matching.PAIR_COSTS_KERNEL, "roi_stats": moments.ROI_STATS_KERNEL,
             "hist_threshold": thresholds.HIST_THRESHOLD_KERNEL}
 
 
@@ -2386,8 +2397,9 @@ def read_hand_counts():
 
 def read_kernel_launches():
     """The CUDA kernels launched by the wrappers that count them
-    (``thin26``, ``nearest_seed``, ``pair_sums``, ``roi_stats``,
-    ``hist_threshold``); every other wrapper's call launches one kernel."""
+    (``thin26``, ``nearest_seed``, ``pair_sums``, ``pair_costs``,
+    ``roi_stats``, ``hist_threshold``); every other wrapper's call launches
+    one kernel."""
     return {name: kernel.kernel_launches for name, kernel in hand_counts().items()
             if hasattr(kernel, "kernel_launches")}
 
@@ -3444,29 +3456,18 @@ def phase_thin_kernel(gpu, largest):
 
 
 PLAIN_ROWS = {"skeletonize_2d": "skeleton", "distance_transform": "edt",
-              "raw_moments": "moments", "pair_costs": "matching",
-              "masked_percentile": "frangi"}
+              "raw_moments": "moments", "masked_percentile": "frangi"}
 
 
 def plain_bound(name, args, out):
     """(bound_ms, bound_by) of a plain-torch kernel's call: its tensor
-    inputs read and its outputs written once, at the memory rate; for
-    ``pair_costs`` the larger of that and its float32 operations (a pair's
-    gate and, a feature, a difference, an absolute value, a subtraction, a
-    division and a multiply-add, as ``pair_bound`` counts them) at the
-    float32 rate.  The others' arithmetic is far below the float32 rate at
-    these sizes."""
+    inputs read and its outputs written once, at the memory rate (their
+    arithmetic is far below the float32 rate at these sizes; the pair
+    costs' bound is ``pair_costs_bound``)."""
     outs = out if isinstance(out, (tuple, list)) else (out,)
     nbytes = sum(a.numel() * a.element_size() for a in args if isinstance(a, torch.Tensor))
     nbytes += sum(o.numel() * o.element_size() for o in outs if isinstance(o, torch.Tensor))
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    if name == "pair_costs":
-        cp, cq, fp = args[:3]
-        ops_ms = (cp.shape[0] * cq.shape[0] * (3 * cp.shape[1] + 3 + 5 * fp.shape[1])
-                  / FP32_FLOPS * 1e3)
-        if ops_ms > bytes_ms:
-            return ops_ms, "operations"
-    return bytes_ms, "bytes"
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
 def plain_library(name, args):
@@ -3499,8 +3500,7 @@ def cuda_kernels_a_call(fn):
 
 def phase_plain_rows(gpu, largest, calls):
     """The jnp kernels still in plain torch (``skeletonize_2d``,
-    ``distance_transform``, ``raw_moments``, ``pair_costs``,
-    ``masked_percentile``): their largest call on each main path, on its
+    ``distance_transform``, ``raw_moments``, ``masked_percentile``): their largest call on each main path, on its
     own arguments, timed on a cold L2 (per call and on the device) beside
     the library call where there is one, the CUDA kernels a call launches
     and its bound, with the calls each path made.  ``largest``: {path:
@@ -3564,8 +3564,8 @@ def host_wait_ms(fn, queued_ms=QUEUED_MS):
 def host_reads(fn):
     """(fn(), the synchronising calls PyTorch made on the card in it):
     ``torch.cuda.set_sync_debug_mode("warn")`` warns at each (a copy to the
-    host, ``.item()``, ``bool()`` of a CUDA tensor, a ``nonzero``); the
-    warnings are counted."""
+    host, ``.item()``, ``bool()`` of a CUDA tensor, a ``nonzero``); those
+    warnings are counted (not the notice that the mode is a prototype)."""
     import warnings
 
     with warnings.catch_warnings(record=True) as caught:
@@ -3575,7 +3575,7 @@ def host_reads(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    return out, sum("called a synchronizing" in str(w.message) for w in caught)
 
 
 def filter_host_reads(shape=MAIN_SHAPE):
@@ -3726,38 +3726,62 @@ def phase_seed_kernel(gpu, largest):
 # phase 17: tracking's pair sums and ROI statistics, the histogram thresholds
 # ---------------------------------------------------------------------------
 
-PAIR_WINDOW = 32  # XLA's CPU tree-reduction window, pair_sums.cu's level 1
+PAIR_WINDOW = 32  # XLA's CPU tree-reduction window, the level-1 window of both pair kernels
 # synthetic pair-sum tiles: (n_post, n_pre, ndim, F, padded tile, max
-# distance, shift of the later frame): the 3D main path's one window level
-# (F = 22), the 2D path's second general level over 4,096 x 4,096 (F = 10),
-# the lanes of a padded 2,048 x 128 (8 lanes of 4 columns) and 2,048 x 256
-# (4 of 8), and no gated pair
+# distance, shift of the later frame, kind of features): the 3D main path's
+# one window level (F = 22), the 2D path's second general level over 4,096 x
+# 4,096 (F = 10), the lanes of a padded 2,048 x 128 (8 lanes of 4 columns)
+# and 2,048 x 256 (4 of 8), no gated pair, NaN and subnormal features, a
+# window row whose gated terms are all +0 (pair_tile's kinds), and a tile
+# whose 32 x 32 windows all hold real pairs (the final sum's staging past
+# 48 KB of shared memory)
 PAIR_CASES = {
-    "3D 1024 tile": (338, 332, 3, 22, (1024, 1024), 1.0, 0.0),
-    "2D 4096 tile": (2196, 2195, 2, 10, (4096, 4096), 1.0, 0.0),
-    "lanes 2048x128": (1100, 70, 3, 22, (2048, 128), 1.0, 0.0),
-    "lanes 2048x256": (1100, 200, 2, 10, (2048, 256), 1.0, 0.0),
-    "no gated pair": (90, 70, 3, 22, (128, 128), 1e-6, 50.0),
+    "3D 1024 tile": (338, 332, 3, 22, (1024, 1024), 1.0, 0.0, "normal"),
+    "2D 4096 tile": (2196, 2195, 2, 10, (4096, 4096), 1.0, 0.0, "normal"),
+    "lanes 2048x128": (1100, 70, 3, 22, (2048, 128), 1.0, 0.0, "normal"),
+    "lanes 2048x256": (1100, 200, 2, 10, (2048, 256), 1.0, 0.0, "normal"),
+    "no gated pair": (90, 70, 3, 22, (128, 128), 1e-6, 50.0, "normal"),
+    "NaN features": (300, 280, 2, 10, (4096, 4096), 1.0, 0.0, "nan"),
+    "subnormal features": (338, 332, 3, 22, (1024, 1024), 1.0, 0.0, "subnormal"),
+    "+0 gated terms": (90, 70, 3, 22, (128, 128), 1.0, 0.0, "zero terms"),
+    "3D 1024 tile, every window real": (1000, 990, 3, 22, (1024, 1024), 1.0, 0.0, "normal"),
 }
 
 
-def pair_tile(n_post, n_pre, ndim, n_feat, seed=0, shift=0.0):
+def pair_tile(n_post, n_pre, ndim, n_feat, seed=0, shift=0.0, kind="normal"):
     """(coords_post, coords_pre, feats_post, feats_pre) float32 numpy
     arrays: earlier markers on a lattice of 0.5 / 0.2 um, later ones near
-    them (moved by ``shift`` um), normal features."""
+    them (moved by ``shift`` um), normal features.  ``kind``: "normal";
+    "nan" (about 2 % of the features NaN on each side); "subnormal" (the
+    features scaled by 2**-140, so that differences are subnormal and
+    their squares +0); "zero terms" (earlier markers 2 um apart, and the
+    first 40 later ones exact copies of earlier ones, coordinates and
+    features, so that every gated pair of the first window row adds +0)."""
     rng = np.random.default_rng(seed)
     spacing = np.array([0.5, 0.2, 0.2][-ndim:])
-    coords_pre = (rng.integers(0, 24, (n_pre, ndim)) * spacing).astype(np.float32)
-    coords_post = (coords_pre[rng.integers(0, n_pre, n_post)]
+    step = 10 if kind == "zero terms" else 1
+    coords_pre = (rng.integers(0, 24, (n_pre, ndim)) * spacing * step).astype(np.float32)
+    pick = rng.integers(0, n_pre, n_post)
+    coords_post = (coords_pre[pick]
                    + rng.normal(0, 0.2, (n_post, ndim)) + shift).astype(np.float32)
     feats = [rng.normal(0, 1, (n, n_feat)).astype(np.float32) for n in (n_post, n_pre)]
+    if kind == "nan":
+        for f in feats:
+            f[rng.random(f.shape) < 0.02] = np.nan
+    elif kind == "subnormal":
+        feats = [(f * np.float32(2.0 ** -140)).astype(np.float32) for f in feats]
+    elif kind == "zero terms":
+        copies = min(40, n_post)
+        coords_post[:copies] = coords_pre[pick[:copies]]
+        feats[0][:copies] = feats[1][pick[:copies]]
     return coords_post, coords_pre, feats[0], feats[1]
 
 
 def pair_chain(padded):
-    """The dependent adds in one of ``pair_sums.cu``'s sums: 1,024 at level
-    1, each later level's window (1,024, or 32 / lanes rows of the columns
-    and the halving of the lanes), then the window sums left."""
+    """The most dependent adds one of ``pair_sums.cu``'s sums can take: 1,024
+    at level 1, each later level's window (1,024, or 32 / lanes rows of the
+    columns and the halving of the lanes), then the window sums left (the
+    kernel adds only the nonzero terms, so a sum's chain is shorter)."""
     w = PAIR_WINDOW
     rows, cols = padded[0] // w, padded[1] // w
     chain = w * w
@@ -3768,43 +3792,184 @@ def pair_chain(padded):
     return chain + rows * cols
 
 
-def pair_bound(args):
+def gated_pairs(cp, cq, max_d):
+    """The pairs the matcher gates: (i, j) index arrays, from the plain
+    body's gate on ``cp``'s device."""
+    from nellie_tpu_torch.kernels import matching
+
+    _, mask = matching._pair_mask_and_dist(cp, cq, max_d)
+    return torch.nonzero(mask, as_tuple=True)
+
+
+def pair_gate_ops(ndim):
+    """Float32 operations of one pair's gate: the differences, squares and
+    adds, the root and the compare."""
+    return 3 * ndim + 1
+
+
+def pair_bound(args, gated):
     """(bound_ms, bound_by) of one pair sum: its inputs read and its sums
-    written once at the memory rate, or its float32 operations (a pair's
-    gate: the differences, squares and adds, the root, the division and
-    the compare; per feature a difference, an absolute value, a square
-    and two adds) at the float32 rate, the larger."""
+    written once at the memory rate, or its float32 operations at the
+    float32 rate, the larger: every pair's gate, and for the ``gated``
+    pairs only the normalised distance's division and, for the distance
+    and each feature, a difference, an absolute value, a square and two
+    adds (all that the function needs; the plain body also computes the
+    ungated pairs' terms)."""
     cp, cq, fp, fq = args[:4]
     pairs, ndim, n_feat = cp.shape[0] * cq.shape[0], cp.shape[1], fp.shape[1]
     nbytes = 4 * (cp.numel() + cq.numel() + fp.numel() + fq.numel() + 2 * (n_feat + 1)) + 8
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = pairs * (3 * ndim + 3 + 5 * (n_feat + 1)) / FP32_FLOPS * 1e3
+    ops_ms = (pairs * pair_gate_ops(ndim) + gated * (1 + 5 * (n_feat + 1))) / FP32_FLOPS * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def exact_bits(got, want):
+    """Equal dtype and shape and equal bits, NaN payloads included (two
+    results of the same card)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    a, b = got.contiguous().cpu(), want.contiguous().cpu()
+    if a.is_floating_point():
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
 def check_pair_sums(what, args, against_cpu=False):
-    """The kernel through ``matching.pair_stats`` (one C call, one CUDA
-    kernel) against ``pair_stats_plain`` on the card (and on CPU copies):
-    the count exactly, the sums bit for bit; returns (count, max |kernel -
-    plain|)."""
+    """The kernel through ``matching.pair_stats`` (one C call: a memset and
+    at most two CUDA kernels, one more than one only where a later window
+    level follows) against ``pair_stats_plain`` on the card, bit for bit
+    with NaN bits, and on CPU copies (NaN as NaN): the count exactly, the
+    sums bit for bit; returns (count, max |kernel - plain|)."""
     from nellie_tpu_torch.kernels import matching
 
     kernel = matching.PAIR_SUMS_KERNEL
+    w = PAIR_WINDOW
+    want_kernels = 1 + int(args[5][0] > w * w or args[5][1] > w * w)
     before, kernels = kernel.launches, kernel.kernel_launches
     got = matching.pair_stats(*args)
-    if kernel.launches != before + 1 or kernel.kernel_launches != kernels + 1:
-        fail(f"pair_stats on {what} did not launch its kernel once with one CUDA kernel "
-             f"({kernel.kernel_launches - kernels} CUDA kernels)")
+    if kernel.launches != before + 1 or kernel.kernel_launches != kernels + want_kernels:
+        fail(f"pair_stats on {what} did not launch its kernel once with {want_kernels} CUDA "
+             f"kernels ({kernel.kernel_launches - kernels} CUDA kernels)")
+    if got[1].device.type != "cpu":
+        fail(f"pair_stats on {what} returned its sums on {got[1].device}, not the host")
     worst = 0.0
     for where in ["cuda"] + (["cpu"] if against_cpu else []):
         want = matching.pair_stats_plain(*(a.to(where) if isinstance(a, torch.Tensor) else a
                                            for a in args))
-        if got[0] != want[0] or not (same_tensor(got[1], want[1].to(got[1].device))
-                                     and same_tensor(got[2], want[2].to(got[2].device))):
+        same = exact_bits if where == "cuda" else same_tensor
+        if got[0] != want[0] or not (same(got[1], want[1]) and same(got[2], want[2])):
             fail(f"pair_stats differs from its plain body on {what} ({where}): counts "
                  f"{got[0]} and {want[0]}")
         worst = max(worst, max_abs_diff(got[1], want[1]), max_abs_diff(got[2], want[2]))
     return got[0], worst
+
+
+# synthetic pair-cost tiles (pair_cost_inputs): the 3D and 2D main paths'
+# shapes, then the minima's hard cases
+PAIR_COST_CASES = ("3D 338x332", "2D 2196x2195", "ties", "lonely row and column",
+                   "overflow", "NaN features", "zero signs", "no gated pair")
+
+
+def pair_moments(cp, cq, fp, fq, max_d):
+    """Float32 (mean, std) of the normalised distance and of each feature's
+    |difference| over the pairs closer than ``max_d`` (float64 on the host,
+    the std at least 1e-8); (0, 1) where no pair is that close."""
+    d2 = ((cp[:, None, :].astype(np.float64) - cq[None, :, :]) ** 2).sum(-1)
+    i, j = np.nonzero(d2 < float(max_d) ** 2)
+    if len(i) == 0:
+        return np.zeros(fp.shape[1] + 1, np.float32), np.ones(fp.shape[1] + 1, np.float32)
+    terms = np.concatenate([np.sqrt(d2[i, j])[:, None] / max_d,
+                            np.abs(fp[i].astype(np.float64) - fq[j])], axis=1)
+    mean, std = np.nanmean(terms, 0), np.nanstd(terms, 0) + 1e-8
+    return mean.astype(np.float32), std.astype(np.float32)
+
+
+def pair_cost_inputs(name, seed=0):
+    """(coords_post, coords_pre, feats_post, feats_pre, max_distance, mean,
+    std, n_stats) as numpy arrays and numbers, for case ``name`` of
+    ``PAIR_COST_CASES``: the main paths' shapes (3D 338 x 332, F = 22, 4
+    statistics; 2D 2,196 x 2,195, F = 10) with their moments; ties across
+    rows and columns (duplicated markers on both sides); a later and an
+    earlier marker with no gated pair; costs that overflow (two features'
+    std 1e-30, and both or one of them 1e30 in some later markers: rows of
+    +inf, of NaN where +inf meets -inf, and of -inf); NaN features; costs of -0 and +0 that tie (earlier markers 2 um
+    apart in duplicated pairs, later ones on them, features 0 or 2e-30
+    against means of 1e-30 and a std of 3e38); no gated pair."""
+    rng = np.random.default_rng(seed)
+    ndim, n_feat, n_stats = (2, 10, 3) if name.startswith("2D") else (3, 22, 4)
+    n_post, n_pre = {"3D 338x332": (338, 332), "2D 2196x2195": (2196, 2195)}.get(name,
+                                                                                  (150, 140))
+    kind = "nan" if name == "NaN features" else "normal"
+    cp, cq, fp, fq = pair_tile(n_post, n_pre, ndim, n_feat, seed=seed,
+                               shift=50.0 if name == "no gated pair" else 0.0, kind=kind)
+    if name == "ties":
+        cp[1::2], fp[1::2] = cp[0:-1:2], fp[0:-1:2]
+        cq[1::2], fq[1::2] = cq[0:-1:2], fq[0:-1:2]
+    elif name == "lonely row and column":
+        cp[5], cq[7] = cp[5] + 100.0, cq[7] - 100.0
+    elif name == "overflow":  # rows of +inf, of NaN (+inf and -inf) and of -inf
+        kind_of_row = rng.random(n_post)
+        fp[kind_of_row < 0.1, :2] = np.float32(1e30)
+        fp[(kind_of_row >= 0.1) & (kind_of_row < 0.2), 0] = np.float32(1e30)
+    elif name == "zero signs":
+        sites = rng.permutation(12 ** ndim)[:n_pre // 2]
+        grid = np.stack(np.unravel_index(sites, (12,) * ndim), axis=1) * 2.0
+        cq = np.repeat(grid, 2, axis=0).astype(np.float32)
+        cp = cq[rng.integers(0, len(cq), n_post)]
+        fq = np.where(rng.random(fq.shape[:1] + (n_feat,)) < 0.95, 0.0,
+                      2e-30).astype(np.float32)[:len(cq)]
+        fp = np.zeros((n_post, n_feat), np.float32)
+    mean, std = pair_moments(cp, cq, fp, fq, 1.0)
+    if name == "overflow":
+        std[1:3] = np.float32(1e-30)
+    elif name == "zero signs":
+        mean[:], std[:] = np.float32(1e-30), np.float32(3e38)
+    return cp, cq, fp, fq, 1.0, mean, std, n_stats
+
+
+def pair_costs_bound(args, gated):
+    """(bound_ms, bound_by) of one ``pair_costs`` call: its inputs read and
+    its minima and indices written once (4 + 8 bytes a row and column) at
+    the memory rate, or its float32 operations at the float32 rate, the
+    larger: every pair's gate, and for the ``gated`` pairs only the
+    normalised distance, its z-score (a subtraction and a division) and,
+    per feature, a difference, an absolute value, a subtraction, a
+    division and a multiply-add (all that the function needs)."""
+    cp, cq, fp, fq = args[:4]
+    pairs, ndim, n_feat = cp.shape[0] * cq.shape[0], cp.shape[1], fp.shape[1]
+    nbytes = 4 * (cp.numel() + cq.numel() + fp.numel() + fq.numel() + 2 * (n_feat + 1)) \
+        + 12 * (cp.shape[0] + cq.shape[0])
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = (pairs * pair_gate_ops(ndim) + gated * (3 + 5 * n_feat)) / FP32_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def check_pair_costs(what, args, against_cpu=False):
+    """The kernel through ``matching.pair_costs`` (one C call: a memset and
+    one CUDA kernel, no host read) against ``pair_costs_plain`` on the
+    card, bit for bit with NaN bits and the indices exactly, and on CPU
+    copies (NaN as NaN); ``args`` the tile on the card, ``mean`` and
+    ``std`` on the host.  Returns max |kernel - plain|."""
+    from nellie_tpu_torch.kernels import matching
+
+    kernel = matching.PAIR_COSTS_KERNEL
+    before, kernels = kernel.launches, kernel.kernel_launches
+    got = matching.pair_costs(*args)
+    if kernel.launches != before + 1 or kernel.kernel_launches != kernels + 1:
+        fail(f"pair_costs on {what} did not launch its kernel once with one CUDA kernel "
+             f"({kernel.kernel_launches - kernels} CUDA kernels)")
+    host = matching.to_host(got)
+    worst = 0.0
+    for where in ["cuda"] + (["cpu"] if against_cpu else []):
+        want = matching.pair_costs_plain(*(a.to(where) if isinstance(a, torch.Tensor) else a
+                                           for a in args))
+        same = exact_bits if where == "cuda" else same_tensor
+        for name, g, h, w_ in zip(("row minima", "row indices", "column minima",
+                                   "column indices"), got, host, want):
+            if not (same(g, w_) and same(h, w_.cpu())):
+                fail(f"pair_costs differs from its plain body on {what} ({where}): {name}")
+        worst = max(worst, max_abs_diff(got[0], want[0]), max_abs_diff(got[2], want[2]))
+    return worst
 
 
 def roi_inputs(shape, scale=500.0, fill=0.4, seed=0):
@@ -4056,18 +4221,27 @@ def phase_track_threshold_kernels(gpu, largest, calls):
     Returns ({kernel: rows}, {kernel: max |kernel - plain|})."""
     from nellie_tpu_torch.kernels import matching, moments, thresholds
 
-    errs = {"pair_sums": 0.0, "roi_stats": 0.0, "hist_threshold": 0.0}
-    rows = {"pair_sums": {}, "roi_stats": {}, "hist_threshold": {}}
-    for k, (name, (n_post, n_pre, ndim, n_feat, padded, max_d, shift)) in enumerate(
+    errs = {"pair_sums": 0.0, "pair_costs": 0.0, "roi_stats": 0.0, "hist_threshold": 0.0}
+    rows = {"pair_sums": {}, "pair_costs": {}, "roi_stats": {}, "hist_threshold": {}}
+    for k, (name, (n_post, n_pre, ndim, n_feat, padded, max_d, shift, kind)) in enumerate(
             PAIR_CASES.items()):
-        arrays = pair_tile(n_post, n_pre, ndim, n_feat, seed=k, shift=shift)
+        arrays = pair_tile(n_post, n_pre, ndim, n_feat, seed=k, shift=shift, kind=kind)
         args = (*(torch.from_numpy(a).cuda() for a in arrays), max_d, padded)
         count, err = check_pair_sums(name, args, against_cpu=n_post * n_pre < 10 ** 6)
         if (count == 0) != (name == "no gated pair"):
             fail(f"pair_stats on {name}: {count} gated pairs")
         errs["pair_sums"] = max(errs["pair_sums"], err)
-    print(f"pair_stats = plain body (count exactly, sums bit for bit) on "
+    print(f"pair_stats = plain body (count exactly, sums bit for bit, NaN bits too) on "
           f"{len(PAIR_CASES)} synthetic tiles: {', '.join(PAIR_CASES)}", flush=True)
+    for k, name in enumerate(PAIR_COST_CASES):
+        cp, cq, fp, fq, max_d, mean, std, n_stats = pair_cost_inputs(name, seed=k)
+        args = (*(torch.from_numpy(a).cuda() for a in (cp, cq, fp, fq)), max_d,
+                torch.from_numpy(mean), torch.from_numpy(std), n_stats)
+        errs["pair_costs"] = max(errs["pair_costs"],
+                                 check_pair_costs(name, args, against_cpu=True))
+    print(f"pair_costs = plain body (minima bit for bit, NaN bits and zero signs too, indices "
+          f"exactly) on {len(PAIR_COST_CASES)} synthetic tiles: {', '.join(PAIR_COST_CASES)}",
+          flush=True)
     for k, (name, (shape, scale, fill)) in enumerate(ROI_CASES.items()):
         images = torch.from_numpy(roi_inputs(shape, scale, fill, seed=k)).cuda()
         errs["roi_stats"] = max(errs["roi_stats"],
@@ -4109,32 +4283,83 @@ def phase_track_threshold_kernels(gpu, largest, calls):
         fn = lambda: matching.pair_stats(*args)  # noqa: E731
         profiled, own = kernels_a_call(fn, matching.PAIR_SUMS_KERNEL)
         wait_ms = host_wait_ms(fn)
-        reads = int(wait_ms >= QUEUED_MS / 2)  # 1: at least one
-        if reads != 1:
-            fail(f"pair_stats at the {path} path's largest call returned after {wait_ms:.3f} ms "
-                 f"with {QUEUED_MS} ms queued on the card: it did not wait for the count")
+        _, reads = host_reads(fn)
+        if reads != 1 or wait_ms < QUEUED_MS / 2:
+            fail(f"pair_stats at the {path} path's largest call made {reads} host reads and "
+                 f"returned after {wait_ms:.3f} ms with {QUEUED_MS} ms queued on the card: it "
+                 "reads its packed result once")
         plain_ms, _ = cold_times(lambda: matching.pair_stats_plain(*args), 2, on_device=False)
         ms, on_device = cold_times(fn, 10)
-        bound_ms, bound_by = pair_bound(args)
+        bound_ms, bound_by = pair_bound(args, count)
         chain = pair_chain(args[5])
         shapes = [tuple(a.shape) for a in args[:4]]
         print(f"pair_sums = plain body bit for bit, and its time, at the {path} path's "
               f"largest call ({shapes}, padded tile {tuple(args[5])}, {count} gated pairs, "
               f"{calls[path]['pair_stats']} calls on the path): kernel {ms:.4f} ms a call on a "
               f"cold L2 (on the device {fmt_ms(on_device)}), plain {plain_ms:.4f} ms, library "
-              f"none; {own} CUDA kernel a call by the kernel's count ({profiled} device events "
-              f"by the profiler: a memset, the kernel and the count's copy), {reads} host read "
-              f"(the count, as the reference: returned after {wait_ms:.3f} ms with {QUEUED_MS} "
-              f"ms queued); bound {bound_ms:.6f} ms ({bound_by}), a chain of {chain} "
+              f"none; {own} CUDA kernels a call by the kernel's count ({profiled} device events "
+              f"by the profiler: a memset, the kernels and the result's copy), {reads} host "
+              f"read (the packed count and sums, as the reference: returned after "
+              f"{wait_ms:.3f} ms with {QUEUED_MS} ms queued); bound {bound_ms:.6f} ms "
+              f"({bound_by}: every pair's gate, the gated pairs' terms), at most {chain} "
               f"dependent adds a sum [{gpu}]", flush=True)
         rows["pair_sums"][path] = {
             "shapes": shapes, "padded": list(args[5]), "gated_pairs": count,
             "calls": calls[path]["pair_stats"], "kernels_a_call": own,
             "device_events_a_call": profiled, "host_reads_a_call": reads,
-            "host_ms_with_work_queued": wait_ms, "chain_adds": chain,
+            "host_ms_with_work_queued": wait_ms, "chain_adds_at_most": chain,
             "max_abs_err": err, "ms": ms, "device_ms": on_device, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         del args
+
+        recorded = largest[path]["pair_costs"][1]
+        if recorded is None:
+            fail(f"the {path} path made no pair_costs call")
+        args = tuple(a.cuda() if isinstance(a, torch.Tensor) and k < 4 else a
+                     for k, a in enumerate(recorded))
+        err = check_pair_costs(f"the {path} path's largest call", args)
+        errs["pair_costs"] = max(errs["pair_costs"], err)
+        fn = lambda: matching.pair_costs(*args)  # noqa: E731
+        profiled, own = kernels_a_call(fn, matching.PAIR_COSTS_KERNEL)
+        wait_ms = host_wait_ms(fn)
+        _, reads = host_reads(fn)
+        if reads or wait_ms >= QUEUED_MS / 2:
+            fail(f"pair_costs at the {path} path's largest call made {reads} host reads and "
+                 f"returned after {wait_ms:.3f} ms with {QUEUED_MS} ms queued on the card")
+        plain_args = args[:5] + tuple(a.cuda() for a in args[5:7]) + args[7:]
+        plain_ms, plain_device = cold_times(lambda: matching.pair_costs_plain(*plain_args), 3)
+        plain_kernels = cuda_kernels_a_call(lambda: matching.pair_costs_plain(*plain_args))
+        ms, on_device = cold_times(fn, 10)
+        gated = int(gated_pairs(args[0], args[1], args[4])[0].numel())
+        bound_ms, bound_by = pair_costs_bound(args, gated)
+        # a frame pair's matching on these markers: two host reads
+        n_stats = args[7]
+        frame_pair = lambda: matching.match_frames_device(  # noqa: E731
+            args[0], args[2], args[1], args[3], args[4], n_stats)
+        _, pair_reads = host_reads(frame_pair)
+        if pair_reads != 2:
+            fail(f"match_frames_device on the {path} path's largest tile made {pair_reads} host "
+                 "reads, not 2")
+        shapes = [tuple(a.shape) for a in args[:4]]
+        print(f"pair_costs = plain body bit for bit, and its time, at the {path} path's "
+              f"largest call ({shapes}, {gated} gated pairs, {calls[path]['pair_costs']} calls "
+              f"on the path): kernel {ms:.4f} ms a call on a cold L2 (on the device "
+              f"{fmt_ms(on_device)}), plain {plain_ms:.4f} ms (on the device "
+              f"{fmt_ms(plain_device)}, {plain_kernels} CUDA kernels a call), library none; "
+              f"{own} CUDA kernel a call by the kernel's count ({profiled} device events by the "
+              f"profiler, the memset among them), {reads} host reads (returned after "
+              f"{wait_ms:.3f} ms with {QUEUED_MS} ms queued); bound {bound_ms:.6f} ms "
+              f"({bound_by}: every pair's gate, the gated pairs' costs); match_frames_device "
+              f"on this tile {pair_reads} host reads [{gpu}]", flush=True)
+        rows["pair_costs"][path] = {
+            "shapes": shapes, "gated_pairs": gated, "calls": calls[path]["pair_costs"],
+            "kernels_a_call": own, "device_events_a_call": profiled,
+            "host_reads_a_call": reads, "host_ms_with_work_queued": wait_ms,
+            "plain_kernels_a_call": plain_kernels, "plain_device_ms": plain_device,
+            "frame_pair_host_reads": pair_reads,
+            "max_abs_err": err, "ms": ms, "device_ms": on_device, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        del args, plain_args
 
         recorded = largest[path]["masked_mean_variance"][1]
         if recorded is None:
@@ -4358,7 +4583,7 @@ def compare_tables(got, want, headers, skip):
 
 
 def build_kernels():
-    """Build the eleven CUDA kernels from the checkout, one nvcc each, all
+    """Build the twelve CUDA kernels from the checkout, one nvcc each, all
     started together; print the seconds."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -4556,6 +4781,7 @@ def main() -> None:
            "kernel_launches_by_path": kernel_launches_by_path[name], "paths": track_rows[name]}
           for name, replaces, row in (
               ("pair_sums", "nellie_tpu/kernels/matching.py:40", "3D"),
+              ("pair_costs", "nellie_tpu/kernels/matching.py:61", "3D"),
               ("roi_stats", "nellie_tpu/kernels/moments.py:111", "3D"),
               ("hist_threshold", "nellie_tpu/kernels/thresholds.py:18",
                "3D min_triangle_otsu"))),

@@ -27,9 +27,10 @@ importing the package of its own tree:
   ``frangi.frangi_response``, ``csrc/frangi_tail.cu``) on the 3D, 2D and
   capacity paths' largest calls of each pass, with their callers' own
   arguments (the core as a box);
-- each tree's tracker pair sums (``matching.pair_stats``) and ROI
-  statistics (``moments.masked_mean_variance``) on the 3D and 2D main
-  paths' largest calls, and its histogram thresholds (``thresholds.
+- each tree's tracker pair sums (``matching.pair_stats``), pair costs
+  (``matching.pair_costs``) and ROI statistics
+  (``moments.masked_mean_variance``) on the 3D and 2D main paths' largest
+  calls, and its histogram thresholds (``thresholds.
   min_triangle_otsu``, ``otsu_threshold``, ``triangle_threshold``) on the
   3D, 2D and capacity paths' largest call of each, with their callers' own
   arguments;
@@ -228,8 +229,8 @@ def tail_call(name):
 
 
 # the rows whose earlier version is plain torch of many launches a call
-SLOW_ON_EARLIER = ("pair_stats", "masked_mean_variance", "min_triangle_otsu", "otsu_threshold",
-                   "triangle_threshold", "triangle_and_otsu")
+SLOW_ON_EARLIER = ("pair_stats", "pair_costs", "masked_mean_variance", "min_triangle_otsu",
+                   "otsu_threshold", "triangle_threshold", "triangle_and_otsu")
 
 
 def pair_sums(*args):
@@ -239,6 +240,18 @@ def pair_sums(*args):
 
     count, sums, sumsqs = matching.pair_stats(*args)
     return torch.tensor(count), sums, sumsqs
+
+
+def pair_costs(*args):
+    """``matching.pair_costs`` of this process's package on a tile on the
+    card, with ``mean`` and ``std`` on the host where its kernel takes
+    them there and on the card for a tree whose plain torch divides by
+    them."""
+    from nellie_tpu_torch.kernels import matching
+
+    if not hasattr(matching, "PAIR_COSTS_KERNEL"):
+        args = args[:5] + tuple(a.cuda() for a in args[5:7]) + args[7:]
+    return matching.pair_costs(*args)
 
 
 def threshold_call(name):
@@ -275,6 +288,8 @@ def kernel_rows(rows):
                for row, (name, args) in rows["tail"].items()},
             **{f"pair_stats {path}": (pair_sums, cuda(args))
                for path, args in rows["pair_stats"].items()},
+            **{f"pair_costs {path}": (pair_costs, cuda(args[:4]) + tuple(args[4:]))
+               for path, args in rows["pair_costs"].items()},
             **{f"masked_mean_variance {path}": (moments.masked_mean_variance, cuda(args))
                for path, args in rows["roi"].items()},
             **{row: (threshold_call(row.split()[0]), cuda(args))
@@ -332,6 +347,8 @@ def record(rows_path):
                         for a in hand["fma_largest"][1])
     host["pair_stats"] = {"3D": hand["largest"]["pair_stats"][1],
                           "2D": hand_2d["largest"]["pair_stats"][1]}
+    host["pair_costs"] = {"3D": hand["largest"]["pair_costs"][1],
+                          "2D": hand_2d["largest"]["pair_costs"][1]}
     host["roi"] = {"3D": hand["largest"]["masked_mean_variance"][1],
                    "2D": hand_2d["largest"]["masked_mean_variance"][1]}
     host["thresholds"] = {

@@ -15,8 +15,8 @@ profiler range inside the stage: the flow interpolation
 nearest seed (``nearest_seed``), the distance transform
 (``distance_transform``), the histogram thresholds (``min_triangle_otsu``,
 ``otsu_threshold``, ``triangle_threshold``, ``triangle_and_otsu``), the percentile mask
-(``masked_percentile``) and the tracker's pair sums and ROI statistics
-(``pair_stats``, ``masked_mean_variance``), each with its calls, wall (host) seconds,
+(``masked_percentile``) and the tracker's pair sums, pair costs and ROI
+statistics (``pair_stats``, ``pair_costs``, ``masked_mean_variance``), each with its calls, wall (host) seconds,
 device seconds, kernel launches and host syncs (``cudaStreamSynchronize``
 and the other synchronising runtime calls).  The profiler adds host time
 of its own, so the wall seconds here are above ``run``'s.  Processing the
@@ -50,7 +50,7 @@ def _ranged(fn, name):
 STAGES = ("filter", "label", "network", "markers", "tracking", "reassign", "hierarchy")
 RANGES = ("interp", "skeletonize_3d", "nearest_seed", "distance_transform", "min_triangle_otsu",
           "otsu_threshold", "triangle_threshold", "triangle_and_otsu", "masked_percentile",
-          "pair_stats", "masked_mean_variance")
+          "pair_stats", "pair_costs", "masked_mean_variance")
 
 
 def _stage(name, im_info):
@@ -86,7 +86,8 @@ def _install_ranges():
     for module, name in ((thresholds, "min_triangle_otsu"), (thresholds, "otsu_threshold"),
                          (thresholds, "triangle_threshold"), (thresholds, "triangle_and_otsu"),
                          (frangi, "masked_percentile"),
-                         (matching, "pair_stats"), (moments, "masked_mean_variance")):
+                         (matching, "pair_stats"), (matching, "pair_costs"),
+                         (moments, "masked_mean_variance")):
         setattr(module, name, _ranged(getattr(module, name), name))
 
 

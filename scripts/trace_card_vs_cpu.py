@@ -116,13 +116,11 @@ def main() -> None:
                                               stats["cpu"][1].numpy().astype(np.float64),
                                               stats["cpu"][2].numpy().astype(np.float64))
                 costs = {}
-                for d in trackers:
-                    dev = feats[d].feats.device
+                for d in trackers:  # the moments on the host, as the card's kernel takes them
                     costs[d] = matching.pair_costs(
                         feats[d].coords_phys, prev[d].coords_phys, feats[d].feats, prev[d].feats,
-                        smoke_max_d(trackers[d]),
-                        torch.from_numpy(mean.astype(np.float32)).to(dev),
-                        torch.from_numpy(std.astype(np.float32)).to(dev), ht.N_STATS)
+                        smoke_max_d(trackers[d]), torch.from_numpy(mean.astype(np.float32)),
+                        torch.from_numpy(std.astype(np.float32)), ht.N_STATS)
                 for i, name in enumerate(("row minima", "row argmin", "column minima",
                                           "column argmin")):
                     differ(name, costs["cuda"][i], costs["cpu"][i])

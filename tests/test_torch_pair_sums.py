@@ -4,14 +4,18 @@ and the pair-sums kernel's schedule in torch against the plain body.
 ``matching.pair_stats_plain`` (the CPU path of ``pair_stats``) equals the
 reference's jitted ``pair_stats`` on its padded tile, count exact and sums
 bit for bit.  ``pair_sums_model`` (``kernels/csrc/pair_sums.cu``'s schedule
-in torch: a block a 32 x 32 window of real pairs, its gate, one chain of
-sums and one of squares a feature from -0; then the later levels as the
-last block runs them, over the padded window grid, zero windows and
-padding read as +0, the 4- and 8-column lanes, and the final row-major
-sum) equals the plain body on the same inputs: 3D and 2D coordinates, a
-tile of one window level (the 3D main path's 1,024 x 1,024), a second
-general level (the 2D main path's 4,096 x 4,096), the lanes of a padded
-2,048 x 128 and 2,048 x 256 tile, and no gated pair.
+in torch: the gate of every pair of every 32 x 32 window of real pairs,
+each (window, feature) chain of sums and of squares from +0 over the
+window's gated pairs only, in row-major order; then the later levels over
+the real windows' part of the padded window grid, each output window one
+chain from +0 over its nonzero elements, the 4- and 8-column lanes each
+from +0 and added in halves, and the final row-major sum from +0 over the
+nonzero elements) equals the plain body on the same inputs: 3D and 2D
+coordinates, a tile of one window level (the 3D main path's 1,024 x
+1,024), a second general level (the 2D main path's 4,096 x 4,096), the
+lanes of a padded 2,048 x 128 and 2,048 x 256 tile, no gated pair, NaN and
+subnormal features, a window row whose gated terms are all +0, and a third
+level.
 """
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ import torch
 import jax
 
 from nellie_tpu.kernels import matching as j_matching
+import chip_smoke
 from nellie_tpu_torch.kernels import _fp, matching
 from torch_port_data import one_torch_thread  # noqa: F401  (module fixture)
 
@@ -28,7 +33,8 @@ W = 32
 
 def pair_sums_model(cp, cq, fp, fq, max_d, padded):
     """``pair_sums.cu``'s schedule in torch on the CPU; returns (count,
-    sums, sumsqs) and the level-1 window sums (2 (F+1), rows, cols)."""
+    sums, sumsqs) and the level-1 window sums (2 (F+1), rows, cols), zero
+    outside the windows of real pairs."""
     n_post, ndim = cp.shape
     n_pre, n_feat = cq.shape[0], fp.shape[1]
     s = n_feat + 1
@@ -43,24 +49,27 @@ def pair_sums_model(cp, cq, fp, fq, max_d, padded):
         blocks(fp, n_post, wr), blocks(fq, n_pre, wc)
     real_r = (torch.arange(wr * W) < n_post).reshape(wr, W)
     real_c = (torch.arange(wc * W) < n_pre).reshape(wc, W)
-    # the gate of every pair of every window: (wr, wc, 32, 32)
+    # the gate of every pair of every window: (wr, wc, 32, 32), a ballot a row
     diff = [rc[:, None, :, None, a] - cc[None, :, None, :, a] for a in range(ndim)]
     sq = diff[0] * diff[0]
     for a in range(1, ndim):
         sq = _fp.fma_plain(diff[a], diff[a], sq)
     dist = _fp.sqrt(sq)
     gate = (dist < max_d) & real_r[:, None, :, None] & real_c[None, :, None, :]
-    dn = dist / max_d
     count = int(gate.sum())
-    acc = torch.full((wr, wc, s), -0.0)
-    acc2 = torch.full((wr, wc, s), -0.0)
+    # each (window, feature) chain from +0 over its gated pairs in row-major
+    # order; the normalised distance of gated pairs only
+    acc = torch.zeros(wr, wc, s)
+    acc2 = torch.zeros(wr, wc, s)
     for i in range(W):
         for j in range(W):
-            d = torch.cat([dn[:, :, i, j, None],
-                           (rf[:, None, i, :] - cf[None, :, j, :]).abs()], dim=2)
             m = gate[:, :, i, j, None]
-            acc = acc + torch.where(m, d, 0.0)
-            acc2 = acc2 + torch.where(m, d * d, 0.0)
+            if not bool(m.any()):
+                continue
+            d = torch.cat([(dist[:, :, i, j] / max_d)[..., None],
+                           (rf[:, None, i, :] - cf[None, :, j, :]).abs()], dim=2)
+            acc = torch.where(m, acc + d, acc)
+            acc2 = torch.where(m, acc2 + d * d, acc2)
     level = torch.zeros(2 * s, rows, cols)
     level[:s, :wr, :wc] = acc.permute(2, 0, 1)
     level[s:, :wr, :wc] = acc2.permute(2, 0, 1)
@@ -68,10 +77,17 @@ def pair_sums_model(cp, cq, fp, fq, max_d, padded):
     return count, sums[:s], sums[s:], level
 
 
+def add_nonzero(acc, v):
+    """A chain's step: the element added where it is not zero."""
+    return torch.where(v != 0, acc + v, acc)
+
+
 def later_levels_model(x, vr, vc):
-    """The last block's levels: each output window one chain (the lanes'
-    windows vectorised across rows), elements outside (vr, vc) read as
-    +0; then the row-major sum of what is left."""
+    """The later levels as ``pair_sums.cu`` runs them: each output window of
+    the real (vr, vc) part one chain from +0 over its nonzero elements in
+    the reference's order (the lanes' windows across rows, each lane from
+    +0, then the lanes added in halves); then the final row-major sum from
+    +0 over the nonzero elements left."""
     planes, rows, cols = x.shape
 
     def at(r, c):
@@ -83,42 +99,33 @@ def later_levels_model(x, vr, vc):
         out_r = -(-rows // W)
         orow = torch.arange(out_r)
         if lanes:
-            lane = torch.full((planes, out_r, lanes), -0.0)
-            lane[..., 0] = 0.0
+            lane = torch.zeros(planes, out_r, lanes)
             for step in range(W // lanes):
                 for c in range(cols):
                     for ln in range(lanes):
                         r = orow * W + step * lanes + ln
-                        lane[..., ln] = lane[..., ln] + at(r, torch.full_like(r, c))
+                        lane[..., ln] = add_nonzero(lane[..., ln], at(r, torch.full_like(r, c)))
             while lanes > 1:
                 lanes //= 2
                 lane = lane[..., :lanes] + lane[..., lanes:]
             out = lane
+            ovr, ovc = -(-vr // W), 1
         else:
             out_c = -(-cols // W)
             ocol = torch.arange(out_c)
-            out = torch.full((planes, out_r, out_c), -0.0)
+            out = torch.zeros(planes, out_r, out_c)
             for i in range(W):
                 for j in range(W):
-                    out = out + at((orow * W + i)[:, None], (ocol * W + j)[None, :])
+                    out = add_nonzero(out, at((orow * W + i)[:, None], (ocol * W + j)[None, :]))
+            ovr, ovc = -(-vr // W), -(-vc // W)
         x = out
         planes, rows, cols = x.shape
-        vr, vc = rows, cols
-    acc = torch.full((planes,), -0.0)
-    for r in range(rows):
-        for c in range(cols):
-            acc = acc + (x[:, r, c] if r < vr and c < vc else 0.0)
+        vr, vc = ovr, ovc
+    acc = torch.zeros(planes)
+    for r in range(vr):
+        for c in range(vc):
+            acc = add_nonzero(acc, x[:, r, c])
     return acc
-
-
-def tile(n_post, n_pre, ndim, n_feat, seed=0, spread=0.2):
-    rng = np.random.default_rng(seed)
-    spacing = np.array([0.5, 0.2, 0.2][-ndim:])
-    coords_pre = (rng.integers(0, 24, (n_pre, ndim)) * spacing).astype(np.float32)
-    coords_post = (coords_pre[rng.integers(0, n_pre, n_post)]
-                   + rng.normal(0, spread, (n_post, ndim))).astype(np.float32)
-    feats = [rng.normal(0, 1, (n, n_feat)).astype(np.float32) for n in (n_post, n_pre)]
-    return coords_post, coords_pre, feats[0], feats[1]
 
 
 def reference(cp, cq, fp, fq, max_d, padded):
@@ -147,29 +154,62 @@ CASES = {
     "lanes_4x8": (1100, 200, 2, 10, (2048, 256), 1.0),
     "no_gated_pair": (90, 70, 3, 22, (128, 128), 1e-6),
 }
+# the model against the plain body only (XLA's CPU code flushes subnormals
+# and keeps other NaN bits): NaN features through a second level, subnormal
+# features (differences subnormal, their squares +0), a window row whose
+# gated terms are all +0, and a third level (a padded 64 x 131,072 tile)
+MODEL_CASES = {
+    "nan_features": (300, 280, 2, 10, (4096, 4096), 1.0, "nan"),
+    "nan_lanes": (1100, 70, 3, 22, (2048, 128), 1.0, "nan"),
+    "subnormal_features": (338, 332, 3, 22, (1024, 1024), 1.0, "subnormal"),
+    "zero_terms": (90, 70, 3, 22, (128, 128), 1.0, "zero terms"),
+    "third_level": (40, 3000, 2, 10, (64, 131072), 4.0, "normal"),
+}
 
 
 @pytest.fixture(scope="module")
 def runs(one_torch_thread):  # noqa: F811
     """{case: (inputs, plain, model, reference)}, each computed once."""
     out = {}
-    for name, (n_post, n_pre, ndim, n_feat, padded, max_d) in CASES.items():
-        arrays = tile(n_post, n_pre, ndim, n_feat, seed=len(out))
-        if name == "no_gated_pair":
-            arrays = (arrays[0] + np.float32(50.0),) + arrays[1:]
+    cases = {**{k: (*v, "normal") for k, v in CASES.items()}, **MODEL_CASES}
+    for name, (n_post, n_pre, ndim, n_feat, padded, max_d, kind) in cases.items():
+        arrays = chip_smoke.pair_tile(n_post, n_pre, ndim, n_feat, seed=len(out),
+                                      shift=50.0 if name == "no_gated_pair" else 0.0, kind=kind)
         t = [torch.from_numpy(a) for a in arrays]
         plain = matching.pair_stats_plain(*t, _fp.f32(max_d), padded)
         model = pair_sums_model(*t, max_d, padded)
-        out[name] = (t, plain, model, reference(*arrays, max_d, padded))
+        ref = reference(*arrays, max_d, padded) if name in CASES else None
+        out[name] = (t, plain, model, ref)
     return out
 
 
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name", [*CASES, *MODEL_CASES])
 def test_model_equals_plain(runs, name):
     _, plain, model, _ = runs[name]
     assert model[0] == plain[0]
     for got, want in zip(model[1:3], plain[1:]):
         np.testing.assert_array_equal(bits(got), bits(want))
+
+
+@pytest.mark.parametrize("name", list(MODEL_CASES))
+def test_model_cases_are_hard(runs, name):
+    """The NaN cases reach NaN sums, the subnormal one subnormal sums and
+    +0 sums of squares, the +0 terms a gated window row of +0 sums."""
+    t, plain, model, _ = runs[name]
+    count, sums, sumsqs = plain
+    assert count > 0
+    if name.startswith("nan"):
+        assert torch.isnan(sums[1:]).any() and not torch.isnan(sums[0])
+    elif name == "subnormal_features":
+        tiny = sums[1:].abs()
+        assert ((tiny > 0) & (tiny < torch.finfo(torch.float32).tiny)).any()
+        assert (sumsqs[1:] == 0).all()
+    elif name == "zero_terms":
+        level = model[3]
+        first_row = level[:, 0, :]
+        assert (first_row == 0).all() and (level[:, 1:] != 0).any()
+        cp, cq = t[0][:32], t[1]
+        assert bool((torch.cdist(cp.double(), cq.double()) == 0).any())
 
 
 @pytest.mark.parametrize("name", list(CASES))
