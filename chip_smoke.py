@@ -211,7 +211,14 @@ Filter's arithmetic or Network's nearest seed launched either), and phase
 11 the same for capacity.  Phase 17 also holds the chain to its plain
 version (``_fp.run_steps``) on synthetic programs of each of its kernels'
 forms and on each path's largest chain, timed beside its bound and one
-``torch.addcmul`` over as many elements.
+``torch.addcmul`` over as many elements.  It holds the 2D thinning
+(``csrc/thin2d.cu``), the clamped EDT (``csrc/edt_minplus.cu``) and the
+masked percentile (``csrc/masked_percentile.cu``) bit for bit to their
+plain bodies on ``thin2d_masks``, ``EDT_CASES`` and ``PERCENTILE_CASES``
+and at each path's largest call (the EDT's again at a clamp neither path
+uses, ``OTHER_EDT_CLAMP``), and counts, on every Filter frame of both main
+paths, the voxels between the percentile's two contractions (ROADMAP,
+Queue 3).
 
 Phase 5 holds the flow costs card = CPU exactly (the Hu moments' powers
 round as XLA's CPU code rounds them, ``kernels/_fp.py::pow``).
@@ -253,6 +260,9 @@ HIERARCHY_INPUTS = ("im_preprocessed", "im_instance_label", "im_skel", "im_pixel
                     "im_branch_label_reassigned", "im_obj_label_reassigned", "flow_vector_array")
 CAPACITY_EDGE = 1024
 CAPACITY_SIGMAS = (0.75, 1.1, 1.6)
+# the hand kernels of the 1024^3 capacity path
+CAPACITY_KERNELS = ("ccl_union_find", "fma_chain", "gauss_axis", "frangi_tail",
+                    "hist_threshold", "masked_percentile")
 LIBRARY_MAX_BYTES = 30e9  # largest distance matrix the library call may write
 TIE_REL = 1e-6   # an index may differ only where the two candidates' float64
                  # squared distances differ by <= TIE_REL * (|q|^2 + |r|^2)
@@ -735,14 +745,19 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
                  for c, n in by.items() if c.startswith("edt.")}
     if seed_dist:
         fail(f"{tag}Network's nearest seed launched fma_f32: {json.dumps(seed_dist)}")
-    # 2D thinning is Zhang-Suen in plain torch: thin26 runs on the 3D path only
-    required = {k: n for k, n in hand.items() if k != "thin26" or len(shape) == 4}
+    # thinning: thin26 on the 3D path, Zhang-Suen's thin2d on the 2D path
+    required = {k: n for k, n in hand.items()
+                if (k != "thin26" or len(shape) == 4) and (k != "thin2d" or len(shape) == 3)}
     if min(required.values()) == 0:
         fail(f"{tag}the main path never launched one of the hand kernels: {json.dumps(hand)}")
     print_gauss_taps(tag + "main path", calls.gauss_taps)
     print(f"{tag}Network's kernels on the main path: thin26 {hand['thin26']} calls "
-          f"({kernel_launches['thin26']} CUDA kernels), nearest_seed {hand['nearest_seed']} "
-          f"calls ({kernel_launches['nearest_seed']} CUDA kernels)", flush=True)
+          f"({kernel_launches['thin26']} CUDA kernels), thin2d {hand['thin2d']} calls "
+          f"({kernel_launches['thin2d']} CUDA kernels), nearest_seed {hand['nearest_seed']} "
+          f"calls ({kernel_launches['nearest_seed']} CUDA kernels); Markers' edt_minplus "
+          f"{hand['edt_minplus']} calls ({kernel_launches['edt_minplus']} CUDA kernels); the "
+          f"Filter's masked_percentile {hand['masked_percentile']} calls "
+          f"({kernel_launches['masked_percentile']} CUDA kernels)", flush=True)
     print(f"{tag}tracking's and the thresholds' kernels on the main path: "
           + ", ".join(f"{k} {hand[k]} calls ({kernel_launches[k]} CUDA kernels)"
                       for k in ("pair_sums", "pair_costs", "roi_stats", "hist_threshold")),
@@ -776,7 +791,8 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
                                                         "wrapper_calls": calls.wrapper_calls,
                                                         "nn": calls.nn_operands(),
                                                         "fma_by_caller": calls.fma_callers(),
-                                                        "gauss_taps": calls.gauss_taps}
+                                                        "gauss_taps": calls.gauss_taps,
+                                                        "filter_frames": calls.filter_frames}
 
 
 # ---------------------------------------------------------------------------
@@ -1258,10 +1274,11 @@ def phase_capacity_1024(gpu, edge=CAPACITY_EDGE):
     check_fma_callers(f"capacity {edge}^3", calls.fma_callers(), hand["fma_f32"],
                       hand["fma_chain"])
     print_gauss_taps(f"capacity {edge}^3", calls.gauss_taps)
-    if min(hand[k] for k in ("ccl_union_find", "fma_f32", "fma_chain", "gauss_axis",
-                             "frangi_tail", "hist_threshold")) == 0:
-        fail(f"capacity {edge}^3 never launched the union-find, the fma, the Gaussian, the "
-             "Frangi tail or the threshold kernel")
+    # fma_f32's one call a volume was the percentile's; the percentile kernel
+    # does its own multiply-add
+    if min(hand[k] for k in CAPACITY_KERNELS) == 0:
+        fail(f"capacity {edge}^3 never launched one of {', '.join(CAPACITY_KERNELS)}: "
+             f"{json.dumps(hand)}")
     if out["strategy"] != "chunked" or out["fg_count"] != int((labels > 0).sum()):
         fail(f"capacity {edge}^3: not the chunked strategy, or fg_count is not the support")
     start = time.perf_counter()
@@ -1714,6 +1731,118 @@ def thin_masks(shape, seed=0):
     return {"tubes": tubes, "blobs": blobs, "sheet": sheet,
             "noise": rng.random(shape) < 0.35, "every face": faces,
             "empty": np.zeros(shape, bool), "full": np.ones(shape, bool)}
+
+
+def thin2d_masks(shape, seed=0):
+    """Masks for the 2D thinning at ``shape``, by name, as numpy bool
+    arrays: the 2D path's tubes (``make_frame_2d`` above 300), blobs,
+    one-pixel lines (a row, a column, a diagonal), a cross and a corner
+    block touching every edge of the frame, noise, empty and full."""
+    rng = np.random.default_rng(seed)
+    y, x = np.indices(shape, dtype=np.float64)
+    h, w = shape
+    blobs = np.zeros(shape, bool)
+    for _ in range(4):
+        cy, cx = rng.uniform(0, h), rng.uniform(0, w)
+        blobs |= (y - cy) ** 2 + (x - cx) ** 2 < rng.uniform(4, 40)
+    lines = np.zeros(shape, bool)
+    lines[h // 3, 1:-1] = True
+    lines[1:-1, (2 * w) // 3] = True
+    k = np.arange(min(h, w))
+    lines[k, k] = True
+    edges = (np.abs(y - h / 2) < 2.5) | (np.abs(x - w / 2) < 2.5)
+    edges[:4, :4] = True
+    return {"tubes": make_frame_2d(shape, seed) > 300, "blobs": blobs, "lines": lines,
+            "edges": edges, "noise": rng.random(shape) < 0.35,
+            "empty": np.zeros(shape, bool), "full": np.ones(shape, bool)}
+
+
+def edt_mask(shape, seed=0, fill=0.35):
+    """A mask for the distance transform: balls of radius 2 to 9 voxels
+    on an empty frame (about ``fill`` of it), numpy bool."""
+    rng = np.random.default_rng(seed)
+    grid = np.indices(shape, dtype=np.float64)
+    mask = np.zeros(shape, bool)
+    while mask.mean() < fill:
+        c = [rng.uniform(0, n) for n in shape]
+        mask |= sum((g - cc) ** 2 for g, cc in zip(grid, c)) < rng.uniform(2, 9) ** 2
+    return mask
+
+
+# name: (shape, sampling, max_radius_px, mask kind): the Markers' clamps (11
+# in 3D, 21 in 2D), no clamp, anisotropic spacing, an axis shorter than the
+# clamp, one axis, a frame with no background, a clamp neither path uses,
+# and one whose halo along a strided axis takes several chunks of the
+# kernel's shared tile
+EDT_CASES = {
+    "3D clamp 11": ((14, 40, 44), None, 11, "balls"),
+    "3D clamp 11, Z shorter": ((6, 30, 36), None, 11, "balls"),
+    "2D clamp 21": ((48, 64), None, 21, "balls"),
+    "2D clamp 21, Y shorter": ((12, 70), None, 21, "balls"),
+    "3D no clamp, anisotropic": ((10, 30, 33), (0.5, 0.2, 0.2), None, "balls"),
+    "2D no clamp, anisotropic": ((40, 50), (0.5, 0.2), None, "balls"),
+    "2D clamp 21, anisotropic": ((44, 52), (0.3, 0.1), 21, "balls"),
+    "1-D clamp 5": ((61,), None, 5, "balls"),
+    "3D clamp 15": ((18, 40, 44), None, 15, "balls"),
+    "2D clamp 15": ((40, 90), None, 15, "balls"),
+    "2D clamp 70, halo in chunks": ((300, 30), (0.3, 0.2), 70, "balls"),
+    "3D full": ((5, 9, 11), None, 11, "full"),
+    "2D empty": ((20, 30), None, 21, "empty"),
+}
+
+
+def edt_case_mask(name, seed=0):
+    """``EDT_CASES[name]``'s mask, numpy bool."""
+    shape, _, _, kind = EDT_CASES[name]
+    if kind == "full":
+        return np.ones(shape, bool)
+    if kind == "empty":
+        return np.zeros(shape, bool)
+    return edt_mask(shape, seed)
+
+
+PERCENTILE_QS = (0.0, 1.0, 50.0, 100.0)
+PERCENTILE_CASES = ("positive sample", "signed values", "ties", "one value", "empty", "+inf",
+                    "all masked", "masked NaN", "masked NaN, all masked", "signed zeros")
+
+
+def percentile_inputs(name, n=5000, seed=0):
+    """(values float32, mask bool) numpy arrays of ``n`` for the percentile
+    case ``name``: a frame's positive sample (the callers' mask, values >
+    0), signed values, ties (a few integers), one masked value, none, +inf
+    among the masked values, every value masked, masked signed values
+    nearly all NaN (with unmasked values, whose +inf pads come before the
+    NaNs in the sort, so that q = 1 interpolates between two pads, and with
+    none), and zeros of both signs (three in
+    four -0) with a few negatives below them, so that q = 1 and q = 50
+    fall on the zeros and the sign of the one at each rank counts."""
+    rng = np.random.default_rng(seed)
+    values = (rng.gamma(2.0, 50.0, n) - 20.0).astype(np.float32)
+    mask = values > 0
+    if name == "signed values":
+        mask = rng.random(n) < 0.6
+    elif name == "ties":
+        values = rng.integers(-2, 4, n).astype(np.float32)
+        mask = rng.random(n) < 0.5
+    elif name == "one value":
+        mask = np.zeros(n, bool)
+        mask[rng.integers(n)] = True
+    elif name == "empty":
+        mask = np.zeros(n, bool)
+    elif name == "+inf":
+        values[rng.random(n) < 0.1] = np.inf
+    elif name == "all masked":
+        mask = np.ones(n, bool)
+    elif name.startswith("masked NaN"):
+        values[rng.random(n) < 0.995] = np.nan
+        mask = np.ones(n, bool) if name.endswith("all masked") else rng.random(n) < 0.6
+    elif name == "signed zeros":
+        values = np.where(rng.random(n) < 0.75, np.float32(-0.0), np.float32(0.0))
+        kind = rng.random(n)
+        values = np.where(kind < 0.005, -values - 1.0, values)
+        values = np.where(kind > 0.8, np.abs(values) + 1.0, values).astype(np.float32)
+        mask = rng.random(n) < 0.7
+    return values, mask
 
 
 THIN_DIRECTIONS = ((-1, 0, 0), (1, 0, 0), (0, -1, 0), (0, 1, 0), (0, 0, -1), (0, 0, 1))
@@ -2171,7 +2300,6 @@ def caller_tag():
 # the fma_f32 callers (module.function) that are the Filter's per-voxel
 # arithmetic: since the Filter's kernels took it over, none may launch it
 FILTER_FMA_MODULES = ("filters.", "hessian.", "eigen.")
-FILTER_FMA_EXEMPT = ("frangi.masked_percentile",)  # the 1st-percentile threshold, one fma a frame
 
 
 def fma_caller():
@@ -2189,8 +2317,7 @@ def fma_caller():
 def filter_fma_callers(by_caller):
     """The Filter's per-voxel callers among ``fma_f32``'s callers."""
     return {c: n for c, n in by_caller.items()
-            if (c.startswith(FILTER_FMA_MODULES) or c.startswith("frangi."))
-            and c not in FILTER_FMA_EXEMPT}
+            if c.startswith(FILTER_FMA_MODULES) or c.startswith("frangi.")}
 
 
 class KernelCalls:
@@ -2217,9 +2344,10 @@ class KernelCalls:
                 "masked_mean_variance": "moments",
                 "min_triangle_otsu": "thresholds", "otsu_threshold": "thresholds",
                 "triangle_threshold": "thresholds", "triangle_and_otsu": "thresholds",
-                # the jnp kernels still in plain torch (PERF.md's rows to port)
                 "skeletonize_2d": "skeleton", "distance_transform": "edt",
-                "raw_moments": "moments", "masked_percentile": "frangi"}
+                "masked_percentile": "frangi",
+                # the jnp kernel still in plain torch (PERF.md's row to port)
+                "raw_moments": "moments"}
 
     def __init__(self, keep=lambda name, tag, args: True):
         self.keep = keep
@@ -2234,6 +2362,7 @@ class KernelCalls:
         self.wrapper_largest = {name: (0, None) for name in self.WRAPPERS}
         self.wrapper_calls = {name: 0 for name in self.WRAPPERS}
         self.gauss_taps = {}  # (taps, offsets -r..r, instance taken): launches
+        self.filter_frames = []  # (frame on the host, max_samples) of each finalize_frame call
         self._saved = []
 
     def _patch(self, cls, name, wrapper):
@@ -2316,6 +2445,16 @@ class KernelCalls:
         for name, module in self.WRAPPERS.items():
             self._record_wrapper(modules[module], name)
 
+        finalize = frangi.finalize_frame
+
+        def finalize_recorded(frame, max_samples=int(1e6)):
+            if frame.device.type == "cuda":
+                self.filter_frames.append((frame.cpu(), max_samples))
+            return finalize(frame, max_samples)
+
+        frangi.finalize_frame = finalize_recorded
+        self._saved.append((frangi, "finalize_frame", finalize))
+
         for name, cls in (("ccl_union_find", ccl._CCLKernel),
                           ("flow_interp", fi._FlowInterpKernel)):
             def recorded(original, kernel, *args, _name=name):
@@ -2381,7 +2520,9 @@ def hand_counts():
             "frangi_tail": frangi.FRANGI_TAIL_KERNEL, "thin26": skeleton.THIN26_KERNEL,
             "nearest_seed": edt.NEAREST_SEED_KERNEL, "pair_sums": matching.PAIR_SUMS_KERNEL,
             "pair_costs": matching.PAIR_COSTS_KERNEL, "roi_stats": moments.ROI_STATS_KERNEL,
-            "hist_threshold": thresholds.HIST_THRESHOLD_KERNEL}
+            "hist_threshold": thresholds.HIST_THRESHOLD_KERNEL,
+            "thin2d": skeleton.THIN2D_KERNEL, "edt_minplus": edt.EDT_MINPLUS_KERNEL,
+            "masked_percentile": frangi.MASKED_PERCENTILE_KERNEL}
 
 
 def reset_hand_counts():
@@ -2398,8 +2539,9 @@ def read_hand_counts():
 def read_kernel_launches():
     """The CUDA kernels launched by the wrappers that count them
     (``thin26``, ``nearest_seed``, ``pair_sums``, ``pair_costs``,
-    ``roi_stats``, ``hist_threshold``); every other wrapper's call launches
-    one kernel."""
+    ``roi_stats``, ``hist_threshold``, ``thin2d``, ``edt_minplus``,
+    ``masked_percentile``); every other wrapper's call launches one
+    kernel."""
     return {name: kernel.kernel_launches for name, kernel in hand_counts().items()
             if hasattr(kernel, "kernel_launches")}
 
@@ -3455,8 +3597,7 @@ def phase_thin_kernel(gpu, largest):
     return rows, worst
 
 
-PLAIN_ROWS = {"skeletonize_2d": "skeleton", "distance_transform": "edt",
-              "raw_moments": "moments", "masked_percentile": "frangi"}
+PLAIN_ROWS = {"raw_moments": "moments"}
 
 
 def plain_bound(name, args, out):
@@ -3470,13 +3611,11 @@ def plain_bound(name, args, out):
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
-def plain_library(name, args):
-    """One PyTorch call that computes the same function, as a function, or
-    None: ``torch.quantile`` of ``values[mask]`` for ``masked_percentile``
-    (the selection, the mask's gather beforehand)."""
-    if name != "masked_percentile":
-        return None
-    values, mask, q = args
+def percentile_library(values, mask, q):
+    """One PyTorch call that computes the percentile, as a function, or
+    None when nothing is masked in: ``torch.quantile`` of ``values[mask]``
+    (the selection, the mask's gather, made beforehand; the port never
+    calls it)."""
     sel = values.reshape(-1)[mask.reshape(-1)].float()
     if sel.numel() == 0:
         return None
@@ -3499,11 +3638,10 @@ def cuda_kernels_a_call(fn):
 
 
 def phase_plain_rows(gpu, largest, calls):
-    """The jnp kernels still in plain torch (``skeletonize_2d``,
-    ``distance_transform``, ``raw_moments``, ``masked_percentile``): their largest call on each main path, on its
-    own arguments, timed on a cold L2 (per call and on the device) beside
-    the library call where there is one, the CUDA kernels a call launches
-    and its bound, with the calls each path made.  ``largest``: {path:
+    """The jnp kernel still in plain torch (``raw_moments``): its largest
+    call on each main path, on its own arguments, timed on a cold L2 (per
+    call and on the device), the CUDA kernels a call launches and its
+    bound, with the calls each path made.  ``largest``: {path:
     {name: (size, (args...))}}; ``calls``: {path: {name: calls}}."""
     import importlib
 
@@ -3519,19 +3657,284 @@ def phase_plain_rows(gpu, largest, calls):
             ms, on_device = cold_times(lambda: fn(*args), 3)
             kernels = cuda_kernels_a_call(lambda: fn(*args))
             bound_ms, bound_by = plain_bound(name, args, out)
-            library = plain_library(name, args)
-            library_ms = None if library is None else cold_times(library, 3, on_device=False)[0]
             shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
             print(f"plain torch {name} at the {path} path's largest call ({shapes}): "
                   f"{ms:.4f} ms a call on a cold L2 (on the device {fmt_ms(on_device)}), "
-                  f"library {fmt_ms(library_ms)}, {kernels} CUDA kernels a call, "
+                  f"library none, {kernels} CUDA kernels a call, "
                   f"{calls[path][name]} calls on the path, bound {bound_ms:.6f} ms ({bound_by}) "
                   f"[{gpu}]", flush=True)
             rows[f"{path} {name}"] = {"shapes": shapes, "plain_ms": ms, "device_ms": on_device,
                                       "kernels_a_call": kernels, "calls": calls[path][name],
                                       "bound_ms": bound_ms, "bound_by": bound_by,
-                                      "library_ms": library_ms}
+                                      "library_ms": None}
             del args, out
+    return rows
+
+
+# the last three jnp kernels ported, by kernel: (module, wrapper, the
+# reference line it replaces, the paths that must call it)
+LAST_KERNELS = {
+    "thin2d": ("skeleton", "skeletonize_2d", "nellie_tpu/kernels/skeleton.py:311", ("2D",)),
+    "edt_minplus": ("edt", "distance_transform", "nellie_tpu/kernels/edt.py:218",
+                    ("3D", "2D")),
+    "masked_percentile": ("frangi", "masked_percentile", "nellie_tpu/kernels/frangi.py:226",
+                          ("3D", "2D", "capacity_1024")),
+}
+THIN2D_SHAPES = ((48, 64), (33, 47), (1, 12), (12, 1), (130, 257))
+
+
+def thin2d_bound(mask):
+    """(bound_ms, "bytes") of one 2D thinning: the mask read and the
+    skeleton written once, a byte a pixel each (the list and the frames
+    between the subiterations stay in the L2 and are not counted)."""
+    return 2 * mask.numel() / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def edt_candidates(shape, radii):
+    """The min-plus passes' window candidates: for each axis, each voxel's
+    positions inside the axis within its half window."""
+    numel, total = int(np.prod(shape)), 0
+    for n, r in zip(shape, radii):
+        i = np.arange(n)
+        total += int((np.minimum(n - 1, i + r) - np.maximum(0, i - r) + 1).sum()) * (numel // n)
+    return total
+
+
+def edt_bound(mask, sampling=None, max_radius_px=None):
+    """(bound_ms, bound_by) of one distance transform: the mask read (a
+    byte a voxel) and the float32 distances written once at the memory
+    rate, or the window candidates, an add and a minimum each, at the
+    float32 rate: the larger."""
+    from nellie_tpu_torch.kernels import edt
+
+    shape = tuple(mask.shape)
+    bytes_ms = 5 * mask.numel() / HBM_BYTES_PER_S * 1e3
+    candidates = edt_candidates(shape, edt.window_radii(shape, max_radius_px))
+    ops_ms = 2 * candidates / FP32_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def percentile_bound(values, mask, q=None):
+    """(bound_ms, "bytes") of one percentile: the values and the mask read
+    and the result written once (the plain rows' count); a radix select's
+    few operations a value are far below the float32 rate."""
+    nbytes = values.numel() * values.element_size() + mask.numel() + 4
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+LAST_BOUNDS = {"thin2d": thin2d_bound, "edt_minplus": edt_bound,
+               "masked_percentile": percentile_bound}
+
+
+def check_last(kernel_name, what, args, against_cpu=False):
+    """One call of the kernel's wrapper on CUDA ``args`` against its plain
+    body on the card (and on CPU copies), bit for bit (NaN where NaN);
+    fails unless it launched the kernel once and counted its CUDA kernels.
+    Returns (max |kernel - plain|, the call's ``last_stats``)."""
+    import importlib
+
+    module_name, wrapper, _, _ = LAST_KERNELS[kernel_name]
+    module = importlib.import_module(f"nellie_tpu_torch.kernels.{module_name}")
+    kernel = hand_counts()[kernel_name]
+    before, kernels_before = kernel.launches, kernel.kernel_launches
+    got = getattr(module, wrapper)(*args)
+    stats = kernel.last_stats
+    if kernel.launches != before + 1 or \
+            kernel.kernel_launches != kernels_before + stats["cuda_kernels"]:
+        fail(f"{wrapper} on {what} did not launch {kernel_name} once, or miscounted its kernels")
+    plain = getattr(module, f"{wrapper}_plain")
+    wants = [plain(*args)]
+    if against_cpu:
+        wants.append(plain(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)))
+    for want in wants:
+        if not same_tensor(got.to(want.device), want):
+            fail(f"{kernel_name} differs from its plain body on {what} ({want.device}): "
+                 f"{max_abs_diff(got.float(), want.float())} at most")
+    return max_abs_diff(got.float(), wants[0].float()), stats
+
+
+def phase_last_kernels(gpu, largest, calls, launches):
+    """The 2D thinning (``csrc/thin2d.cu``), the clamped EDT
+    (``csrc/edt_minplus.cu``) and the masked percentile
+    (``csrc/masked_percentile.cu``) against their plain bodies on the card,
+    bit for bit: the synthetic cases (``thin2d_masks`` at
+    ``THIN2D_SHAPES``, ``EDT_CASES``, ``PERCENTILE_CASES`` at each of
+    ``PERCENTILE_QS``; also against CPU copies), then each path's largest
+    call with the caller's own arguments, timed on a cold L2 (per call and
+    on the device) beside the plain body and (the percentile)
+    ``torch.quantile``, with the CUDA kernels a call (the kernel's count and
+    the profiler's), its host reads (``host_reads`` and ``host_wait_ms``:
+    none may wait on the card), its bound and the launches each path made.
+    ``largest``: {path: {wrapper: (size, args on the host)}}; ``calls``:
+    {path: {wrapper: calls}}; ``launches``: {path: {kernel: launches}}.
+    Returns ({kernel: rows}, {kernel: max |kernel - plain|})."""
+    import importlib
+
+    errs = {k: 0.0 for k in LAST_KERNELS}
+    rows = {k: {} for k in LAST_KERNELS}
+    cases = 0
+    for shape in THIN2D_SHAPES:
+        for name, m in thin2d_masks(shape, seed=sum(shape)).items():
+            err, _ = check_last("thin2d", f"{name} {shape}", (torch.from_numpy(m).cuda(),),
+                                against_cpu=True)
+            errs["thin2d"] = max(errs["thin2d"], err)
+            cases += 1
+    print(f"thin2d (through skeletonize_2d) = plain body exactly, on the card and on CPU "
+          f"copies, on {cases} synthetic masks (tubes, blobs, one-pixel lines, a cross and a "
+          f"block on the edges, noise, empty, full at {THIN2D_SHAPES})", flush=True)
+    for k, (name, (_, sampling, radius, _)) in enumerate(EDT_CASES.items()):
+        mask = torch.from_numpy(edt_case_mask(name, seed=k)).cuda()
+        err, _ = check_last("edt_minplus", name, (mask, sampling, radius), against_cpu=True)
+        errs["edt_minplus"] = max(errs["edt_minplus"], err)
+    print(f"edt_minplus (through distance_transform) = plain body bit for bit, on the card and "
+          f"on CPU copies, on {len(EDT_CASES)} cases: {', '.join(EDT_CASES)}", flush=True)
+    for k, name in enumerate(PERCENTILE_CASES):
+        values, mask = (torch.from_numpy(a).cuda() for a in percentile_inputs(name, seed=k))
+        for q in PERCENTILE_QS:
+            err, _ = check_last("masked_percentile", f"{name} at q {q}", (values, mask, q),
+                                against_cpu=True)
+            errs["masked_percentile"] = max(errs["masked_percentile"], err)
+    print(f"masked_percentile = plain body bit for bit (NaN where NaN), on the card and on CPU "
+          f"copies, on {len(PERCENTILE_CASES)} cases at q in {PERCENTILE_QS}: "
+          f"{', '.join(PERCENTILE_CASES)}", flush=True)
+
+    for kernel_name, (module_name, wrapper, _, required) in LAST_KERNELS.items():
+        module = importlib.import_module(f"nellie_tpu_torch.kernels.{module_name}")
+        kernel = hand_counts()[kernel_name]
+        plain = getattr(module, f"{wrapper}_plain")
+        for path, recorded in largest.items():
+            n, host_args = recorded.get(wrapper, (0, None))
+            if host_args is None:
+                if path in required:
+                    fail(f"the {path} path made no {wrapper} call")
+                continue
+            args = tuple(a.cuda() if isinstance(a, torch.Tensor) else a for a in host_args)
+            err, stats = check_last(kernel_name, f"the {path} path's largest call", args)
+            errs[kernel_name] = max(errs[kernel_name], err)
+            fn = lambda: getattr(module, wrapper)(*args)  # noqa: E731
+            profiled = cuda_kernels_a_call(fn)
+            own = kernel.last_stats["cuda_kernels"]
+            wait_ms = host_wait_ms(fn)
+            _, reads = host_reads(fn)
+            if reads or wait_ms >= QUEUED_MS / 2 or stats["host_reads"]:
+                fail(f"{kernel_name} at the {path} path's largest call made {reads} host reads "
+                     f"and returned after {wait_ms:.3f} ms with {QUEUED_MS} ms queued on the "
+                     "card")
+            plain_ms, plain_device = cold_times(lambda: plain(*args), 3)
+            ms, on_device = cold_times(fn, 10)
+            bound_ms, bound_by = LAST_BOUNDS[kernel_name](*args)
+            library = percentile_library(*args) if kernel_name == "masked_percentile" else None
+            library_ms = None if library is None else cold_times(library, 5,
+                                                                 on_device=False)[0]
+            shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
+            n_calls = calls[path].get(wrapper, 0)
+            print(f"{kernel_name} = plain body bit for bit, and its time, at the {path} path's "
+                  f"largest {wrapper} call ({shapes}, "
+                  f"{[a for a in args if not isinstance(a, torch.Tensor)]}, {n_calls} calls and "
+                  f"{launches[path][kernel_name]} launches on the path): kernel {ms:.4f} ms a "
+                  f"call on a cold L2 (on the device {fmt_ms(on_device)}), plain {plain_ms:.4f} "
+                  f"ms (on the device {fmt_ms(plain_device)}), library "
+                  f"{'none' if library is None else f'(torch.quantile of values[mask]) {library_ms:.4f} ms'}; "
+                  f"{own} CUDA kernels a call by the kernel's count ({profiled} device events by "
+                  f"the profiler), {reads} host reads (returned after {wait_ms:.3f} ms with "
+                  f"{QUEUED_MS} ms queued); bound {bound_ms:.6f} ms ({bound_by}), share "
+                  f"{bound_ms / ms:.4g} (on the device {fmt_share(bound_ms, on_device)}) [{gpu}]",
+                  flush=True)
+            rows[kernel_name][path] = {
+                "shapes": shapes, "calls": n_calls, "launches": launches[path][kernel_name],
+                "kernels_a_call": own, "device_events_a_call": profiled,
+                "host_reads_a_call": reads, "host_ms_with_work_queued": wait_ms,
+                "max_abs_err": err, "ms": ms, "device_ms": on_device, "plain_ms": plain_ms,
+                "plain_device_ms": plain_device, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms}
+            del args
+
+    # one design serves every window: each path's largest EDT call again at a
+    # clamp that neither path uses
+    from nellie_tpu_torch.kernels import edt
+
+    for path, recorded in largest.items():
+        _, host_args = recorded.get("distance_transform", (0, None))
+        if host_args is None:
+            continue
+        args = (host_args[0].cuda(), host_args[1], OTHER_EDT_CLAMP)
+        what = f"the {path} path's largest call at clamp {OTHER_EDT_CLAMP}"
+        err, _ = check_last("edt_minplus", what, args)
+        errs["edt_minplus"] = max(errs["edt_minplus"], err)
+        ms, on_device = cold_times(lambda: edt.distance_transform(*args), 10)
+        plain_ms, plain_device = cold_times(lambda: edt.distance_transform_plain(*args), 3)
+        bound_ms, bound_by = edt_bound(*args)
+        print(f"edt_minplus = plain body bit for bit, and its time, at {what} "
+              f"({tuple(args[0].shape)}): kernel {ms:.4f} ms a call on a cold L2 (on the device "
+              f"{fmt_ms(on_device)}), plain {plain_ms:.4f} ms (on the device "
+              f"{fmt_ms(plain_device)}); bound {bound_ms:.6f} ms ({bound_by}), share "
+              f"{bound_ms / ms:.4g} (on the device {fmt_share(bound_ms, on_device)}) [{gpu}]",
+              flush=True)
+        rows["edt_minplus"][f"{path} clamp {OTHER_EDT_CLAMP}"] = {
+            "shapes": [tuple(args[0].shape)], "max_abs_err": err, "ms": ms,
+            "device_ms": on_device, "plain_ms": plain_ms, "plain_device_ms": plain_device,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        del args
+    return rows, errs
+
+
+OTHER_EDT_CLAMP = 15  # a clamp between the Markers' 11 (3D) and 21 (2D)
+
+
+def percentile_contractions(values, mask, q):
+    """The two single-rounding forms of the percentile's s[lo] (1 - frac) +
+    s[hi] frac on the masked values (float32, no NaN or zero among them, as
+    in the Filter's positive sample): A = fma(s[lo], 1 - frac, s[hi] frac),
+    the port's, and B = fma(s[hi], frac, s[lo] (1 - frac)), the other, which
+    the reference's Filter program also takes (ROADMAP, Queue 3)."""
+    from nellie_tpu_torch.kernels import _fp
+
+    s = torch.sort(values.reshape(-1)[mask.reshape(-1)].float()).values
+    level = torch.tensor(float(np.float32(q / 100.0)), device=s.device)
+    pos = level * float(max(s.numel() - 1, 0))
+    lo, hi = torch.floor(pos).long(), torch.ceil(pos).long()
+    frac = pos - lo.float()
+    one = 1.0 - frac
+    return _fp.fma(s[lo], one, s[hi] * frac), _fp.fma(s[hi], frac, s[lo] * one)
+
+
+def phase_percentile_band(gpu, frames):
+    """The size of the open contraction fault (ROADMAP, Queue 3): on every
+    Filter frame of each main path (``finalize_frame``'s input, recorded),
+    the voxels between the port's threshold A and the other contraction B
+    (min < z <= max) and the voxels of the finalized frame that differ
+    between A and max(A, B), the threshold the reference's program acts
+    on.  The port's A is checked against ``masked_percentile`` bit for bit.
+    ``frames``: {path: [(frame on the host, max_samples)]}.  Returns {path:
+    row}."""
+    from nellie_tpu_torch.kernels import filters, frangi, thresholds
+
+    rows = {}
+    for path, recorded in frames.items():
+        band = differ = unequal = voxels = 0
+        for host_frame, max_samples in recorded:
+            frame = host_frame.cuda()
+            sample = thresholds.downsample(
+                frame, thresholds.sample_strides(tuple(frame.shape), max_samples))
+            pos = sample > 0
+            if not (bool(frame.sum() > 0) and bool(pos.any())):
+                continue
+            a, b = percentile_contractions(sample, pos, 1.0)
+            if not same_tensor(a, frangi.masked_percentile(sample, pos, 1.0)):
+                fail(f"the {path} path's percentile is not fma(s[lo], 1 - frac, s[hi] frac)")
+            low, high = torch.minimum(a, b), torch.maximum(a, b)
+            unequal += int(not same_tensor(a, b))
+            band += int(((frame > low) & (frame <= high)).sum())
+            ours = frame * filters.binary_opening(frame > a)
+            theirs = frame * filters.binary_opening(frame > high)
+            differ += int((ours != theirs).sum())
+            voxels += frame.numel()
+        print(f"the percentile's contraction on the {path} path's {len(recorded)} Filter frames "
+              f"({voxels} voxels): A != B on {unequal} frames, {band} voxels in the band "
+              f"min(A, B) < z <= max(A, B), {differ} voxels of the finalized frames differ "
+              f"between the port's threshold A and max(A, B) [{gpu}]", flush=True)
+        rows[path] = {"frames": len(recorded), "voxels": voxels, "frames_a_differs": unequal,
+                      "band_voxels": band, "finalized_voxels_differing": differ}
     return rows
 
 
@@ -4583,7 +4986,7 @@ def compare_tables(got, want, headers, skip):
 
 
 def build_kernels():
-    """Build the twelve CUDA kernels from the checkout, one nvcc each, all
+    """Build the fifteen CUDA kernels from the checkout, one nvcc each, all
     started together; print the seconds."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -4650,9 +5053,12 @@ def main() -> None:
                                          capacity["calls"])
     interp_rows, interp_differ, interp_err = phase_interp_kernel(
         gpu, {"3D": hand["calls"]["flow_interp"], "2D": hand_2d["calls"]["flow_interp"]})
-    fma_rows, fma_err = phase_fma_kernel(gpu, {"3D": hand["fma_largest"],
-                                               "2D": hand_2d["fma_largest"],
-                                               "capacity_1024": capacity["fma_largest"]})
+    # capacity's one fma_f32 call a volume was the percentile's multiply-add,
+    # which the percentile kernel now does
+    fma_largest = {"3D": hand["fma_largest"], "2D": hand_2d["fma_largest"],
+                   "capacity_1024": capacity["fma_largest"]}
+    fma_rows, fma_err = phase_fma_kernel(gpu, {p: v for p, v in fma_largest.items()
+                                               if p != "capacity_1024" or v[1] is not None})
     largest = {"3D": hand["largest"], "2D": hand_2d["largest"],
                "capacity_1024": capacity["largest"]}
     chain_rows, chain_err = phase_chain_kernel(gpu, {p: calls["fma_chain"]
@@ -4667,6 +5073,12 @@ def main() -> None:
     track_rows, track_errs = phase_track_threshold_kernels(
         gpu, largest, {"3D": hand["wrapper_calls"], "2D": hand_2d["wrapper_calls"],
                        "capacity_1024": capacity["wrapper_calls"]})
+    last_rows, last_errs = phase_last_kernels(
+        gpu, largest, {"3D": hand["wrapper_calls"], "2D": hand_2d["wrapper_calls"],
+                       "capacity_1024": capacity["wrapper_calls"]},
+        {"3D": hand["launches"], "2D": hand_2d["launches"], "capacity_1024": capacity["launches"]})
+    last_rows["masked_percentile"]["contraction band"] = phase_percentile_band(
+        gpu, {"3D": hand["filter_frames"], "2D": hand_2d["filter_frames"]})
     phase_plain_rows(gpu, {"3D": hand["largest"], "2D": hand_2d["largest"]},
                      {"3D": hand["wrapper_calls"], "2D": hand_2d["wrapper_calls"]})
     filter_reads = filter_host_reads()
@@ -4700,15 +5112,14 @@ def main() -> None:
     keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     launches_by_path = {name: {"3D": hand["launches"][name], "2D": hand_2d["launches"][name]}
                         for name in hand["launches"]}
-    for name in ("ccl_union_find", "fma_f32", "fma_chain", "gauss_axis", "frangi_tail",
-                 "hist_threshold"):
+    for name in ("fma_f32",) + CAPACITY_KERNELS:
         launches_by_path[name]["capacity_1024"] = capacity["launches"][name]
     # the CUDA kernels of the wrappers that count them (thin26 and nearest_seed
     # run many passes in one, hist_threshold launches two)
     kernel_launches_by_path = {name: {"3D": n, "2D": hand_2d["kernel_launches"][name]}
                                for name, n in hand["kernel_launches"].items()}
-    kernel_launches_by_path["hist_threshold"]["capacity_1024"] = \
-        capacity["kernel_launches"]["hist_threshold"]
+    for name in ("hist_threshold", "masked_percentile"):
+        kernel_launches_by_path[name]["capacity_1024"] = capacity["kernel_launches"][name]
     fma_by_caller = {"3D": hand["fma_by_caller"], "2D": hand_2d["fma_by_caller"],
                      "capacity_1024": capacity["fma_by_caller"]}
     print(json.dumps({"kernels": [
@@ -4785,6 +5196,17 @@ def main() -> None:
               ("roi_stats", "nellie_tpu/kernels/moments.py:111", "3D"),
               ("hist_threshold", "nellie_tpu/kernels/thresholds.py:18",
                "3D min_triangle_otsu"))),
+        *({"name": name, "route": "cuda", "source": f"nellie_tpu_torch/kernels/csrc/{name}.cu",
+           "replaces": LAST_KERNELS[name][2], "launches": hand["launches"][name]
+           if row != "2D" else hand_2d["launches"][name],
+           "max_abs_err": last_errs[name], **{k: last_rows[name][row][k] for k in keys},
+           "launches_by_path": launches_by_path[name],
+           "kernel_launches": hand["kernel_launches"][name] if row != "2D"
+           else hand_2d["kernel_launches"][name],
+           "kernel_launches_by_path": kernel_launches_by_path[name],
+           "paths": last_rows[name]}
+          for name, row in (("thin2d", "2D"), ("edt_minplus", "3D"),
+                            ("masked_percentile", "3D"))),
     ]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

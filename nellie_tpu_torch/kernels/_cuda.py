@@ -130,6 +130,26 @@ class CudaKernel:
         raise NotImplementedError
 
 
+class CountedKernel(CudaKernel):
+    """A :class:`CudaKernel` whose C entry point reports the CUDA kernels it
+    launched: ``kernel_launches`` sums them over the wrapper's calls and
+    ``last_stats`` holds the last call's (``cuda_kernels`` and what the
+    wrapper adds, such as ``host_reads``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.kernel_launches = 0
+        self.last_stats = None
+
+    def count_call(self, kernels: int, **stats):
+        """Count one call of the wrapper that launched ``kernels`` CUDA
+        kernels."""
+        with self._lock:
+            self.launches += 1
+            self.kernel_launches += kernels
+            self.last_stats = {"cuda_kernels": kernels, **stats}
+
+
 def on_card(x, name: str) -> bool:
     """Whether tensor ``x`` takes a hand kernel (a CUDA tensor) or its plain
     version (a CPU tensor); other devices raise."""

@@ -36,8 +36,8 @@
 // writes one a voxel, a few hundred kilobytes that stay in the 50 MB L2.
 // What the design does about it: the whole loop is one cooperative launch
 // (cudaLaunchCooperativeKernel, a grid of one resident wave) whose passes
-// are separated by grid barriers (a counter that only grows, with release
-// and acquire at GPU scope) in place of kernel boundaries, with no host
+// are separated by grid barriers (coop_grid.cuh: a counter that only grows,
+// with release and acquire at GPU scope) in place of kernel boundaries, with no host
 // sync.  Inside the launch:
 //  * phase 0: every block scans its share of the volume for a seed in
 //    object 0 and counts its voxels outside object 0;
@@ -71,16 +71,16 @@
 // launches the kernel once and returns the first CUDA error, with no host
 // read.
 
-#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "coop_grid.cuh"
 
 namespace {
 
 constexpr int THREADS = 512;
 constexpr int MAX_STEPS = 32;
-constexpr int MAX_DEVICES = 64;
 constexpr int FLAG_BARRIER = 0, FLAG_SEED_IN_ZERO = 1, N_FLAGS = 2;  // then a count a block
 
 struct Grid {
@@ -125,40 +125,6 @@ __device__ __forceinline__ float seed_dist(const Grid& g, const int* c, int idx)
   float acc = __fmaf_rn(d[0], d[0], __fmul_rn(d[1], d[1]));
   if (g.ndim == 3) acc = __fmaf_rn(d[2], d[2], acc);
   return acc;
-}
-
-// A grid barrier in two halves: every participating block adds one to a
-// counter that only grows (arrive: the block's writes, ordered before its
-// first thread by the block barrier, released at GPU scope), then waits
-// until the counter reaches this barrier's target (wait: acquired at GPU
-// scope, then handed to the block's threads by the block barrier).  Work
-// that reads nothing the other blocks write before the barrier may run
-// between the two halves.  thin26.cu's barrier adds a full fence on either
-// side; the release and acquire alone order the passes (bit for bit on the
-// card), and a pass is about 0.6 us shorter without the fences.
-__device__ __forceinline__ void barrier_arrive(unsigned int* counter, unsigned int& target,
-                                               unsigned int blocks) {
-  target += blocks;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    cuda::atomic_ref<unsigned int, cuda::thread_scope_device> c(*counter);
-    c.fetch_add(1u, cuda::memory_order_release);
-  }
-}
-
-__device__ __forceinline__ void barrier_wait(unsigned int* counter, unsigned int target) {
-  if (threadIdx.x == 0) {
-    cuda::atomic_ref<unsigned int, cuda::thread_scope_device> c(*counter);
-    while (c.load(cuda::memory_order_acquire) < target) {
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void grid_barrier(unsigned int* counter, unsigned int& target,
-                                             unsigned int blocks) {
-  barrier_arrive(counter, target, blocks);
-  barrier_wait(counter, target);
 }
 
 __device__ __forceinline__ int block_sum(int v, int* scratch) {
@@ -241,7 +207,7 @@ jfa_persistent(Job job) {
     const int sum = block_sum(listed, scratch);
     if (threadIdx.x == 0) flags[N_FLAGS + blockIdx.x] = sum;
   }
-  grid_barrier(counter, target, gridDim.x);
+  coop_grid::barrier(counter, target, gridDim.x);
 
   // phase 1: the list and map, or every voxel; the starting state
   const bool compact = job.obj != nullptr && flags[FLAG_SEED_IN_ZERO] == 0;
@@ -284,7 +250,7 @@ jfa_persistent(Job job) {
     for (long long v = lo + threadIdx.x; v < hi; v += THREADS)
       state[v] = __ldg(job.seeds + v) > 0 ? static_cast<int>(v) : -1;
   }
-  grid_barrier(counter, target, gridDim.x);
+  coop_grid::barrier(counter, target, gridDim.x);
 
   // the passes, over the blocks that hold a slot
   const unsigned int active =
@@ -330,9 +296,9 @@ jfa_persistent(Job job) {
       cur = 1 - cur;
       // the next pass's source (objects and map only) loads while the
       // barrier waits for the other blocks
-      barrier_arrive(counter, target, active);
+      coop_grid::arrive(counter, target, active);
       src = p + 1 < passes ? source_slot(p + 1) : -1;
-      barrier_wait(counter, target);
+      coop_grid::wait(counter, target);
     }
     if (mine) {
       job.labels[v] = best >= 0 ? __ldg(job.seeds + best) : 0;
@@ -361,7 +327,7 @@ jfa_persistent(Job job) {
       to[i] = best;
     }
     cur = 1 - cur;
-    grid_barrier(counter, target, active);
+    coop_grid::barrier(counter, target, active);
   }
   const int* last = job.state[cur];
   for (long long i = first; i < m; i += threads) {
@@ -374,37 +340,6 @@ jfa_persistent(Job job) {
   }
 }
 
-struct Launch {
-  int blocks_per_sm = 0, sms = 0;
-};
-
-// Blocks a multiprocessor can hold and the multiprocessors, once per device.
-cudaError_t launch_shape(Launch& out) {
-  static Launch cache[MAX_DEVICES];
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const bool cached = device >= 0 && device < MAX_DEVICES;
-  if (cached && cache[device].blocks_per_sm > 0) {
-    out = cache[device];
-    return cudaSuccess;
-  }
-  Launch l;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&l.blocks_per_sm, jfa_persistent,
-                                                           THREADS, 0)) != cudaSuccess)
-    return err;
-  if ((err = cudaDeviceGetAttribute(&l.sms, cudaDevAttrMultiProcessorCount, device)) !=
-      cudaSuccess)
-    return err;
-  int coop = 0;
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device)) != cudaSuccess)
-    return err;
-  if (!coop || l.blocks_per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  if (cached) cache[device] = l;
-  out = l;
-  return cudaSuccess;
-}
-
 }  // namespace
 
 extern "C" {
@@ -412,8 +347,8 @@ extern "C" {
 // Int32 scratch the call needs for a volume of n voxels: the list, the map,
 // two state buffers, the flags and a count for each block of the grid
 long long nearest_seed_scratch(int n) {
-  Launch shape;
-  if (launch_shape(shape) != cudaSuccess) return -1;
+  coop_grid::Launch shape;
+  if (coop_grid::launch_shape<jfa_persistent>(THREADS, shape) != cudaSuccess) return -1;
   return 4LL * n + N_FLAGS + (long long)shape.blocks_per_sm * shape.sms;
 }
 
@@ -444,8 +379,8 @@ int nearest_seed(const void* seeds, const void* obj, int ndim, const int* shape,
     g.stride[a] = stride;
     stride *= shape[a];
   }
-  Launch shape_;
-  cudaError_t err = launch_shape(shape_);
+  coop_grid::Launch shape_;
+  cudaError_t err = coop_grid::launch_shape<jfa_persistent>(THREADS, shape_);
   if (err != cudaSuccess) return (int)err;
   const int n = (int)voxels;
   const int grid = shape_.blocks_per_sm * shape_.sms;

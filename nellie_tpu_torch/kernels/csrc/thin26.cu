@@ -30,8 +30,8 @@
 // whole loop, every sweep, direction and round, is one cooperative launch
 // (cudaLaunchCooperativeKernel; at most one block of THREADS an SM, a grid
 // stride over the list of the starting foreground, which only shrinks), and
-// its phases are separated by grid barriers (a counter that only grows,
-// with release and acquire at GPU scope) in place of kernel boundaries and
+// its phases are separated by grid barriers (coop_grid.cuh: a counter that
+// only grows, with release and acquire at GPU scope) in place of kernel boundaries and
 // host reads.  The set of voxels a round still has to decide (the plain
 // body's `remaining`) is kept as a list, so that a phase's threads walk only
 // those voxels:
@@ -64,14 +64,14 @@
 // copy and returns the first CUDA error; stats: rounds, host reads, sweeps,
 // kernels launched.
 
-#include <cuda/atomic>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "coop_grid.cuh"
 
 namespace {
 
 constexpr int THREADS = 512;
-constexpr int MAX_DEVICES = 64;
 
 struct Volume {
   int depth, height, width;
@@ -165,25 +165,6 @@ __device__ __forceinline__ bool blocked_by_lower(const uint8_t* del_now, const V
 __constant__ int DIRECTIONS[6][3] = {{-1, 0, 0}, {1, 0, 0}, {0, -1, 0},
                                    {0, 1, 0},  {0, 0, -1}, {0, 0, 1}};
 
-// A grid barrier for a cooperative launch (every block resident): each
-// block's thread 0 adds one to a counter that only grows and waits until it
-// reaches the barrier's target, with release and acquire ordering at GPU
-// scope, so that the writes of the phase before it are seen by every block
-// after it.
-__device__ __forceinline__ void grid_barrier(unsigned int* counter, unsigned int& target) {
-  target += gridDim.x;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    cuda::atomic_ref<unsigned int, cuda::thread_scope_device> c(*counter);
-    __threadfence();
-    c.fetch_add(1u, cuda::memory_order_release);
-    while (c.load(cuda::memory_order_acquire) < target) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 // The state between phases.  fg and del_now are indexed by voxel
 // (neighbours read them); del_now is 0 on entry, is set by a select phase
 // for the voxels of its work list, and is cleared again for those that
@@ -259,7 +240,7 @@ __device__ __forceinline__ bool run_round(const State& st, int k, int& m, int& m
   }
   bool mine = false;
   if (GRID)
-    grid_barrier(counter, target);
+    coop_grid::barrier(counter, target);
   else
     __syncthreads();
   for (int i = first; i < m; i += stride) {
@@ -271,7 +252,7 @@ __device__ __forceinline__ bool run_round(const State& st, int k, int& m, int& m
   bool any;
   if (GRID) {
     if (mine) flags[FLAG_COMMIT + (k & 1)] = 1;
-    grid_barrier(counter, target);
+    coop_grid::barrier(counter, target);
     any = flags[FLAG_COMMIT + (k & 1)] != 0;
   } else {
     any = __syncthreads_or(mine) != 0;
@@ -311,7 +292,7 @@ thin_persistent(State st) {
           cand_list[atomicAdd(st.flags + FLAG_COUNT + k % 3, 1)] = v;
       }
       if (leader) flags[FLAG_COUNT + (k + 1) % 3] = 0;  // held list k - 2
-      grid_barrier(counter, target);
+      coop_grid::barrier(counter, target);
       int m = flags[FLAG_COUNT + k % 3], m_old = 0;
       ++k;
       bool any = false, go = true;
@@ -339,7 +320,7 @@ thin_persistent(State st) {
             flags[FLAG_LISTS] = k;
           }
         }
-        grid_barrier(counter, target);
+        coop_grid::barrier(counter, target);
         any = flags[FLAG_BLOCK] != 0;
         round = flags[FLAG_ROUNDS];
         k = flags[FLAG_LISTS];
@@ -356,37 +337,6 @@ thin_persistent(State st) {
     flags[FLAG_ROUNDS] = round;
     flags[FLAG_SWEEPS] = sweeps;
   }
-}
-
-struct Launch {
-  int blocks_per_sm = 0, sms = 0;
-};
-
-// Blocks a multiprocessor can hold and the multiprocessors, once per device.
-cudaError_t launch_shape(Launch& out) {
-  static Launch cache[MAX_DEVICES];
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  const bool cached = device >= 0 && device < MAX_DEVICES;
-  if (cached && cache[device].blocks_per_sm > 0) {
-    out = cache[device];
-    return cudaSuccess;
-  }
-  Launch l;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&l.blocks_per_sm, thin_persistent,
-                                                           THREADS, 0)) != cudaSuccess)
-    return err;
-  if ((err = cudaDeviceGetAttribute(&l.sms, cudaDevAttrMultiProcessorCount, device)) !=
-      cudaSuccess)
-    return err;
-  int coop = 0;
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device)) != cudaSuccess)
-    return err;
-  if (!coop || l.blocks_per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  if (cached) cache[device] = l;
-  out = l;
-  return cudaSuccess;
 }
 
 }  // namespace
@@ -408,8 +358,8 @@ int thin26(void* fg, const void* list, int n, void* del_now, void* scratch, cons
     return (int)cudaErrorInvalidValue;
   stats[0] = stats[1] = stats[2] = stats[3] = 0;
   if (n == 0) return (int)cudaSuccess;
-  Launch shape;
-  cudaError_t err = launch_shape(shape);
+  coop_grid::Launch shape;
+  cudaError_t err = coop_grid::launch_shape<thin_persistent>(THREADS, shape);
   if (err != cudaSuccess) return (int)err;
   // at most one block an SM, and no more than the list fills: a barrier
   // waits on fewer blocks, and a thread holds one voxel of a phase or a few

@@ -2,8 +2,13 @@
 
 Port of ``nellie_tpu/kernels/edt.py``:
 
-* ``distance_transform`` (``:217``) is exact: the squared EDT factorises
+* ``distance_transform`` (``:218``) is exact: the squared EDT factorises
   into per-axis windowed min-plus transforms (Felzenszwalb & Huttenlocher).
+  On a CUDA tensor it launches the hand-written kernel
+  ``csrc/edt_minplus.cu`` (one launch an axis, no host read;
+  ``EDT_MINPLUS_KERNEL.launches`` counts the wrapper's calls and
+  ``kernel_launches`` the CUDA kernels), or raises; on a CPU tensor it runs
+  :func:`distance_transform_plain`.
 * ``nearest_seed`` (``:72``) keeps the reference's jump flooding with the
   same JFA+1 step schedule, offset order and strict-``<`` updates, so that
   its rare approximate answers are the reference's too.  An exact nearest
@@ -22,9 +27,10 @@ import itertools
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CudaKernel, check_error, on_card
+from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CountedKernel, check_error, on_card
 from nellie_tpu_torch.kernels._fp import f32, sqrt, sum_of_products
 from nellie_tpu_torch.kernels.ccl import MAX_VOXELS  # int32 indices
 from nellie_tpu_torch.kernels.filters import pad_constant
@@ -119,7 +125,7 @@ def _seed_values(seed_labels: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(idx >= 0, seed_labels.reshape(-1)[torch.clamp(idx, min=0).long()], 0)
 
 
-class _NearestSeedKernel(CudaKernel):
+class _NearestSeedKernel(CountedKernel):
     """The compiled jump flooding (``csrc/nearest_seed.cu``), built once per
     process, with a launch count, a count of the CUDA kernels launched and
     the last call's ``last_stats`` (CUDA kernels, host reads, grid blocks)."""
@@ -127,11 +133,6 @@ class _NearestSeedKernel(CudaKernel):
     source = "nearest_seed.cu"
     flags = (*BASE_FLAGS, "-fmad=false")
     max_voxels = MAX_VOXELS  # int32 voxel indices
-
-    def __init__(self):
-        super().__init__()
-        self.kernel_launches = 0
-        self.last_stats = None
 
     def bind(self, lib):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -183,11 +184,7 @@ class _NearestSeedKernel(CudaKernel):
                 labels.data_ptr(), dist.data_ptr(), stats,
                 torch.cuda.current_stream().cuda_stream)
             check_error("nearest_seed launch", err)
-            with self._lock:
-                self.count_launch()
-                self.kernel_launches += stats[0]
-                self.last_stats = {"cuda_kernels": stats[0], "host_reads": stats[1],
-                                   "blocks": stats[2]}
+            self.count_call(stats[0], host_reads=stats[1], blocks=stats[2])
             return labels, dist
 
 
@@ -212,30 +209,129 @@ def nearest_seed(
     return nearest_seed_plain(seed_labels, obj_labels, sampling, max_radius_px)
 
 
+def window_radii(shape, max_radius_px: Optional[int] = None):
+    """Each axis's half window: ``n - 1``, clamped to ``max_radius_px``."""
+    if max_radius_px is None:
+        return [n - 1 for n in shape]
+    return [min(n - 1, int(max_radius_px)) for n in shape]
+
+
+# the reference unrolls a window of at most this many offsets, its costs
+# constants computed in float64 and rounded once; a wider window runs a
+# loop whose cost (f32(d) * f32(s))^2 XLA computes as f32(d^2) * f32(s^2)
+_UNROLL_MAX = 128
+
+
+def window_costs(radius: int, s: float):
+    """The costs for d = 0..radius as the reference adds them:
+    ``f32((d * s)^2)`` (float64, then rounded) in a window of at most
+    ``_UNROLL_MAX`` offsets, else ``f32(d^2) * f32(f32(s)^2)`` rounded in
+    float32; the kernel takes them as a table."""
+    if 2 * radius + 1 <= _UNROLL_MAX:
+        return [f32((d * s) ** 2) for d in range(radius + 1)]
+    s2 = np.float32(s) * np.float32(s)
+    return [float(np.float32(d * d) * s2) for d in range(radius + 1)]
+
+
 def _minplus_axis(f_sq: torch.Tensor, axis: int, radius: int, s: float) -> torch.Tensor:
     """out[i] = min_{|k|<=radius} f_sq[i+k] + (k*s)^2, out of bounds = +inf."""
     n = f_sq.shape[axis]
     fp = pad_constant(f_sq, axis, radius, radius, float("inf"))
+    costs = window_costs(radius, s)
     out = None
     for k in range(2 * radius + 1):
-        cand = fp.narrow(axis, k, n) + f32(((k - radius) * s) ** 2)
+        cand = fp.narrow(axis, k, n) + costs[abs(k - radius)]
         out = cand if out is None else torch.minimum(out, cand)
     return out
+
+
+def distance_transform_plain(mask: torch.Tensor, sampling: Tuple[float, ...] = None,
+                             max_radius_px: Optional[int] = None) -> torch.Tensor:
+    """:func:`distance_transform` in plain torch: one narrow, add and
+    minimum a window offset an axis."""
+    ndim = mask.ndim
+    if sampling is None:
+        sampling = (1.0,) * ndim
+    f = torch.where(mask, float("inf"), 0.0).float()
+    for axis, r in enumerate(window_radii(mask.shape, max_radius_px)):
+        f = _minplus_axis(f, axis, r, float(sampling[axis]))
+    dist = torch.nan_to_num(sqrt(f), posinf=float(max(mask.shape)))
+    return torch.where(mask, dist, torch.zeros_like(dist))
+
+
+class _EdtMinplusKernel(CountedKernel):
+    """The compiled min-plus passes (``csrc/edt_minplus.cu``), built once
+    per process, with a launch count, a count of the CUDA kernels launched
+    and the last call's ``last_stats`` (CUDA kernels, host reads).  The
+    cost tables are copied to each device once, from pinned memory with no
+    wait, and kept by (device, radius, spacing)."""
+
+    source = "edt_minplus.cu"
+    flags = (*BASE_FLAGS, "-fmad=false")
+
+    def __init__(self):
+        super().__init__()
+        self._costs = {}  # (device index, radius, spacing): float32 table on that device
+
+    def bind(self, lib):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.edt_minplus.argtypes = [ptr, i32, ctypes.POINTER(ctypes.c_longlong),
+                                    ctypes.POINTER(i32), ctypes.POINTER(ptr), ptr, ptr,
+                                    ctypes.POINTER(i32), ptr]
+        lib.edt_minplus.restype = i32
+
+    def costs(self, dev, radius: int, s: float) -> torch.Tensor:
+        key = (dev.index, radius, s)
+        with self._lock:
+            table = self._costs.get(key)
+            if table is None:
+                host = torch.tensor(window_costs(radius, s), dtype=torch.float32).pin_memory()
+                table = self._costs[key] = host.to(dev, non_blocking=True)
+            return table
+
+    def __call__(self, mask: torch.Tensor, sampling=None, max_radius_px=None) -> torch.Tensor:
+        """The distances (float32, on ``mask``'s device) by one C call, one
+        launch an axis, with no host read; ``mask`` a bool CUDA tensor of 1
+        to 3 axes."""
+        ndim = mask.ndim
+        if mask.device.type != "cuda" or not 1 <= ndim <= 3 or mask.dtype != torch.bool:
+            raise TypeError(f"edt_minplus takes a bool CUDA tensor of 1 to 3 axes, not {ndim} "
+                            f"axes of {mask.dtype} on {mask.device}")
+        if mask.numel() > MAX_VOXELS:
+            raise ValueError(f"{mask.numel()} voxels: the EDT kernel takes at most {MAX_VOXELS}")
+        dev = mask.device
+        if sampling is None:
+            sampling = (1.0,) * ndim
+        out = torch.empty(mask.shape, dtype=torch.float32, device=dev)
+        if mask.numel() == 0:
+            return out
+        lib = self._lib or self.build()
+        with self.on_device(dev):
+            radii = window_radii(mask.shape, max_radius_px)
+            tables = [self.costs(dev, r, float(s)) for r, s in zip(radii, sampling)]
+            src = mask.contiguous()
+            work = torch.empty_like(out) if ndim > 1 else out
+            kernels = ctypes.c_int(0)
+            err = lib.edt_minplus(
+                src.data_ptr(), ndim, (ctypes.c_longlong * ndim)(*mask.shape),
+                (ctypes.c_int * ndim)(*radii),
+                (ctypes.c_void_p * ndim)(*(t.data_ptr() for t in tables)), work.data_ptr(),
+                out.data_ptr(), ctypes.byref(kernels), torch.cuda.current_stream(dev).cuda_stream)
+            check_error("edt_minplus launch", err)
+            self.count_call(kernels.value, host_reads=0)
+        return out
+
+
+EDT_MINPLUS_KERNEL = _EdtMinplusKernel()
 
 
 def distance_transform(mask: torch.Tensor, sampling: Tuple[float, ...] = None,
                        max_radius_px: Optional[int] = None) -> torch.Tensor:
     """Distance from each True voxel to the nearest False voxel
     (``scipy.ndimage.distance_transform_edt``); exact within
-    ``max_radius_px``, an over-estimate only beyond it."""
-    ndim = mask.ndim
-    if sampling is None:
-        sampling = (1.0,) * ndim
-    f = torch.where(mask, float("inf"), 0.0).float()
-    for axis in range(ndim):
-        r = mask.shape[axis] - 1
-        if max_radius_px is not None:
-            r = min(r, int(max_radius_px))
-        f = _minplus_axis(f, axis, r, float(sampling[axis]))
-    dist = torch.nan_to_num(sqrt(f), posinf=float(max(mask.shape)))
-    return torch.where(mask, dist, torch.zeros_like(dist))
+    ``max_radius_px``, an over-estimate only beyond it.  A CUDA tensor goes
+    to the hand-written kernel, which takes a bool mask (or raises), a CPU
+    tensor to :func:`distance_transform_plain`."""
+    if on_card(mask, "distance_transform"):
+        return EDT_MINPLUS_KERNEL(mask, sampling, max_radius_px)
+    return distance_transform_plain(mask, sampling, max_radius_px)

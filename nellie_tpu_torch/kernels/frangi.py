@@ -14,7 +14,11 @@ axis (:func:`filters.correlate1d_traced`) and two of ``csrc/frangi_tail.cu``
 component, then, after the frame-wide statistics in torch, the
 eigenvalues, the response, the mask and the running maximum); on a CPU
 frame the plain versions (``hessian_frob_plain``, ``frangi_response_plain``
-over :mod:`hessian` and :mod:`eigen`) compute the same bits.
+over :mod:`hessian` and :mod:`eigen`) compute the same bits.  The
+finalize's 1st percentile is a radix select on a CUDA frame
+(``csrc/masked_percentile.cu``, :data:`MASKED_PERCENTILE_KERNEL`, no host
+read) and :func:`masked_percentile_plain` on a CPU one; the finalize keeps
+its two predicates on the frame's device.
 
 ``carry_dtype="float16"`` stores the cascade's carries as float16, as the
 reference's program does: the frame divided by its largest |value|, each
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 
 from nellie_tpu_torch.kernels import eigen, filters, thresholds
-from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CudaKernel, check_error, on_card
+from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CountedKernel, CudaKernel, check_error, on_card
 from nellie_tpu_torch.kernels._fp import exp, f32, fma, sqrt, sum_of_products
 from nellie_tpu_torch.kernels.hessian import (
     fused_axes,
@@ -422,38 +426,107 @@ def cascade_radius(params: FrangiParams, ndim: int, axis: int) -> int:
     return len(params.sigmas) * (taps // 2) + 2
 
 
-def masked_percentile(values: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:
-    """Percentile (linear interpolation) of values[mask]."""
+def masked_percentile_plain(values: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:
+    """:func:`masked_percentile` in plain torch: a host read of the count,
+    a full sort and one fused multiply-add.  The sort is the reference's:
+    stable, -0 tied with +0, NaN last; it sorts keys with every zero +0 and
+    every NaN one NaN, and takes the values in their order."""
     flat = values.reshape(-1).float()
     m = mask.reshape(-1)
     n_valid = int(m.sum())
     if n_valid == 0:
         return torch.zeros((), device=flat.device)
-    s = torch.sort(torch.where(m, flat, torch.full_like(flat, float("inf")))).values
+    v = torch.where(m, flat, torch.full_like(flat, float("inf")))
+    keys = torch.where(v == 0, torch.zeros_like(v), v)
+    keys = torch.where(torch.isnan(v), torch.full_like(v, float("nan")), keys)
+    order = torch.sort(keys, stable=True).indices
     pos = torch.tensor(f32(q / 100.0), device=flat.device) * float(max(n_valid - 1, 0))
     lo = torch.floor(pos).long()
     hi = torch.ceil(pos).long()
     frac = pos - lo.float()
-    return fma(s[lo], 1.0 - frac, s[hi] * frac)
+    return fma(v[order[lo]], 1.0 - frac, v[order[hi]] * frac)
+
+
+class _MaskedPercentileKernel(CountedKernel):
+    """The compiled radix select (``csrc/masked_percentile.cu``), built once
+    per process, with a launch count, a count of the CUDA kernels launched
+    and the last call's ``last_stats`` (CUDA kernels, host reads)."""
+
+    source = "masked_percentile.cu"
+    flags = (*BASE_FLAGS, "-fmad=false")
+
+    def bind(self, lib):
+        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+        lib.masked_percentile_scratch_bytes.argtypes = []
+        lib.masked_percentile_scratch_bytes.restype = i64
+        lib.masked_percentile.argtypes = [ptr, ptr, i64, i64, i64, ctypes.c_float, ptr, ptr,
+                                          ctypes.POINTER(ctypes.c_int), ptr]
+        lib.masked_percentile.restype = ctypes.c_int
+
+    def __call__(self, values: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:
+        """The percentile as a 0-dim float32 tensor on ``values``' CUDA
+        device, by one C call with no host read; ``mask`` bool of the
+        values' size, ``q`` in [0, 100].  A flat strided view is read in
+        place; values of another float type are first copied to float32."""
+        if values.device.type != "cuda" or not values.dtype.is_floating_point:
+            raise TypeError(f"the percentile kernel takes a floating-point CUDA tensor, not "
+                            f"{values.dtype} on {values.device}")
+        if mask.dtype != torch.bool or mask.device != values.device or \
+                mask.numel() != values.numel():
+            raise ValueError("the percentile kernel takes a bool mask of the values' size on "
+                             "their device")
+        q100 = f32(q / 100.0)
+        if not 0.0 <= q100 <= 1.0:
+            raise ValueError(f"the percentile kernel takes q in [0, 100], not {q}")
+        dev = values.device
+        out = torch.zeros((), dtype=torch.float32, device=dev)
+        if values.numel() == 0:
+            return out
+        lib = self._lib or self.build()
+        with self.on_device(dev):
+            flat = values.reshape(-1).float()
+            m = mask.reshape(-1)
+            scratch = torch.empty(lib.masked_percentile_scratch_bytes(), dtype=torch.uint8,
+                                  device=dev)
+            kernels = ctypes.c_int(0)
+            err = lib.masked_percentile(flat.data_ptr(), m.data_ptr(), flat.numel(),
+                                        flat.stride(0), m.stride(0), q100, scratch.data_ptr(),
+                                        out.data_ptr(), ctypes.byref(kernels),
+                                        torch.cuda.current_stream(dev).cuda_stream)
+            check_error("masked_percentile launch", err)
+            self.count_call(kernels.value, host_reads=0)
+        return out
+
+
+MASKED_PERCENTILE_KERNEL = _MaskedPercentileKernel()
+
+
+def masked_percentile(values: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:
+    """Percentile (linear interpolation) of values[mask], 0 when nothing is
+    masked in.  A CUDA tensor goes to the hand-written kernel (or raises),
+    a CPU tensor to :func:`masked_percentile_plain`."""
+    if on_card(values, "masked_percentile"):
+        return MASKED_PERCENTILE_KERNEL(values, mask, q)
+    return masked_percentile_plain(values, mask, q)
 
 
 def mask_volume(frangi_frame: torch.Tensor, max_samples: int = int(1e6)) -> torch.Tensor:
-    """1st-percentile threshold of the positive sample + binary opening."""
+    """1st-percentile threshold of the positive sample + binary opening;
+    the frame as it is when no sampled value is positive (decided on the
+    frame's device, as the reference's ``jnp.where``)."""
     strides = thresholds.sample_strides(tuple(frangi_frame.shape), max_samples)
     sample = thresholds.downsample(frangi_frame, strides)
     pos = sample > 0
-    if not bool(pos.any()):
-        return frangi_frame
     thr = masked_percentile(sample, pos, 1.0)
     mask = filters.binary_opening(frangi_frame > thr)
-    return frangi_frame * mask
+    return torch.where(pos.any(), frangi_frame * mask, frangi_frame)
 
 
 def finalize_frame(frangi_frame: torch.Tensor, max_samples: int = int(1e6)) -> torch.Tensor:
-    """Percentile-mask refinement, applied only when the frame has signal."""
-    if not bool(frangi_frame.sum() > 0):
-        return frangi_frame
-    return mask_volume(frangi_frame, max_samples)
+    """Percentile-mask refinement, applied only when the frame has signal
+    (decided on the frame's device, as the reference's ``lax.cond``)."""
+    return torch.where(frangi_frame.sum() > 0, mask_volume(frangi_frame, max_samples),
+                       frangi_frame)
 
 
 def remove_edges_frame(frangi_frame: torch.Tensor) -> torch.Tensor:

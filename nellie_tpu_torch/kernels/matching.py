@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from nellie_tpu_torch.device import resolve_device
-from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CudaKernel, check_error, on_card
+from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CountedKernel, check_error, on_card
 from nellie_tpu_torch.kernels._fp import (
     REDUCE_WINDOW,
     f32,
@@ -97,7 +97,7 @@ def _raw_stream(dev):
                                                else torch.cuda.current_device())
 
 
-class _PairSumsKernel(CudaKernel):
+class _PairSumsKernel(CountedKernel):
     """The compiled pair sums (``csrc/pair_sums.cu``), built once per
     process, with a launch count and a count of the CUDA kernels
     launched.  The packed result reaches a pinned host buffer kept for the
@@ -109,7 +109,6 @@ class _PairSumsKernel(CudaKernel):
 
     def __init__(self):
         super().__init__()
-        self.kernel_launches = 0
         self._host = {}  # (device index, stream, words): pinned int32 host buffer
 
     def bind(self, lib):
@@ -158,8 +157,7 @@ class _PairSumsKernel(CudaKernel):
                                     buf[words:].data_ptr(), buf.data_ptr(),
                                     ctypes.byref(kernels), stream)
                 check_error("pair_sums launch", err)
-                self.count_launch()
-                self.kernel_launches += kernels.value
+                self.count_call(kernels.value)
                 key = (dev.index, stream, 2 + 2 * s)
                 host = self._host.get(key)
                 if host is None:
@@ -248,7 +246,7 @@ def pair_costs_plain(coords_post, coords_pre, feats_post, feats_pre, max_distanc
     return row_min_val, row_min_idx, col_min_val, col_min_idx
 
 
-class _PairCostsKernel(CudaKernel):
+class _PairCostsKernel(CountedKernel):
     """The compiled pair costs (``csrc/pair_costs.cu``), built once per
     process, with a launch count and a count of the CUDA kernels
     launched.  A call's keys (scratch, cleared by the call's memset) are
@@ -259,7 +257,6 @@ class _PairCostsKernel(CudaKernel):
 
     def __init__(self):
         super().__init__()
-        self.kernel_launches = 0
         self._keys = {}  # (device index, stream): int64 keys on that device
 
     def bind(self, lib):
@@ -309,8 +306,7 @@ class _PairCostsKernel(CudaKernel):
                                      _weights(n_feat, n_stats), keys.data_ptr(), out.data_ptr(),
                                      ctypes.byref(kernels), stream)
                 check_error("pair_costs launch", err)
-                self.count_launch()
-                self.kernel_launches += kernels.value
+                self.count_call(kernels.value)
         vals, idx = out[:(n + 1) // 2].view(torch.float32), out[(n + 1) // 2:]
         return vals[:n_post], idx[:n_post], vals[n_post:n], idx[n_post:]
 

@@ -27,7 +27,7 @@ from math import comb
 
 import torch
 
-from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CudaKernel, check_error, on_card
+from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CountedKernel, check_error, on_card
 from nellie_tpu_torch.kernels._fp import (
     _TINY, ADD, FMA, MUL, R0, accumulate, contract, flush, fma, log10)
 from nellie_tpu_torch.kernels._fp import pow as pow_f32
@@ -203,17 +203,13 @@ def masked_mean_variance_plain(images: torch.Tensor) -> torch.Tensor:
     return torch.stack([mean, var], dim=1)
 
 
-class _RoiStatsKernel(CudaKernel):
+class _RoiStatsKernel(CountedKernel):
     """The compiled ROI statistics (``csrc/roi_stats.cu``), built once per
     process, with a launch count and a count of the CUDA kernels
     launched."""
 
     source = "roi_stats.cu"
     flags = (*BASE_FLAGS, "-fmad=false")
-
-    def __init__(self):
-        super().__init__()
-        self.kernel_launches = 0
 
     def bind(self, lib):
         ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
@@ -239,9 +235,7 @@ class _RoiStatsKernel(CudaKernel):
             err = lib.roi_stats(flat.data_ptr(), n, flat.shape[1], out.data_ptr(),
                                 ctypes.byref(kernels), torch.cuda.current_stream().cuda_stream)
             check_error("roi_stats launch", err)
-            with self._lock:
-                self.count_launch()
-                self.kernel_launches += kernels.value
+            self.count_call(kernels.value)
             return out
 
     def chain_floor(self, roi: torch.Tensor) -> torch.Tensor:

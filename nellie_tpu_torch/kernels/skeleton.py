@@ -23,7 +23,11 @@ parity index (``:233-279``), so parallel commits equal some sequential
 order of simple-point deletions.
 
 ``skeletonize_2d`` (``:286-319``) runs Zhang–Suen's two subiterations
-until a pass deletes nothing.
+until a pass deletes nothing.  On a CUDA tensor it launches the
+hand-written kernel ``csrc/thin2d.cu`` (one persistent cooperative launch
+runs every pass, with no host read; ``THIN2D_KERNEL.launches`` and
+``kernel_launches`` count as ``THIN26_KERNEL``'s do), or raises; on a CPU
+tensor it runs :func:`skeletonize_2d_plain`.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ import ctypes
 
 import torch
 
-from nellie_tpu_torch.kernels._cuda import CudaKernel, check_error, on_card
+from nellie_tpu_torch.kernels._cuda import CountedKernel, CudaKernel, check_error, on_card
 from nellie_tpu_torch.kernels.ccl import MAX_VOXELS  # int32 indices
 from nellie_tpu_torch.kernels.filters import shift_fill
 from nellie_tpu_torch.kernels.simple_point import OFFSETS_26, get_simple26_lut
@@ -217,14 +221,70 @@ def _zs_pass(fg: torch.Tensor, first: bool) -> torch.Tensor:
     return fg & ~delete
 
 
-def skeletonize_2d(mask: torch.Tensor) -> torch.Tensor:
-    """2D Zhang–Suen thinning of a boolean mask."""
+def skeletonize_2d_plain(mask: torch.Tensor) -> torch.Tensor:
+    """:func:`skeletonize_2d` in plain torch: eight shifted copies of the
+    frame a subiteration, and a host read a pass to compare the frame with
+    the one before."""
     fg = mask.bool()
     while True:
         new = _zs_pass(_zs_pass(fg, True), False)
         if torch.equal(new, fg):
             return new
         fg = new
+
+
+class _Thin2dKernel(CountedKernel):
+    """The compiled Zhang–Suen thinning (``csrc/thin2d.cu``), built once per
+    process, with a launch count, a count of the CUDA kernels launched and
+    the last call's ``last_stats`` (CUDA kernels, host reads)."""
+
+    source = "thin2d.cu"
+
+    def bind(self, lib):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.thin2d_scratch_bytes.argtypes = [i32, i32]
+        lib.thin2d_scratch_bytes.restype = ctypes.c_longlong
+        lib.thin2d.argtypes = [ptr, ptr, ptr, i32, i32, ctypes.POINTER(i32), ptr]
+        lib.thin2d.restype = i32
+
+    def __call__(self, mask: torch.Tensor) -> torch.Tensor:
+        """The thinned frame (bool, on ``mask``'s device) by one C call
+        with no host read; ``mask`` a 2D CUDA tensor, bool or uint8 as it
+        is, any other type compared with 0."""
+        if mask.device.type != "cuda" or mask.ndim != 2:
+            raise TypeError(f"thin2d takes a 2D CUDA tensor, not {mask.ndim}D on {mask.device}")
+        n = mask.numel()
+        if n > MAX_VOXELS:
+            raise ValueError(f"{n} pixels: the 2D thinning kernel's int32 indices take at most "
+                             f"{MAX_VOXELS}")
+        dev = mask.device
+        out = torch.empty(mask.shape, dtype=torch.bool, device=dev)
+        if n == 0:
+            return out
+        lib = self._lib or self.build()
+        with self.on_device(dev):
+            src = mask if mask.dtype in (torch.bool, torch.uint8) else mask != 0
+            src = src.contiguous()
+            scratch = torch.empty(lib.thin2d_scratch_bytes(*mask.shape), dtype=torch.uint8,
+                                  device=dev)
+            kernels = ctypes.c_int(0)
+            err = lib.thin2d(src.data_ptr(), out.data_ptr(), scratch.data_ptr(), *mask.shape,
+                             ctypes.byref(kernels), torch.cuda.current_stream(dev).cuda_stream)
+            check_error("thin2d launch", err)
+            self.count_call(kernels.value, host_reads=0)
+        return out
+
+
+THIN2D_KERNEL = _Thin2dKernel()
+
+
+def skeletonize_2d(mask: torch.Tensor) -> torch.Tensor:
+    """2D Zhang–Suen thinning of a boolean mask.  A CUDA tensor goes to the
+    hand-written kernel (or raises), a CPU tensor to
+    :func:`skeletonize_2d_plain`."""
+    if on_card(mask, "skeletonize_2d"):
+        return THIN2D_KERNEL(mask)
+    return skeletonize_2d_plain(mask)
 
 
 def skeletonize(mask: torch.Tensor, lut: torch.Tensor = None) -> torch.Tensor:

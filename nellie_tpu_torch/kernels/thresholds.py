@@ -29,7 +29,7 @@ import ctypes
 import numpy as np
 import torch
 
-from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CudaKernel, check_error, on_card
+from nellie_tpu_torch.kernels._cuda import BASE_FLAGS, CountedKernel, check_error, on_card
 from nellie_tpu_torch.kernels._fp import REDUCE_WINDOW, fma, sqrt, sum_of_products
 
 _SCAN_BLOCK = 16
@@ -195,7 +195,7 @@ def min_triangle_otsu_plain(values: torch.Tensor, mask=None, nbins: int = 256):
     return torch.minimum(*triangle_and_otsu_plain(values, mask, nbins))
 
 
-class _HistThresholdKernel(CudaKernel):
+class _HistThresholdKernel(CountedKernel):
     """The compiled histogram thresholds (``csrc/hist_threshold.cu``), built
     once per process, with a launch count and a count of the CUDA kernels
     launched.  A call's scratch (its counters, counts and record of the
@@ -207,7 +207,6 @@ class _HistThresholdKernel(CudaKernel):
 
     def __init__(self):
         super().__init__()
-        self.kernel_launches = 0
         self._scratch = {}  # (device index, stream): scratch bytes on that device
 
     def bind(self, lib):
@@ -255,8 +254,7 @@ class _HistThresholdKernel(CudaKernel):
                                          None if any_valid is None else any_valid.data_ptr(),
                                          ctypes.byref(kernels), stream)
                 check_error("hist_threshold launch", err)
-                self.count_launch()
-                self.kernel_launches += kernels.value
+                self.count_call(kernels.value)
             return out, any_valid
 
     def __call__(self, values: torch.Tensor, mask=None, nbins: int = 256):

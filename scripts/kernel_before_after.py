@@ -35,7 +35,11 @@ importing the package of its own tree:
   3D, 2D and capacity paths' largest call of each, with their callers' own
   arguments;
 - each tree's 3D thinning (``skeleton.skeletonize_3d``) on the 3D main
-  path's largest Network mask, and its fused multiply-add (``_fp.fma``) on
+  path's largest Network mask, its 2D thinning
+  (``skeleton.skeletonize_2d``) on the 2D path's, its distance transform
+  (``edt.distance_transform``) on the 3D and 2D paths' largest Markers
+  calls and its masked percentile (``frangi.masked_percentile``) on the
+  3D, 2D and capacity paths' largest calls, and its fused multiply-add (``_fp.fma``) on
   the 3D path's largest ``fma_f32`` call, then ``_fp.log``, ``_fp.exp``,
   ``_fp.sum_of_products`` (three pairs) and ``_fp.reduce_sum_of_squares``
   (three columns) on 4,194,304 seeded values: a digest, the time per call
@@ -43,9 +47,10 @@ importing the package of its own tree:
   multiply-add kernels' launches a call (one a contracted step on a tree
   without the chains);
 - the fused segmentation chain (``FusedSegmentation.run(fence_stages=True)``)
-  on the 3D main series, once to warm up and once timed: its wall, Filter
-  and Network seconds, and a digest of every file it wrote (the script
-  names the files that differ between the trees);
+  on the 3D main series and on the 2D movie, each once to warm up and once
+  timed: its wall, Filter, Network and Markers seconds, and a digest of
+  every file it wrote (the script names the files that differ between the
+  trees);
 - ``run`` on the 3D main series and on the 2D movie: the seconds of each
   stage (tracking's among them) and a digest of every file written, the
   flow vectors and the feature CSVs among them;
@@ -153,7 +158,15 @@ def child(tree, rows_path, out_path, label):
             wall, stages = chip_smoke.fused_segmentation_seconds(
                 root, name, chip_smoke.MAIN_SHAPE, fence=True)
         result.update(seg_fused=wall, filter=stages["filter"], network=stages["network"],
+                      markers=stages["markers"],
                       artifacts=artifact_digests(os.path.join(root, "timed")))
+        for name in ("warm-up 2D", "timed 2D"):
+            wall, stages = chip_smoke.fused_segmentation_seconds(
+                root, name, chip_smoke.MAIN_SHAPE_2D, fence=True)
+        result.update(seg_fused_2d=wall, filter_2d=stages["filter"],
+                      network_2d=stages["network"], markers_2d=stages["markers"])
+        result["artifacts"].update({f"2D/{name}": d for name, d in
+                                    artifact_digests(os.path.join(root, "timed 2D")).items()})
         for tag, shape in (("3D", chip_smoke.MAIN_SHAPE), ("2D", chip_smoke.MAIN_SHAPE_2D)):
             directory = os.path.join(root, f"whole{tag}")
             _, timings = run(chip_smoke.write_series(directory, shape), device="cuda",
@@ -230,7 +243,8 @@ def tail_call(name):
 
 # the rows whose earlier version is plain torch of many launches a call
 SLOW_ON_EARLIER = ("pair_stats", "pair_costs", "masked_mean_variance", "min_triangle_otsu",
-                   "otsu_threshold", "triangle_threshold", "triangle_and_otsu")
+                   "otsu_threshold", "triangle_threshold", "triangle_and_otsu",
+                   "skeletonize_2d", "distance_transform", "masked_percentile")
 
 
 def pair_sums(*args):
@@ -271,7 +285,7 @@ def kernel_rows(rows):
     multiply-add rows, on this process's package."""
     import numpy as np
 
-    from nellie_tpu_torch.kernels import _fp, edt, filters, moments, skeleton
+    from nellie_tpu_torch.kernels import _fp, edt, filters, frangi, moments, skeleton
 
     def cuda(args):
         return tuple(a.cuda() if isinstance(a, torch.Tensor) else a for a in args)
@@ -295,6 +309,11 @@ def kernel_rows(rows):
             **{row: (threshold_call(row.split()[0]), cuda(args))
                for row, args in rows["thresholds"].items()},
             "thin26": (skeleton.skeletonize_3d, cuda(rows["thin26"])),
+            "skeletonize_2d 2D": (skeleton.skeletonize_2d, cuda(rows["thin2d"])),
+            **{f"distance_transform {path}": (edt.distance_transform, cuda(args))
+               for path, args in rows["edt"].items()},
+            **{f"masked_percentile {path}": (frangi.masked_percentile, cuda(args))
+               for path, args in rows["percentile"].items()},
             "fma_f32 3D largest": (_fp.fma, cuda(rows["fma"])),
             "log": (_fp.log, (positive,)),
             "exp": (_fp.exp, (a * 4,)),
@@ -330,6 +349,13 @@ def record(rows_path):
                    for row, args in rows.items()}
             for kind, rows in (("ccl", ccl_rows), ("interp", interp_rows))}
     host["thin26"] = hand["largest"]["skeletonize_3d"][1]  # (mask, table) on the host
+    host["thin2d"] = hand_2d["largest"]["skeletonize_2d"][1]
+    host["edt"] = {"3D": hand["largest"]["distance_transform"][1],
+                   "2D": hand_2d["largest"]["distance_transform"][1]}
+    host["percentile"] = {path: largest["masked_percentile"][1]
+                          for path, largest in (("3D", hand["largest"]),
+                                                ("2D", hand_2d["largest"]),
+                                                ("capacity", capacity["largest"]))}
     host["gauss"] = {"3D": ("correlate1d_traced", hand["largest"]["correlate1d_traced"][1]),
                      "2D": ("correlate1d_traced", hand_2d["largest"]["correlate1d_traced"][1]),
                      "3D LoG": ("_correlate1d", hand["largest"]["_correlate1d"][1])}
@@ -415,15 +441,19 @@ def main() -> None:
         sys.exit("the two trees' capacity runs found different label counts")
     differ = sorted(name for name in turns[0]["artifacts"]
                     if len({t["artifacts"].get(name) for t in turns}) != 1)
-    print(f"the fused chain's files on the 3D main series: {len(turns[0]['artifacts'])}, "
+    print(f"the fused chain's files on the 3D and 2D main series and run's on both: "
+          f"{len(turns[0]['artifacts'])}, "
           f"differing between the trees: {differ or 'none'}", flush=True)
-    seconds = [{k: t[k] for k in ("tree", "seg_fused", "filter", "network", "capacity",
-                                  "vesselness", "thresholds", "run 3D", "run 2D",
+    seconds = [{k: t[k] for k in ("tree", "seg_fused", "filter", "network", "markers",
+                                  "seg_fused_2d", "filter_2d", "network_2d", "markers_2d",
+                                  "capacity", "vesselness", "thresholds", "run 3D", "run 2D",
                                   "filter_host_reads")}
                for t in turns]
     print("seconds by turn: " + "; ".join(
         f"{s['tree']}: seg_fused {s['seg_fused']:.3f}, filter {s['filter']:.3f}, network "
-        f"{s['network']:.3f}, tracking 3D {s['run 3D']['tracking']:.3f}, tracking 2D "
+        f"{s['network']:.3f}, markers {s['markers']:.3f}, 2D seg_fused "
+        f"{s['seg_fused_2d']:.3f}, filter {s['filter_2d']:.3f}, network "
+        f"{s['network_2d']:.3f}, markers {s['markers_2d']:.3f}, tracking 3D {s['run 3D']['tracking']:.3f}, tracking 2D "
         f"{s['run 2D']['tracking']:.3f}, capacity {s['capacity']:.3f}, vesselness "
         f"{s['vesselness']:.3f}, thresholds {s['thresholds']:.3f}, Filter host reads "
         f"{s['filter_host_reads']}" for s in seconds)

@@ -1,13 +1,16 @@
 """How ``kernels/_cuda.py::CudaKernel`` names a built library: a hash of
 the ``.cu`` source, of every ``csrc/`` header it includes by a quoted
 name, and of the flags, so that a change to any of them builds anew.  No
-``nvcc`` is needed: the name is computed before any build.
+``nvcc`` is needed: the name is computed before any build.  The four
+persistent cooperative kernels share one grid barrier and launch shape
+(``csrc/coop_grid.cuh``), and ``CountedKernel.count_call`` keeps a
+wrapper's counts.
 """
 import shutil
 
 import pytest
 
-from nellie_tpu_torch.kernels import _cuda, filters, frangi
+from nellie_tpu_torch.kernels import _cuda, edt, filters, frangi, skeleton
 
 SOURCES = ["frangi_tail.cu", "gauss_axis.cu", "fma_f32.cu", "nn_argmin.cu", "ccl_union_find.cu",
            "flow_interp.cu"]
@@ -56,3 +59,33 @@ def test_an_unrelated_header_does_not_rename(csrc):
     before = frangi._FrangiTailKernel().library_path()
     (csrc / "unused.cuh").write_text("// not included\n")
     assert frangi._FrangiTailKernel().library_path() == before
+
+
+COOPERATIVE = {"thin26.cu": skeleton.THIN26_KERNEL, "nearest_seed.cu": edt.NEAREST_SEED_KERNEL,
+               "thin2d.cu": skeleton.THIN2D_KERNEL,
+               "masked_percentile.cu": frangi.MASKED_PERCENTILE_KERNEL}
+
+
+@pytest.mark.parametrize("source", list(COOPERATIVE))
+def test_cooperative_kernels_share_one_barrier(source):
+    kernel = COOPERATIVE[source]
+    assert kernel.source == source
+    assert [p.split("/")[-1] for p in kernel.headers()] == ["coop_grid.cuh"]
+    with open(kernel.source_path) as f:
+        text = f.read()
+    for own in ("__device__ __forceinline__ void grid_barrier", "cudaError_t launch_shape",
+                "cudaOccupancyMaxActiveBlocksPerMultiprocessor", "atomic_ref"):
+        assert own not in text
+    assert "coop_grid::launch_shape<" in text and "coop_grid::barrier(" in text
+
+
+def test_count_call():
+    class Kernel(_cuda.CountedKernel):
+        source = "thin2d.cu"
+
+    kernel = Kernel()
+    assert (kernel.launches, kernel.kernel_launches, kernel.last_stats) == (0, 0, None)
+    kernel.count_call(2, host_reads=0)
+    kernel.count_call(3)
+    assert (kernel.launches, kernel.kernel_launches) == (2, 5)
+    assert kernel.last_stats == {"cuda_kernels": 3}
