@@ -212,13 +212,17 @@ Filter's arithmetic or Network's nearest seed launched either), and phase
 version (``_fp.run_steps``) on synthetic programs of each of its kernels'
 forms and on each path's largest chain, timed beside its bound and one
 ``torch.addcmul`` over as many elements.  It holds the 2D thinning
-(``csrc/thin2d.cu``), the clamped EDT (``csrc/edt_minplus.cu``) and the
-masked percentile (``csrc/masked_percentile.cu``) bit for bit to their
-plain bodies on ``thin2d_masks``, ``EDT_CASES`` and ``PERCENTILE_CASES``
-and at each path's largest call (the EDT's again at a clamp neither path
-uses, ``OTHER_EDT_CLAMP``), and counts, on every Filter frame of both main
-paths, the voxels between the percentile's two contractions (ROADMAP,
-Queue 3).
+(``csrc/thin2d.cu``), the clamped EDT (``csrc/edt_minplus.cu``), the
+masked percentile's two forms (``csrc/masked_percentile.cu``) and the
+log-Hu features (``csrc/hu_features.cu``) bit for bit to their plain
+bodies on ``thin2d_masks``, ``EDT_CASES``, ``PERCENTILE_CASES`` and
+``HU_CASES`` and at each path's largest call (the EDT's again at a clamp
+neither path uses, ``OTHER_EDT_CLAMP``); on every Filter frame of both
+main paths it holds the finalize's per-term rule (``frangi.FINALIZE_FORMS``)
+card = CPU and counts the voxels between the percentile's two forms, and
+on ``finalize_cross_frame``'s frames it checks each cross against the
+table.  Phases 4 and 6 print tracking's CUDA kernels, the stage rerun
+alone under the profiler (``tracking_launches``).
 
 Phase 5 holds the flow costs card = CPU exactly (the Hu moments' powers
 round as XLA's CPU code rounds them, ``kernels/_fp.py::pow``).
@@ -686,6 +690,36 @@ def check_tables(im_info, skip_nodes):
     return tables
 
 
+def tracking_launches(im_info, flow_path):
+    """The tracking stage alone (``HuMomentTracking(im_info,
+    device="cuda").run()``, as ``run`` calls it by default) on a series whose
+    other stages have run, under ``torch.profiler``, writing its flow vectors
+    to ``flow_path`` so that the series' own artifact stays as ``run`` wrote
+    it: its CUDA kernels, its copies and memsets (device events apart from
+    the kernels), its seconds with the profiler on, and whether its flow
+    vectors equal the series' byte for byte."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nellie_tpu_torch.stages.hu_tracking import HuMomentTracking
+
+    class Profiled(HuMomentTracking):
+        def _allocate_memory(self):
+            super()._allocate_memory()
+            self.flow_vector_array_path = flow_path
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        Profiled(im_info, device="cuda").run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(1 for n in names if n.startswith(("Memcpy", "Memset")))
+    same = np.load(flow_path).tobytes() == artifact(im_info, "flow_vector_array").tobytes()
+    return {"cuda_kernels": len(names) - copies, "memcpy_memset": copies, "seconds": seconds,
+            "same_flow": same}
+
+
 def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
     """Drive ``run`` on the card on a series of ``shape`` (3D or 2D), with
     the kernel's launch count set to 0 just before and read just after;
@@ -760,8 +794,17 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
           f"({kernel_launches['masked_percentile']} CUDA kernels)", flush=True)
     print(f"{tag}tracking's and the thresholds' kernels on the main path: "
           + ", ".join(f"{k} {hand[k]} calls ({kernel_launches[k]} CUDA kernels)"
-                      for k in ("pair_sums", "pair_costs", "roi_stats", "hist_threshold")),
+                      for k in ("hu_features", "pair_sums", "pair_costs", "roi_stats",
+                                "hist_threshold")),
           flush=True)
+    tracking = tracking_launches(im_info, os.path.join(root, f"flow_profiled{tag.strip()}.npy"))
+    print(f"{tag}tracking alone on the main path's artifacts (HuMomentTracking.run under "
+          f"torch.profiler): {tracking['cuda_kernels']} CUDA kernels, "
+          f"{tracking['memcpy_memset']} copies and memsets, {tracking['seconds']:.3f} s with "
+          f"the profiler on, flow vectors equal to the main path's: {tracking['same_flow']} "
+          f"[{gpu}]", flush=True)
+    if not tracking["same_flow"]:
+        fail(f"{tag}tracking run again gave other flow vectors than the main path's")
 
     tables = check_tables(im_info, skip_nodes=False)
     print(f"{tag}feature rows: " + ", ".join(f"{k} {len(v)}" for k, v in tables.items()),
@@ -792,7 +835,8 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
                                                         "nn": calls.nn_operands(),
                                                         "fma_by_caller": calls.fma_callers(),
                                                         "gauss_taps": calls.gauss_taps,
-                                                        "filter_frames": calls.filter_frames}
+                                                        "filter_frames": calls.filter_frames,
+                                                        "tracking": tracking}
 
 
 # ---------------------------------------------------------------------------
@@ -2345,9 +2389,7 @@ class KernelCalls:
                 "min_triangle_otsu": "thresholds", "otsu_threshold": "thresholds",
                 "triangle_threshold": "thresholds", "triangle_and_otsu": "thresholds",
                 "skeletonize_2d": "skeleton", "distance_transform": "edt",
-                "masked_percentile": "frangi",
-                # the jnp kernel still in plain torch (PERF.md's row to port)
-                "raw_moments": "moments"}
+                "masked_percentile_forms": "frangi", "hu_features": "moments"}
 
     def __init__(self, keep=lambda name, tag, args: True):
         self.keep = keep
@@ -2522,7 +2564,8 @@ def hand_counts():
             "pair_costs": matching.PAIR_COSTS_KERNEL, "roi_stats": moments.ROI_STATS_KERNEL,
             "hist_threshold": thresholds.HIST_THRESHOLD_KERNEL,
             "thin2d": skeleton.THIN2D_KERNEL, "edt_minplus": edt.EDT_MINPLUS_KERNEL,
-            "masked_percentile": frangi.MASKED_PERCENTILE_KERNEL}
+            "masked_percentile": frangi.MASKED_PERCENTILE_KERNEL,
+            "hu_features": moments.HU_FEATURES_KERNEL}
 
 
 def reset_hand_counts():
@@ -2540,8 +2583,8 @@ def read_kernel_launches():
     """The CUDA kernels launched by the wrappers that count them
     (``thin26``, ``nearest_seed``, ``pair_sums``, ``pair_costs``,
     ``roi_stats``, ``hist_threshold``, ``thin2d``, ``edt_minplus``,
-    ``masked_percentile``); every other wrapper's call launches one
-    kernel."""
+    ``masked_percentile``, ``hu_features``); every other wrapper's call
+    launches one kernel."""
     return {name: kernel.kernel_launches for name, kernel in hand_counts().items()
             if hasattr(kernel, "kernel_launches")}
 
@@ -3597,20 +3640,6 @@ def phase_thin_kernel(gpu, largest):
     return rows, worst
 
 
-PLAIN_ROWS = {"raw_moments": "moments"}
-
-
-def plain_bound(name, args, out):
-    """(bound_ms, bound_by) of a plain-torch kernel's call: its tensor
-    inputs read and its outputs written once, at the memory rate (their
-    arithmetic is far below the float32 rate at these sizes; the pair
-    costs' bound is ``pair_costs_bound``)."""
-    outs = out if isinstance(out, (tuple, list)) else (out,)
-    nbytes = sum(a.numel() * a.element_size() for a in args if isinstance(a, torch.Tensor))
-    nbytes += sum(o.numel() * o.element_size() for o in outs if isinstance(o, torch.Tensor))
-    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
-
-
 def percentile_library(values, mask, q):
     """One PyTorch call that computes the percentile, as a function, or
     None when nothing is masked in: ``torch.quantile`` of ``values[mask]``
@@ -3637,48 +3666,17 @@ def cuda_kernels_a_call(fn):
     return n or None
 
 
-def phase_plain_rows(gpu, largest, calls):
-    """The jnp kernel still in plain torch (``raw_moments``): its largest
-    call on each main path, on its own arguments, timed on a cold L2 (per
-    call and on the device), the CUDA kernels a call launches and its
-    bound, with the calls each path made.  ``largest``: {path:
-    {name: (size, (args...))}}; ``calls``: {path: {name: calls}}."""
-    import importlib
-
-    rows = {}
-    for path, recorded in largest.items():
-        for name, module in PLAIN_ROWS.items():
-            n, args = recorded[name]
-            if args is None:
-                continue
-            fn = getattr(importlib.import_module(f"nellie_tpu_torch.kernels.{module}"), name)
-            args = tuple(a.cuda() if isinstance(a, torch.Tensor) else a for a in args)
-            out = fn(*args)
-            ms, on_device = cold_times(lambda: fn(*args), 3)
-            kernels = cuda_kernels_a_call(lambda: fn(*args))
-            bound_ms, bound_by = plain_bound(name, args, out)
-            shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)]
-            print(f"plain torch {name} at the {path} path's largest call ({shapes}): "
-                  f"{ms:.4f} ms a call on a cold L2 (on the device {fmt_ms(on_device)}), "
-                  f"library none, {kernels} CUDA kernels a call, "
-                  f"{calls[path][name]} calls on the path, bound {bound_ms:.6f} ms ({bound_by}) "
-                  f"[{gpu}]", flush=True)
-            rows[f"{path} {name}"] = {"shapes": shapes, "plain_ms": ms, "device_ms": on_device,
-                                      "kernels_a_call": kernels, "calls": calls[path][name],
-                                      "bound_ms": bound_ms, "bound_by": bound_by,
-                                      "library_ms": None}
-            del args, out
-    return rows
-
-
-# the last three jnp kernels ported, by kernel: (module, wrapper, the
-# reference line it replaces, the paths that must call it)
+# the last jnp kernels ported, by kernel: (module, wrapper, its plain body,
+# the reference line it replaces, the paths that must call it)
 LAST_KERNELS = {
-    "thin2d": ("skeleton", "skeletonize_2d", "nellie_tpu/kernels/skeleton.py:311", ("2D",)),
-    "edt_minplus": ("edt", "distance_transform", "nellie_tpu/kernels/edt.py:218",
-                    ("3D", "2D")),
-    "masked_percentile": ("frangi", "masked_percentile", "nellie_tpu/kernels/frangi.py:226",
-                          ("3D", "2D", "capacity_1024")),
+    "thin2d": ("skeleton", "skeletonize_2d", "skeletonize_2d_plain",
+               "nellie_tpu/kernels/skeleton.py:311", ("2D",)),
+    "edt_minplus": ("edt", "distance_transform", "distance_transform_plain",
+                    "nellie_tpu/kernels/edt.py:218", ("3D", "2D")),
+    "masked_percentile": ("frangi", "masked_percentile_forms", "masked_percentile_plain",
+                          "nellie_tpu/kernels/frangi.py:226", ("3D", "2D", "capacity_1024")),
+    "hu_features": ("moments", "hu_features", "hu_features_plain",
+                    "nellie_tpu/kernels/moments.py:25", ("3D", "2D")),
 }
 THIN2D_SHAPES = ((48, 64), (33, 47), (1, 12), (12, 1), (130, 257))
 
@@ -3716,14 +3714,53 @@ def edt_bound(mask, sampling=None, max_radius_px=None):
 
 def percentile_bound(values, mask, q=None):
     """(bound_ms, "bytes") of one percentile: the values and the mask read
-    and the result written once (the plain rows' count); a radix select's
-    few operations a value are far below the float32 rate."""
-    nbytes = values.numel() * values.element_size() + mask.numel() + 4
+    and the two forms written once; a radix select's few operations a
+    value are far below the float32 rate."""
+    nbytes = values.numel() * values.element_size() + mask.numel() + 8
     return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def hu_bound(cubes, looped=False):
+    """(bound_ms, "bytes") of one call of the log-Hu features: the ROIs read
+    and the features written once (float32), at the memory rate; the
+    projections' maxima and the moments' sums, a few operations a voxel,
+    are far below the float32 rate."""
+    n = cubes.shape[0]
+    feats = 18 if cubes.dim() == 4 else 6
+    return 4 * (cubes.numel() + n * feats) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+# (ROIs' shape, looped) of phase 17's synthetic log-Hu cases; "symmetric"
+# is symmetric_hu_rois (an h4 that cancels to a subnormal)
+HU_CASES = {"3D 16^3": ((64, 16, 16, 16), False), "3D 16^3 looped": ((64, 16, 16, 16), True),
+            "2D 20^2": ((64, 20, 20), False), "2D 20^2 looped": ((64, 20, 20), True),
+            "3D 13^3 looped": ((32, 13, 13, 13), True), "2D 7^2": ((32, 7, 7), False),
+            "3D 5x9x6": ((16, 5, 9, 6), False), "3D 1^3": ((8, 1, 1, 1), True),
+            "symmetric": ((64, 20, 20), True)}
+
+
+def hu_rois(shape, seed=0):
+    """Seeded ROIs of intensities of ``shape`` (N, ...), about 40 % zero
+    voxels, the first two all zero."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 1000, shape).astype(np.float32)
+    x[rng.random(x.shape) < 0.4] = 0
+    x[:2] = 0
+    return x
+
+
+def symmetric_hu_rois():
+    """2D ROIs of 20 x 20, each the mirror of itself along the columns, one
+    of whose h4 cancels to a subnormal in the looped program."""
+    rng = np.random.default_rng(43)
+    half = rng.uniform(0, 1000, (64, 20, 10)).astype(np.float32)
+    half[rng.random(half.shape) < 0.5] = 0
+    x = np.concatenate([half, half[:, :, ::-1]], axis=2)
+    return x * rng.uniform(0.5, 1.5, (64, 1, 1)).astype(np.float32)
+
+
 LAST_BOUNDS = {"thin2d": thin2d_bound, "edt_minplus": edt_bound,
-               "masked_percentile": percentile_bound}
+               "masked_percentile": percentile_bound, "hu_features": hu_bound}
 
 
 def check_last(kernel_name, what, args, against_cpu=False):
@@ -3733,7 +3770,7 @@ def check_last(kernel_name, what, args, against_cpu=False):
     Returns (max |kernel - plain|, the call's ``last_stats``)."""
     import importlib
 
-    module_name, wrapper, _, _ = LAST_KERNELS[kernel_name]
+    module_name, wrapper, plain_name, _, _ = LAST_KERNELS[kernel_name]
     module = importlib.import_module(f"nellie_tpu_torch.kernels.{module_name}")
     kernel = hand_counts()[kernel_name]
     before, kernels_before = kernel.launches, kernel.kernel_launches
@@ -3742,7 +3779,7 @@ def check_last(kernel_name, what, args, against_cpu=False):
     if kernel.launches != before + 1 or \
             kernel.kernel_launches != kernels_before + stats["cuda_kernels"]:
         fail(f"{wrapper} on {what} did not launch {kernel_name} once, or miscounted its kernels")
-    plain = getattr(module, f"{wrapper}_plain")
+    plain = getattr(module, plain_name)
     wants = [plain(*args)]
     if against_cpu:
         wants.append(plain(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)))
@@ -3755,11 +3792,12 @@ def check_last(kernel_name, what, args, against_cpu=False):
 
 def phase_last_kernels(gpu, largest, calls, launches):
     """The 2D thinning (``csrc/thin2d.cu``), the clamped EDT
-    (``csrc/edt_minplus.cu``) and the masked percentile
-    (``csrc/masked_percentile.cu``) against their plain bodies on the card,
-    bit for bit: the synthetic cases (``thin2d_masks`` at
-    ``THIN2D_SHAPES``, ``EDT_CASES``, ``PERCENTILE_CASES`` at each of
-    ``PERCENTILE_QS``; also against CPU copies), then each path's largest
+    (``csrc/edt_minplus.cu``), the masked percentile's two forms
+    (``csrc/masked_percentile.cu``) and the log-Hu features
+    (``csrc/hu_features.cu``) against their plain bodies on the card, bit
+    for bit: the synthetic cases (``thin2d_masks`` at ``THIN2D_SHAPES``,
+    ``EDT_CASES``, ``PERCENTILE_CASES`` at each of ``PERCENTILE_QS``,
+    ``HU_CASES``; also against CPU copies), then each path's largest
     call with the caller's own arguments, timed on a cold L2 (per call and
     on the device) beside the plain body and (the percentile)
     ``torch.quantile``, with the CUDA kernels a call (the kernel's count and
@@ -3794,14 +3832,23 @@ def phase_last_kernels(gpu, largest, calls, launches):
             err, _ = check_last("masked_percentile", f"{name} at q {q}", (values, mask, q),
                                 against_cpu=True)
             errs["masked_percentile"] = max(errs["masked_percentile"], err)
-    print(f"masked_percentile = plain body bit for bit (NaN where NaN), on the card and on CPU "
+    print(f"masked_percentile (both forms) = plain body bit for bit (NaN where NaN), on the "
+          f"card and on CPU "
           f"copies, on {len(PERCENTILE_CASES)} cases at q in {PERCENTILE_QS}: "
           f"{', '.join(PERCENTILE_CASES)}", flush=True)
 
-    for kernel_name, (module_name, wrapper, _, required) in LAST_KERNELS.items():
+    for k, (name, (shape, looped)) in enumerate(HU_CASES.items()):
+        x = symmetric_hu_rois() if name == "symmetric" else hu_rois(shape, seed=k)
+        err, _ = check_last("hu_features", name, (torch.from_numpy(x).cuda(), looped),
+                            against_cpu=True)
+        errs["hu_features"] = max(errs["hu_features"], err)
+    print(f"hu_features = plain body bit for bit, on the card and on CPU copies, on "
+          f"{len(HU_CASES)} cases: {', '.join(HU_CASES)}", flush=True)
+
+    for kernel_name, (module_name, wrapper, plain_name, _, required) in LAST_KERNELS.items():
         module = importlib.import_module(f"nellie_tpu_torch.kernels.{module_name}")
         kernel = hand_counts()[kernel_name]
-        plain = getattr(module, f"{wrapper}_plain")
+        plain = getattr(module, plain_name)
         for path, recorded in largest.items():
             n, host_args = recorded.get(wrapper, (0, None))
             if host_args is None:
@@ -3881,30 +3928,91 @@ def phase_last_kernels(gpu, largest, calls, launches):
 OTHER_EDT_CLAMP = 15  # a clamp between the Markers' 11 (3D) and 21 (2D)
 
 
-def percentile_contractions(values, mask, q):
-    """The two single-rounding forms of the percentile's s[lo] (1 - frac) +
-    s[hi] frac on the masked values (float32, no NaN or zero among them, as
-    in the Filter's positive sample): A = fma(s[lo], 1 - frac, s[hi] frac),
-    the port's, and B = fma(s[hi], frac, s[lo] (1 - frac)), the other, which
-    the reference's Filter program also takes (ROADMAP, Queue 3)."""
+FINALIZE_CROSS_SHAPES = {3: (64, 128, 128), 2: (1024, 1024)}
+
+
+def percentile_forms_of(sample: np.ndarray):
+    """(A, B), the two forms of the 1st percentile of the positive values
+    of ``sample`` (numpy float32)."""
     from nellie_tpu_torch.kernels import _fp
 
-    s = torch.sort(values.reshape(-1)[mask.reshape(-1)].float()).values
-    level = torch.tensor(float(np.float32(q / 100.0)), device=s.device)
-    pos = level * float(max(s.numel() - 1, 0))
-    lo, hi = torch.floor(pos).long(), torch.ceil(pos).long()
-    frac = pos - lo.float()
-    one = 1.0 - frac
-    return _fp.fma(s[lo], one, s[hi] * frac), _fp.fma(s[hi], frac, s[lo] * one)
+    s = np.sort(sample[sample > 0])
+    pos = np.float32(0.01) * np.float32(s.size - 1)
+    lo, hi = int(np.floor(pos)), int(np.ceil(pos))
+    frac = np.float32(pos - np.float32(lo))
+    one = np.float32(1.0) - frac
+    s_lo, s_hi, f, o = (torch.tensor(np.float32(v)) for v in (s[lo], s[hi], frac, one))
+    return np.float32(_fp.fma(s_lo, o, s_hi * f)), np.float32(_fp.fma(s_hi, f, s_lo * o))
+
+
+def opening_arms(ndim):
+    """The centre, then ±1 along each axis (keys of the side terms)."""
+    out = [((0,) * ndim, None)]
+    for axis in range(ndim):
+        for shift in (1, -1):
+            out.append((tuple(shift if k == axis else 0 for k in range(ndim)), (axis, shift)))
+    return out
+
+
+def finalize_cross_frame(ndim: int, a_less: bool):
+    """A frame of ``FINALIZE_CROSS_SHAPES[ndim]`` for the finalize's per-term
+    rule: its strided sample (every second voxel on each axis) holds values
+    in [5, 6), a fifth of them 0, whose 1st percentile's two forms differ
+    (A < B when ``a_less``; seeds are searched in order), and crosses of
+    the opening's 7 (5) voxels centred on odd voxels, which the sample never
+    reads: all above both forms, all at A, all at B, and one for each term
+    of the centre's erosion, whose single voxel read by that term is at
+    max(A, B) and the others above both.  Returns (frame, A, B, {name: (centre,
+    whether the opening keeps the cross under
+    ``frangi.FINALIZE_FORMS``)})."""
+    from nellie_tpu_torch.kernels import frangi, thresholds
+
+    shape = FINALIZE_CROSS_SHAPES[ndim]
+    assert thresholds.sample_strides(shape, int(1e6)) == (2,) * ndim
+    seed = 0
+    while True:
+        rng = np.random.default_rng(seed)
+        sample = rng.uniform(5, 6, tuple(s // 2 for s in shape)).astype(np.float32)
+        sample[rng.random(sample.shape) < 0.2] = 0
+        a, b = percentile_forms_of(sample)
+        if a != b and (a < b) == a_less:
+            break
+        seed += 1
+    frame = np.zeros(shape, np.float32)
+    frame[tuple(slice(None, None, 2) for _ in shape)] = sample
+    value = {frangi.A: a, frangi.B: b}
+    centre_form, side_form = frangi.FINALIZE_FORMS[ndim]
+    high = np.nextafter(max(a, b), np.float32(np.inf))
+    # (name, the voxel at the odd value or None for all, that value)
+    cases = [("all above both", None, high), ("all at A", None, a), ("all at B", None, b)]
+    for offset, term in opening_arms(ndim):
+        name = "centre" if term is None else f"arm {term[0]}{'+' if term[1] > 0 else '-'}"
+        cases.append((f"{name} at max(A, B)", offset, max(a, b)))
+    # centres on odd coordinates, 18 apart: no voxel of a cross is sampled
+    centres = [c for c in np.ndindex(*[len(range(9, s - 8, 18)) for s in shape])]
+    crosses = {}
+    for (name, odd, v), index in zip(cases, centres):
+        centre = tuple(9 + 18 * i for i in index)
+        for offset, term in opening_arms(ndim):
+            voxel = tuple(c + o for c, o in zip(centre, offset))
+            frame[voxel] = v if odd is None or offset == odd else high
+        if odd is None:
+            kept = v > value[centre_form] and v > value[side_form]
+        else:
+            form = centre_form if not any(odd) else side_form
+            kept = v > value[form]
+        crosses[name] = (centre, bool(kept))
+    return frame, a, b, crosses
 
 
 def phase_percentile_band(gpu, frames):
-    """The size of the open contraction fault (ROADMAP, Queue 3): on every
-    Filter frame of each main path (``finalize_frame``'s input, recorded),
-    the voxels between the port's threshold A and the other contraction B
-    (min < z <= max) and the voxels of the finalized frame that differ
-    between A and max(A, B), the threshold the reference's program acts
-    on.  The port's A is checked against ``masked_percentile`` bit for bit.
+    """The finalize's per-term rule (``frangi.FINALIZE_FORMS``) on every
+    Filter frame of each main path (``finalize_frame``'s input, recorded):
+    the percentile's two forms from the kernel against the plain body on a
+    CPU copy, and the finalized frame on the card against the CPU's, bit
+    for bit; with the voxels in the band min(A, B) < z <= max(A, B) and the
+    voxels of the finalized frame that differ from a finalize comparing
+    every term with A (the port's rule before the per-term table).
     ``frames``: {path: [(frame on the host, max_samples)]}.  Returns {path:
     row}."""
     from nellie_tpu_torch.kernels import filters, frangi, thresholds
@@ -3914,27 +4022,44 @@ def phase_percentile_band(gpu, frames):
         band = differ = unequal = voxels = 0
         for host_frame, max_samples in recorded:
             frame = host_frame.cuda()
+            got = frangi.finalize_frame(frame, max_samples)
+            if not same_tensor(got, frangi.finalize_frame(host_frame, max_samples)):
+                fail(f"the {path} path's finalize differs between the card and the CPU")
             sample = thresholds.downsample(
                 frame, thresholds.sample_strides(tuple(frame.shape), max_samples))
             pos = sample > 0
             if not (bool(frame.sum() > 0) and bool(pos.any())):
                 continue
-            a, b = percentile_contractions(sample, pos, 1.0)
-            if not same_tensor(a, frangi.masked_percentile(sample, pos, 1.0)):
-                fail(f"the {path} path's percentile is not fma(s[lo], 1 - frac, s[hi] frac)")
-            low, high = torch.minimum(a, b), torch.maximum(a, b)
+            forms = frangi.masked_percentile_forms(sample, pos, 1.0)
+            if not same_tensor(forms, frangi.masked_percentile_plain(sample.cpu(), pos.cpu(),
+                                                                     1.0)):
+                fail(f"the {path} path's percentile forms differ from the plain body")
+            a, b = forms[frangi.A], forms[frangi.B]
             unequal += int(not same_tensor(a, b))
-            band += int(((frame > low) & (frame <= high)).sum())
-            ours = frame * filters.binary_opening(frame > a)
-            theirs = frame * filters.binary_opening(frame > high)
-            differ += int((ours != theirs).sum())
+            band += int(((frame > torch.minimum(a, b)) & (frame <= torch.maximum(a, b))).sum())
+            all_a = frame * filters.binary_opening(frame > a)
+            differ += int((got != all_a).sum())
             voxels += frame.numel()
-        print(f"the percentile's contraction on the {path} path's {len(recorded)} Filter frames "
-              f"({voxels} voxels): A != B on {unequal} frames, {band} voxels in the band "
-              f"min(A, B) < z <= max(A, B), {differ} voxels of the finalized frames differ "
-              f"between the port's threshold A and max(A, B) [{gpu}]", flush=True)
+        print(f"the finalize's per-term rule on the {path} path's {len(recorded)} Filter frames "
+              f"({voxels} voxels): card = CPU bit for bit; A != B on {unequal} frames, {band} "
+              f"voxels in the band min(A, B) < z <= max(A, B), {differ} voxels of the finalized "
+              f"frames differ from comparing every term with A [{gpu}]", flush=True)
         rows[path] = {"frames": len(recorded), "voxels": voxels, "frames_a_differs": unequal,
-                      "band_voxels": band, "finalized_voxels_differing": differ}
+                      "band_voxels": band, "finalized_voxels_differing_from_all_a": differ}
+    for ndim in (3, 2):
+        for a_less in (True, False):
+            frame, _, _, crosses = finalize_cross_frame(ndim, a_less)
+            host = torch.from_numpy(frame)
+            got = frangi.finalize_frame(host.cuda())
+            if not same_tensor(got, frangi.finalize_frame(host)):
+                fail(f"the finalize on the {ndim}D cross frame differs between card and CPU")
+            wrong = [name for name, (centre, kept) in crosses.items()
+                     if bool(got[centre] != 0) != kept]
+            if wrong:
+                fail(f"the finalize on the {ndim}D cross frame (A {'<' if a_less else '>'} B) "
+                     f"kept or dropped against FINALIZE_FORMS: {wrong}")
+    print(f"the finalize on the cross frames ({FINALIZE_CROSS_SHAPES}, A < B and A > B): card = "
+          f"CPU bit for bit, every cross kept or dropped as FINALIZE_FORMS says", flush=True)
     return rows
 
 
@@ -5079,8 +5204,6 @@ def main() -> None:
         {"3D": hand["launches"], "2D": hand_2d["launches"], "capacity_1024": capacity["launches"]})
     last_rows["masked_percentile"]["contraction band"] = phase_percentile_band(
         gpu, {"3D": hand["filter_frames"], "2D": hand_2d["filter_frames"]})
-    phase_plain_rows(gpu, {"3D": hand["largest"], "2D": hand_2d["largest"]},
-                     {"3D": hand["wrapper_calls"], "2D": hand_2d["wrapper_calls"]})
     filter_reads = filter_host_reads()
     frame = torch.from_numpy(make_frame(MAIN_SHAPE[1:])).cuda().float()
     for name, blocks in (("a 3D frame", [frame]), ("nothing positive", [-frame])):
@@ -5197,7 +5320,7 @@ def main() -> None:
               ("hist_threshold", "nellie_tpu/kernels/thresholds.py:18",
                "3D min_triangle_otsu"))),
         *({"name": name, "route": "cuda", "source": f"nellie_tpu_torch/kernels/csrc/{name}.cu",
-           "replaces": LAST_KERNELS[name][2], "launches": hand["launches"][name]
+           "replaces": LAST_KERNELS[name][3], "launches": hand["launches"][name]
            if row != "2D" else hand_2d["launches"][name],
            "max_abs_err": last_errs[name], **{k: last_rows[name][row][k] for k in keys},
            "launches_by_path": launches_by_path[name],
@@ -5206,7 +5329,7 @@ def main() -> None:
            "kernel_launches_by_path": kernel_launches_by_path[name],
            "paths": last_rows[name]}
           for name, row in (("thin2d", "2D"), ("edt_minplus", "3D"),
-                            ("masked_percentile", "3D"))),
+                            ("masked_percentile", "3D"), ("hu_features", "3D"))),
     ]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,8 +10,12 @@
 // What it computes, exactly as the plain body does (built with -fmad=false).
 // n = the masked count; 0 when n is 0.  Otherwise
 //   pos = f32(q / 100) * f32(n - 1),  lo = floor(pos),  hi = ceil(pos),
-//   frac = pos - lo,  result = fma(s[lo], 1 - frac, s[hi] * frac)
-// (one rounding in the fma, as _fp.fma), s the values sorted with +inf
+//   frac = pos - lo,  A = fma(s[lo], 1 - frac, s[hi] * frac),
+//   B = fma(s[hi], frac, s[lo] * (1 - frac))
+// (one rounding in each fma, as _fp.fma: XLA contracts either product of
+// s[lo] (1 - frac) + s[hi] frac, fusion by fusion, and the callers compare
+// with each form where the reference's fusion does; kernels/frangi.py
+// FINALIZE_FORMS), s the values sorted with +inf
 // outside the mask, as the reference's stable sort orders them: -inf, the
 // negatives, the zeros (-0 and +0 tie and keep their order in the values),
 // the positives, +inf (the masked ones and the pads, n_all - n of them, n_all
@@ -48,7 +52,7 @@
 //    share holds the j-th walks it in order (a ballot a warp, a scan of the
 //    warps).  The callers' samples hold no zero, so they never run it.
 // The C entry point clears the histograms and the barrier with one memset
-// and launches the kernel; the result is a float32 on the card.
+// and launches the kernel; the result is two float32 on the card, A and B.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -215,7 +219,7 @@ __global__ void __launch_bounds__(THREADS) percentile_select(Args a) {
       __syncthreads();
       const long long n = (long long)total;
       if (n == 0) {
-        if (blockIdx.x == 0 && t == 0) *a.out = 0.0f;
+        if (blockIdx.x == 0 && t == 0) a.out[0] = a.out[1] = 0.0f;
         return;
       }
       const float pos = __fmul_rn(a.q, (float)(n - 1));
@@ -283,7 +287,9 @@ __global__ void __launch_bounds__(THREADS) percentile_select(Args a) {
       s[r] = fixed[r] ? fixed_value[r] : value_of(sel.prefix[r]);
       if (zero[r] && *(volatile const unsigned int*)(a.scratch + SIGNS + r)) s[r] = -0.0f;
     }
-    *a.out = __fmaf_rn(s[0], __fsub_rn(1.0f, frac), __fmul_rn(s[1], frac));
+    const float one = __fsub_rn(1.0f, frac);
+    a.out[0] = __fmaf_rn(s[0], one, __fmul_rn(s[1], frac));  // A
+    a.out[1] = __fmaf_rn(s[1], frac, __fmul_rn(s[0], one));  // B
   }
 }
 
@@ -294,7 +300,7 @@ extern "C" {
 long long masked_percentile_scratch_bytes() { return 4LL * SCRATCH_WORDS; }
 
 // The q-th percentile (q100 = f32(q / 100), in [0, 1]) of values[mask] into
-// out (one float32 on the card).  values: n float32, stride_v elements
+// out (two float32 on the card: the forms A and B).  values: n float32, stride_v elements
 // apart; mask: n bool bytes, stride_m apart; scratch:
 // masked_percentile_scratch_bytes() bytes, 4-byte aligned.  kernels (host):
 // the CUDA kernels launched (the memset and the kernel).

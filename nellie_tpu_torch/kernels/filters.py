@@ -628,3 +628,15 @@ def binary_opening(mask: torch.Tensor) -> torch.Tensor:
     for axis in range(mask.ndim):
         er = er & shift_fill(mask, axis, 1, False) & shift_fill(mask, axis, -1, False)
     return binary_dilation(er, connectivity=1)
+
+
+def binary_opening_terms(masks, centre: int, side: int) -> torch.Tensor:
+    """:func:`binary_opening` where the erosion's terms read the mask in
+    their own forms: ``masks`` the mask's forms (say ``frame > A`` and
+    ``frame > B``), ``centre`` the index of the form the unshifted term
+    reads at every position of the dilation, ``side`` that of the form the
+    side terms read (the mask at index ± 1 along each axis)."""
+    er = masks[centre]
+    for axis in range(er.ndim):
+        er = er & shift_fill(masks[side], axis, 1, False) & shift_fill(masks[side], axis, -1, False)
+    return binary_dilation(er, connectivity=1)

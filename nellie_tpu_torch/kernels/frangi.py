@@ -426,16 +426,38 @@ def cascade_radius(params: FrangiParams, ndim: int, axis: int) -> int:
     return len(params.sigmas) * (taps // 2) + 2
 
 
+# The percentile's last step, s[lo] (1 - frac) + s[hi] frac, rounds once in
+# either of two forms, and XLA contracts a different product in different
+# fusions of one program:
+A, B = 0, 1  # fma(s[lo], 1 - frac, s[hi] frac), fma(s[hi], frac, s[lo] (1 - frac))
+
+# The form each term of the finalize's opening compares with, by the
+# frame's axes: (the unshifted term, at every position of the dilation; the
+# six (four) side terms of the erosion).  Read off XLA's CPU machine code,
+# fusion by fusion, by ``scripts/xla_finalize_contractions.py`` at the main
+# paths' frames (64 x 256 x 256 and 1024 x 1024) and the tests' smaller
+# ones, the same in every reference program that opens the whole frame: the
+# jitted ``finalize_frame`` and ``mask_volume`` (the Filter stage and the
+# fused chain's per-frame loop, ``fused.py:292``), the mesh's vmapped
+# ``batched_filter_kernel`` and capacity's monolithic
+# ``_segment_from_vessel``.  Each side term is a fusion of its own, the
+# unshifted term is computed inline in the last fusion.  Capacity's chunked
+# windows compare with the percentile jitted alone (``_pct_from_sample``),
+# form B in every term: :func:`masked_percentile`.
+FINALIZE_FORMS = {3: (A, B), 2: (B, B)}
+
+
 def masked_percentile_plain(values: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:
-    """:func:`masked_percentile` in plain torch: a host read of the count,
-    a full sort and one fused multiply-add.  The sort is the reference's:
-    stable, -0 tied with +0, NaN last; it sorts keys with every zero +0 and
-    every NaN one NaN, and takes the values in their order."""
+    """:func:`masked_percentile_forms` in plain torch: a host read of the
+    count, a full sort and the two fused multiply-adds.  The sort is the
+    reference's: stable, -0 tied with +0, NaN last; it sorts keys with
+    every zero +0 and every NaN one NaN, and takes the values in their
+    order."""
     flat = values.reshape(-1).float()
     m = mask.reshape(-1)
     n_valid = int(m.sum())
     if n_valid == 0:
-        return torch.zeros((), device=flat.device)
+        return torch.zeros(2, device=flat.device)
     v = torch.where(m, flat, torch.full_like(flat, float("inf")))
     keys = torch.where(v == 0, torch.zeros_like(v), v)
     keys = torch.where(torch.isnan(v), torch.full_like(v, float("nan")), keys)
@@ -444,7 +466,9 @@ def masked_percentile_plain(values: torch.Tensor, mask: torch.Tensor, q: float) 
     lo = torch.floor(pos).long()
     hi = torch.ceil(pos).long()
     frac = pos - lo.float()
-    return fma(v[order[lo]], 1.0 - frac, v[order[hi]] * frac)
+    one = 1.0 - frac
+    s_lo, s_hi = v[order[lo]], v[order[hi]]
+    return torch.stack([fma(s_lo, one, s_hi * frac), fma(s_hi, frac, s_lo * one)])
 
 
 class _MaskedPercentileKernel(CountedKernel):
@@ -464,9 +488,9 @@ class _MaskedPercentileKernel(CountedKernel):
         lib.masked_percentile.restype = ctypes.c_int
 
     def __call__(self, values: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:
-        """The percentile as a 0-dim float32 tensor on ``values``' CUDA
-        device, by one C call with no host read; ``mask`` bool of the
-        values' size, ``q`` in [0, 100].  A flat strided view is read in
+        """The percentile's two forms, A and B, as a (2,) float32 tensor on
+        ``values``' CUDA device, by one C call with no host read; ``mask``
+        bool of the values' size, ``q`` in [0, 100].  A flat strided view is read in
         place; values of another float type are first copied to float32."""
         if values.device.type != "cuda" or not values.dtype.is_floating_point:
             raise TypeError(f"the percentile kernel takes a floating-point CUDA tensor, not "
@@ -479,7 +503,7 @@ class _MaskedPercentileKernel(CountedKernel):
         if not 0.0 <= q100 <= 1.0:
             raise ValueError(f"the percentile kernel takes q in [0, 100], not {q}")
         dev = values.device
-        out = torch.zeros((), dtype=torch.float32, device=dev)
+        out = torch.zeros(2, dtype=torch.float32, device=dev)
         if values.numel() == 0:
             return out
         lib = self._lib or self.build()
@@ -501,13 +525,29 @@ class _MaskedPercentileKernel(CountedKernel):
 MASKED_PERCENTILE_KERNEL = _MaskedPercentileKernel()
 
 
-def masked_percentile(values: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:
-    """Percentile (linear interpolation) of values[mask], 0 when nothing is
+def masked_percentile_forms(values: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:
+    """Percentile (linear interpolation) of values[mask] in both forms of
+    its last step, ``[A, B]`` (:data:`A`, :data:`B`), zeros when nothing is
     masked in.  A CUDA tensor goes to the hand-written kernel (or raises),
     a CPU tensor to :func:`masked_percentile_plain`."""
     if on_card(values, "masked_percentile"):
         return MASKED_PERCENTILE_KERNEL(values, mask, q)
     return masked_percentile_plain(values, mask, q)
+
+
+def masked_percentile(values: torch.Tensor, mask: torch.Tensor, q: float) -> torch.Tensor:
+    """The percentile in form B, a 0-dim tensor: the reference's
+    ``masked_percentile`` jitted alone (capacity's ``_pct_from_sample``)."""
+    return masked_percentile_forms(values, mask, q)[B]
+
+
+def opening_mask(frame: torch.Tensor, thr: torch.Tensor) -> torch.Tensor:
+    """The opened mask of ``frame > thr`` with each term of the opening in
+    the form that its fusion takes in the reference's whole-frame programs
+    (:data:`FINALIZE_FORMS`); ``thr`` the pair ``[A, B]``."""
+    centre, side = FINALIZE_FORMS[frame.ndim]
+    masks = [frame > thr[k].to(frame.dtype) for k in (A, B)]
+    return filters.binary_opening_terms(masks, centre, side)
 
 
 def mask_volume(frangi_frame: torch.Tensor, max_samples: int = int(1e6)) -> torch.Tensor:
@@ -517,8 +557,8 @@ def mask_volume(frangi_frame: torch.Tensor, max_samples: int = int(1e6)) -> torc
     strides = thresholds.sample_strides(tuple(frangi_frame.shape), max_samples)
     sample = thresholds.downsample(frangi_frame, strides)
     pos = sample > 0
-    thr = masked_percentile(sample, pos, 1.0)
-    mask = filters.binary_opening(frangi_frame > thr)
+    thr = masked_percentile_forms(sample, pos, 1.0)
+    mask = opening_mask(frangi_frame, thr)
     return torch.where(pos.any(), frangi_frame * mask, frangi_frame)
 
 

@@ -10,14 +10,18 @@ reference's einsums, and the binomial transform fuses its multiply-adds
 where XLA does: the Hu features then follow the reference's roundings
 instead of amplifying a different summation order's.
 
-``masked_mean_variance`` on a CUDA tensor launches the hand-written kernel
-``csrc/roi_stats.cu`` (built for ``sm_90a`` with ``nvcc`` on first use,
-bound through ``ctypes``; one launch a call: a warp a block, a lane an ROI,
-the ROIs streamed through shared memory by bulk copies), or raises; on a
-CPU tensor it runs :func:`masked_mean_variance_plain`.
-``ROI_STATS_KERNEL.launches`` counts the wrapper's calls and
+``hu_features`` (the whole chain, raw moments to log-Hu, of a chunk of
+ROIs) on a CUDA tensor launches the hand-written kernel
+``csrc/hu_features.cu`` (one launch a call, a block an ROI) and
+``masked_mean_variance`` the kernel ``csrc/roi_stats.cu`` (one launch a
+call: a warp a block, a lane an ROI, the ROIs streamed through shared
+memory by bulk copies), each built for ``sm_90a`` with ``nvcc`` on first
+use and bound through ``ctypes``, or they raise; on a CPU tensor they run
+:func:`hu_features_plain` (the composition of the functions below) and
+:func:`masked_mean_variance_plain`.  ``HU_FEATURES_KERNEL.launches`` and
+``ROI_STATS_KERNEL.launches`` count the wrappers' calls and
 ``kernel_launches`` the CUDA kernels they launched;
-``ROI_STATS_KERNEL.chain_floor`` runs the chain that bounds the kernel
+``ROI_STATS_KERNEL.chain_floor`` runs the chain that bounds that kernel
 alone, for timing.
 """
 from __future__ import annotations
@@ -37,11 +41,29 @@ def raw_moments(images: torch.Tensor, order: int = 3) -> torch.Tensor:
     """M[n, p, q] with p the column (x) power and q the row (y) power."""
     _, h, w = images.shape
     k = order + 1
-    powers = torch.arange(k, dtype=torch.float32, device=images.device)
-    row_pow = torch.arange(h, dtype=torch.float32, device=images.device)[:, None] ** powers[None, :]
-    col_pow = torch.arange(w, dtype=torch.float32, device=images.device)[:, None] ** powers[None, :]
-    tmp = contract(images, col_pow)                   # (N, H, K)
-    return contract(tmp.transpose(1, 2), row_pow)     # (N, K, K)
+    # the powers as exact integers (a float pow may round them on the card)
+    powers = torch.arange(k, device=images.device)
+    row_pow = (torch.arange(h, device=images.device)[:, None] ** powers[None, :]).float()
+    col_pow = (torch.arange(w, device=images.device)[:, None] ** powers[None, :]).float()
+    tmp = _dot(images, col_pow)                   # (N, H, K)
+    return _dot(tmp.transpose(1, 2), row_pow)     # (N, K, K)
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``einsum("...k,kp->...p", x, w)`` as XLA's CPU dot rounds it in the
+    tracker's program: the largest multiple of 4 of k in four lanes
+    (:func:`_fp.contract`), the rest's products rounded and added left to
+    right, and that sum added last."""
+    k = x.shape[-1]
+    main = k - k % 4
+    rest = None
+    for j in range(main, k):
+        p = x[..., j, None] * w[j]
+        rest = p if rest is None else rest + p
+    if main == 0:
+        return rest
+    head = contract(x[..., :main], w[:main])
+    return head if rest is None else head + rest
 
 
 _VOXEL_BLOCK = 4096  # voxels per block of widened terms in masked_mean_variance (and roi_stats.cu)
@@ -77,6 +99,13 @@ def _sum_terms(terms, fuse_right):
     return accumulate(first, terms[2:])
 
 
+def _neg_pow(x: torch.Tensor, k: int) -> torch.Tensor:
+    """(-x) ** k for k in 1..3 as XLA's integer power multiplies it out (and
+    PyTorch's CPU pow): x x and (x x) x, written so on every device."""
+    v = -x
+    return v if k == 1 else v * v if k == 2 else (v * v) * v
+
+
 def central_moments(m: torch.Tensor, looped: bool = False) -> torch.Tensor:
     k = m.shape[1]
     fuse_right = _FUSE_RIGHT_LOOPED if looped else _FUSE_RIGHT
@@ -92,10 +121,12 @@ def central_moments(m: torch.Tensor, looped: bool = False) -> torch.Tensor:
             for i in range(p + 1):
                 for j in range(q + 1):
                     factor = None
-                    for f, keep in ((float(comb(p, i) * comb(q, j)), comb(p, i) * comb(q, j) != 1),
-                                    ((-x_bar) ** (p - i), p != i), ((-y_bar) ** (q - j), q != j)):
-                        if keep:
-                            factor = f if factor is None else factor * f
+                    coeff = comb(p, i) * comb(q, j)
+                    factors = ([float(coeff)] if coeff != 1 else []) + \
+                        ([_neg_pow(x_bar, p - i)] if p != i else []) + \
+                        ([_neg_pow(y_bar, q - j)] if q != j else [])
+                    for f in factors:
+                        factor = f if factor is None else factor * f
                     terms.append((factor, m[:, i, j]))
             mu[:, p, q] = _sum_terms(terms, (p, q) in fuse_right)
     return mu
@@ -130,15 +161,16 @@ def hu_moments(eta: torch.Tensor, projections: bool = False) -> torch.Tensor:
     s2 = fma(3.0, eta21, -eta03)   # 3 eta21 - eta03
     h0 = eta20 + eta02
     d = eta20 - eta02
+    e11sq4 = 4 * (eta11 * eta11)
     h2 = fma(s1, s1, s2 * s2)
     h3 = fma(a, a, b2)
     p1, t1 = s1 * a, fma(-3.0, b2, a2)
     p2, t2 = s2 * b, fma(3.0, a2, -b2)
     if projections:
-        h1 = fma(d, d, 4 * eta11 ** 2)
+        h1 = fma(d, d, e11sq4)
         h4 = fma(p2, t2, p1 * t1)
     else:
-        h1 = d * d + 4 * eta11 ** 2
+        h1 = d * d + e11sq4
         h4 = fma(p1, t1, p2 * t2)
     h5 = fma((4 * eta11) * a, b, d * fma(a, a, -b2))
     return torch.stack([h0, h1, h2, h3, h4, h5], dim=1)
@@ -165,6 +197,66 @@ def hu_3d(volumes: torch.Tensor, looped: bool = False) -> torch.Tensor:
     return torch.cat([hu_moments(normalized_moments(volumes.amax(dim=axis), looped),
                                  projections=True)
                       for axis in (1, 2, 3)], dim=1)
+
+
+def hu_features_plain(cubes: torch.Tensor, looped: bool = False) -> torch.Tensor:
+    """:func:`hu_features` in plain torch: ``log_hu(hu_2d(cubes))`` of
+    (N, H, W) ROIs or ``log_hu(hu_3d(cubes))`` of (N, Z, Y, X) ones."""
+    cubes = cubes.float()
+    return log_hu(hu_3d(cubes, looped) if cubes.dim() == 4 else hu_2d(cubes, looped))
+
+
+class _HuFeaturesKernel(CountedKernel):
+    """The compiled log-Hu features (``csrc/hu_features.cu``), built once
+    per process, with a launch count, a count of the CUDA kernels launched
+    and the last call's ``last_stats`` (CUDA kernels, host reads)."""
+
+    source = "hu_features.cu"
+    flags = (*BASE_FLAGS, "-fmad=false")
+
+    def bind(self, lib):
+        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        lib.hu_features.argtypes = [ptr, i64, i32, i32, i32, i32, ptr,
+                                    ctypes.POINTER(ctypes.c_int), ptr]
+        lib.hu_features.restype = ctypes.c_int
+
+    def __call__(self, cubes: torch.Tensor, looped: bool = False) -> torch.Tensor:
+        """(N, 18) float32 of (N, Z, Y, X) ROIs or (N, 6) of (N, H, W) ones
+        on a CUDA device, by one launch and no host read (other float types
+        are first copied to float32)."""
+        if cubes.device.type != "cuda" or cubes.dim() not in (3, 4) or \
+                not cubes.dtype.is_floating_point or min(cubes.shape[1:], default=0) < 1:
+            raise TypeError(f"hu_features takes floating-point (N, H, W) or (N, Z, Y, X) CUDA "
+                            f"ROIs, not {cubes.dtype} {tuple(cubes.shape)} on {cubes.device}")
+        dev = cubes.device
+        n = cubes.shape[0]
+        nz = cubes.shape[1] if cubes.dim() == 4 else 0
+        ny, nx = cubes.shape[-2:]
+        lib = self._lib or self.build()
+        with self.on_device(dev):
+            flat = cubes.float().contiguous()
+            out = torch.empty(n, 18 if nz else 6, dtype=torch.float32, device=dev)
+            kernels = ctypes.c_int(0)
+            err = lib.hu_features(flat.data_ptr(), n, nz, ny, nx, int(bool(looped)),
+                                  out.data_ptr(), ctypes.byref(kernels),
+                                  torch.cuda.current_stream(dev).cuda_stream)
+            check_error("hu_features launch", err)
+            self.count_call(kernels.value, host_reads=0)
+            return out
+
+
+HU_FEATURES_KERNEL = _HuFeaturesKernel()
+
+
+def hu_features(cubes: torch.Tensor, looped: bool = False) -> torch.Tensor:
+    """The tracker's log-Hu features of a chunk of ROIs: (N, 6) of (N, H, W)
+    ROIs, (N, 18) of (N, Z, Y, X) ones (the three max projections), rounded
+    as the reference's program over one chunk or, ``looped``, over several
+    (:mod:`moments`' module notes).  A CUDA tensor goes to the hand-written
+    kernel (or it raises), a CPU tensor to :func:`hu_features_plain`."""
+    if on_card(cubes, "hu_features"):
+        return HU_FEATURES_KERNEL(cubes, looped)
+    return hu_features_plain(cubes, looped)
 
 
 def masked_mean_variance_plain(images: torch.Tensor) -> torch.Tensor:

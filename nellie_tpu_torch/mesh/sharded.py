@@ -36,7 +36,7 @@ from nellie_tpu_torch.device import resolve_device
 from nellie_tpu_torch.kernels import ccl
 from nellie_tpu_torch.kernels import frangi as frangi_k
 from nellie_tpu_torch.kernels import thresholds as thr_k
-from nellie_tpu_torch.kernels.filters import binary_opening, uniform_filter
+from nellie_tpu_torch.kernels.filters import uniform_filter
 from nellie_tpu_torch.mesh import cells
 
 
@@ -436,9 +436,8 @@ def finalize_shards(shards, plan: ShardPlan, max_samples: int) -> list:
     pos = sample > 0
     if not bool(pos.any()):
         return shards
-    pct = frangi_k.masked_percentile(sample, pos, 1.0)
-    masks = [s > pct.to(s.device) for s in shards]
-    opened = halo_map(binary_opening, masks, plan, 2)
+    pct = frangi_k.masked_percentile_forms(sample, pos, 1.0)
+    opened = halo_map(lambda s: frangi_k.opening_mask(s, pct.to(s.device)), shards, plan, 2)
     return [s * m for s, m in zip(shards, opened)]
 
 

@@ -156,10 +156,6 @@ def _accumulate_vesselness(volume, params, shape, max_chunk_voxels, vessel_dtype
     return vessel, bytes_up, n_windows, resident
 
 
-def _opening_mask(vessel, pct):
-    return binary_opening(vessel > pct.to(vessel.dtype))
-
-
 def _threshold(sample, m1o_sample, nbins):
     """The Label threshold over the opening-masked sample (+inf when no
     sample value is positive)."""
@@ -181,8 +177,8 @@ def _segment_from_vessel(vessel, min_area, fill, step, nbins, emit):
     histograms read strided samples, and ``vessel * mask > thr`` is taken
     as ``(vessel > thr) & mask`` (equal for thr > 0)."""
     sample = vessel.reshape(-1)[::step].float()
-    pct = frangi_k.masked_percentile(sample, sample > 0, 1.0)
-    m1o = _opening_mask(vessel, pct)
+    pct = frangi_k.masked_percentile_forms(sample, sample > 0, 1.0)
+    m1o = frangi_k.opening_mask(vessel, pct)
     thr = _threshold(sample, m1o.reshape(-1)[::step], nbins)
     mask = (vessel > thr.to(vessel.dtype)) & m1o
     if fill:
@@ -515,11 +511,11 @@ def _segment_chunked(volume, params, min_area, emit, max_chunk_voxels, vessel_dt
     with phases("thresholds"):
         step = max(int(np.prod(shape)) // max(1, threshold_sampling_pixels), 1)
         sample = vessel.reshape(-1)[::step].float()
-        pct = frangi_k.masked_percentile(sample, sample > 0, 1.0)
+        pct = frangi_k.masked_percentile(sample, sample > 0, 1.0).to(vessel.dtype)
         m1o = torch.zeros(shape, dtype=torch.bool, device=dev)
         for ext, offset, core_shape in _windowed(shape, (2,) * nd):
             m1o[_core_box(ext, offset, core_shape)] = crop_core(
-                _opening_mask(vessel[ext], pct), offset, core_shape)
+                binary_opening(vessel[ext] > pct), offset, core_shape)
         thr = _threshold(sample, m1o.reshape(-1)[::step], histogram_nbins)
         mask = (vessel > thr.to(vessel.dtype)) & m1o
         del vessel, m1o, sample
@@ -606,8 +602,8 @@ def _segment_mesh(volume, params, min_area, emit, mesh, max_chunk_voxels, vessel
     with phases("segment"):
         step = max(int(np.prod(shape)) // max(1, threshold_sampling_pixels), 1)
         sample = msh.gather_flat_strided(vessel, plan, step).float()
-        pct = frangi_k.masked_percentile(sample, sample > 0, 1.0)
-        m1o = msh.halo_map(lambda v: _opening_mask(v, pct.to(v.device)), vessel, plan, 2)
+        pct = frangi_k.masked_percentile_forms(sample, sample > 0, 1.0)
+        m1o = msh.halo_map(lambda v: frangi_k.opening_mask(v, pct.to(v.device)), vessel, plan, 2)
         thr = _threshold(sample, msh.gather_flat_strided(m1o, plan, step), histogram_nbins)
         mask = [(v > thr.to(v.device).to(v.dtype)) & m for v, m in zip(vessel, m1o)]
         del vessel, m1o

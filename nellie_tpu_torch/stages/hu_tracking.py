@@ -96,8 +96,7 @@ def _roi_features_kernel(intensity_pad, frangi_pad, coords, radii, r, looped=Fal
     cubes_f = torch.where(inside, frangi_pad[tuple(index)], 0.0)
     stats = moments.masked_mean_variance(torch.cat([cubes_i, cubes_f]))
     stats = torch.cat([stats[:n], stats[n:]], dim=1)
-    hu = moments.hu_2d(cubes_i, looped) if ndim == 2 else moments.hu_3d(cubes_i, looped)
-    return stats, moments.log_hu(hu)
+    return stats, moments.hu_features(cubes_i, looped)
 
 
 def _frame_features_fused(intensity, frangi, distance, coords, r, chunk, scaling):

@@ -38,8 +38,12 @@ importing the package of its own tree:
   path's largest Network mask, its 2D thinning
   (``skeleton.skeletonize_2d``) on the 2D path's, its distance transform
   (``edt.distance_transform``) on the 3D and 2D paths' largest Markers
-  calls and its masked percentile (``frangi.masked_percentile``) on the
-  3D, 2D and capacity paths' largest calls, and its fused multiply-add (``_fp.fma``) on
+  calls, its masked percentile (form A: ``frangi.masked_percentile_forms``,
+  or ``masked_percentile`` on a tree without it) on the 3D, 2D and
+  capacity paths' largest calls and its log-Hu features
+  (``moments.hu_features``, or the composition a tree without it called)
+  on the 3D and 2D paths' largest calls, and its fused
+  multiply-add (``_fp.fma``) on
   the 3D path's largest ``fma_f32`` call, then ``_fp.log``, ``_fp.exp``,
   ``_fp.sum_of_products`` (three pairs) and ``_fp.reduce_sum_of_squares``
   (three columns) on 4,194,304 seeded values: a digest, the time per call
@@ -53,7 +57,9 @@ importing the package of its own tree:
   trees);
 - ``run`` on the 3D main series and on the 2D movie: the seconds of each
   stage (tracking's among them) and a digest of every file written, the
-  flow vectors and the feature CSVs among them;
+  flow vectors and the feature CSVs among them, then the tracking stage
+  alone again under ``torch.profiler`` (``chip_smoke.tracking_launches``:
+  its CUDA kernels);
 - ``capacity.segment_volume`` on ``chip_smoke.capacity_volume(1024)``: its
   wall, vesselness and thresholds seconds and its label count;
 - the Filter stage's host reads on the 3D main series
@@ -169,9 +175,10 @@ def child(tree, rows_path, out_path, label):
                                     artifact_digests(os.path.join(root, "timed 2D")).items()})
         for tag, shape in (("3D", chip_smoke.MAIN_SHAPE), ("2D", chip_smoke.MAIN_SHAPE_2D)):
             directory = os.path.join(root, f"whole{tag}")
-            _, timings = run(chip_smoke.write_series(directory, shape), device="cuda",
-                             return_timings=True)
+            im_info, timings = run(chip_smoke.write_series(directory, shape), device="cuda",
+                                   return_timings=True)
             result[f"run {tag}"] = dict(timings)
+            result[f"tracking launches {tag}"] = chip_smoke.tracking_launches(im_info)
             result["artifacts"].update({f"run {tag}/{name}": d for name, d in
                                         artifact_digests(directory).items()})
             print(f"{label} tree: run on the {tag} main path: "
@@ -244,7 +251,7 @@ def tail_call(name):
 # the rows whose earlier version is plain torch of many launches a call
 SLOW_ON_EARLIER = ("pair_stats", "pair_costs", "masked_mean_variance", "min_triangle_otsu",
                    "otsu_threshold", "triangle_threshold", "triangle_and_otsu",
-                   "skeletonize_2d", "distance_transform", "masked_percentile")
+                   "skeletonize_2d", "distance_transform", "masked_percentile", "hu_features")
 
 
 def pair_sums(*args):
@@ -277,6 +284,28 @@ def threshold_call(name):
         return lambda v, m, n: (thresholds.triangle_threshold(v, m, n),
                                 thresholds.otsu_threshold(v, m, n)[0])
     return getattr(thresholds, name)
+
+
+def percentile_a():
+    """The percentile's form A (the only form of a tree without
+    ``masked_percentile_forms``) from this process's package."""
+    from nellie_tpu_torch.kernels import frangi
+
+    forms = getattr(frangi, "masked_percentile_forms", None)
+    if forms is None:
+        return frangi.masked_percentile
+    return lambda *args: forms(*args)[0]
+
+
+def hu_call():
+    """``moments.hu_features`` of this process's package, or, on a tree
+    without it, the composition the tracker called in its place."""
+    from nellie_tpu_torch.kernels import moments
+
+    if hasattr(moments, "hu_features"):
+        return moments.hu_features
+    return lambda cubes, looped: moments.log_hu(
+        moments.hu_3d(cubes, looped) if cubes.dim() == 4 else moments.hu_2d(cubes, looped))
 
 
 def kernel_rows(rows):
@@ -312,8 +341,10 @@ def kernel_rows(rows):
             "skeletonize_2d 2D": (skeleton.skeletonize_2d, cuda(rows["thin2d"])),
             **{f"distance_transform {path}": (edt.distance_transform, cuda(args))
                for path, args in rows["edt"].items()},
-            **{f"masked_percentile {path}": (frangi.masked_percentile, cuda(args))
+            **{f"masked_percentile {path}": (percentile_a(), cuda(args))
                for path, args in rows["percentile"].items()},
+            **{f"hu_features {path}": (hu_call(), cuda(args))
+               for path, args in rows["hu"].items()},
             "fma_f32 3D largest": (_fp.fma, cuda(rows["fma"])),
             "log": (_fp.log, (positive,)),
             "exp": (_fp.exp, (a * 4,)),
@@ -352,7 +383,9 @@ def record(rows_path):
     host["thin2d"] = hand_2d["largest"]["skeletonize_2d"][1]
     host["edt"] = {"3D": hand["largest"]["distance_transform"][1],
                    "2D": hand_2d["largest"]["distance_transform"][1]}
-    host["percentile"] = {path: largest["masked_percentile"][1]
+    host["hu"] = {"3D": hand["largest"]["hu_features"][1],
+                  "2D": hand_2d["largest"]["hu_features"][1]}
+    host["percentile"] = {path: largest["masked_percentile_forms"][1]
                           for path, largest in (("3D", hand["largest"]),
                                                 ("2D", hand_2d["largest"]),
                                                 ("capacity", capacity["largest"]))}
@@ -422,6 +455,8 @@ def main() -> None:
     kernels = {}
     for row in turns[0]["kernels"]:
         digests = {t["kernels"][row]["digest"] for t in turns}
+        if len({t["kernels"][row]["digest"] for t in turns if t["tree"] == "this"}) != 1:
+            sys.exit(f"this tree's turns differ at {row}")
         if len(digests) != 1:
             sys.exit(f"the two trees' kernels differ at {row}")
         kernels[row] = {}
@@ -447,14 +482,18 @@ def main() -> None:
     seconds = [{k: t[k] for k in ("tree", "seg_fused", "filter", "network", "markers",
                                   "seg_fused_2d", "filter_2d", "network_2d", "markers_2d",
                                   "capacity", "vesselness", "thresholds", "run 3D", "run 2D",
+                                  "tracking launches 3D", "tracking launches 2D",
                                   "filter_host_reads")}
                for t in turns]
     print("seconds by turn: " + "; ".join(
         f"{s['tree']}: seg_fused {s['seg_fused']:.3f}, filter {s['filter']:.3f}, network "
         f"{s['network']:.3f}, markers {s['markers']:.3f}, 2D seg_fused "
         f"{s['seg_fused_2d']:.3f}, filter {s['filter_2d']:.3f}, network "
-        f"{s['network_2d']:.3f}, markers {s['markers_2d']:.3f}, tracking 3D {s['run 3D']['tracking']:.3f}, tracking 2D "
-        f"{s['run 2D']['tracking']:.3f}, capacity {s['capacity']:.3f}, vesselness "
+        f"{s['network_2d']:.3f}, markers {s['markers_2d']:.3f}, tracking 3D "
+        f"{s['run 3D']['tracking']:.3f} ({s['tracking launches 3D']['cuda_kernels']} CUDA "
+        f"kernels alone), tracking 2D {s['run 2D']['tracking']:.3f} "
+        f"({s['tracking launches 2D']['cuda_kernels']} CUDA kernels alone), capacity "
+        f"{s['capacity']:.3f}, vesselness "
         f"{s['vesselness']:.3f}, thresholds {s['thresholds']:.3f}, Filter host reads "
         f"{s['filter_host_reads']}" for s in seconds)
         + f" [{gpu}]", flush=True)

@@ -15,8 +15,9 @@ profiler range inside the stage: the flow interpolation
 nearest seed (``nearest_seed``), the distance transform
 (``distance_transform``), the histogram thresholds (``min_triangle_otsu``,
 ``otsu_threshold``, ``triangle_threshold``, ``triangle_and_otsu``), the percentile mask
-(``masked_percentile``) and the tracker's pair sums, pair costs and ROI
-statistics (``pair_stats``, ``pair_costs``, ``masked_mean_variance``), each with its calls, wall (host) seconds,
+(``masked_percentile_forms``) and the tracker's log-Hu features, pair sums,
+pair costs and ROI statistics (``hu_features``, ``pair_stats``,
+``pair_costs``, ``masked_mean_variance``), each with its calls, wall (host) seconds,
 device seconds, kernel launches and host syncs (``cudaStreamSynchronize``
 and the other synchronising runtime calls).  The profiler adds host time
 of its own, so the wall seconds here are above ``run``'s.  Processing the
@@ -49,8 +50,9 @@ def _ranged(fn, name):
 
 STAGES = ("filter", "label", "network", "markers", "tracking", "reassign", "hierarchy")
 RANGES = ("interp", "skeletonize_3d", "nearest_seed", "distance_transform", "min_triangle_otsu",
-          "otsu_threshold", "triangle_threshold", "triangle_and_otsu", "masked_percentile",
-          "pair_stats", "pair_costs", "masked_mean_variance")
+          "otsu_threshold", "triangle_threshold", "triangle_and_otsu",
+          "masked_percentile_forms", "hu_features", "pair_stats", "pair_costs",
+          "masked_mean_variance")
 
 
 def _stage(name, im_info):
@@ -85,7 +87,7 @@ def _install_ranges():
     edt.distance_transform = _ranged(edt.distance_transform, "distance_transform")
     for module, name in ((thresholds, "min_triangle_otsu"), (thresholds, "otsu_threshold"),
                          (thresholds, "triangle_threshold"), (thresholds, "triangle_and_otsu"),
-                         (frangi, "masked_percentile"),
+                         (frangi, "masked_percentile_forms"), (moments, "hu_features"),
                          (matching, "pair_stats"), (matching, "pair_costs"),
                          (moments, "masked_mean_variance")):
         setattr(module, name, _ranged(getattr(module, name), name))

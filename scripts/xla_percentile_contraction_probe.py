@@ -3,9 +3,11 @@
     python scripts/xla_percentile_contraction_probe.py [--frames 5] [--seed 0]
 
 The percentile's last step, s[lo] (1 - frac) + s[hi] frac, rounds once in
-either of two contracted forms: A = fma(s[lo], 1 - frac, s[hi] frac) (the
-port's, ``frangi.masked_percentile_plain``) and B = fma(s[hi], frac,
-s[lo] (1 - frac)).  The script builds 8 x 16 x 16 frames whose strided
+either of two contracted forms: A = fma(s[lo], 1 - frac, s[hi] frac) and
+B = fma(s[hi], frac, s[lo] (1 - frac)); the reference's opening compares
+each term with the form its fusion contracts, and so does the port
+(``frangi.FINALIZE_FORMS``; ``scripts/xla_finalize_contractions.py`` reads
+the forms fusion by fusion).  The script builds 8 x 16 x 16 frames whose strided
 sample (every second voxel on each axis, 256 values, ``max_samples`` 256)
 is the only positive content but for a 7-voxel cross centred on an odd
 voxel, which the sample never reads and which the opening keeps exactly

@@ -4,9 +4,10 @@ Needs a CUDA GPU and skips without one; imports no JAX.  On the card:
 
     python -m pytest --noconftest -m gpu tests/test_torch_percentile_cuda.py
 
-``frangi.masked_percentile`` on a CUDA tensor launches
+``frangi.masked_percentile_forms`` on a CUDA tensor launches
 ``kernels/csrc/masked_percentile.cu`` (a memset and one persistent kernel,
-no sort, no host read; a 0-dim float32 on the card) and equals
+no sort, no host read; both forms of the last step, A and B, as a (2,)
+float32 on the card; ``masked_percentile`` takes form B) and equals
 ``masked_percentile_plain`` bit for bit (NaN where NaN), on the card and on
 CPU copies, on ``chip_smoke.PERCENTILE_CASES`` at q in {0, 1, 50, 100}
 (masked NaNs past the +inf pads, zeros of both signs in the values'
@@ -32,13 +33,15 @@ def cuda():
 def _check(values, mask, q):
     kernel = frangi.MASKED_PERCENTILE_KERNEL
     before, kernels = kernel.launches, kernel.kernel_launches
-    got = frangi.masked_percentile(values, mask, q)
+    got = frangi.masked_percentile_forms(values, mask, q)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
     assert kernel.kernel_launches == kernels + kernel.last_stats["cuda_kernels"]
-    assert got.dtype == torch.float32 and got.shape == () and got.device == values.device
+    assert got.dtype == torch.float32 and got.shape == (2,) and got.device == values.device
     want = frangi.masked_percentile_plain(values, mask, q)
-    assert chip_smoke.same_tensor(got, want), (q, float(got), float(want))
+    assert chip_smoke.same_tensor(got, want), (q, got.tolist(), want.tolist())
+    one = frangi.masked_percentile(values, mask, q)
+    assert one.shape == () and chip_smoke.same_tensor(one, want[frangi.B])
     return got
 
 
@@ -58,8 +61,8 @@ def test_callers_sample(cuda, q):
     values, mask = chip_smoke.percentile_inputs("positive sample", n=10 ** 6, seed=3)
     values, mask = torch.from_numpy(values).to(cuda), torch.from_numpy(mask).to(cuda)
     _check(values, mask, q)
-    _, reads = chip_smoke.host_reads(lambda: frangi.masked_percentile(values, mask, q))
-    wait_ms = chip_smoke.host_wait_ms(lambda: frangi.masked_percentile(values, mask, q))
+    _, reads = chip_smoke.host_reads(lambda: frangi.masked_percentile_forms(values, mask, q))
+    wait_ms = chip_smoke.host_wait_ms(lambda: frangi.masked_percentile_forms(values, mask, q))
     assert reads == 0 and wait_ms < chip_smoke.QUEUED_MS / 2
 
 
@@ -94,3 +97,19 @@ def test_refuses_what_it_does_not_take(cuda):
     empty = torch.empty(0, device=cuda)
     assert float(frangi.masked_percentile(empty, empty > 0, 1.0)) == 0.0
     assert np.float32(frangi.masked_percentile(v, v < 0, 1.0).cpu()) == 0.0
+    assert frangi.masked_percentile_forms(v, v < 0, 1.0).cpu().tolist() == [0.0, 0.0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("a_less", [True, False])
+def test_finalize_cross_frames(cuda, a_less):
+    """The finalize on ``chip_smoke.finalize_cross_frame``'s frames (each
+    opening term in its own form): the card equals the CPU bit for bit, and
+    each cross is kept or dropped as ``frangi.FINALIZE_FORMS`` says."""
+    for ndim in (3, 2):
+        frame, _, _, crosses = chip_smoke.finalize_cross_frame(ndim, a_less)
+        got = frangi.finalize_frame(torch.from_numpy(frame).to(cuda)).cpu()
+        want = frangi.finalize_frame(torch.from_numpy(frame))
+        assert chip_smoke.same_tensor(got, want), (ndim, a_less)
+        for name, (centre, kept) in crosses.items():
+            assert bool(got[centre] != 0) == kept, (ndim, name)
