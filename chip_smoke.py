@@ -5,11 +5,13 @@
 Phases, each printing its own lines; any failure exits non-zero:
 
 1. the device: name, ``nvidia-smi`` name and power limit, torch/CUDA versions;
-2. builds the twelve CUDA kernels from the checkout (nearest neighbour,
-   union-find, flow interpolation, fused multiply-add, the Gaussian
-   cascade's 1-D correlation, the Frangi tail, Network's 3D thinning and
-   nearest seed, tracking's pair sums, pair costs and ROI statistics, the
-   histogram thresholds; one nvcc each, in parallel), times the builds and prints
+2. builds every hand kernel's CUDA source from the checkout (seventeen:
+   nearest neighbour, union-find, capacity's cross-cell merge, flow
+   interpolation, fused multiply-add, the Gaussian cascade's 1-D
+   correlation, the Frangi tail, Network's 3D thinning and nearest seed,
+   tracking's pair sums, pair costs, ROI statistics and log-Hu features,
+   the histogram thresholds, the 2D thinning, the clamped EDT and the
+   masked percentile; one nvcc each, in parallel), times the builds and prints
    the nearest-neighbour kernel's registers, spills and resident warps per
    SM;
 3. checks the kernel against its plain PyTorch version on the card (ragged
@@ -66,9 +68,11 @@ Phases, each printing its own lines; any failure exits non-zero:
 11. the capacity path at 1024^3 (BASELINE config #4): a uint16 volume of
    about 40 tubes on N(100, 8) noise made on the card from a seed,
    ``segment_volume(..., emit="sparse_labels")`` with ``strategy="auto"``
-   (the chunked strategy), its seconds by phase, label count, foreground,
-   label dtype and peak device memory, and its labels held to
-   ``scipy.ndimage.label`` of their support, exactly;
+   (the chunked strategy, its cells' pieces merged on the card by
+   ``kernels/csrc/ccl_merge.cu``), its seconds by phase, label count,
+   foreground, label dtype, bytes down and peak device memory (at most
+   ``CAPACITY_PEAK_GIB``), and its labels held to ``scipy.ndimage.label`` of
+   their support, exactly;
 12. the repo's sample movie (``sample_data/synthetic_3d_mitochondria.ome.tif``,
    4x16x128x128 ``TZYX``) through ``run_path`` on the card and on the
    CPU at phase 5's bars, then ``LabelTracks`` of every label from frame 1,
@@ -224,6 +228,14 @@ on ``finalize_cross_frame``'s frames it checks each cross against the
 table.  Phases 4 and 6 print tracking's CUDA kernels, the stage rerun
 alone under the profiler (``tracking_launches``).
 
+Phase 17 holds the cross-cell merge (``csrc/ccl_merge.cu``, through
+``ccl.MERGE_KERNEL``) bit for bit to ``ccl.merge_cell_roots_plain`` on
+``merge_masks`` (3D and 2D on fine grids, full and faces connectivity,
+on the card and on CPU copies) and on the 1024^3 volume's label and
+hole-filling merges, recorded from a second run of the chunked strategy,
+timed beside the plain body, the host union-find it replaced and the
+bound, with the host's time with work queued on the card (no host read).
+
 Phase 5 holds the flow costs card = CPU exactly (the Hu moments' powers
 round as XLA's CPU code rounds them, ``kernels/_fp.py::pow``).
 Phases 5, 7 and 12 run the fused chain (``run``'s default); phase 10's
@@ -265,8 +277,11 @@ HIERARCHY_INPUTS = ("im_preprocessed", "im_instance_label", "im_skel", "im_pixel
 CAPACITY_EDGE = 1024
 CAPACITY_SIGMAS = (0.75, 1.1, 1.6)
 # the hand kernels of the 1024^3 capacity path
-CAPACITY_KERNELS = ("ccl_union_find", "fma_chain", "gauss_axis", "frangi_tail",
+CAPACITY_KERNELS = ("ccl_union_find", "ccl_merge", "fma_chain", "gauss_axis", "frangi_tail",
                     "hist_threshold", "masked_percentile")
+# the 1024^3 capacity run's peak device memory may not pass 1.5 times the
+# 7.847 GiB it took while its cells were merged on the host
+CAPACITY_PEAK_GIB = 11.8
 LIBRARY_MAX_BYTES = 30e9  # largest distance matrix the library call may write
 TIE_REL = 1e-6   # an index may differ only where the two candidates' float64
                  # squared distances differ by <= TIE_REL * (|q|^2 + |r|^2)
@@ -779,9 +794,11 @@ def phase_main_path(nn, gpu, root, shape=MAIN_SHAPE, tag=""):
                  for c, n in by.items() if c.startswith("edt.")}
     if seed_dist:
         fail(f"{tag}Network's nearest seed launched fma_f32: {json.dumps(seed_dist)}")
-    # thinning: thin26 on the 3D path, Zhang-Suen's thin2d on the 2D path
+    # thinning: thin26 on the 3D path, Zhang-Suen's thin2d on the 2D path;
+    # the cross-cell merge on the capacity path only
     required = {k: n for k, n in hand.items()
-                if (k != "thin26" or len(shape) == 4) and (k != "thin2d" or len(shape) == 3)}
+                if (k != "thin26" or len(shape) == 4) and (k != "thin2d" or len(shape) == 3)
+                and k != "ccl_merge"}
     if min(required.values()) == 0:
         fail(f"{tag}the main path never launched one of the hand kernels: {json.dumps(hand)}")
     print_gauss_taps(tag + "main path", calls.gauss_taps)
@@ -949,7 +966,7 @@ def phase_small_parity(root, data, axes, dim_res, tag="", config=None, nn=None, 
                        infos=None):
     """The pipeline on ``data`` on the card and on the CPU, held to each
     other: float artifacts within 1e-4 of the frame max, integer artifacts
-    on all but 0.1% of the foreground, flow costs and the feature tables at
+    exactly, flow costs and the feature tables at
     the features bar, and the Hierarchy alone on the CPU run's artifacts
     exactly so, with equal adjacency edges.  With ``source`` (a file), each
     device runs a copy of it through ``run_path`` instead.  With ``nn``,
@@ -991,7 +1008,6 @@ def phase_small_parity(root, data, axes, dim_res, tag="", config=None, nn=None, 
         worst[name] = err
         if err > 1e-4:
             fail(f"{tag}{name}: card vs CPU error {err:.3g} of the frame max > 1e-4")
-    fg = int((artifact(infos["cpu"], "im_instance_label") > 0).sum())
     names = ["im_instance_label", "im_skel", "im_pixel_class", "im_skel_relabelled",
              "im_marker", "im_border"]
     if temporal:
@@ -1000,8 +1016,8 @@ def phase_small_parity(root, data, axes, dim_res, tag="", config=None, nn=None, 
         a, b = artifact(infos["cuda"], name), artifact(infos["cpu"], name)
         diff = int((a != b).sum())
         worst[name] = diff
-        if diff > 0.001 * fg:
-            fail(f"{tag}{name}: {diff} voxels differ between card and CPU (foreground {fg})")
+        if diff:
+            fail(f"{tag}{name}: {diff} voxels differ between card and CPU")
     if temporal:
         fa = artifact(infos["cuda"], "flow_vector_array")
         fb = artifact(infos["cpu"], "flow_vector_array")
@@ -1302,7 +1318,6 @@ def phase_capacity_1024(gpu, edge=CAPACITY_EDGE):
     hand = read_hand_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     labels = out["labels"]
-    del vol
     print(f"capacity {edge}^3: volume made in {made:.1f} s; segment_volume {seconds:.1f} s "
           f"({labels.size / seconds / 1e6:.1f} Mvox/s), strategy {out['strategy']}, emit "
           f"{out['emit']}, raw resident {out['raw_resident']}, n_labels {out['n_labels']}, "
@@ -1325,6 +1340,14 @@ def phase_capacity_1024(gpu, edge=CAPACITY_EDGE):
              f"{json.dumps(hand)}")
     if out["strategy"] != "chunked" or out["fg_count"] != int((labels > 0).sum()):
         fail(f"capacity {edge}^3: not the chunked strategy, or fg_count is not the support")
+    print(f"capacity {edge}^3 merges: {hand['ccl_merge']} calls of the merge kernel, "
+          f"{read_kernel_launches()['ccl_merge']} CUDA kernels; bytes down "
+          f"{out['bytes_down']} (the product: {out['fg_count']} int32 indices and "
+          f"{labels.dtype} labels)", flush=True)
+    if out["bytes_down"] != out["fg_count"] * (4 + labels.itemsize):
+        fail(f"capacity {edge}^3: {out['bytes_down']} bytes down, not the product's alone")
+    if peak_gib > CAPACITY_PEAK_GIB:
+        fail(f"capacity {edge}^3: peak device memory {peak_gib:.3f} GiB > {CAPACITY_PEAK_GIB}")
     start = time.perf_counter()
     ref, ref_n = ndimage.label(labels > 0, structure=np.ones((3, 3, 3)))
     equal = ref_n == out["n_labels"] and np.array_equal(ref, labels)
@@ -1337,7 +1360,7 @@ def phase_capacity_1024(gpu, edge=CAPACITY_EDGE):
                 calls=calls.calls["ccl_union_find"], fma_largest=calls.fma_largest,
                 largest=calls.largest(), wrapper_calls=calls.wrapper_calls,
                 fma_by_caller=calls.fma_callers(), gauss_taps=calls.gauss_taps,
-                peak_gib=peak_gib)
+                peak_gib=peak_gib, volume=vol)
 
 
 # ---------------------------------------------------------------------------
@@ -2335,7 +2358,7 @@ def caller_tag():
             via = CAPACITY_CELLS[frame.name]
         hit = next((name for place, name in places if place in path), None)
         if hit and (hit != "capacity" or via is not None or frame.name not in (
-                "_cell_roots", "_iter_cells")):
+                "_cell_roots", "_merged_roots", "_iter_cells")):
             stage = hit
             break
     return stage if via is None else f"{stage}/{via}"
@@ -2556,7 +2579,8 @@ def hand_counts():
                                           skeleton, thresholds)
     from nellie_tpu_torch.stages import flow_interpolation as fi
 
-    return {"ccl_union_find": ccl.CCL_KERNEL, "flow_interp": fi.FLOW_INTERP_KERNEL,
+    return {"ccl_union_find": ccl.CCL_KERNEL, "ccl_merge": ccl.MERGE_KERNEL,
+            "flow_interp": fi.FLOW_INTERP_KERNEL,
             "fma_f32": _fp.FMA_KERNEL, "fma_chain": _fp.FMA_CHAIN_KERNEL,
             "gauss_axis": filters.GAUSS_AXIS_KERNEL,
             "frangi_tail": frangi.FRANGI_TAIL_KERNEL, "thin26": skeleton.THIN26_KERNEL,
@@ -2801,6 +2825,256 @@ def phase_ccl_kernel(gpu, recorded, capacity_calls):
           f"and a {CCL_SHAPE_3D} background at 98.8%, both connectivities", flush=True)
     rows = {row: time_ccl(gpu, f"the {row} call", *args)
             for row, args in ccl_rows(recorded, capacity_calls).items()}
+    return rows, worst
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the cross-cell merge of capacity's chunked strategy
+# ---------------------------------------------------------------------------
+
+MERGE_SHAPES = {3: (20, 40, 48), 2: (40, 48)}
+MERGE_CELLS = {3: 3, 2: 4}  # cells an axis of the grids the merge cases take
+MERGE_REPS = 10
+
+
+def merge_grid(shape, cells):
+    """The cut positions of a grid of ``cells`` cells an axis."""
+    return [tuple(int(round(d * i / cells)) for i in range(cells + 1)) for d in shape]
+
+
+def merge_masks(ndim):
+    """The cross-cell merge's masks at ``MERGE_SHAPES[ndim]`` by name, as
+    numpy bool arrays, for the grid of ``MERGE_CELLS[ndim]`` cells an axis:
+    random blobs; a lattice of lines every 7 voxels along each axis, one
+    component through every cell; a closed shell whose hole crosses a
+    boundary along every axis; pieces that touch only across a diagonal of
+    a boundary (joined under full connectivity, apart under faces); and
+    nothing."""
+    from scipy import ndimage
+
+    shape = MERGE_SHAPES[ndim]
+    noise = ndimage.gaussian_filter(
+        np.random.default_rng(1 if ndim == 3 else 3).normal(size=shape), 2.0)
+    on_line = np.indices(shape) % 7 == 3
+    lattice = np.zeros(shape, bool)
+    for axis in range(ndim):
+        lattice |= np.all(np.delete(on_line, axis, axis=0), axis=0)
+    shell = np.zeros(shape, bool)
+    diagonal = np.zeros(shape, bool)
+    if ndim == 3:
+        shell[4:11, 10:20, 12:24] = True
+        shell[5:10, 11:19, 13:23] = False
+        pairs = (((6, 5, 5), (7, 6, 6)), ((10, 30, 15), (11, 31, 16)),
+                 ((2, 12, 40), (3, 13, 41)), ((15, 26, 30), (15, 27, 31)))
+    else:
+        shell[8:20, 10:22] = True
+        shell[9:19, 11:21] = False
+        pairs = (((9, 5), (10, 6)), ((30, 11), (31, 12)), ((25, 35), (26, 36)))
+    for a, b in pairs:
+        diagonal[a] = diagonal[b] = True
+    return {"blobs": noise > 0.8 * noise.std(), "lattice": lattice, "shell": shell,
+            "diagonal": diagonal, "empty": np.zeros(shape, bool)}
+
+
+def cell_roots(mask, bounds, connectivity, invert=False):
+    """The merge's input: the int32 roots of ``mask`` (of ``~mask`` with
+    ``invert``) labelled cell by cell on the grid ``bounds`` by capacity's
+    ``_cell_roots``, on the mask's device."""
+    from nellie_tpu_torch.pipeline import capacity
+
+    shape = tuple(mask.shape)
+    roots = torch.empty(shape, dtype=torch.int32, device=mask.device)
+    for origin, cshape in capacity._iter_cells(bounds):
+        capacity._cell_roots(roots, mask, origin, cshape, shape, invert, connectivity)
+    return roots
+
+
+def merge_bound(before, after, bounds):
+    """(bound_ms, "bytes") of one merge: the roots read once (4 bytes a
+    voxel), the members whose root changed written once (4 bytes each) and
+    the two planes of every boundary read once (4 bytes a voxel each), at
+    the memory rate."""
+    from nellie_tpu_torch.kernels import ccl
+
+    n = before.numel()
+    changed = int((before != after).sum())
+    planes = sum(2 * (n // before.shape[axis]) for axis, _ in ccl.internal_planes(bounds))
+    return 4 * (n + changed + planes) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def check_merge(what, roots, bounds, connectivity, against_cpu=False):
+    """The merge kernel on a copy of ``roots`` against its plain body on
+    another, exactly (and on CPU copies with ``against_cpu``), with one
+    wrapper call and its two CUDA kernels counted; returns (the kernel's
+    output, max |kernel - plain|)."""
+    from nellie_tpu_torch.kernels import ccl
+
+    kernel = ccl.MERGE_KERNEL
+    calls, launched = kernel.launches, kernel.kernel_launches
+    got = kernel(roots.clone(), bounds, connectivity)
+    if ccl.internal_planes(bounds) and (kernel.launches - calls,
+                                        kernel.kernel_launches - launched) != (1, 2):
+        fail(f"merge kernel on {what}: {kernel.launches - calls} calls and "
+             f"{kernel.kernel_launches - launched} CUDA kernels counted, not 1 and 2")
+    want = ccl.merge_cell_roots_plain(roots.clone(), bounds, connectivity)
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    if got.dtype != torch.int32 or err:
+        fail(f"merge kernel differs from its plain body on {what} in "
+             f"{int((got != want).sum())} voxels")
+    if against_cpu and not torch.equal(
+            got.cpu(), ccl.merge_cell_roots_plain(roots.cpu(), bounds, connectivity)):
+        fail(f"merge kernel on {what}: the card differs from the plain body on the CPU")
+    return got, err
+
+
+def time_merge(roots, bounds, connectivity, reps=MERGE_REPS):
+    """(ms a call, ms on the device, the profiler's ms on the device or
+    None) of the merge kernel, each call on a fresh copy of ``roots`` made
+    before it (a volume of 4 bytes a voxel, which also pushes most of the
+    roots out of the L2); the least of two rounds.  A call: CUDA events
+    around it.  On the device: the same events with ``QUEUED_MS`` of work
+    queued on the card ahead of the round, so that every copy and call is
+    queued before the card reaches it and the events hold the two kernels
+    alone.  The profiler: its times of the kernel's two kernels, kept only
+    when it recorded exactly two a call (it misses some of the ctypes
+    libraries' kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nellie_tpu_torch.kernels import ccl
+
+    work = torch.empty_like(roots)
+
+    def event_round(queued):
+        pairs = []
+        if queued:
+            queue_sleep(QUEUED_MS)
+        for _ in range(reps):
+            work.copy_(roots)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            ccl.MERGE_KERNEL(work, bounds, connectivity)
+            end.record()
+            pairs.append((start, end))
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+    per_call, device, profiled = [], [], []
+    for _ in range(2):
+        per_call.append(event_round(False))
+        device.append(event_round(True))
+        for _ in range(3):  # the profiler now and then records nothing
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    work.copy_(roots)
+                    ccl.MERGE_KERNEL(work, bounds, connectivity)
+                torch.cuda.synchronize()
+            events = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and ("merge_kernel" in e.name or "flatten_kernel" in e.name)]
+            if len(events) == 2 * reps:
+                profiled.append(sum(e.device_time for e in events) / reps / 1e3)
+                break
+            print(f"time_merge: the profiler recorded {len(events)} of the {2 * reps} "
+                  "merge and flatten kernels: not kept", flush=True)
+    del work
+    return min(per_call), min(device), min(profiled, default=None)
+
+
+def host_merge_seconds(roots, bounds, connectivity):
+    """Seconds of the host union-find that the kernel replaced
+    (``mesh.cells._HostUnionFind`` over ``ccl.plane_pairs``) on the same
+    roots: every boundary's two planes pulled to the host and their root
+    pairs united."""
+    from nellie_tpu_torch.kernels import ccl
+    from nellie_tpu_torch.mesh import cells
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    uf = cells._HostUnionFind()
+    for axis, pos in ccl.internal_planes(bounds):
+        left, right = roots.select(axis, pos - 1).cpu(), roots.select(axis, pos).cpu()
+        uf.union_pairs(*(p.numpy() for p in ccl.plane_pairs(left, right, connectivity)))
+    return time.perf_counter() - start
+
+
+def phase_merge_kernel(gpu, volume):
+    """The cross-cell merge kernel against its plain body on the card,
+    exactly: ``merge_masks`` in 3D and 2D on their fine grids (full and
+    faces connectivity, the latter also on the inverted masks, as hole
+    filling takes them), also against CPU copies; then the 1024^3 capacity
+    volume's two merges (label, full; hole filling, faces), recorded from a
+    second run of the chunked strategy on ``volume``, with their times
+    beside the plain body's, the host union-find's that the kernel replaced
+    and the bound.  Returns (the rows, max |kernel - plain| over every
+    check)."""
+    from nellie_tpu_torch.kernels import ccl
+    from nellie_tpu_torch.kernels.frangi import FrangiParams
+    from nellie_tpu_torch.pipeline import capacity
+
+    checked, worst = 0, 0
+    for ndim in (3, 2):
+        bounds = merge_grid(MERGE_SHAPES[ndim], MERGE_CELLS[ndim])
+        for name, mask in merge_masks(ndim).items():
+            m = torch.from_numpy(mask).cuda()
+            for conn, invert in (("full", False), ("faces", False), ("faces", True)):
+                what = f"{ndim}D {name} {conn}{' inverted' if invert else ''}"
+                _, err = check_merge(what, cell_roots(m, bounds, conn, invert), bounds, conn,
+                                     against_cpu=True)
+                worst, checked = max(worst, err), checked + 1
+    print(f"merge kernel = plain body on the card and on the CPU, exactly, on {checked} cases "
+          f"({', '.join(merge_masks(3))}; 3D {MERGE_SHAPES[3]} on {MERGE_CELLS[3]} cells an "
+          f"axis, 2D {MERGE_SHAPES[2]} on {MERGE_CELLS[2]}; full, faces, faces inverted)",
+          flush=True)
+
+    recorded = {}
+    original = ccl.merge_cell_roots
+
+    def recording(roots, bounds, connectivity="full"):
+        recorded["label" if connectivity == "full" else "fill holes"] = (
+            roots.clone(), bounds, connectivity)
+        return original(roots, bounds, connectivity)
+
+    params = FrangiParams(sigmas=CAPACITY_SIGMAS, spacing=(1.0, 1.0, 1.0), z_ratio=1.0)
+    ccl.merge_cell_roots = recording
+    try:
+        capacity.segment_volume(volume, params, emit="sparse_labels", device="cuda")
+    finally:
+        ccl.merge_cell_roots = original
+    rows = {}
+    for name in ("label", "fill holes"):
+        roots, bounds, conn = recorded.pop(name)
+        got, err = check_merge(f"the capacity {name} merge", roots, bounds, conn)
+        worst = max(worst, err)
+        bound_ms, bound_by = merge_bound(roots, got, bounds)
+        changed = int((roots != got).sum())
+        del got
+        ms, on_device, profiled = time_merge(roots, bounds, conn)
+        work = roots.clone()
+        wait_ms = host_wait_ms(lambda: ccl.MERGE_KERNEL(work.copy_(roots), bounds, conn))
+        if wait_ms >= QUEUED_MS / 2:
+            fail(f"the merge kernel at the capacity {name} merge waited {wait_ms:.1f} ms on "
+                 f"{QUEUED_MS} ms of work queued on the card: a host read")
+        plain_ms = time_ms(lambda: ccl.merge_cell_roots_plain(work.copy_(roots), bounds, conn), 1)
+        host_s = host_merge_seconds(roots, bounds, conn)
+        planes = ccl.internal_planes(bounds)
+        del work, roots
+        rows[f"capacity {name}"] = {
+            "shape": list(volume.shape), "connectivity": conn, "planes": len(planes),
+            "changed": changed, "ms": ms, "device_ms": on_device, "profiler_ms": profiled,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "host_wait_ms": wait_ms, "host_union_find_ms": host_s * 1e3}
+        print(f"merge time at the capacity {name} merge {tuple(volume.shape)} {conn} "
+              f"({len(planes)} boundaries, {changed} roots changed): kernel {ms:.4f} ms a call "
+              f"(on the device {on_device:.4f} ms by events with work queued ahead, "
+              f"{fmt_ms(profiled)} by the profiler), plain {plain_ms:.4f} ms (the copy of the "
+              f"input included), the host union-find it replaced {host_s * 1e3:.1f} ms, library "
+              f"none, bound {bound_ms:.4f} ms ({bound_by}), share {bound_ms / ms:.3f} (on the "
+              f"device {bound_ms / on_device:.3f}); 1 call and 2 CUDA kernels a merge; "
+              f"{wait_ms:.2f} ms of host time with {QUEUED_MS} ms queued on the card, so no "
+              f"host read [{gpu}]", flush=True)
+        torch.cuda.empty_cache()
     return rows, worst
 
 
@@ -4066,6 +4340,18 @@ def phase_percentile_band(gpu, frames):
 QUEUED_MS = 50.0  # the work queued on the card before a call that host_wait_ms times
 
 
+def queue_sleep(ms):
+    """Queue about ``ms`` of work on the card: one ``torch.cuda._sleep``
+    kernel, its cycles a millisecond measured first (the card idle)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    end.synchronize()
+    torch.cuda._sleep(int(10 ** 7 * ms / start.elapsed_time(end)))
+
+
 def host_wait_ms(fn, queued_ms=QUEUED_MS):
     """The host's milliseconds in one call of ``fn`` made with about
     ``queued_ms`` of work queued on the card before it (one
@@ -4076,12 +4362,7 @@ def host_wait_ms(fn, queued_ms=QUEUED_MS):
     card it traced no kernel in some calls of the ctypes libraries.)"""
     fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.cuda._sleep(10 ** 7)
-    end.record()
-    end.synchronize()
-    torch.cuda._sleep(int(10 ** 7 * queued_ms / start.elapsed_time(end)))
+    queue_sleep(queued_ms)
     t0 = time.perf_counter()
     fn()
     host_ms = (time.perf_counter() - t0) * 1e3
@@ -5111,8 +5392,9 @@ def compare_tables(got, want, headers, skip):
 
 
 def build_kernels():
-    """Build the fifteen CUDA kernels from the checkout, one nvcc each, all
-    started together; print the seconds."""
+    """Build every hand kernel's library from the checkout, one nvcc a
+    wrapper, all started together (``fma_f32`` and its chains share one
+    source); print how many sources and the seconds."""
     from concurrent.futures import ThreadPoolExecutor
 
     from nellie_tpu_torch.kernels import nn
@@ -5122,7 +5404,9 @@ def build_kernels():
     with ThreadPoolExecutor(len(kernels)) as ex:
         for future in [ex.submit(k.build) for k in kernels.values()]:
             future.result()
-    print(f"kernel builds, in parallel: {time.perf_counter() - start:.2f} s; nvcc "
+    sources = sorted({k.source for k in kernels.values()})
+    print(f"kernel builds of {len(sources)} sources, in parallel: "
+          f"{time.perf_counter() - start:.2f} s; nvcc "
           + ", ".join(f"{name} {k.build_seconds if k.build_seconds is not None else 'cached'}"
                       for name, k in kernels.items()), flush=True)
 
@@ -5176,6 +5460,7 @@ def main() -> None:
     ccl_rows, ccl_err = phase_ccl_kernel(gpu, {"3D": hand["calls"]["ccl_union_find"],
                                                "2D": hand_2d["calls"]["ccl_union_find"]},
                                          capacity["calls"])
+    merge_rows, merge_err = phase_merge_kernel(gpu, capacity.pop("volume"))
     interp_rows, interp_differ, interp_err = phase_interp_kernel(
         gpu, {"3D": hand["calls"]["flow_interp"], "2D": hand_2d["calls"]["flow_interp"]})
     # capacity's one fma_f32 call a volume was the percentile's multiply-add,
@@ -5241,7 +5526,7 @@ def main() -> None:
     # run many passes in one, hist_threshold launches two)
     kernel_launches_by_path = {name: {"3D": n, "2D": hand_2d["kernel_launches"][name]}
                                for name, n in hand["kernel_launches"].items()}
-    for name in ("hist_threshold", "masked_percentile"):
+    for name in ("hist_threshold", "masked_percentile", "ccl_merge"):
         kernel_launches_by_path[name]["capacity_1024"] = capacity["kernel_launches"][name]
     fma_by_caller = {"3D": hand["fma_by_caller"], "2D": hand_2d["fma_by_caller"],
                      "capacity_1024": capacity["fma_by_caller"]}
@@ -5257,6 +5542,15 @@ def main() -> None:
          "launches": hand["launches"]["ccl_union_find"], "max_abs_err": ccl_err,
          **{k: ccl_rows["3D label/remove_small_components"][k] for k in keys},
          "launches_by_path": launches_by_path["ccl_union_find"], "paths": ccl_rows},
+        {"name": "ccl_merge", "route": "cuda",
+         "source": "nellie_tpu_torch/kernels/csrc/ccl_merge.cu",
+         "replaces": "nellie_tpu/pipeline/capacity.py:470",
+         "launches": capacity["launches"]["ccl_merge"], "max_abs_err": merge_err,
+         **{k: merge_rows["capacity label"][k] for k in keys},
+         "launches_by_path": launches_by_path["ccl_merge"],
+         "kernel_launches": capacity["kernel_launches"]["ccl_merge"],
+         "kernel_launches_by_path": kernel_launches_by_path["ccl_merge"],
+         "paths": merge_rows},
         {"name": "flow_interp", "route": "cuda",
          "source": "nellie_tpu_torch/kernels/csrc/flow_interp.cu",
          "replaces": "nellie_tpu/stages/flow_interpolation.py:29",

@@ -16,14 +16,21 @@ linear index and each round takes the minimum over the neighbourhood (26-
 or 6-connected, foreground only) and then jumps pointers
 (``label = label[label]``), until nothing changes.  ``CCL_KERNEL.launches``
 counts the kernel's launches (one C call: local, border, flatten).
+
+:func:`merge_cell_roots` joins the pieces of a volume labelled cell by cell
+(capacity's chunked strategy): the hand-written kernel ``csrc/ccl_merge.cu``
+on a CUDA tensor (a merge across every internal cell boundary, then a
+flatten, in place, no host read; ``MERGE_KERNEL``), or
+:func:`merge_cell_roots_plain` on a CPU tensor.
 """
 from __future__ import annotations
 
 import ctypes
+import itertools
 
 import torch
 
-from nellie_tpu_torch.kernels._cuda import CudaKernel, check_error
+from nellie_tpu_torch.kernels._cuda import CountedKernel, CudaKernel, check_error, on_card
 from nellie_tpu_torch.kernels.filters import shift_fill
 
 _JUMPS_PER_ROUND = 4
@@ -158,3 +165,128 @@ def remove_small_components(mask: torch.Tensor, min_size: int,
     sizes = torch.bincount(roots, minlength=n + 1)
     keep = mask.reshape(-1).bool() & (sizes[roots] >= min_size)
     return keep.reshape(mask.shape)
+
+
+# ---------------------------------------------------------------------------
+# the cross-cell merge of capacity's chunked strategy
+# ---------------------------------------------------------------------------
+
+def internal_planes(bounds):
+    """(axis, position) of every internal boundary of a cell grid given by
+    its cut positions per axis."""
+    return [(axis, pos) for axis, cuts in enumerate(bounds) for pos in cuts[1:-1]]
+
+
+def plane_pairs(left: torch.Tensor, right: torch.Tensor, connectivity: str):
+    """(a, b): the roots of every voxel pair adjacent across a boundary
+    between the planes ``left`` and ``right`` (just before and at it), both
+    >= 0 and different: the aligned voxels for ``faces``, every in-plane
+    shift in {-1, 0, 1}^ndim for ``full``."""
+    shifts = ([(0,) * left.ndim] if connectivity == "faces"
+              else list(itertools.product((-1, 0, 1), repeat=left.ndim)))
+    pa, pb = [], []
+    for off in shifts:
+        lsl = tuple(slice(max(0, -o), n - max(0, o)) for o, n in zip(off, left.shape))
+        rsl = tuple(slice(max(0, o), n - max(0, -o)) for o, n in zip(off, left.shape))
+        lv, rv = left[lsl].reshape(-1), right[rsl].reshape(-1)
+        sel = (lv >= 0) & (rv >= 0) & (lv != rv)
+        pa.append(lv[sel])
+        pb.append(rv[sel])
+    return torch.cat(pa), torch.cat(pb)
+
+
+def _boundary_pairs(roots: torch.Tensor, planes, connectivity: str):
+    """(a, b) int64: :func:`plane_pairs` over every boundary ``planes``."""
+    pairs = [plane_pairs(roots.select(axis, pos - 1), roots.select(axis, pos), connectivity)
+             for axis, pos in planes]
+    if not pairs:
+        return roots.new_empty(0, dtype=torch.int64), roots.new_empty(0, dtype=torch.int64)
+    return torch.cat([a for a, _ in pairs]).long(), torch.cat([b for _, b in pairs]).long()
+
+
+def merge_cell_roots_plain(roots: torch.Tensor, bounds, connectivity: str = "full"):
+    """:func:`merge_cell_roots` in plain torch: until every boundary pair
+    has one root, each pair's two roots' minimum goes by ``scatter_reduce``
+    (``amin``) to the entry of the larger, and the piece roots jump
+    pointers (``roots[roots]``) to their trees' roots; then every member
+    takes its piece root's root."""
+    flat = roots.view(-1)
+    a, b = _boundary_pairs(roots, internal_planes(bounds), connectivity)
+    if a.numel():
+        nodes = torch.unique(torch.cat([a, b]))
+        while True:
+            while True:  # pointer jumping at the piece roots
+                parent = flat[nodes]
+                grand = flat[parent.long()]
+                if torch.equal(grand, parent):
+                    break
+                flat[nodes] = grand
+            ra, rb = flat[a], flat[b]
+            apart = ra != rb
+            if not bool(apart.any()):
+                break
+            lo, hi = torch.minimum(ra, rb)[apart], torch.maximum(ra, rb)[apart]
+            flat.scatter_reduce_(0, hi.long(), lo, "amin")
+    member = flat >= 0
+    flat[member] = flat[flat[member].long()]
+    return roots
+
+
+class _MergeKernel(CountedKernel):
+    """The compiled cross-cell merge (``csrc/ccl_merge.cu``), built once per
+    process: a merge launch (one per 64 boundaries) and a flatten a call."""
+
+    source = "ccl_merge.cu"
+
+    def bind(self, lib):
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.ccl_merge.argtypes = [ptr, i32, i32, i32, ptr, ptr, i32, i32, ptr,
+                                  ctypes.POINTER(i32)]
+        lib.ccl_merge.restype = i32
+
+    def __call__(self, roots: torch.Tensor, bounds, connectivity: str = "full") -> torch.Tensor:
+        if connectivity not in ("full", "faces"):
+            raise ValueError(f"connectivity {connectivity!r}: expected 'full' or 'faces'")
+        if (roots.dtype != torch.int32 or not roots.is_contiguous() or not 1 <= roots.ndim <= 3
+                or roots.data_ptr() % 16):
+            raise ValueError("the merge kernel takes a contiguous int32 volume of 1 to 3 axes "
+                             "on a 16-byte boundary (its flatten reads int4)")
+        if roots.numel() > MAX_VOXELS:
+            raise ValueError(f"{roots.numel()} voxels: the merge kernel's int32 indices take at "
+                             f"most {MAX_VOXELS}")
+        planes = internal_planes(bounds)
+        if not planes:
+            return roots
+        lib = self._lib or self.build()
+        lead = 3 - roots.ndim
+        depth, height, width = (1,) * lead + tuple(roots.shape)
+        axes = (ctypes.c_int * len(planes))(*[axis + lead for axis, _ in planes])
+        positions = (ctypes.c_int * len(planes))(*[pos for _, pos in planes])
+        kernels = ctypes.c_int(0)
+        with self.on_device(roots.device):
+            err = lib.ccl_merge(roots.data_ptr(), depth, height, width, axes, positions,
+                                len(planes), int(connectivity == "full"),
+                                torch.cuda.current_stream().cuda_stream, ctypes.byref(kernels))
+        check_error("ccl_merge launch", err)
+        self.count_call(kernels.value, host_reads=0)
+        return roots
+
+
+MERGE_KERNEL = _MergeKernel()
+
+
+def merge_cell_roots(roots: torch.Tensor, bounds, connectivity: str = "full") -> torch.Tensor:
+    """Join the pieces of a volume labelled cell by cell, in place.
+
+    ``roots`` (int32) holds -1 where a voxel takes no part and otherwise its
+    piece's global minimum raveled index, as capacity's ``_cell_roots``
+    writes it for the cells of the grid ``bounds`` (cut positions per
+    axis).  Afterwards every member holds its merged component's minimum
+    raveled index: pieces adjacent across a cell boundary (``faces``: the
+    aligned voxel; ``full``: any in-plane shift by at most one) are one
+    component.  A CUDA tensor goes to the hand-written kernel (or raises),
+    a CPU tensor to :func:`merge_cell_roots_plain`; both give the same
+    volume bit for bit."""
+    if on_card(roots, "merge_cell_roots"):
+        return MERGE_KERNEL(roots, bounds, connectivity)
+    return merge_cell_roots_plain(roots, bounds, connectivity)

@@ -42,20 +42,9 @@
 //    (bit arithmetic, no voxel loop), and for full connectivity the
 //    unions of the row's first and last voxel with the diagonal neighbours
 //    in the next tiles along x; every row unites its first voxel with the
-//    last of the word before.  unite() finds both roots, links the larger
-//    under the smaller with atomicMin and, when the larger root was linked
-//    elsewhere meanwhile, retries from the parent atomicMin returns, so no
-//    link is lost, links always point to a smaller index, and every root is
-//    its component's minimum in any order.  find() halves paths: it points
-//    each voxel it passes at its grandparent.  That is safe beside the
-//    atomics: a store only replaces a voxel's parent with one of its
-//    ancestors, which stays an ancestor; a voxel that has a parent below it
-//    never becomes a root again, so a halving store never overwrites a link
-//    that made a root a child; and an atomicMin on a voxel that was no
-//    longer a root returns its parent and its union retries from there, so
-//    a halving store that replaces such a link loses no union.  Reads bypass
-//    L1 (__ldcg), since another SM may have just changed a parent; a stale
-//    one costs a retry.
+//    last of the word before, through unite() of union_find.cuh (atomicMin
+//    links to the smaller index, path halving), so every root is its
+//    component's minimum in any order.
 // 3. flatten: a warp loads 32 row words in one coalesced read and writes
 //    their voxels word by word, a word's 32 int64 roots as one coalesced
 //    256-byte store.  A background voxel (its bit clear) writes n without
@@ -71,6 +60,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "union_find.cuh"  // find_halving, unite
 
 namespace {
 
@@ -100,33 +91,6 @@ __device__ __forceinline__ void unite_local(int* s, int a, int b) {
     const int old = atomicMin(s + hi, lo);
     if (old == hi) return;  // hi was a root and now hangs under lo
     a = old;                // hi had been linked to old < hi: unite old and lo
-    b = lo;
-  }
-}
-
-// the root of i, pointing every voxel on the way at its grandparent
-__device__ __forceinline__ int find_halving(int* parent, int i) {
-  int p = __ldcg(parent + i);
-  while (p != i) {
-    const int gp = __ldcg(parent + p);
-    if (gp == p) return p;
-    __stcg(parent + i, gp);
-    i = gp;
-    p = __ldcg(parent + i);
-  }
-  return i;
-}
-
-__device__ __forceinline__ void unite(int* parent, int a, int b) {
-  while (true) {
-    a = find_halving(parent, a);
-    b = find_halving(parent, b);
-    if (a == b) return;
-    const int hi = a > b ? a : b;
-    const int lo = a > b ? b : a;
-    const int old = atomicMin(parent + hi, lo);
-    if (old == hi) return;
-    a = old;
     b = lo;
   }
 }

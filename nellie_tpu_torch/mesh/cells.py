@@ -1,13 +1,14 @@
 """Connectivity over a frame's shards: hole filling, the area filter and
 scipy-numbered labels.
 
-The capacity path's cell machinery (``pipeline/capacity.py``:
-``_cell_roots``, ``_merge_cells``, ``_fill_holes_chunked``,
-``_remove_small_chunked``, ``_label_chunked``) with the shards of a
-:class:`~nellie_tpu_torch.mesh.sharded.ShardPlan` as the cells, each on
-its own device.  Every voxel of a piece carries the piece's global minimum
-raveled index (its root); a host union-find joins the roots adjacent
-across the boundary planes between shards; a component's merged root is
+Capacity's cell scheme (``pipeline/capacity.py``: ``_cell_roots``,
+``_fill_holes_chunked``, ``_remove_small_chunked``, ``_label_chunked``)
+with the shards of a :class:`~nellie_tpu_torch.mesh.sharded.ShardPlan` as
+the cells, each on its own device.  Every voxel of a piece carries the
+piece's global minimum raveled index (its root); a host union-find
+(:class:`_HostUnionFind` over ``ccl.plane_pairs``) joins the roots
+adjacent across the boundary planes between shards, since the shards have
+no one volume to index a parent array by; a component's merged root is
 its minimum raveled index, so ranking the merged roots numbers the labels
 as scipy does, and the results equal the whole frame's
 (``kernels/ccl.py``) exactly.
@@ -43,18 +44,53 @@ def _plane(roots: torch.Tensor, axis: int, index: int) -> np.ndarray:
     return roots.narrow(axis, index, 1).squeeze(axis).cpu().numpy()
 
 
+class _HostUnionFind:
+    """Union-find over root ids, the smaller id the root (path halving).
+    ``nodes`` holds every id ever joined."""
+
+    def __init__(self):
+        self.parent = {}
+        self.nodes = set()
+
+    def find(self, x):
+        p = self.parent
+        while True:
+            px = p.get(x, x)
+            if px == x:
+                return x
+            ppx = p.get(px, px)
+            p[x] = ppx
+            x = ppx
+
+    def union(self, a, b):
+        ra, rb = self.find(a), self.find(b)
+        if ra != rb:
+            # roots are global minimum raveled indices: keeping the smaller
+            # leaves each merged component at its minimum, scipy's order key
+            if rb < ra:
+                ra, rb = rb, ra
+            self.parent[rb] = ra
+
+    def union_pairs(self, a, b):
+        if len(a):
+            for x, y in np.unique(np.stack([a, b], 1), axis=0):
+                x, y = int(x), int(y)
+                self.nodes.add(x)
+                self.nodes.add(y)
+                self.union(x, y)
+
+
 def _merge(roots, plan, connectivity: str, border_outside: bool = False):
     """The host union-find over the planes between consecutive shards; with
     ``border_outside`` also every known root connected to the frame's
     border."""
-    from nellie_tpu_torch.pipeline.capacity import _HostUnionFind, _plane_pair_edges
-
     uf = _HostUnionFind()
     ax = plan.axis
     for k in range(plan.n - 1):
         left = _plane(roots[k], ax, roots[k].shape[ax] - 1)
         right = _plane(roots[k + 1], ax, 0)
-        uf.union_pairs(*_plane_pair_edges(left, right, connectivity))
+        pairs = ccl.plane_pairs(torch.from_numpy(left), torch.from_numpy(right), connectivity)
+        uf.union_pairs(*(p.numpy() for p in pairs))
     if not border_outside:
         return uf, None
     border = []

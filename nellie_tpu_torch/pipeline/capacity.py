@@ -14,19 +14,23 @@ smoothing > 0.5 and connected components.  Two strategies:
 * **chunked** (``_segment_chunked``): every global step split into grid
   cells of at most 2²⁶ voxels.  Each cell's components carry the *global*
   minimum raveled index of their piece (``_cell_roots``, int32 roots for
-  the whole volume: 4.3 GB at 1024³); a host union-find over the cells'
-  boundary planes merges the pieces, so ranking the merged minima gives
-  scipy's numbering, the monolith's labels exactly.  Hole filling and the
-  global area filter use the same roots; the opening mask, the windowed
-  area filter and the smoothing run in halo windows.
+  the whole volume: 4.3 GB at 1024³), a union-find forest indexed by
+  voxel.  The hand kernel ``ccl_merge.cu`` (``ccl.merge_cell_roots``)
+  unites the pieces adjacent across the cells' boundary planes with
+  ``atomicMin`` and flattens the forest on the card, so ranking the merged
+  minima gives scipy's numbering, the monolith's labels exactly.  Hole
+  filling and the global area filter use the same roots, flagged or
+  summed by root id on the device; the opening mask, the windowed area
+  filter and the smoothing run in halo windows.
 
 Three emits: ``labels`` (uint16), ``sparse_labels`` (the foreground
 support bit-packed, least significant bit first, plus the compacted uint16
 values; assembled on the host) and ``mask`` (bit-packed, most significant
 bit first along the last axis).  Past 65,535 components the chunked
-strategy assembles int32 labels on the host, and the monolith re-runs
-itself through it.  ``bytes_up`` and ``bytes_down`` count what crossed
-between host and device, as the reference counts them.
+strategy gives int32 labels, and the monolith re-runs itself through it.
+``bytes_up`` and ``bytes_down`` count what crossed between host and
+device: the volume and the product (the monolith's as the reference
+counts them; the chunked strategy moves nothing else).
 
 A third strategy, **mesh** (``_segment_mesh``, ``capacity.py:833-933``),
 runs the monolith over a device mesh: the whole volume split along its
@@ -75,7 +79,9 @@ _CCL_CELL_MAX_VOX = 1 << 26
 # min_area - 1 <= this: the area filter runs in exact halo windows;
 # above it, as a global pass over roots and sizes
 _WINDOWED_REMOVE_MAX_HALO = 32
-_I32_PAD = np.int32(2 ** 31 - 1)  # pad of the sorted root tables (never a root)
+# voxels a step of the flat passes over the merged roots (int64 temporaries
+# of 128 MiB)
+_FLAT_CHUNK = 1 << 24
 # float32 temporaries of one window's Frangi cascade, in window volumes
 _WINDOW_WORKING_SET = 32
 
@@ -211,7 +217,7 @@ def _assemble_sparse_labels(packed, vals, shape):
 
 
 # ---------------------------------------------------------------------------
-# chunked strategy: per-cell CCL, host union-find over the boundary planes
+# chunked strategy: per-cell CCL, merged across the cells on the device
 # ---------------------------------------------------------------------------
 
 def _ccl_grid(shape, max_dim=_CCL_CELL_MAX_DIM, max_vox=_CCL_CELL_MAX_VOX):
@@ -252,240 +258,149 @@ def _local_to_global_flat(flat_local, origin, chunk_shape, vol_shape):
 def _cell_roots(roots, mask, origin, cshape, vol_shape, invert, connectivity):
     """One cell's components written into the volume's int32 ``roots``:
     each voxel gets its piece's global minimum raveled index, -1 where it
-    does not take part.  Returns the cell-local roots (int64, the cell's
-    size at non-members)."""
+    does not take part."""
     box = _box(origin, cshape)
     m = ~mask[box] if invert else mask[box]
     n_local = int(np.prod(cshape))
     local = ccl.union_find_roots(m, connectivity)
     g = _local_to_global_flat(local, origin, cshape, vol_shape)
     roots[box] = torch.where(local < n_local, g, -1).reshape(cshape).to(torch.int32)
-    return local
 
 
-class _HostUnionFind:
-    """Union-find over root ids, the smaller id the root (path halving).
-    ``nodes`` holds every id ever joined."""
-
-    def __init__(self):
-        self.parent = {}
-        self.nodes = set()
-
-    def find(self, x):
-        p = self.parent
-        while True:
-            px = p.get(x, x)
-            if px == x:
-                return x
-            ppx = p.get(px, px)
-            p[x] = ppx
-            x = ppx
-
-    def union(self, a, b):
-        ra, rb = self.find(a), self.find(b)
-        if ra != rb:
-            # roots are global minimum raveled indices: keeping the smaller
-            # leaves each merged component at its minimum, scipy's order key
-            if rb < ra:
-                ra, rb = rb, ra
-            self.parent[rb] = ra
-
-    def union_pairs(self, a, b):
-        if len(a):
-            for x, y in np.unique(np.stack([a, b], 1), axis=0):
-                x, y = int(x), int(y)
-                self.nodes.add(x)
-                self.nodes.add(y)
-                self.union(x, y)
+def _merged_roots(mask, shape, bounds, phases, invert, connectivity):
+    """The int32 roots of the volume's components (of ``~mask`` with
+    ``invert``): each cell's pieces, then the merge across the cells'
+    boundaries on the device (``ccl.merge_cell_roots``).  Every member
+    holds its component's minimum raveled index, -1 elsewhere."""
+    roots = torch.empty(shape, dtype=torch.int32, device=mask.device)
+    with phases("cell_roots"):
+        for origin, cshape in _iter_cells(bounds):
+            _cell_roots(roots, mask, origin, cshape, shape, invert, connectivity)
+    with phases("merge"):
+        ccl.merge_cell_roots(roots, bounds, connectivity)
+    return roots
 
 
-def _plane_pair_edges(left, right, connectivity):
-    """Root pairs adjacent across a boundary between two planes: aligned
-    voxels for 'faces', all 3^(ndim-1) in-plane shifts for 'full'."""
-    nd = left.ndim
-    shifts = ([(0,) * nd] if connectivity == "faces"
-              else list(itertools.product((-1, 0, 1), repeat=nd)))
-    pa, pb = [], []
-    for off in shifts:
-        lsl, rsl = [], []
-        for o in off:
-            if o > 0:
-                lsl.append(slice(None, -o))
-                rsl.append(slice(o, None))
-            elif o < 0:
-                lsl.append(slice(-o, None))
-                rsl.append(slice(None, o))
-            else:
-                lsl.append(slice(None))
-                rsl.append(slice(None))
-        lv = left[tuple(lsl)].reshape(-1)
-        rv = right[tuple(rsl)].reshape(-1)
-        sel = (lv >= 0) & (rv >= 0) & (lv != rv)
-        pa.append(lv[sel])
-        pb.append(rv[sel])
-    return np.concatenate(pa), np.concatenate(pb)
+def _flat_chunks(n):
+    """[start, stop) of the steps of a flat pass (its temporaries at most
+    ``_FLAT_CHUNK`` entries)."""
+    for start in range(0, n, _FLAT_CHUNK):
+        yield start, min(n, start + _FLAT_CHUNK)
 
 
-def _internal_planes(bounds):
-    """(axis, position) of every internal cell boundary."""
-    return [(axis, pos) for axis, cuts in enumerate(bounds) for pos in cuts[1:-1]]
-
-
-def _plane_slab(roots, axis, pos, side):
-    """The roots plane just before (``"L"``) or at (``"R"``) ``pos``."""
-    start = pos - 1 if side == "L" else pos
-    return roots.narrow(axis, start, 1).squeeze(axis).cpu().numpy()
-
-
-def _merge_cells(roots, shape, bounds, connectivity, border_outside=False):
-    """The host union-find over every internal boundary plane pair; with
-    ``border_outside`` also the set of every known root id connected to
-    the volume's border.  Returns (uf, outside or None, bytes_down)."""
-    uf = _HostUnionFind()
-    bytes_down = 0
-    for axis, pos in _internal_planes(bounds):
-        left = _plane_slab(roots, axis, pos, "L")
-        right = _plane_slab(roots, axis, pos, "R")
-        bytes_down += left.nbytes + right.nbytes
-        uf.union_pairs(*_plane_pair_edges(left, right, connectivity))
-    outside = None
-    if border_outside:
-        border_roots = []
-        for axis in range(len(shape)):
-            for pos, side in ((1, "L"), (shape[axis] - 1, "R")):
-                plane = _plane_slab(roots, axis, pos, side)
-                bytes_down += plane.nbytes
-                border_roots.append(np.unique(plane[plane >= 0]))
-        border_roots = np.unique(np.concatenate(border_roots))
-        outside_final = {uf.find(int(r)) for r in border_roots}
-        known = uf.nodes | {int(r) for r in border_roots}
-        outside = {r for r in known if uf.find(r) in outside_final}
-    return uf, outside, bytes_down
-
-
-def _sorted_table(ids, dev):
-    """Sorted int32 ids on the device, padded to a power of two (at least
-    8); returns (table, bytes_up)."""
-    arr = np.asarray(sorted(ids), np.int32)
-    bucket = max(8, 1 << int(np.ceil(np.log2(max(1, len(arr))))))
-    out = np.full(bucket, _I32_PAD, np.int32)
-    out[:len(arr)] = arr
-    return torch.from_numpy(out).to(dev), out.nbytes
-
-
-def _pow2_cap(count, n_local):
-    return int(min(n_local, max(1024, 1 << int(np.ceil(np.log2(max(1, count)))))))
-
-
-def _cell_isin_update(mask, roots, table, origin, cshape, mode):
-    """A host verdict applied to one cell by membership of its roots in the
-    sorted ``table``: ``"fill"`` adds the voxels whose root is not in it
-    (the table holds the roots reaching the border), ``"remove"`` drops
-    those whose root is (the table holds the small components)."""
-    box = _box(origin, cshape)
-    r = roots[box].contiguous()
-    pos = torch.clamp(torch.searchsorted(table, r), 0, table.shape[0] - 1)
-    hit = (table[pos] == r) & (r >= 0)
-    if mode == "fill":
-        mask[box] = mask[box] | ((r >= 0) & ~hit)
-    else:
-        mask[box] = mask[box] & ~hit
+def _root_index(roots, n):
+    """int64 indices of a table by root id: the root, or ``n`` where the
+    voxel takes no part."""
+    return torch.where(roots >= 0, roots.long(), n)
 
 
 def _fill_holes_chunked(mask, shape, bounds, phases):
-    """scipy ``binary_fill_holes``: background components that do not reach
-    the volume's border become foreground."""
-    roots = torch.empty(shape, dtype=torch.int32, device=mask.device)
-    with phases("cell_roots"):
-        for origin, cshape in _iter_cells(bounds):
-            _cell_roots(roots, mask, origin, cshape, shape, invert=True, connectivity="faces")
-    with phases("host_merge"):
-        _, outside, bytes_down = _merge_cells(roots, shape, bounds, "faces", border_outside=True)
-    table, bytes_up = _sorted_table(outside, mask.device)
-    for origin, cshape in _iter_cells(bounds):
-        _cell_isin_update(mask, roots, table, origin, cshape, "fill")
-    return bytes_down, bytes_up
+    """scipy ``binary_fill_holes``, in place: background components that do
+    not reach the volume's border become foreground.  The merged roots of
+    the border faces' background voxels are flagged by root id, and every
+    other background voxel is filled."""
+    roots = _merged_roots(mask, shape, bounds, phases, invert=True, connectivity="faces")
+    n = roots.numel()
+    reached = torch.zeros(n + 1, dtype=torch.bool, device=mask.device)
+    reached[n] = True  # not background: never filled
+    for axis in range(len(shape)):
+        for pos in (0, shape[axis] - 1):
+            reached[_root_index(roots.select(axis, pos).reshape(-1), n)] = True
+    flat, out = roots.view(-1), mask.view(-1)
+    for start, stop in _flat_chunks(n):
+        out[start:stop] |= ~reached[_root_index(flat[start:stop], n)]
 
 
-def _remove_small_chunked(mask, shape, bounds, min_size, phases, table_cap=1 << 18):
-    """The area filter as a global pass: each cell's roots and sizes, the
-    host merge, then removal by sorted table.  Each cell's (root, size)
-    table is pulled padded to ``table_cap`` entries, or to the next power
-    of two above its count."""
-    roots = torch.empty(shape, dtype=torch.int32, device=mask.device)
-    tables = []
-    bytes_down = 0
-    for origin, cshape in _iter_cells(bounds):
-        n_local = int(np.prod(cshape))
-        with phases("cell_roots"):
-            local = _cell_roots(roots, mask, origin, cshape, shape, invert=False,
-                                connectivity="full")
-        sizes = torch.bincount(torch.where(local < n_local, local, n_local),
-                               minlength=n_local + 1)[:n_local]
-        ridx = torch.nonzero(sizes).reshape(-1)
-        n_distinct = ridx.numel()
-        cap = table_cap if n_distinct <= table_cap else _pow2_cap(n_distinct, n_local)
-        g_tab = torch.full((cap,), -1, dtype=torch.int32, device=mask.device)
-        counts = torch.zeros(cap, dtype=torch.int32, device=mask.device)
-        g_tab[:n_distinct] = _local_to_global_flat(ridx, origin, cshape, shape).to(torch.int32)
-        counts[:n_distinct] = sizes[ridx].to(torch.int32)
-        g_tab, counts = g_tab.cpu().numpy(), counts.cpu().numpy()
-        bytes_down += g_tab.nbytes + counts.nbytes
-        tables.append((g_tab[:n_distinct], counts[:n_distinct]))
-    with phases("host_merge"):
-        uf, _, planes_down = _merge_cells(roots, shape, bounds, "full")
-        total = {}
-        for g_tab, counts in tables:
-            for r, c in zip(g_tab.tolist(), counts.tolist()):
-                f = uf.find(r)
-                total[f] = total.get(f, 0) + c
-        small = [r for g_tab, _ in tables for r in g_tab.tolist() if total[uf.find(r)] < min_size]
-    table, bytes_up = _sorted_table(small, mask.device)
-    for origin, cshape in _iter_cells(bounds):
-        _cell_isin_update(mask, roots, table, origin, cshape, "remove")
-    return bytes_down + planes_down, bytes_up
+def _remove_small_chunked(mask, shape, bounds, min_size, phases):
+    """The area filter as a global pass, in place: each merged component's
+    size summed on the device into a table of one entry a component (by
+    its root's rank, :func:`_component_roots`), then its voxels dropped
+    where the size is below ``min_size``."""
+    roots = _merged_roots(mask, shape, bounds, phases, invert=False, connectivity="full")
+    flat, out = roots.view(-1), mask.view(-1)
+    component_roots, (n_components,) = _component_roots(flat)
+    if n_components == 0:
+        return
+    sizes = torch.zeros(n_components, dtype=torch.int32, device=mask.device)
+    for start, stop in _flat_chunks(flat.numel()):
+        r = flat[start:stop]
+        r = r[r >= 0]  # members only: the others would all add at one entry
+        sizes.index_add_(0, torch.searchsorted(component_roots, r, out_int32=True),
+                         torch.ones_like(r))
+    for start, stop in _flat_chunks(flat.numel()):
+        # a non-member (-1) ranks 0: it is background, so what it reads is moot
+        rank = torch.searchsorted(component_roots, flat[start:stop], out_int32=True)
+        out[start:stop] &= sizes[rank] >= min_size
+
+
+def _count(flags):
+    """How many entries of the flat bool ``flags`` are set, as a 0-dim
+    int64 on the device, summed a chunk at a time (a sum over the whole
+    volume would first make an int64 copy of it)."""
+    total = torch.zeros((), dtype=torch.int64, device=flags.device)
+    for start, stop in _flat_chunks(flags.numel()):
+        total += flags[start:stop].sum()
+    return total
+
+
+def _listed(flags, count):
+    """The int32 positions where the flat bool ``flags`` is set, in raster
+    order: each chunk's set positions scattered to their running ranks, the
+    unset ones to a spare last entry.  ``count`` is known, so nothing is
+    read from the device, and the temporaries are a chunk's
+    (``torch.nonzero`` over the whole volume would hold an int64 entry a
+    voxel)."""
+    dev = flags.device
+    out = torch.empty(count + 1, dtype=torch.int32, device=dev)
+    done = torch.zeros((), dtype=torch.int64, device=dev)
+    for start, stop in _flat_chunks(flags.numel()):
+        f = flags[start:stop]
+        rank = torch.cumsum(f, 0) + done
+        out.scatter_(0, torch.where(f, rank - 1, count),
+                     torch.arange(start, stop, dtype=torch.int32, device=dev))
+        done = rank[-1]
+    return out[:count]
+
+
+def _component_roots(flat, *also_counted):
+    """The merged components' roots (the members that are their own root)
+    of the flat merged roots, in raster order as int32 on the device, and
+    their count with those of the flat bool volumes ``also_counted``, read
+    from the device together (one host read).  A root's rank in the list
+    plus one is scipy's label of its component."""
+    n = flat.numel()
+    is_root = torch.empty(n, dtype=torch.bool, device=flat.device)
+    ramp = torch.arange(min(n, _FLAT_CHUNK), dtype=torch.int32, device=flat.device)
+    for start, stop in _flat_chunks(n):
+        torch.eq(flat[start:stop] - start, ramp[:stop - start], out=is_root[start:stop])
+    del ramp
+    counts = torch.stack([_count(f) for f in (is_root, *also_counted)]).tolist()
+    return _listed(is_root, counts[0]), counts
 
 
 def _label_chunked(mask, shape, bounds, phases):
-    """scipy-numbered labels assembled on the host: uint16, or int32 past
-    65,535 components.  Returns (labels, n_components, fg_count,
-    bytes_down)."""
-    roots = torch.empty(shape, dtype=torch.int32, device=mask.device)
-    with phases("cell_roots"):
-        for origin, cshape in _iter_cells(bounds):
-            _cell_roots(roots, mask, origin, cshape, shape, invert=False, connectivity="full")
-    with phases("host_merge"):
-        uf, _, bytes_down = _merge_cells(roots, shape, bounds, "full")
-    cells = []
-    for origin, cshape in _iter_cells(bounds):
-        r = roots[_box(origin, cshape)].reshape(-1)
-        idx = torch.nonzero(r >= 0).reshape(-1)
-        if idx.numel() == 0:
-            continue
-        vals = r[idx].cpu().numpy()
-        idx = idx.to(torch.int32).cpu().numpy()
-        bytes_down += idx.nbytes + vals.nbytes + 4  # the count, pulled first
-        cells.append((origin, cshape, idx, vals))
-    del roots
-
-    with phases("assembly"):
-        # each piece's root -> its merged component's minimum, scipy's key
-        all_roots = (np.unique(np.concatenate([v for *_, v in cells]))
-                     if cells else np.empty(0, np.int32))
-        final_of = np.asarray([uf.find(int(r)) for r in all_roots], np.int64)
-        finals, inverse = np.unique(final_of, return_inverse=True)
-        label_of_root = np.arange(1, len(finals) + 1, dtype=np.int64)[inverse]
-        out_dtype = np.uint16 if len(finals) <= 0xFFFF else np.int32
-        labels = np.zeros(int(np.prod(shape)), out_dtype)
-        strides = _vol_strides(shape)
-        fg_count = 0
-        for origin, cshape, idx, vals in cells:
-            lab = label_of_root[np.searchsorted(all_roots, vals)]
-            coords = np.unravel_index(idx.astype(np.int64), cshape)
-            gflat = sum((c + o) * s for c, o, s in zip(coords, origin, strides))
-            labels[gflat] = lab.astype(out_dtype)
-            fg_count += len(idx)
-    return labels.reshape(shape), int(len(finals)), fg_count, bytes_down
+    """scipy-numbered labels of the merged components, uint16 or int32 past
+    65,535: each member's label is its root's rank among the component
+    roots plus one (:func:`_component_roots`, which also reads the
+    foreground's count).  The host receives the foreground's int32 indices
+    and labels, scattered into a zeroed array.  Returns (labels,
+    n_components, fg_count, bytes_down)."""
+    roots = _merged_roots(mask, shape, bounds, phases, invert=False, connectivity="full")
+    flat, fg = roots.view(-1), mask.view(-1)
+    component_roots, (n_labels, fg_count) = _component_roots(flat, fg)
+    dtype, host_dtype = ((torch.int16, np.uint16) if n_labels <= 0xFFFF
+                         else (torch.int32, np.int32))
+    idx = _listed(fg, fg_count)
+    vals = torch.empty(fg_count, dtype=dtype, device=mask.device)
+    for start, stop in _flat_chunks(fg_count):
+        rank = torch.searchsorted(component_roots, flat[idx[start:stop].long()], out_int32=True)
+        vals[start:stop] = rank + 1
+    del roots, flat, component_roots
+    with phases("assembly"):  # the product's copy down into its host array
+        idx, vals = idx.cpu().numpy(), vals.cpu().numpy().view(host_dtype)
+        labels = np.zeros(int(np.prod(shape)), host_dtype)
+        labels[idx] = vals
+    return labels.reshape(shape), n_labels, fg_count, idx.nbytes + vals.nbytes
 
 
 def _windowed(shape, halo):
@@ -521,12 +436,9 @@ def _segment_chunked(volume, params, min_area, emit, max_chunk_voxels, vessel_dt
         del vessel, m1o, sample
 
     bounds = _ccl_grid(shape)
-    bytes_down = 0
     if nd == 3:
         with phases("fill_holes"):
-            down, up = _fill_holes_chunked(mask, shape, bounds, phases)
-        bytes_down += down
-        bytes_up += up
+            _fill_holes_chunked(mask, shape, bounds, phases)
 
     if min_area > 1:
         with phases("area_filter"):
@@ -539,9 +451,7 @@ def _segment_chunked(volume, params, min_area, emit, max_chunk_voxels, vessel_dt
                     kept = ccl.remove_small_components(mask[ext], min_area)
                     mask[_core_box(ext, offset, core_shape)] = crop_core(kept, offset, core_shape)
             else:
-                down, up = _remove_small_chunked(mask, shape, bounds, min_area, phases)
-                bytes_down += down
-                bytes_up += up
+                _remove_small_chunked(mask, shape, bounds, min_area, phases)
 
     with phases("smoothing"):
         smoothed = torch.empty_like(mask)
@@ -556,18 +466,18 @@ def _segment_chunked(volume, params, min_area, emit, max_chunk_voxels, vessel_dt
         packed, fg_count = _pack_mask_bits(mask)
         packed = packed.cpu().numpy()
         result.update(mask_packed=packed, fg_count=fg_count, emit="mask",
-                      bytes_down=bytes_down + packed.nbytes)
+                      bytes_down=packed.nbytes)
         logger.info("capacity segment (chunked): %d windows, %.2f GB up, %.2f GB down",
                     n_windows, bytes_up / 1e9, result["bytes_down"] / 1e9)
         return result
 
     with phases("label"):
-        labels, n_labels, fg_count, down = _label_chunked(mask, shape, bounds, phases)
+        labels, n_labels, fg_count, bytes_down = _label_chunked(mask, shape, bounds, phases)
     if n_labels > 0xFFFF:
-        logger.info("capacity segment: %d components exceed uint16; labels widened to int32 "
-                    "on the host", n_labels)
+        logger.info("capacity segment: %d components exceed uint16; labels widened to int32",
+                    n_labels)
     result.update(labels=labels, n_labels=n_labels, fg_count=fg_count, label_overflow=False,
-                  emit="sparse_labels", bytes_down=bytes_down + down)
+                  emit="sparse_labels", bytes_down=bytes_down)
     logger.info("capacity segment (chunked): %d windows, %.2f GB up, %.2f GB down",
                 n_windows, bytes_up / 1e9, result["bytes_down"] / 1e9)
     return result

@@ -61,7 +61,10 @@ importing the package of its own tree:
   alone again under ``torch.profiler`` (``chip_smoke.tracking_launches``:
   its CUDA kernels);
 - ``capacity.segment_volume`` on ``chip_smoke.capacity_volume(1024)``: its
-  wall, vesselness and thresholds seconds and its label count;
+  wall, its seconds by phase (the cross-cell merge among them: ``merge``
+  on the card, or ``host_merge`` and ``assembly`` on a tree that merged on
+  the host), its label count and a digest of its labels (dtype and bytes;
+  the trees must agree);
 - the Filter stage's host reads on the 3D main series
   (``chip_smoke.filter_host_reads``, counted by
   ``torch.cuda.set_sync_debug_mode``).
@@ -178,7 +181,8 @@ def child(tree, rows_path, out_path, label):
             im_info, timings = run(chip_smoke.write_series(directory, shape), device="cuda",
                                    return_timings=True)
             result[f"run {tag}"] = dict(timings)
-            result[f"tracking launches {tag}"] = chip_smoke.tracking_launches(im_info)
+            result[f"tracking launches {tag}"] = chip_smoke.tracking_launches(
+                im_info, os.path.join(root, f"flow_profiled{tag}.npy"))
             result["artifacts"].update({f"run {tag}/{name}": d for name, d in
                                         artifact_digests(directory).items()})
             print(f"{label} tree: run on the {tag} main path: "
@@ -194,11 +198,16 @@ def child(tree, rows_path, out_path, label):
     out = capacity.segment_volume(vol, params, emit="sparse_labels", device="cuda")
     result.update(capacity=time.perf_counter() - start,
                   vesselness=out["seconds"]["vesselness"],
-                  thresholds=out["seconds"]["thresholds"], n_labels=out["n_labels"])
+                  thresholds=out["seconds"]["thresholds"], n_labels=out["n_labels"],
+                  capacity_phases=out["seconds"],
+                  labels_digest=hashlib.sha256(out["labels"].dtype.str.encode()
+                                               + out["labels"].tobytes()).hexdigest()[:16])
     print(f"{label} tree: seg_fused {result['seg_fused']:.3f} s, filter {result['filter']:.3f} "
           f"s; capacity 1024^3 {result['capacity']:.3f} s, vesselness "
           f"{result['vesselness']:.3f} s, thresholds {result['thresholds']:.3f} s, "
-          f"{result['n_labels']} labels [{gpu}]", flush=True)
+          f"{result['n_labels']} labels (digest {result['labels_digest']}); by phase "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out["seconds"].items()) + f" [{gpu}]",
+          flush=True)
     with open(out_path, "w") as f:
         json.dump(result, f)
 
@@ -474,6 +483,10 @@ def main() -> None:
               f"(on the device {fmt(before['device_ms'])}) [{gpu}]", flush=True)
     if len({t["n_labels"] for t in turns}) != 1:
         sys.exit("the two trees' capacity runs found different label counts")
+    if len({t["labels_digest"] for t in turns}) != 1:
+        sys.exit("the two trees' capacity runs gave different labels")
+    print(f"capacity 1024^3 labels byte-equal on both trees (digest "
+          f"{turns[0]['labels_digest']}, {turns[0]['n_labels']} labels)", flush=True)
     differ = sorted(name for name in turns[0]["artifacts"]
                     if len({t["artifacts"].get(name) for t in turns}) != 1)
     print(f"the fused chain's files on the 3D and 2D main series and run's on both: "
@@ -483,7 +496,7 @@ def main() -> None:
                                   "seg_fused_2d", "filter_2d", "network_2d", "markers_2d",
                                   "capacity", "vesselness", "thresholds", "run 3D", "run 2D",
                                   "tracking launches 3D", "tracking launches 2D",
-                                  "filter_host_reads")}
+                                  "filter_host_reads", "capacity_phases")}
                for t in turns]
     print("seconds by turn: " + "; ".join(
         f"{s['tree']}: seg_fused {s['seg_fused']:.3f}, filter {s['filter']:.3f}, network "
@@ -493,9 +506,9 @@ def main() -> None:
         f"{s['run 3D']['tracking']:.3f} ({s['tracking launches 3D']['cuda_kernels']} CUDA "
         f"kernels alone), tracking 2D {s['run 2D']['tracking']:.3f} "
         f"({s['tracking launches 2D']['cuda_kernels']} CUDA kernels alone), capacity "
-        f"{s['capacity']:.3f}, vesselness "
-        f"{s['vesselness']:.3f}, thresholds {s['thresholds']:.3f}, Filter host reads "
-        f"{s['filter_host_reads']}" for s in seconds)
+        f"{s['capacity']:.3f} ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in s["capacity_phases"].items())
+        + f"), Filter host reads {s['filter_host_reads']}" for s in seconds)
         + f" [{gpu}]", flush=True)
     line = json.dumps({"gpu": gpu, "kernels": kernels, "turns": seconds,
                        "differing_files": differ})

@@ -419,8 +419,11 @@ def test_kernel_rejects_what_it_cannot_index():
         ccl._CCLKernel()(torch.zeros(4, dtype=torch.bool), "edges")
 
 
-@pytest.mark.parametrize("kernel_class", [ccl._CCLKernel, nn._NNKernel])
+@pytest.mark.parametrize("kernel_class", [ccl._CCLKernel, ccl._MergeKernel, nn._NNKernel])
 def test_build_command_targets_sm90a_from_the_repo(kernel_class):
+    """sm_90a, no fast math, the source in the repo, and only the CUDA
+    runtime's headers, directly or through a header of ``csrc/`` (the
+    union-find's ``union_find.cuh``): no PyTorch header."""
     kernel = kernel_class()
     args = kernel.compile_args("out.so")
     assert "arch=compute_90a,code=sm_90a" in args
@@ -429,9 +432,12 @@ def test_build_command_targets_sm90a_from_the_repo(kernel_class):
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     assert os.path.exists(src) and os.path.commonpath([src, root]) == root
     assert src in args and os.path.dirname(kernel.library_path()) == _cuda.BUILD_DIR
-    with open(src) as f:
-        includes = re.findall(r"#include\s*[<\"]([^>\"]+)", f.read())
-    assert set(includes) <= {"cuda_runtime.h", "math_constants.h", "stdint.h"}, includes
+    for path in [src, *kernel.headers()]:
+        with open(path) as f:
+            includes = re.findall(r"#include\s*[<\"]([^>\"]+)", f.read())
+        local = {os.path.basename(h) for h in kernel.headers()}
+        assert set(includes) <= {"cuda_runtime.h", "math_constants.h", "stdint.h"} | local, \
+            includes
 
 
 def test_no_nvcc_raises_instead_of_falling_back(monkeypatch):

@@ -3,17 +3,18 @@ the ``.cu`` source, of every ``csrc/`` header it includes by a quoted
 name, and of the flags, so that a change to any of them builds anew.  No
 ``nvcc`` is needed: the name is computed before any build.  The four
 persistent cooperative kernels share one grid barrier and launch shape
-(``csrc/coop_grid.cuh``), and ``CountedKernel.count_call`` keeps a
-wrapper's counts.
+(``csrc/coop_grid.cuh``), the two union-find kernels one ``find`` and
+``unite`` (``csrc/union_find.cuh``), and ``CountedKernel.count_call``
+keeps a wrapper's counts.
 """
 import shutil
 
 import pytest
 
-from nellie_tpu_torch.kernels import _cuda, edt, filters, frangi, skeleton
+from nellie_tpu_torch.kernels import _cuda, ccl, edt, filters, frangi, skeleton
 
 SOURCES = ["frangi_tail.cu", "gauss_axis.cu", "fma_f32.cu", "nn_argmin.cu", "ccl_union_find.cu",
-           "flow_interp.cu"]
+           "flow_interp.cu", "ccl_merge.cu"]
 
 
 @pytest.fixture
@@ -77,6 +78,26 @@ def test_cooperative_kernels_share_one_barrier(source):
                 "cudaOccupancyMaxActiveBlocksPerMultiprocessor", "atomic_ref"):
         assert own not in text
     assert "coop_grid::launch_shape<" in text and "coop_grid::barrier(" in text
+
+
+UNION_FIND = {"ccl_union_find.cu": ccl.CCL_KERNEL, "ccl_merge.cu": ccl.MERGE_KERNEL}
+
+
+@pytest.mark.parametrize("source", list(UNION_FIND))
+def test_union_find_kernels_share_one_header(csrc, source):
+    """Both keep no copy of ``find_halving`` and ``unite``, and a change to
+    the header they include builds both anew."""
+    kernel = UNION_FIND[source]
+    assert kernel.source == source
+    assert [p.split("/")[-1] for p in kernel.headers()] == ["union_find.cuh"]
+    with open(kernel.source_path) as f:
+        text = f.read()
+    for own in ("int find_halving(", "void unite(", "atomicMin(parent"):
+        assert own not in text
+    before = type(kernel)().library_path()
+    header = csrc / "union_find.cuh"
+    header.write_text(header.read_text() + "\n// changed\n")
+    assert type(kernel)().library_path() != before
 
 
 def test_count_call():
